@@ -3,7 +3,9 @@
 Batched functional active-perception environments on an NVIDIA GPU. The
 port imports torch and numpy only, never JAX or the apx package. Ported so
 far: the four LIDAR localization envs, with the slab raycast as a CUDA
-kernel (ROADMAP.md lists what is still to come).
+kernel, and the 18 CircleSquare classification envs under LOCKSTEP
+autoreset, with the bilinear glimpse as a CUDA kernel (ROADMAP.md lists
+what is still to come).
 
     import torch, apx_torch
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)
@@ -14,7 +16,8 @@ kernel (ROADMAP.md lists what is still to come).
     obs, state, reward, terminated, truncated, info = venv.step(state, act, params, g)
 """
 
-from .core.env import APEnv, APStepResult, AutoResetMode, VectorAPEnv, rollout, vector_env
+from .core.env import (APEnv, APStepResult, AutoResetMode, VectorAPEnv, rollout,
+                       rollout_episodic, vector_env)
 from .registry import env_ids, make, make_vec
 
 __all__ = [
@@ -26,5 +29,6 @@ __all__ = [
     "make",
     "make_vec",
     "rollout",
+    "rollout_episodic",
     "vector_env",
 ]

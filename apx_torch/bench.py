@@ -1,25 +1,36 @@
-"""Throughput bench of the port's main path: LIDARLocRooms-v0 at N=4096.
+"""Throughput bench of the port's main paths at N=4096.
 
-Counterpart of the JAX package's ``bench.py`` for ``lidar_rooms``
-(``TimeLimit(LIDARLocalizationEnv(rooms bank, 256 maps), 100,
-issue_termination=True)`` under NEXT_STEP autoreset), with the same
-random policy: uniform actions in [-1, 1] and standard-normal predictions.
-As there, the policy's draws are hoisted out of the stepping loop, and one
+Two workloads, each the counterpart of one of the JAX package's
+``bench.py`` workloads, with its random policy: uniform actions in
+[-1, 1] and standard-normal predictions (logits for CircleSquare). As
+there, the policy's draws are hoisted out of the stepping loop, and one
 element of every observation leaf is folded into the next action (times
 1e-12) so each step depends on the previous step's observation. The reset
-draws are hoisted too, and injected into each step.
+draws are hoisted too, and injected.
 
-Two loops are timed, each after a warmup run and each ending on a value
-fetch of the summed rewards:
+* ``lidar_rooms``: ``TimeLimit(LIDARLocalizationEnv(rooms bank, 256
+  maps), 100, issue_termination=True)`` under NEXT_STEP autoreset
+  (``bench.py:344-360`` of the JAX package);
+* ``circle_square``: ``ImageClassificationEnv(CircleSquare bank)`` under
+  LOCKSTEP autoreset (``bench.py:323-331``), stepped as apx's bench steps
+  it: episodic cycles of 16 DISABLED steps and one
+  ``boundary_reset_step``, the step count rounded to whole 17-step cycles.
+  The masked-merge ``venv.step`` loop, which runs the reset (an image
+  gather and a second glimpse) on every step, is timed beside it.
 
-* eager: ``venv.step`` called from Python every step;
-* graph: the same steps captured in a CUDA graph (``CHUNK`` steps per
-  graph) and replayed. A capture that fails raises.
+Two loops are timed per workload, each after a warmup run and each ending
+on a value fetch of the summed rewards:
 
-    python -m apx_torch.bench [--num-envs 4096] [--num-steps 1024] [--profile]
+* eager: the steps called from Python;
+* graph: one chunk of steps (16 for LIDAR, one 17-step cycle for
+  CircleSquare) captured in a CUDA graph and replayed. A capture that
+  fails raises.
 
-prints one JSON line with ``lidar_rooms_env_steps_per_s`` (the graph
-loop), ``eager_env_steps_per_s``, ``num_envs``, ``device_kind`` and
+    python -m apx_torch.bench [--env lidar_rooms|circle_square]
+        [--num-envs 4096] [--num-steps 1024] [--profile]
+
+prints one JSON line with ``<env>_env_steps_per_s`` (the graph loop),
+``<env>_eager_env_steps_per_s``, ``num_envs``, ``device_kind`` and
 ``power_limit_w``. ``--profile`` instead traces ``PROFILE_STEPS`` eager
 steps with ``torch.profiler`` and prints where the device time goes. It
 runs on the card only.
@@ -28,19 +39,24 @@ runs on the card only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
+from typing import Any
 
 import torch
 
-from .core.env import tree_map
+from .core.env import AutoResetMode, VectorAPEnv, tree_map
 from .registry import make_vec
 
-__all__ = ["bench_lidar_rooms", "profile_lidar_rooms", "nvidia_smi_line", "CHUNK"]
+__all__ = ["bench_lidar_rooms", "bench_circle_square", "profile", "nvidia_smi_line", "CHUNK"]
 
-CHUNK = 16  # steps per captured graph
-PROFILE_STEPS = 32
+CHUNK = 16  # LIDAR steps per captured graph
+PROFILE_STEPS = 34
+WORKLOADS = {"lidar_rooms": "LIDARLocRooms-v0", "circle_square": "CircleSquare-v0"}
+# Device kernels of the port, by a substring of their names in a trace.
+PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel"}
 
 
 def nvidia_smi_line() -> str:
@@ -53,15 +69,40 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _draws(venv, params, num_steps: int, generator: torch.Generator):
-    """Hoisted policy and reset draws for ``num_steps`` steps."""
+@dataclasses.dataclass(frozen=True)
+class _Loop:
+    """How a workload is stepped: ``venv.step`` every step, or (``period``
+    set) episodic cycles of ``period`` steps of ``inner`` (DISABLED) and one
+    ``venv.boundary_reset_step``. ``chunk`` steps make one captured graph."""
+
+    venv: VectorAPEnv
+    params: Any
+    chunk: int
+    reset_keys: tuple[str, ...]  # names of the env's reset draws
+    period: int | None = None
+    inner: VectorAPEnv | None = None
+
+
+def _loop(env: str, num_envs: int, dev, episodic: bool = True) -> _Loop:
+    venv, params = make_vec(WORKLOADS[env], num_envs, device=dev)
+    keys = tuple(sorted(venv.env.draw_reset(1, params, torch.Generator(dev))))
+    if venv.autoreset is AutoResetMode.LOCKSTEP and episodic:
+        inner = dataclasses.replace(venv, autoreset=AutoResetMode.DISABLED)
+        return _Loop(venv, params, params.step_limit + 1, keys, params.step_limit, inner)
+    chunk = params.step_limit + 1 if venv.autoreset is AutoResetMode.LOCKSTEP else CHUNK
+    return _Loop(venv, params, chunk, keys)
+
+
+def _draws(lp: _Loop, num_steps: int, generator: torch.Generator) -> tuple[torch.Tensor, ...]:
+    """Hoisted policy and reset draws for ``num_steps`` steps, each with a
+    leading step axis: (actions, predictions, *reset draws by name)."""
+    venv, params = lp.venv, lp.params
     n, dev = venv.num_envs, params.device
+    pred_shape = venv.env.prediction_space(params).shape
     act = torch.rand((num_steps, n, 2), generator=generator, device=dev) * 2.0 - 1.0
-    pred = torch.randn((num_steps, n, 2), generator=generator, device=dev)
+    pred = torch.randn((num_steps, n, *pred_shape), generator=generator, device=dev)
     resets = [venv.env.draw_reset(n, params, generator) for _ in range(num_steps)]
-    bank_pos = torch.stack([d["bank_pos"] for d in resets])
-    k = torch.stack([d["k"] for d in resets])
-    return act, pred, bank_pos, k
+    return (act, pred, *(torch.stack([d[k] for d in resets]) for k in lp.reset_keys))
 
 
 def _probe(obs) -> torch.Tensor:
@@ -69,15 +110,22 @@ def _probe(obs) -> torch.Tensor:
     return sum(leaf.reshape(-1)[0].to(torch.float32) for leaf in obs.values())
 
 
-def _steps(venv, params, obs, state, act, pred, bank_pos, k, rsum):
-    """Step through the leading axis of the hoisted draws; adds each step's
-    summed reward into ``rsum`` in place."""
+def _steps(lp: _Loop, obs, state, draws, rsum):
+    """Step through the leading axis of the hoisted draws, which starts at
+    a cycle boundary; adds each step's summed reward into ``rsum`` in
+    place."""
+    act, pred, *reset = draws
     for j in range(act.shape[0]):
         a = (act[j] + _probe(obs) * 1e-12).clamp(-1.0, 1.0)
-        obs, state, reward, *_ = venv.step(
-            state, {"action": a, "prediction": pred[j]}, params,
-            reset_draws={"bank_pos": bank_pos[j], "k": k[j]},
-        )
+        full = {"action": a, "prediction": pred[j]}
+        reset_draws = {k: v[j] for k, v in zip(lp.reset_keys, reset)}
+        if lp.period is None:
+            obs, state, reward, *_ = lp.venv.step(state, full, lp.params, reset_draws=reset_draws)
+        elif j % (lp.period + 1) == lp.period:
+            obs, state, reward, *_ = lp.venv.boundary_reset_step(
+                state, full, lp.params, reset_draws=reset_draws)
+        else:
+            obs, state, reward, *_ = lp.inner.step(state, full, lp.params)
         rsum += reward.sum()
     return obs, state
 
@@ -89,26 +137,26 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def bench_lidar_rooms(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
-    """Env-steps/s of the eager and the graph-captured loop on the card."""
+def _need_cuda(what: str) -> torch.device:
     if not torch.cuda.is_available():
-        raise RuntimeError("the bench measures the GPU and no CUDA device is available")
-    if num_steps % CHUNK:
-        raise ValueError(f"num_steps must be a multiple of {CHUNK}")
-    dev = torch.device("cuda")
-    venv, params = make_vec("LIDARLocRooms-v0", num_envs, device=dev)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    obs, state, _ = venv.reset(params, g)
-    rsum = torch.zeros((), dtype=torch.float32, device=dev)
+        raise RuntimeError(f"the {what} measures the GPU and no CUDA device is available")
+    return torch.device("cuda")
+
+
+def _measure(lp: _Loop, num_steps: int, g: torch.Generator) -> tuple[float, float]:
+    """Seconds of the eager and of the graph-replayed loop over
+    ``num_steps`` steps (a multiple of ``lp.chunk``)."""
+    obs, state, _ = lp.venv.reset(lp.params, g)
+    rsum = torch.zeros((), dtype=torch.float32, device=lp.params.device)
 
     # Eager: warmup, then the timed run.
-    warm = _draws(venv, params, CHUNK, g)
-    obs, state = _steps(venv, params, obs, state, *warm, rsum)
-    draws = _draws(venv, params, num_steps, g)
+    warm = _draws(lp, lp.chunk, g)
+    obs, state = _steps(lp, obs, state, warm, rsum)
+    draws = _draws(lp, num_steps, g)
     carry = {}
 
     def eager():
-        carry["out"] = _steps(venv, params, obs, state, *draws, rsum)
+        carry["out"] = _steps(lp, obs, state, draws, rsum)
         float(rsum)
 
     eager_s = _timed(eager)
@@ -116,91 +164,126 @@ def bench_lidar_rooms(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0
 
     # Graph: static buffers for the carry and one chunk of draws.
     static = tree_map(torch.clone, (obs, state))
-    chunk = tuple(torch.empty_like(x[:CHUNK]) for x in draws)
+    chunk = tuple(torch.empty_like(x[:lp.chunk]) for x in draws)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm the captured code path once
         for buf, src in zip(chunk, draws):
-            buf.copy_(src[:CHUNK])
-        _steps(venv, params, *static, *chunk, rsum)
+            buf.copy_(src[:lp.chunk])
+        _steps(lp, *static, chunk, rsum)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = _steps(venv, params, *static, *chunk, rsum)
+        out = _steps(lp, *static, chunk, rsum)
         tree_map(lambda dst, src: dst.copy_(src), static, out)
 
     def replay(xs):
-        for c in range(xs[0].shape[0] // CHUNK):
+        for c in range(xs[0].shape[0] // lp.chunk):
             for buf, src in zip(chunk, xs):
-                buf.copy_(src[c * CHUNK:(c + 1) * CHUNK])
+                buf.copy_(src[c * lp.chunk:(c + 1) * lp.chunk])
             graph.replay()
         float(rsum)
 
     replay(warm)  # warmup replay
     graph_s = _timed(lambda: replay(draws))
+    return eager_s, graph_s
 
-    steps = num_envs * num_steps
+
+def _card() -> dict:
     smi = nvidia_smi_line()
+    return {"device_kind": torch.cuda.get_device_name(0),
+            "power_limit_w": float(smi.rsplit(",", 1)[1].split()[0]), "nvidia_smi": smi}
+
+
+def _rates(env: str, num_envs: int, num_steps: int, eager_s: float, graph_s: float) -> dict:
+    steps = num_envs * num_steps
     return {
-        "lidar_rooms_env_steps_per_s": steps / graph_s,
-        "eager_env_steps_per_s": steps / eager_s,
+        f"{env}_env_steps_per_s": steps / graph_s,
+        f"{env}_eager_env_steps_per_s": steps / eager_s,
         "graph_ms_per_step": 1e3 * graph_s / num_steps,
         "eager_ms_per_step": 1e3 * eager_s / num_steps,
-        "num_envs": num_envs,
-        "num_steps": num_steps,
-        "device_kind": torch.cuda.get_device_name(0),
-        "power_limit_w": float(smi.rsplit(",", 1)[1].split()[0]),
-        "nvidia_smi": smi,
     }
 
 
-def profile_lidar_rooms(num_envs: int = 4096, seed: int = 0, top: int = 12) -> dict:
-    """Device time per step of the eager loop by kernel, from a
-    ``torch.profiler`` trace of PROFILE_STEPS steps after a warmup."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("the profile measures the GPU and no CUDA device is available")
-    dev = torch.device("cuda")
-    venv, params = make_vec("LIDARLocRooms-v0", num_envs, device=dev)
+def bench_lidar_rooms(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
+    """Env-steps/s of the eager and the graph-captured LIDARLocRooms loop."""
+    dev = _need_cuda("bench")
+    if num_steps % CHUNK:
+        raise ValueError(f"num_steps must be a multiple of {CHUNK}")
     g = torch.Generator(device=dev).manual_seed(seed)
-    obs, state, _ = venv.reset(params, g)
+    eager_s, graph_s = _measure(_loop("lidar_rooms", num_envs, dev), num_steps, g)
+    return {**_rates("lidar_rooms", num_envs, num_steps, eager_s, graph_s),
+            "num_envs": num_envs, "num_steps": num_steps, **_card()}
+
+
+def bench_circle_square(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
+    """Env-steps/s of the eager and the graph-captured episodic CircleSquare
+    loop, with the step count rounded down to whole cycles (at least one),
+    and the ms per step of the masked-merge ``venv.step`` loop."""
+    dev = _need_cuda("bench")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = _loop("circle_square", num_envs, dev)
+    num_steps = max(lp.chunk, num_steps // lp.chunk * lp.chunk)
+    eager_s, graph_s = _measure(lp, num_steps, g)
+    merge_eager_s, merge_graph_s = _measure(
+        _loop("circle_square", num_envs, dev, episodic=False), num_steps, g)
+    return {**_rates("circle_square", num_envs, num_steps, eager_s, graph_s),
+            "merge_graph_ms_per_step": 1e3 * merge_graph_s / num_steps,
+            "merge_eager_ms_per_step": 1e3 * merge_eager_s / num_steps,
+            "num_envs": num_envs, "num_steps": num_steps, **_card()}
+
+
+def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: int = 12) -> dict:
+    """Device time per step of the eager loop by kernel, from a
+    ``torch.profiler`` trace of PROFILE_STEPS steps (two CircleSquare
+    cycles) after a warmup."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    dev = _need_cuda("profile")
+    lp = _loop(env, num_envs, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    obs, state, _ = lp.venv.reset(lp.params, g)
     rsum = torch.zeros((), dtype=torch.float32, device=dev)
-    obs, state = _steps(venv, params, obs, state, *_draws(venv, params, CHUNK, g), rsum)
-    draws = _draws(venv, params, PROFILE_STEPS, g)
+    obs, state = _steps(lp, obs, state, _draws(lp, lp.chunk, g), rsum)
+    draws = _draws(lp, PROFILE_STEPS, g)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _steps(venv, params, obs, state, *draws, rsum)
+        _steps(lp, obs, state, draws, rsum)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    k1_us = sum(e.self_device_time_total for e in kernels if "raycast_kernel" in e.key)
+    per_step = 1e3 * PROFILE_STEPS
     return {
+        "env": WORKLOADS[env],
         "steps": PROFILE_STEPS,
         "wall_ms_per_step": 1e3 * wall / PROFILE_STEPS,
-        "device_busy_ms_per_step": total_us / 1e3 / PROFILE_STEPS,
+        "device_busy_ms_per_step": total_us / per_step,
         "device_idle_share": max(0.0, 1.0 - total_us / 1e6 / wall),
         "kernel_launches_per_step": sum(e.count for e in kernels) / PROFILE_STEPS,
-        "k1_ms_per_step": k1_us / 1e3 / PROFILE_STEPS,
-        "top": [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / PROFILE_STEPS,
+        "port_kernels_ms_per_step": {
+            name: sum(e.self_device_time_total for e in kernels if key in e.key) / per_step
+            for name, key in PORT_KERNELS.items()},
+        "top": [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / per_step,
                  "calls_per_step": e.count / PROFILE_STEPS} for e in kernels[:top]],
-        "device_kind": torch.cuda.get_device_name(0),
-        "nvidia_smi": nvidia_smi_line(),
+        **_card(),
     }
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--env", choices=sorted(WORKLOADS), default="lidar_rooms")
     ap.add_argument("--num-envs", type=int, default=4096)
     ap.add_argument("--num-steps", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     if args.profile:
-        print(json.dumps(profile_lidar_rooms(args.num_envs, args.seed)))
+        print(json.dumps(profile(args.env, args.num_envs, args.seed)))
+    elif args.env == "circle_square":
+        print(json.dumps(bench_circle_square(args.num_envs, args.num_steps, args.seed)))
     else:
         print(json.dumps(bench_lidar_rooms(args.num_envs, args.num_steps, args.seed)))
 

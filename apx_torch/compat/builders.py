@@ -1,5 +1,5 @@
-"""Batched resets from host-drawn randomness (counterpart of the LIDAR
-part of apx.compat.builders).
+"""Batched resets from host-drawn randomness (counterpart of the LIDAR and
+image-classification parts of apx.compat.builders).
 
 ``reset_from_draws(env, draws, params)`` turns host draws into a batched
 (obs, state, info) shaped like the env's own reset and lifts it through
@@ -12,6 +12,7 @@ from typing import Any
 
 import torch
 
+from ..envs.image_classification import ImageClassificationEnv
 from ..envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
 from ..wrappers.base import APWrapper
 
@@ -27,6 +28,9 @@ def _wrapper_stack(env) -> list[APWrapper]:
 
 
 def _base_reset_from_draws(base, draws: dict[str, Any], params):
+    if isinstance(base, ImageClassificationEnv):
+        # draws {"index", "inverted", "pos"}: the env's own reset_from_draws.
+        return base.reset_from_draws(draws, params)
     if isinstance(base, LIDARLocalizationEnv):
         dev = params.device
         occ = torch.as_tensor(draws["occ"], dtype=torch.bool, device=dev)
@@ -49,8 +53,9 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
 
 
 def reset_from_draws(env, draws: dict[str, Any], params):
-    """Batched (obs, state, info) from host draws ``{"occ", "pos",
-    "map_idx"}``, wrapper stack applied."""
+    """Batched (obs, state, info) from host draws, wrapper stack applied:
+    ``{"occ", "pos", "map_idx"}`` for LIDAR envs, ``{"index", "inverted",
+    "pos"}`` for image classification envs."""
     stack = _wrapper_stack(env)
     base = stack[-1].env if stack else env
     obs, state, info = _base_reset_from_draws(base, draws, params)

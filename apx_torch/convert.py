@@ -4,7 +4,11 @@ apx's JAX arrays) and a device.
 
 * ``map_bank_from_numpy`` builds a ``MapBank`` from apx's bank arrays;
 * ``lidar_state_from_numpy`` builds the vector state of a
-  ``TimeLimit(LIDARLocalizationEnv)`` from apx's state leaves.
+  ``TimeLimit(LIDARLocalizationEnv)`` from apx's state leaves;
+* ``image_bank_from_numpy`` builds a ``BankImageDataset`` from apx's bank
+  (int32-packed uint8 rows, uint8 or float32 images);
+* ``image_state_from_numpy`` builds the vector state of an
+  ``ImageClassificationEnv`` from apx's state leaves.
 """
 
 from __future__ import annotations
@@ -13,11 +17,14 @@ import numpy as np
 import torch
 
 from .core.env import VectorState
+from .data.dataset import BankImageDataset
 from .data.floor_map import MapBank, pack_rows
+from .envs.image_perception import ImagePerceptionState
 from .envs.lidar_localization import LIDARLocalizationState
 from .wrappers.time_limit import TimeLimitState
 
-__all__ = ["map_bank_from_numpy", "lidar_state_from_numpy"]
+__all__ = ["map_bank_from_numpy", "lidar_state_from_numpy", "image_bank_from_numpy",
+           "image_state_from_numpy"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -56,3 +63,34 @@ def lidar_state_from_numpy(occ, pos, initial_pos, odo_pending, bank_pos, map_idx
         inner=TimeLimitState(inner=inner, t=_t(np.asarray(t).astype(np.int32), torch.int32, device)),
         prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device),
     )
+
+
+def image_bank_from_numpy(images, labels, num_classes: int, packed_shape=None,
+                          device="cuda") -> BankImageDataset:
+    """BankImageDataset from apx's ``images``, ``labels`` and ``n_classes``.
+    With apx's ``packed_shape`` (H, W, C), ``images`` are its (D, R) int32
+    words of packed uint8 rows, unpacked here on the host (torch has no
+    uint32 shifts); otherwise (D, H, W, C) uint8 or float32."""
+    images = np.asarray(images)
+    if packed_shape is not None:
+        images = np.ascontiguousarray(images).view(np.uint8).reshape(
+            (images.shape[0], *packed_shape))
+    return BankImageDataset.from_numpy(images, labels, num_classes, device=device)
+
+
+def image_state_from_numpy(image, label, data_index, pos, time, label_inverted, prev_done,
+                           device="cuda") -> VectorState:
+    """Vector state of ``ImageClassificationEnv`` from apx's leaves
+    (``state.inner.*`` with an (N, H, W, C) uint8 or float32 image, and
+    ``state.prev_done``)."""
+    image = np.asarray(image)
+    inner = ImagePerceptionState(
+        image=_t(image, torch.uint8 if image.dtype == np.uint8 else torch.float32, device),
+        label=_t(np.asarray(label).astype(np.int64), torch.int64, device),
+        data_index=_t(np.asarray(data_index).astype(np.int64), torch.int64, device),
+        pos=_t(np.asarray(pos, dtype=np.float32), torch.float32, device),
+        time=_t(np.asarray(time).astype(np.int32), torch.int32, device),
+        label_inverted=_t(np.asarray(label_inverted, dtype=np.bool_), torch.bool, device),
+    )
+    return VectorState(inner=inner,
+                       prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device))

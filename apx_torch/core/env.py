@@ -11,12 +11,14 @@ Resets are split into a random draw step (``draw_reset``, from an explicit
 can inject the exact draws the JAX reference made from its threefry keys.
 
 ``VectorAPEnv`` adds the reward composition (``base_reward - loss``) and
-mask autoreset. NEXT_STEP always runs the reset for all envs and merges it
-under the done mask: apx gates the same merge behind ``lax.cond`` and pins
-the two forms bitwise-equal (apx/core/env.py:228-238), and the masked form
-never asks the host whether any env is done, so a step never synchronises
-with the device and can be captured in a CUDA graph. LOCKSTEP is not
-ported yet (ROADMAP.md, queue 1).
+mask autoreset. NEXT_STEP and LOCKSTEP always run the reset for all envs
+and merge it under the reset mask: apx gates the same merge behind
+``lax.cond`` and pins the two forms bitwise-equal (apx/core/env.py:228-238,
+:366-376), and the masked form never asks the host whether any env is
+done, so a step never synchronises with the device and can be captured in
+a CUDA graph. LOCKSTEP's mask is ``prev_done.all()``, decided on the
+device. ``rollout_episodic`` hoists the LOCKSTEP boundary out of the step:
+``period`` DISABLED steps, then one ``boundary_reset_step``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ __all__ = [
     "VectorState",
     "vector_env",
     "rollout",
+    "rollout_episodic",
     "tree_map",
     "tree_select",
 ]
@@ -192,17 +195,11 @@ class VectorState:
 
 @dataclasses.dataclass(frozen=True)
 class VectorAPEnv:
-    """Vector env with mask autoreset (NEXT_STEP or DISABLED)."""
+    """Vector env with mask autoreset (NEXT_STEP, LOCKSTEP or DISABLED)."""
 
     env: APEnv
     num_envs: int
     autoreset: AutoResetMode = AutoResetMode.NEXT_STEP
-
-    def __post_init__(self):
-        if self.autoreset is AutoResetMode.LOCKSTEP:
-            raise NotImplementedError(
-                "LOCKSTEP autoreset is not ported yet (ROADMAP.md, queue 1)"
-            )
 
     def reset(self, params, generator: torch.Generator | None = None, draws=None):
         """Batched reset from ``generator``, or from injected ``draws``."""
@@ -216,8 +213,11 @@ class VectorAPEnv:
     def step(self, state: VectorState, full_action: dict[str, Any], params,
              generator: torch.Generator | None = None, reset_draws=None):
         """One vector step. NEXT_STEP resets the envs that were done at the
-        previous step, from ``generator`` or from injected ``reset_draws``
-        (draws for all N envs; only the done envs' are used)."""
+        previous step, LOCKSTEP all envs once every env is done, from
+        ``generator`` or from injected ``reset_draws`` (draws for all N
+        envs; only the reset envs' are used). On a LOCKSTEP reset step the
+        base reward is 0, the dones are False and the loss is taken against
+        the new episode's target (``APEnv.prediction_target_on_reset``)."""
         env = self.env
         loss_fn = env.loss_fn(params)
         r = env.step_env(
@@ -235,7 +235,9 @@ class VectorAPEnv:
             vstate = VectorState(inner=r.state, prev_done=r.terminated | r.truncated)
             return obs, vstate, reward, r.terminated, r.truncated, info
 
-        mask = state.prev_done
+        lockstep = self.autoreset is AutoResetMode.LOCKSTEP
+        # LOCKSTEP decides "all envs done" as a device tensor: no host sync.
+        mask = state.prev_done.all().expand(self.num_envs) if lockstep else state.prev_done
         if reset_draws is None:
             reset_draws = env.draw_reset(self.num_envs, params, _need(generator))
         reset_obs, reset_state, reset_info = env.autoreset_from_draws(
@@ -255,15 +257,46 @@ class VectorAPEnv:
         # Derived entries once, from the merged state (apx/core/env.py:378-380).
         obs = env._merge_derived_obs(obs, new_inner, params)
 
-        pred_target = r.prediction_target
-        loss = loss_fn(full_action["prediction"], pred_target)
-        loss = torch.where(mask, 0.0, loss)
-        reward = torch.where(mask, 0.0, base_reward - loss)
+        if lockstep:
+            pred_target = tree_select(
+                mask, env.prediction_target_on_reset(state.inner, reset_state, params),
+                r.prediction_target,
+            )
+            loss = loss_fn(full_action["prediction"], pred_target)
+            reward = base_reward - loss
+        else:
+            pred_target = r.prediction_target
+            loss = loss_fn(full_action["prediction"], pred_target)
+            loss = torch.where(mask, 0.0, loss)
+            reward = torch.where(mask, 0.0, base_reward - loss)
         info = env.compose_info(
             info, base_reward, pred_target, loss, full_action["prediction"], params
         )
         vstate = VectorState(inner=new_inner, prev_done=terminated | truncated)
         return obs, vstate, reward, terminated, truncated, info
+
+    def boundary_reset_step(self, state: VectorState, full_action: dict[str, Any], params,
+                            generator: torch.Generator | None = None, reset_draws=None):
+        """The LOCKSTEP all-done reset step on its own: the outputs of
+        ``step`` entered with ``prev_done`` all True, without the step whose
+        results that step masks out (apx/core/env.py:396-426)."""
+        env = self.env
+        if reset_draws is None:
+            reset_draws = env.draw_reset(self.num_envs, params, _need(generator))
+        reset_obs, reset_state, reset_info = env.autoreset_from_draws(
+            reset_draws, state.inner, params
+        )
+        target = env.prediction_target_on_reset(state.inner, reset_state, params)
+        prediction = full_action["prediction"]
+        loss = env.loss_fn(params)(prediction, target)
+        dev = state.prev_done.device
+        base_reward = torch.zeros(self.num_envs, dtype=torch.float32, device=dev)
+        reward = base_reward - loss
+        done = torch.zeros(self.num_envs, dtype=torch.bool, device=dev)
+        info = env.compose_info(reset_info, base_reward, target, loss, prediction, params)
+        obs = env._merge_derived_obs(reset_obs, reset_state, params)
+        return (obs, VectorState(inner=reset_state, prev_done=done), reward, done,
+                torch.zeros_like(done), info)
 
 
 def _need(generator):
@@ -301,6 +334,40 @@ def rollout(
     for _ in range(num_steps):
         act = policy_fn(generator, obs)
         obs, state, reward, term, trunc, _ = venv.step(state, act, params, generator)
+        rewards.append(reward)
+        terms.append(term)
+        truncs.append(trunc)
+    return obs, state, (torch.stack(rewards), torch.stack(terms), torch.stack(truncs))
+
+
+def rollout_episodic(
+    venv: VectorAPEnv,
+    params,
+    policy_fn: Callable[[torch.Generator, Any], dict[str, Any]],
+    generator: torch.Generator,
+    num_steps: int,
+    period: int,
+):
+    """LOCKSTEP rollout with the episode boundary hoisted out of the step
+    (apx/core/env.py:548-609): ``period`` DISABLED steps, then one
+    ``boundary_reset_step``, repeated; a trailing partial cycle runs without
+    its boundary. Valid when every episode lasts exactly ``period`` steps,
+    as in every image env. Each step draws the reset draws ``venv.step``
+    would draw, so the generator advances as in ``rollout`` and the
+    trajectory is bitwise ``rollout``'s. Returns what ``rollout`` returns."""
+    if venv.autoreset is not AutoResetMode.LOCKSTEP:
+        raise ValueError("rollout_episodic needs a LOCKSTEP vector env")
+    inner = dataclasses.replace(venv, autoreset=AutoResetMode.DISABLED)
+    obs, state, _ = venv.reset(params, generator)
+    rewards, terms, truncs = [], [], []
+    for i in range(num_steps):
+        act = policy_fn(generator, obs)
+        draws = venv.env.draw_reset(venv.num_envs, params, generator)
+        if i % (period + 1) == period:
+            obs, state, reward, term, trunc, _ = venv.boundary_reset_step(
+                state, act, params, reset_draws=draws)
+        else:
+            obs, state, reward, term, trunc, _ = inner.step(state, act, params)
         rewards.append(reward)
         terms.append(term)
         truncs.append(trunc)

@@ -1,9 +1,10 @@
 """Differentiable prediction losses (counterpart of apx.core.losses).
 
-Ported: ``LossFn`` with ``.normalized``, ``AffineLossFn`` and
-``MSELossFn`` — what the regression envs (LIDAR) use. Each loss is a frozen
-dataclass; ``__call__(prediction, target)`` takes torch tensors and reduces
-the trailing feature axis.
+Ported: ``LossFn`` with ``.normalized``, ``AffineLossFn``, ``MSELossFn``
+(the regression envs: LIDAR) and ``CrossEntropyLossFn`` (the
+classification envs). Each loss is a frozen dataclass;
+``__call__(prediction, target)`` takes torch tensors and reduces the
+trailing feature axis.
 """
 
 from __future__ import annotations
@@ -11,10 +12,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .numerics import div, sum_squares
 
-__all__ = ["LossFn", "AffineLossFn", "MSELossFn"]
+__all__ = ["LossFn", "AffineLossFn", "MSELossFn", "CrossEntropyLossFn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,3 +95,32 @@ class MSELossFn(LossFn):
         if self.target_std is None:
             return None
         return float(np.mean(np.asarray(self.target_std) ** 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossEntropyLossFn(LossFn):
+    """-log_softmax(prediction)[target] over the last axis.
+
+    The label is picked with a one-hot select-reduce, as apx does (its
+    gather-free form), not a gather: the select adds exact zeros around the
+    picked log-probability, so the value is the gather's except that a
+    log-probability of exactly -0.0 comes out as -0.0 where the gather
+    gives +0.0 — the same sign apx gives. Labels must be in [0, C)."""
+
+    num_classes: int | None = None
+
+    def __call__(self, prediction, target):
+        logp = torch.log_softmax(prediction, dim=-1)
+        classes = torch.arange(logp.shape[-1], device=logp.device)
+        onehot = classes == target[..., None].to(torch.int64)
+        return -torch.where(onehot, logp, 0.0).sum(dim=-1)
+
+    @property
+    def lower_bound(self) -> float:
+        return 0.0
+
+    @property
+    def blind_guessing_expected_value(self) -> float | None:
+        if self.num_classes is None:
+            return None
+        return float(np.log(self.num_classes))

@@ -21,9 +21,10 @@ by a device tensor instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["fma", "sum_squares", "div", "sqrt"]
+__all__ = ["fma", "sum_squares", "div", "sqrt", "time_obs"]
 
 
 def _fma_f64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -82,3 +83,12 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (see module docstring)."""
     return torch.sqrt(x.double()).float()
+
+
+def time_obs(t: torch.Tensor, limit: int) -> torch.Tensor:
+    """The time observation ``2 t / limit - 1`` of integer steps ``t``, as
+    XLA compiles it in the reference's step: ``fma(2 t, float32(1 / limit),
+    -1)``."""
+    inv = float(np.float32(1.0) / np.float32(limit))
+    t2 = 2.0 * t.to(torch.float32)
+    return fma(t2, torch.full_like(t2, inv), -1.0)

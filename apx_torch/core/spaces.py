@@ -1,7 +1,7 @@
 """Space specifications for the torch port (counterpart of apx.core.spaces).
 
-Only what the LIDAR observation, action and prediction spaces use is
-ported: ``Box``, ``Image``, ``DictSpace`` and the
+Only what the LIDAR and image-classification spaces use is ported:
+``Box``, ``Discrete``, ``Image``, ``Logit``, ``DictSpace`` and the
 ``ActivePerceptionActionSpace`` that ``APEnv.action_space`` builds. Spaces
 are hashable descriptions; sampling takes an explicit ``torch.Generator``
 and device instead of a JAX key.
@@ -18,8 +18,10 @@ import torch
 __all__ = [
     "Space",
     "Box",
+    "Discrete",
     "DictSpace",
     "Image",
+    "Logit",
     "ActivePerceptionActionSpace",
 ]
 
@@ -84,6 +86,29 @@ class Box(Space):
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class Discrete(Space):
+    """Integers {0, ..., n - 1}, one per batch element."""
+
+    n: int
+    dtype: Any = torch.int32
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return ()
+
+    def sample(self, generator, batch_shape=(), device="cpu"):
+        return torch.randint(0, self.n, _shape_tuple(batch_shape), generator=generator,
+                             device=device, dtype=self.dtype)
+
+    def zeros(self, batch_shape=(), device="cpu"):
+        return torch.zeros(_shape_tuple(batch_shape), dtype=self.dtype, device=device)
+
+    def contains(self, x) -> bool:
+        x = torch.as_tensor(x)
+        return x.ndim == 0 and 0 <= int(x) < self.n
+
+
 class _FrozenDict(dict):
     def __hash__(self):  # type: ignore[override]
         return hash(tuple(sorted(self.items(), key=lambda kv: kv[0])))
@@ -137,6 +162,11 @@ class Image(Box):
     @property
     def channels(self) -> int:
         return self.shape[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Logit(Box):
+    """Box tagged as holding unnormalized logits (ap_gym.LogitSpace)."""
 
 
 @dataclasses.dataclass(frozen=True)

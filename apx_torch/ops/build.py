@@ -18,7 +18,7 @@ from pathlib import Path
 __all__ = ["load", "SOURCES", "NVCC_FLAGS", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "raycast_slab.cu",)
+SOURCES = (_PKG / "csrc" / "raycast_slab.cu", _PKG / "csrc" / "glimpse.cu")
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no contraction of a*b+c (the kernels write each FMA they
 # want as __fmaf_rn); IEEE division and square root; denormals kept.
@@ -60,6 +60,11 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+    for name in ("glimpse_f32_launch", "glimpse_u8_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 6, ctypes.c_float, ctypes.c_float,
+                       ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     _LIB = lib
     return lib

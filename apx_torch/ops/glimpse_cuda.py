@@ -1,0 +1,80 @@
+"""K3, the bilinear glimpse, as a hand-written CUDA kernel for Hopper.
+
+Replaces apx's Pallas TPU kernel ``apx/ops/glimpse_pallas.py:73``
+(``_kernel``, launched by ``glimpse_batch_lane_major``), which apx gates to
+uint8 banks on a TPU and otherwise computes with einsums
+(``extract_glimpse_batch``). Here the kernel is the glimpse on the card for
+every image env, for both bank dtypes: uint8 (divided by 255 on read) and
+float32 (CircleSquare's bank).
+
+What bounds it, and the design (``apx_torch/csrc/glimpse.cu``): bytes —
+the sensor's pixel footprint, the positions and the output. One thread per
+output element reads only the <= 2 x 2 pixels its bilinear hat touches,
+where the TPU kernel had to reduce densely over every row and column.
+
+On a CUDA tensor ``glimpse`` launches the kernel (building the library on
+first use, ``apx_torch.ops.build``) or raises; it never falls back to the
+plain form. On a CPU tensor it runs the plain form
+(``apx_torch.ops.glimpse.extract_glimpse_batch``). ``LAUNCHES`` counts
+kernel launches, for checks that a run really went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .glimpse import extract_glimpse_batch, sensor_pos_lim_pixels
+
+__all__ = ["glimpse", "LAUNCHES", "reset_launch_counts"]
+
+LAUNCHES: dict[str, int] = {"glimpse": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(images: torch.Tensor, pos: torch.Tensor, sensor_size) -> None:
+    if images.ndim != 4 or pos.ndim != 2:
+        raise ValueError("expected images (N, H, W, C) and pos (N, 2)")
+    if pos.shape != (images.shape[0], 2):
+        raise ValueError(f"shape mismatch: images {tuple(images.shape)}, pos {tuple(pos.shape)}")
+    if len(sensor_size) != 2 or min(sensor_size) < 1:
+        raise ValueError(f"sensor_size must be two positive ints, got {sensor_size}")
+    if images.dtype not in (torch.uint8, torch.float32) or pos.dtype != torch.float32:
+        raise TypeError("expected images uint8 or float32, pos float32")
+    if images.device != pos.device:
+        raise ValueError("images and pos must be on one device")
+
+
+def glimpse(images: torch.Tensor, pos: torch.Tensor, sensor_size: tuple[int, int],
+            sensor_scale: float = 1.0) -> torch.Tensor:
+    """(N, s0, s1, C) float32 glimpses of images (N, H, W, C) uint8 or
+    float32 at normalized positions pos (N, 2) = (x, y)."""
+    sensor_size = tuple(int(s) for s in sensor_size)
+    _check(images, pos, sensor_size)
+    if images.device.type == "cpu":
+        return extract_glimpse_batch(images, pos, sensor_size, sensor_scale)
+    lib = build.load()
+    images = images.contiguous()
+    pos = pos.contiguous()
+    n, h, w, c = images.shape
+    s0, s1 = sensor_size
+    out = torch.empty((n, s0, s1, c), dtype=torch.float32, device=images.device)
+    if out.numel() == 0:
+        return out
+    lim = sensor_pos_lim_pixels((h, w), sensor_size, sensor_scale)
+    name = "glimpse_u8_launch" if images.dtype == torch.uint8 else "glimpse_f32_launch"
+    err = getattr(lib, name)(
+        images.data_ptr(), pos.data_ptr(), out.data_ptr(), n, h, w, c, s0, s1,
+        ctypes.c_float(float(lim[0])), ctypes.c_float(float(lim[1])),
+        ctypes.c_float(float(sensor_scale)), torch.cuda.current_stream(images.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"glimpse kernel launch failed: CUDA error {err}")
+    LAUNCHES["glimpse"] += 1
+    return out

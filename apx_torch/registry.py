@@ -1,11 +1,21 @@
 """Environment registry of the port (counterpart of apx.registry).
 
-The port has the four LIDAR base ids so far, each
-``TimeLimit(LIDARLocalizationEnv(bank), 100, issue_termination=True)`` under
-NEXT_STEP autoreset like apx's. Every other apx id raises ``KeyError``; the
-order in which they arrive is ROADMAP.md's queue 1.
+The port has 22 of apx's ids so far, each built and autoreset as apx
+builds it:
+
+* the four LIDAR base ids, each
+  ``TimeLimit(LIDARLocalizationEnv(bank), 100, issue_termination=True)``
+  under NEXT_STEP autoreset;
+* the 18 CircleSquare and CircleSquareInverted ids of apx's nine suffix
+  families (image size, gradient, step limit), each
+  ``ImageClassificationEnv(CircleSquare bank, step_limit=T)`` under
+  LOCKSTEP autoreset, the Inverted ones with randomly inverted labels.
+
+Every other apx id raises ``KeyError``; the order in which they arrive is
+ROADMAP.md's queue 1.
 
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)
+    venv, params = apx_torch.make_vec("CircleSquare-v0", num_envs=4096)
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -18,6 +28,7 @@ from typing import Callable
 import torch
 
 from .core.env import APEnv, AutoResetMode, VectorAPEnv, vector_env
+from .envs.image_classification import ImageClassificationEnv
 from .envs.lidar_localization import LIDARLocalizationEnv
 from .wrappers.time_limit import TimeLimit
 
@@ -49,8 +60,45 @@ def _map_bank(kind: str, static: bool, device: torch.device):
     return _BANK_CACHE[key]
 
 
+def _circle_square_bank(size: int, gradient: bool, device: torch.device):
+    from .data.circle_square import make_circle_square_bank
+
+    key = ("cs", size, gradient, str(device))
+    if key not in _BANK_CACHE:
+        _BANK_CACHE[key] = make_circle_square_bank(
+            (size, size), show_gradient=gradient, device=device
+        )
+    return _BANK_CACHE[key]
+
+
+# apx's CircleSquare suffix families: (suffix, image size, gradient, step limit).
+_CIRCLE_SQUARE_FAMILIES = [
+    ("", 28, True, 16),
+    ("-s28", 28, True, 16),
+    ("-s20", 20, True, 16),
+    ("-s15", 15, True, 16),
+    ("-nograd", 28, False, 16),
+    ("-s20-nograd", 20, False, 16),
+    ("-s15-nograd", 15, False, 16),
+    ("-t32", 28, True, 32),
+    ("-t64", 28, True, 64),
+]
+
+
 def _build_registry() -> dict[str, EnvEntry]:
     reg: dict[str, EnvEntry] = {}
+    for sfx, size, grad, t in _CIRCLE_SQUARE_FAMILIES:
+        for name, invert in (("CircleSquare", False), ("CircleSquareInverted", True)):
+            env_id = f"{name}{sfx}-v0"
+            reg[env_id] = EnvEntry(
+                env_id=env_id,
+                build=lambda device, size=size, grad=grad, t=t, invert=invert:
+                    ImageClassificationEnv(
+                        dataset=_circle_square_bank(size, grad, device), step_limit=t,
+                        randomly_invert_labels=invert,
+                    ),
+                autoreset=AutoResetMode.LOCKSTEP,
+            )
     for env_id, kind, static in [
         ("LIDARLocMazeStatic-v0", "maze", True),
         ("LIDARLocMaze-v0", "maze", False),

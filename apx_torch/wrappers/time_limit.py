@@ -11,11 +11,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 
 from ..core.env import APEnv, APStepResult
-from ..core.numerics import fma
+from ..core.numerics import time_obs
 from ..core.spaces import Box, DictSpace, Space
 from .base import APWrapper
 
@@ -53,9 +52,7 @@ class TimeLimit(APWrapper):
         return DictSpace({"observation": inner, "time_step": time_space})
 
     def _time_obs(self, t: torch.Tensor) -> torch.Tensor:
-        # XLA compiles 2 t / T - 1 as fma(2 t, float32(1 / T), -1).
-        inv_t = float(np.float32(1.0) / np.float32(self.max_episode_steps))
-        return fma(2.0 * t.to(torch.float32), torch.full_like(t, inv_t, dtype=torch.float32), -1.0)
+        return time_obs(t, self.max_episode_steps)
 
     def _wrap_obs(self, obs, t: torch.Tensor):
         if not self.observe_time_steps:

@@ -8,16 +8,34 @@ Phases, one line each; any failure exits non-zero:
 2. build: compiles the CUDA kernels from apx_torch/csrc for sm_90a.
 3. kernels: K1 (``raycast_fast`` at R = 1, 2, 8 and ``raycast_typed`` at
    R = 8 from cell centres, where corner grazes occur) against its plain
-   PyTorch form on the card, bitwise, at N = 4096 on rooms maps; device
-   time per launch of both (CUDA graph replay, CUDA events) and the bound.
-4. main path: ``apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)``,
-   reset and 250 steps of uniform random actions with zero predictions;
-   every obs finite, lidar in [0, 1], rewards in [-2.9, 0.1], every env
-   through at least two episode ends, and every K1 kernel launched.
-5. card vs CPU: one 120-step trajectory at N = 256 with injected reset
-   draws on the card (kernels) and on the CPU (plain forms); obs, states,
-   rewards and dones bitwise equal.
-6. throughput: ``apx_torch.bench`` at N = 4096 (eager and CUDA graph).
+   PyTorch form on the card, bitwise, at N = 4096 on rooms maps; K3
+   (``glimpse``) against its plain form within 1e-6 (TF32 off) at
+   CircleSquare's geometry (float32 bank, 28x28x1, 5x5 sensor) and
+   TinyImageNet's (random uint8 bytes, 64x64x3, 10x10 sensor), N = 4096,
+   positions including the +-1 corners and edges. Device time per launch
+   of each (CUDA graph replay, CUDA events), of its plain form, of
+   ``grid_sample`` for K3 (the library yardstick; the port never calls
+   it), and the bound.
+4. LIDAR main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
+   num_envs=4096)``, reset and 250 steps of uniform random actions with
+   zero predictions; every obs finite, lidar in [0, 1], rewards in
+   [-2.9, 0.1], every env through at least two episode ends, and every K1
+   kernel launched.
+5. LIDAR card vs CPU: one 120-step trajectory at N = 256 with injected
+   reset draws on the card (kernels) and on the CPU (plain forms); obs,
+   states, rewards and dones bitwise equal.
+6. CircleSquare main path: ``apx_torch.make_vec("CircleSquare-v0",
+   num_envs=4096)`` under LOCKSTEP, reset and 51 steps (three 17-step
+   cycles) of uniform random actions with zero logits; every obs finite,
+   glimpse in [0, 1], rewards in [-1.0015, -1 + 1e-6] (normalized CE of
+   zero logits is 1, base reward -1e-3 |a|), every env through at least
+   two LOCKSTEP resets, and ``glimpse`` launched once for the reset and
+   twice per masked-merge step.
+7. CircleSquare card vs CPU (CircleSquare-v0 and CircleSquareInverted-v0):
+   51 steps at N = 256 with injected reset draws; states, dones and the
+   non-glimpse obs bitwise equal, glimpse and rewards within 1e-6.
+8. throughput: ``apx_torch.bench`` at N = 4096 for both workloads (eager
+   and CUDA graph).
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. It needs CUDA and the apx_torch package
@@ -41,6 +59,12 @@ FP32_OPS_PER_S = 67e12
 # min-reduce; typed adds the clips, the crossing/graze compares and the
 # three graze reductions.
 OPS_PER_CELL = {"raycast_fast": 6, "raycast_typed": 12}
+# Float operations per glimpse output element, as K3 computes it: two
+# coordinates (9 each: centre, FMA, offset, add, clip), two tap pairs
+# (11 each: floor, two hats), the 4-term bilinear (6 mul, 3 add) and the
+# clip (2); a uint8 image adds four divisions by 255.
+OPS_PER_GLIMPSE = {torch.float32: 51, torch.uint8: 55}
+GLIMPSE_TOL = 1e-6
 N = 4096
 
 
@@ -153,9 +177,117 @@ def phase_kernels(dev) -> list[dict]:
     return rows
 
 
+def glimpse_bound(images, pos, sensor, scale) -> tuple[float, str]:
+    """Least time (ms) for the glimpse: the pixels its hats touch in each
+    image (distinct nonzero-weight rows x columns, from these positions),
+    the positions and the output, each once, at the HBM rate; its float
+    operations at the float32 rate. Returns (ms, bound_by)."""
+    from apx_torch.ops.glimpse import glimpse_coords, interp_weights
+
+    n, h, w, c = images.shape
+    rows, cols = glimpse_coords(pos, (h, w), sensor, scale)
+    n_rows = (interp_weights(rows, h) > 0).any(dim=1).sum(dim=-1)
+    n_cols = (interp_weights(cols, w) > 0).any(dim=1).sum(dim=-1)
+    outputs = n * sensor[0] * sensor[1] * c
+    nbytes = int((n_rows * n_cols).sum()) * c * images.element_size() + pos.numel() * 4 \
+        + outputs * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = outputs * OPS_PER_GLIMPSE[images.dtype] / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def glimpse_inputs(dev) -> dict:
+    """N=4096 glimpses at CircleSquare's geometry (images from its float32
+    bank) and TinyImageNet's (seeded random uint8 bytes); positions uniform
+    in [-1, 1)^2 with the corners and edge midpoints first."""
+    from apx_torch.data.circle_square import make_circle_square_bank
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    edges = torch.tensor([[1, 1], [-1, -1], [1, -1], [-1, 1], [0, 1], [1, 0], [-1, 0],
+                          [0, -1], [1, 0.37], [-0.81, -1]], dtype=torch.float32, device=dev)
+
+    def positions():
+        pos = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+        pos[:len(edges)] = edges
+        return pos
+
+    bank = make_circle_square_bank(device=dev)
+    cs = bank.images[torch.randint(0, bank.length, (N,), generator=gen, device=dev)]
+    tin = torch.randint(0, 256, (N, 64, 64, 3), generator=gen, device=dev, dtype=torch.uint8)
+    return {"circle_square": (cs, positions(), (5, 5), 1.0),
+            "tiny_imagenet": (tin, positions(), (10, 10), 1.0)}
+
+
+def phase_glimpse_kernel(dev) -> dict:
+    import torch.nn.functional as F
+
+    from apx_torch.ops.glimpse import extract_glimpse_batch, glimpse_coords
+    from apx_torch.ops.glimpse_cuda import glimpse
+
+    # The plain form's products run in full float32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    per_geom = {}
+    for geom, (images, pos, sensor, scale) in glimpse_inputs(dev).items():
+        got = glimpse(images, pos, sensor, scale)
+        want = extract_glimpse_batch(images, pos, sensor, scale)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= GLIMPSE_TOL, f"glimpse at {geom}: max |diff| {err} > {GLIMPSE_TOL}")
+        check(bool(((got >= 0) & (got <= 1)).all()), f"glimpse at {geom} outside [0, 1]")
+        # grid_sample on the float32 NCHW image, at the kernel's coordinates.
+        n, h, w, c = images.shape
+        img = images.to(torch.float32)
+        if images.dtype == torch.uint8:
+            img = img / 255.0
+        img = img.permute(0, 3, 1, 2).contiguous()
+        rows, cols = glimpse_coords(pos, (h, w), sensor, scale)
+        grid = torch.stack(torch.broadcast_tensors(
+            (cols / (w - 1) * 2 - 1)[:, None, :], (rows / (h - 1) * 2 - 1)[:, :, None]), dim=-1)
+
+        def library():
+            return F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True).clamp(0.0, 1.0)
+
+        lib_err = (library().permute(0, 2, 3, 1) - got).abs().max().item()
+        b_ms, b_by = glimpse_bound(images, pos, sensor, scale)
+        per_geom[geom] = {
+            "shape": f"N={n} {h}x{w}x{c} {str(images.dtype).split('.')[-1]}, "
+                     f"{sensor[0]}x{sensor[1]} sensor",
+            "ms": device_ms(lambda: glimpse(images, pos, sensor, scale), 50),
+            "plain_ms": device_ms(lambda: extract_glimpse_batch(images, pos, sensor, scale), 4),
+            "library_ms": device_ms(library, 50),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+        }
+    main = per_geom["circle_square"]
+    return {
+        "name": "glimpse",
+        "route": "cuda",
+        "source": "apx_torch/csrc/glimpse.cu",
+        "replaces": "apx/ops/glimpse_pallas.py:73",
+        "launches": None,
+        "max_abs_err": max(v["max_abs_err"] for v in per_geom.values()),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "by_geometry": per_geom,
+    }
+
+
+def reset_all_launch_counts() -> None:
+    from apx_torch.ops import glimpse_cuda, raycast_cuda
+
+    raycast_cuda.reset_launch_counts()
+    glimpse_cuda.reset_launch_counts()
+
+
+def all_launch_counts() -> dict:
+    from apx_torch.ops import glimpse_cuda, raycast_cuda
+
+    return {**raycast_cuda.LAUNCHES, **glimpse_cuda.LAUNCHES}
+
+
 def phase_main_path(dev) -> dict:
     import apx_torch
-    from apx_torch.ops.raycast_cuda import LAUNCHES, reset_launch_counts
 
     steps = 250
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=N, device=dev)
@@ -168,7 +300,7 @@ def phase_main_path(dev) -> dict:
     ends = torch.zeros(N, dtype=torch.int64, device=dev)
 
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_all_launch_counts()
     t0 = time.perf_counter()
     obs, state, _ = venv.reset(params, gen)
     for _ in range(steps):
@@ -183,7 +315,7 @@ def phase_main_path(dev) -> dict:
         ends += (term | trunc).to(torch.int64)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = all_launch_counts()
 
     check(bool(finite), "non-finite observation")
     check(bool(lidar_ok), "lidar outside [0, 1]")
@@ -193,24 +325,77 @@ def phase_main_path(dev) -> dict:
     shapes = {k: tuple(v.shape) for k, v in obs.items()}
     check(shapes == {"lidar": (N, 8), "odometry": (N, 2), "time_step": (N,),
                      "map": (N, 32, 32, 1)}, f"obs shapes {shapes}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was never launched on the main path")
+    for name in ("raycast_fast", "raycast_typed"):
+        check(launches[name] > 0, f"{name} was never launched on the main path")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)],
             "episode_ends_min": int(ends.min()), "terminations": int(ends.sum()),
             "launches": launches}
 
 
-def phase_card_vs_cpu(dev) -> dict:
+def phase_circle_square_main_path(dev) -> dict:
+    import apx_torch
+
+    steps = 51  # three 17-step LOCKSTEP cycles
+    venv, params = apx_torch.make_vec("CircleSquare-v0", num_envs=N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    zero_logits = torch.zeros((N, 2), device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    glimpse_ok = torch.ones((), dtype=torch.bool, device=dev)
+    r_lo = torch.full((), float("inf"), device=dev)
+    r_hi = torch.full((), -float("inf"), device=dev)
+    resets = torch.zeros(N, dtype=torch.int64, device=dev)
+
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    obs, state, _ = venv.reset(params, gen)
+    for _ in range(steps):
+        act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+        obs, state, reward, term, trunc, _ = venv.step(
+            state, {"action": act, "prediction": zero_logits}, params, gen)
+        for leaf in obs.values():
+            finite &= torch.isfinite(leaf).all()
+        glimpse_ok &= ((obs["glimpse"] >= 0) & (obs["glimpse"] <= 1)).all()
+        r_lo = torch.minimum(r_lo, reward.min())
+        r_hi = torch.maximum(r_hi, reward.max())
+        resets += (state.inner.time == 0).to(torch.int64)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launch_counts()
+
+    check(bool(finite), "non-finite observation")
+    check(bool(glimpse_ok), "glimpse outside [0, 1]")
+    check(-1.0015 <= float(r_lo) and float(r_hi) <= -1 + 1e-6,
+          f"rewards outside [-1.0015, -1 + 1e-6]: [{float(r_lo)}, {float(r_hi)}]")
+    check(int(resets.min()) >= 2, f"an env went through {int(resets.min())} resets (< 2)")
+    shapes = {k: tuple(v.shape) for k, v in obs.items()}
+    check(shapes == {"glimpse": (N, 5, 5, 1), "glimpse_pos": (N, 2), "time_step": (N,)},
+          f"obs shapes {shapes}")
+    check(launches["glimpse"] == 1 + 2 * steps,
+          f"glimpse launched {launches['glimpse']} times, not once for the reset and twice "
+          f"per masked-merge step ({1 + 2 * steps})")
+    return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
+            "reward_range": [float(r_lo), float(r_hi)], "resets_min": int(resets.min()),
+            "launches": launches}
+
+
+def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict) -> dict:
+    """One trajectory of ``env_id`` on the card and on the CPU from the same
+    actions, predictions and injected reset draws. Leaves named in ``tol``
+    (obs keys, or "reward") are held to that absolute tolerance; every other
+    leaf of the obs, states, rewards and dones must be bitwise equal."""
     import apx_torch
     from apx_torch.core.env import tree_map
+    from apx_torch.core.spaces import Logit
 
-    n, steps = 256, 120
     devices = (torch.device("cpu"), dev)
-    runs = [apx_torch.make_vec("LIDARLocRooms-v0", num_envs=n, device=d) for d in devices]
+    runs = [apx_torch.make_vec(env_id, num_envs=n, device=d) for d in devices]
     cpu_venv, cpu_params = runs[0]
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
+    logits = isinstance(cpu_venv.env.prediction_space(cpu_params), Logit)
+    max_err = {k: 0.0 for k in tol}
 
     def draws(d):
         return {k: v.to(d) for k, v in drawn.items()}
@@ -220,26 +405,48 @@ def phase_card_vs_cpu(dev) -> dict:
         tree_map(lambda x: out.append(x.cpu()), tree)
         return out
 
+    def same(a, b, what):
+        check(a.dtype == b.dtype and a.shape == b.shape, f"{what}: layout differs")
+        if a.dtype == torch.float32:
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)), f"{what} differs")
+        else:
+            check(torch.equal(a, b), f"{what} differs")
+
+    def close(a, b, key, what):
+        err = (a.cpu() - b.cpu()).abs().max().item()
+        max_err[key] = max(max_err[key], err)
+        check(err <= tol[key], f"{what}: max |diff| {err} > {tol[key]}")
+
     drawn = cpu_venv.env.draw_reset(n, cpu_params, gen)
     carry = [venv.reset(params, draws=draws(d))[:2] for d, (venv, params) in zip(devices, runs)]
     for t in range(steps):
         act = torch.from_numpy(rng.uniform(-1, 1, (n, 2)).astype(np.float32))
-        pred = torch.from_numpy(rng.uniform(-1, 1, (n, 2)).astype(np.float32))
+        pred = rng.standard_normal((n, 2)) if logits else rng.uniform(-1, 1, (n, 2))
+        pred = torch.from_numpy(pred.astype(np.float32))
         drawn = cpu_venv.env.draw_reset(n, cpu_params, gen)
         outs = []
         for i, (d, (venv, params)) in enumerate(zip(devices, runs)):
-            obs, state = carry[i]
             o, s, r, te, tr, _ = venv.step(
-                state, {"action": act.to(d), "prediction": pred.to(d)}, params,
+                carry[i][1], {"action": act.to(d), "prediction": pred.to(d)}, params,
                 reset_draws=draws(d))
             carry[i] = (o, s)
-            outs.append(leaves((o, s, r, te, tr)))
-        for a, b in zip(*outs):
-            check(a.dtype == b.dtype and a.shape == b.shape, f"step {t}: leaf layout differs")
-            same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
-                if a.dtype == torch.float32 else torch.equal(a, b)
-            check(same, f"step {t}: card and CPU trajectories differ")
-    return {"num_envs": n, "steps": steps, "bitwise": True}
+            outs.append((o, s, r, te, tr))
+        (oc, sc, rc, *dc), (og, sg, rg, *dg) = outs
+        what = f"{env_id} step {t}"
+        for k in oc:
+            if k in tol:
+                close(oc[k], og[k], k, f"{what} obs {k}")
+            else:
+                same(oc[k], og[k].cpu(), f"{what} obs {k}")
+        if "reward" in tol:
+            close(rc, rg, "reward", f"{what} reward")
+        else:
+            same(rc, rg.cpu(), f"{what} reward")
+        for a, b in zip(leaves((sc, *dc)), leaves((sg, *dg))):
+            same(a, b, f"{what} state or dones")
+    return {"env": env_id, "num_envs": n, "steps": steps, "max_abs_err": max_err,
+            "bitwise": sorted(set(oc) - set(tol)) + ["state", "dones"]
+            + ([] if "reward" in tol else ["reward"])}
 
 
 def main() -> int:
@@ -247,7 +454,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
         return 1
     import apx_torch  # noqa: F401  (fails here when run without the repo)
-    from apx_torch.bench import bench_lidar_rooms, nvidia_smi_line
+    from apx_torch.bench import bench_circle_square, bench_lidar_rooms, nvidia_smi_line
     from apx_torch.ops import build
 
     dev = torch.device("cuda")
@@ -266,16 +473,27 @@ def main() -> int:
         f"{r['name']} max|d|={r['max_abs_err']} " + ", ".join(
             f"R={k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms)"
             for k, v in r["by_r"].items()) for r in rows), flush=True)
+    k3 = phase_glimpse_kernel(dev)
+    print(f"kernels: glimpse {json.dumps(k3['by_geometry'])}", flush=True)
 
     main_path = phase_main_path(dev)
     print(f"main path: {json.dumps(main_path)}", flush=True)
     for r in rows:
         r["launches"] = main_path["launches"][r["name"]]
+    print(f"card vs cpu: {json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}))}",
+          flush=True)
 
-    print(f"card vs cpu: {json.dumps(phase_card_vs_cpu(dev))}", flush=True)
+    cs_path = phase_circle_square_main_path(dev)
+    print(f"circle square main path: {json.dumps(cs_path)}", flush=True)
+    k3["launches"] = cs_path["launches"]["glimpse"]
+    rows.append(k3)
+    tol = {"glimpse": GLIMPSE_TOL, "reward": 1e-6}
+    for env_id in ("CircleSquare-v0", "CircleSquareInverted-v0"):
+        print(f"circle square card vs cpu: {json.dumps(phase_card_vs_cpu(dev, env_id, 256, 51, tol))}",
+              flush=True)
 
-    bench = bench_lidar_rooms(N, 1024)
-    print(f"throughput: {json.dumps(bench)}", flush=True)
+    print(f"throughput: {json.dumps(bench_lidar_rooms(N, 1024))}", flush=True)
+    print(f"throughput: {json.dumps(bench_circle_square(N, 1020))}", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

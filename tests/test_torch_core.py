@@ -163,3 +163,70 @@ def test_numerics_round_once():
     g = torch.tensor([1.5, -2.0], requires_grad=True)
     fma(g, g, torch.ones(2)).sum().backward()
     assert torch.equal(g.grad, 2 * g.detach())
+
+
+@pytest.mark.parametrize("classes", [2, 5])
+def test_cross_entropy_and_normalized_match_apx(classes):
+    """CE and normalized CE against apx's, with the +-1e4-logit edges where
+    the softmax saturates; the one-hot pick keeps apx's -0.0."""
+    from apx.core.losses import CrossEntropyLossFn as JaxCE
+
+    from apx_torch.core.losses import CrossEntropyLossFn
+
+    rng = np.random.default_rng(classes)
+    logits = rng.standard_normal((64, classes)).astype(np.float32) * 3
+    logits[:4] = 0.0
+    logits[4, :] = -1e4
+    logits[4, 0] = 1e4
+    logits[5, :] = 1e4
+    logits[6, 1] = -1e4
+    target = rng.integers(0, classes, 64)
+    target[4] = 0  # log-probability exactly 0
+    for ours, ref in ((CrossEntropyLossFn(classes), JaxCE(classes)),
+                      (CrossEntropyLossFn(classes).normalized, JaxCE(classes).normalized)):
+        got = ours(torch.from_numpy(logits), torch.from_numpy(target))
+        want = np.asarray(jax.jit(ref)(jnp.asarray(logits), jnp.asarray(target)))
+        assert got.dtype == torch.float32 and got.shape == (64,)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(np.signbit(got.numpy()), np.signbit(want))
+    norm = CrossEntropyLossFn(classes).normalized
+    assert norm.scale == JaxCE(classes).normalized.scale
+    assert norm.blind_guessing_expected_value == pytest.approx(1.0)
+    # Uniform logits are the blind guess: normalized loss 1.
+    np.testing.assert_allclose(norm(torch.zeros(3, classes), torch.zeros(3)).numpy(), 1.0,
+                               rtol=1e-6)
+    assert CrossEntropyLossFn().blind_guessing_expected_value is None
+
+
+def test_discrete_and_logit_spaces():
+    from apx_torch.core.spaces import Discrete, Logit
+
+    d = Discrete(3)
+    assert d.shape == () and d.dtype == torch.int32
+    g = torch.Generator().manual_seed(0)
+    x = d.sample(g, batch_shape=(500,))
+    assert x.shape == (500,) and x.dtype == torch.int32
+    assert set(x.tolist()) == {0, 1, 2}
+    assert torch.equal(d.zeros((4,)), torch.zeros(4, dtype=torch.int32))
+    assert d.contains(2) and not d.contains(3) and not d.contains(-1)
+    logit = Logit(low=-np.inf, high=np.inf, shape=(2,))
+    assert isinstance(logit, Box) and logit.shape == (2,)
+    assert logit.zeros((5,)).shape == (5, 2)
+    assert hash(d) == hash(Discrete(3)) and d != Discrete(4)
+
+
+@pytest.mark.parametrize("env_id", ["CircleSquare-v0", "CircleSquareInverted-s20-v0"])
+def test_image_spaces_match_apx(env_id):
+    import apx
+
+    venv, params = apx_torch.make_vec(env_id, 2, device="cpu")
+    jvenv, jparams = apx.make_vec(env_id, num_envs=2)
+    ours = venv.env.observation_space(params)
+    ref = jvenv.env.observation_space(jparams)
+    assert set(ours.keys()) == set(ref.keys())
+    for k in ref.keys():
+        assert ours[k].shape == tuple(ref[k].shape), k
+        assert type(ours[k]).__name__ == type(ref[k]).__name__, k
+    assert venv.env.prediction_space(params).shape == tuple(jvenv.env.prediction_space(jparams).shape)
+    assert venv.env.prediction_target_space(params).n == jvenv.env.prediction_target_space(jparams).n
+    assert type(venv.env.prediction_space(params)).__name__ == "Logit"

@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernels against their plain PyTorch forms.
+"""K1 and K3 on the card: the CUDA kernels against their plain PyTorch
+forms, and the envs that run them against the CPU.
 
 Marked ``cuda``; each test skips (inside the test, via the fixture) when
 no CUDA device is present, as on the CPU-only test machines. On a GPU
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from apx_torch.data.floor_map import make_maze_bank, make_rooms_bank
-from apx_torch.ops import raycast_cuda
+from apx_torch.ops import build, glimpse_cuda, raycast_cuda
+from apx_torch.ops.glimpse import extract_glimpse_batch
 from apx_torch.ops.raycast import lidar_directions_np, raycast_grid, seg_length
 
 torch.set_num_threads(1)
@@ -110,3 +112,78 @@ def test_numerics_on_card(dev):
     for f in (lambda x, y, z: fma(x, y, z), lambda x, y, z: div(x, 5.0),
               lambda x, y, z: sqrt(x.abs()), lambda x, y, z: div(x, 255.0)):
         assert torch.equal(f(a, b, c), f(a.to(dev), b.to(dev), c.to(dev)).cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape,sensor,scale", [((28, 28, 1), (5, 5), 1.0),
+                                                ((64, 64, 3), (10, 10), 1.0),
+                                                ((33, 47, 3), (4, 7), 2.5)])
+def test_glimpse_kernel_matches_plain(dev, shape, sensor, scale, dtype):
+    """K3 within 1e-6 of its plain form (float32 rounding of a 4-term
+    bilinear; TF32 off for the plain form's products)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(shape[0])
+    n = 1000
+    if dtype == torch.uint8:
+        images = torch.randint(0, 256, (n, *shape), generator=gen, device=dev, dtype=torch.uint8)
+    else:
+        images = torch.rand((n, *shape), generator=gen, device=dev)
+    pos = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
+    pos[:6] = torch.tensor([[1, 1], [-1, -1], [1, -1], [-1, 1], [0, 1], [1, 0]], device=dev)
+    before = glimpse_cuda.LAUNCHES["glimpse"]
+    got = glimpse_cuda.glimpse(images, pos, sensor, scale)
+    torch.cuda.synchronize()
+    assert glimpse_cuda.LAUNCHES["glimpse"] == before + 1
+    want = extract_glimpse_batch(images, pos, sensor, scale)
+    assert got.shape == want.shape and (got - want).abs().max().item() <= 1e-6
+    cpu = extract_glimpse_batch(images.cpu(), pos.cpu(), sensor, scale)
+    assert (got.cpu() - cpu).abs().max().item() <= 1e-6
+
+
+def test_glimpse_raises_on_cuda_without_fallback(dev, monkeypatch):
+    """A failed launch raises; the wrapper never returns the plain form."""
+    class FailingLib:
+        @staticmethod
+        def glimpse_f32_launch(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+    monkeypatch.setattr(build, "load", lambda: FailingLib)
+    before = glimpse_cuda.LAUNCHES["glimpse"]
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        glimpse_cuda.glimpse(torch.rand((4, 8, 8, 1), device=dev), torch.zeros((4, 2), device=dev),
+                             (3, 3))
+    assert glimpse_cuda.LAUNCHES["glimpse"] == before
+
+
+def test_image_env_on_card_matches_cpu(dev):
+    import apx_torch
+    from apx_torch.core.env import tree_map
+
+    n = 64
+    runs = [apx_torch.make_vec("CircleSquareInverted-v0", n, device=d) for d in ("cpu", dev)]
+    gen = torch.Generator().manual_seed(3)
+    draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
+    carry = [v.reset(p, draws={k: x.to(p.device) for k, x in draws.items()})[:2]
+             for v, p in runs]
+    for _ in range(40):
+        act = torch.rand((n, 2), generator=gen) * 2 - 1
+        logits = torch.randn((n, 2), generator=gen)
+        draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
+        outs = []
+        for i, (v, p) in enumerate(runs):
+            o, s, r, te, *_ = v.step(carry[i][1], {"action": act.to(p.device),
+                                                  "prediction": logits.to(p.device)},
+                                     p, reset_draws={k: x.to(p.device) for k, x in draws.items()})
+            carry[i] = (o, s)
+            outs.append((o, s, r, te))
+        (oc, sc, rc, tc), (og, sg, rg, tg) = outs
+        assert (og["glimpse"].cpu() - oc["glimpse"]).abs().max() <= 1e-6
+        assert (rg.cpu() - rc).abs().max() <= 1e-6
+        for k in ("glimpse_pos", "time_step", "inverted_label"):
+            assert torch.equal(og[k].cpu(), oc[k]), k
+        assert torch.equal(tg.cpu(), tc)
+        a, b = [], []
+        tree_map(lambda x: a.append(x), sc)
+        tree_map(lambda x: b.append(x.cpu()), sg)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

@@ -25,7 +25,13 @@ obs, s, _ = venv.reset(p, g)
 act = {"action": torch.rand((4, 2), generator=g), "prediction": torch.zeros(4, 2)}
 for _ in range(3):
     obs, s, r, te, tr, _ = venv.step(s, act, p, g)
+venv, p = apx_torch.make_vec("CircleSquare-v0", 4, device="cpu")
+obs, s, _ = venv.reset(p, g)
+act = {"action": torch.rand((4, 2), generator=g), "prediction": torch.zeros(4, 2)}
+for _ in range(18):
+    obs, s, r, te, tr, _ = venv.step(s, act, p, g)
 import apx_torch.bench, apx_torch.convert, apx_torch.compat.builders, apx_torch.ops.build
+import apx_torch.ops.glimpse_cuda
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "apx"))
 print("BAD", bad)
@@ -58,10 +64,13 @@ def test_make_vec_defaults_to_cuda():
     import apx_torch
 
     if torch.cuda.is_available():
-        _, params = apx_torch.make_vec("LIDARLocRooms-v0", 2)
-        assert params.device.type == "cuda"
+        for env_id in ("LIDARLocRooms-v0", "CircleSquare-v0"):
+            _, params = apx_torch.make_vec(env_id, 2)
+            assert params.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             apx_torch.make_vec("LIDARLocRooms-v0", 2)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             apx_torch.make("LIDARLocMaze-v0")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            apx_torch.make_vec("CircleSquare-v0", 2)
