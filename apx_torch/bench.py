@@ -1,16 +1,19 @@
 """Throughput bench of the port's main paths at N=4096.
 
-Two workloads, each the counterpart of one of the JAX package's
-``bench.py`` workloads, with its random policy: uniform actions in
-[-1, 1] and standard-normal predictions (logits for CircleSquare). As
-there, the policy's draws are hoisted out of the stepping loop, and one
-element of every observation leaf is folded into the next action (times
-1e-12) so each step depends on the previous step's observation. The reset
-draws are hoisted too, and injected.
+Three workloads, each the counterpart of one of the JAX package's
+``bench.py`` workloads or of one of its backends, with its random
+policy: uniform actions in [-1, 1] and standard-normal predictions
+(logits for CircleSquare). As there, the policy's draws are hoisted out of
+the stepping loop, and one element of every observation leaf is folded
+into the next action (times 1e-12) so each step depends on the previous
+step's observation. The reset draws are hoisted too, and injected.
 
 * ``lidar_rooms``: ``TimeLimit(LIDARLocalizationEnv(rooms bank, 256
   maps), 100, issue_termination=True)`` under NEXT_STEP autoreset
   (``bench.py:344-360`` of the JAX package);
+* ``lidar_rooms_window``: the same env with ``raycast_backend=
+  "pallas_window"``: every cast runs on a (24, 16) window that K2 cuts per
+  env, with the same policy, loops and chunking as ``lidar_rooms``;
 * ``circle_square``: ``ImageClassificationEnv(CircleSquare bank)`` under
   LOCKSTEP autoreset (``bench.py:323-331``), stepped as apx's bench steps
   it: episodic cycles of 16 DISABLED steps and one
@@ -26,7 +29,7 @@ on a value fetch of the summed rewards:
   CircleSquare) captured in a CUDA graph and replayed. A capture that
   fails raises.
 
-    python -m apx_torch.bench [--env lidar_rooms|circle_square]
+    python -m apx_torch.bench [--env lidar_rooms|lidar_rooms_window|circle_square]
         [--num-envs 4096] [--num-steps 1024] [--profile]
 
 prints one JSON line with ``<env>_env_steps_per_s`` (the graph loop),
@@ -50,20 +53,27 @@ import torch
 from .core.env import AutoResetMode, VectorAPEnv, tree_map
 from .registry import make_vec
 
-__all__ = ["bench_lidar_rooms", "bench_circle_square", "profile", "nvidia_smi_line", "CHUNK"]
+__all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_circle_square", "profile",
+           "nvidia_smi_line", "CHUNK"]
 
 CHUNK = 16  # LIDAR steps per captured graph
 PROFILE_STEPS = 34
-WORKLOADS = {"lidar_rooms": "LIDARLocRooms-v0", "circle_square": "CircleSquare-v0"}
+# Workload -> (env id, parameter overrides).
+WORKLOADS = {
+    "lidar_rooms": ("LIDARLocRooms-v0", {}),
+    "lidar_rooms_window": ("LIDARLocRooms-v0", {"raycast_backend": "pallas_window"}),
+    "circle_square": ("CircleSquare-v0", {}),
+}
 # Device kernels of the port, by a substring of their names in a trace.
-PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel"}
+PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel",
+                "window": "window_kernel"}
 
 
-def nvidia_smi_line() -> str:
-    """The card's name and power limit as nvidia-smi reports them, e.g.
-    ``NVIDIA H100 80GB HBM3, 700.00 W``."""
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
+    """The first card's ``query`` fields as nvidia-smi reports them, by
+    default its name and power limit, e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -84,7 +94,8 @@ class _Loop:
 
 
 def _loop(env: str, num_envs: int, dev, episodic: bool = True) -> _Loop:
-    venv, params = make_vec(WORKLOADS[env], num_envs, device=dev)
+    env_id, overrides = WORKLOADS[env]
+    venv, params = make_vec(env_id, num_envs, device=dev, **overrides)
     keys = tuple(sorted(venv.env.draw_reset(1, params, torch.Generator(dev))))
     if venv.autoreset is AutoResetMode.LOCKSTEP and episodic:
         inner = dataclasses.replace(venv, autoreset=AutoResetMode.DISABLED)
@@ -205,15 +216,26 @@ def _rates(env: str, num_envs: int, num_steps: int, eager_s: float, graph_s: flo
     }
 
 
-def bench_lidar_rooms(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
-    """Env-steps/s of the eager and the graph-captured LIDARLocRooms loop."""
+def _bench_lidar(env: str, num_envs: int, num_steps: int, seed: int) -> dict:
     dev = _need_cuda("bench")
     if num_steps % CHUNK:
         raise ValueError(f"num_steps must be a multiple of {CHUNK}")
     g = torch.Generator(device=dev).manual_seed(seed)
-    eager_s, graph_s = _measure(_loop("lidar_rooms", num_envs, dev), num_steps, g)
-    return {**_rates("lidar_rooms", num_envs, num_steps, eager_s, graph_s),
+    eager_s, graph_s = _measure(_loop(env, num_envs, dev), num_steps, g)
+    return {**_rates(env, num_envs, num_steps, eager_s, graph_s),
             "num_envs": num_envs, "num_steps": num_steps, **_card()}
+
+
+def bench_lidar_rooms(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
+    """Env-steps/s of the eager and the graph-captured LIDARLocRooms loop."""
+    return _bench_lidar("lidar_rooms", num_envs, num_steps, seed)
+
+
+def bench_lidar_rooms_window(num_envs: int = 4096, num_steps: int = 1024,
+                             seed: int = 0) -> dict:
+    """The same for LIDARLocRooms with ``raycast_backend="pallas_window"``
+    (K2 windows); prints ``lidar_rooms_window_*`` keys."""
+    return _bench_lidar("lidar_rooms_window", num_envs, num_steps, seed)
 
 
 def bench_circle_square(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
@@ -257,7 +279,8 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     per_step = 1e3 * PROFILE_STEPS
     return {
-        "env": WORKLOADS[env],
+        "env": WORKLOADS[env][0],
+        "overrides": WORKLOADS[env][1],
         "steps": PROFILE_STEPS,
         "wall_ms_per_step": 1e3 * wall / PROFILE_STEPS,
         "device_busy_ms_per_step": total_us / per_step,
@@ -285,7 +308,7 @@ def main(argv=None) -> None:
     elif args.env == "circle_square":
         print(json.dumps(bench_circle_square(args.num_envs, args.num_steps, args.seed)))
     else:
-        print(json.dumps(bench_lidar_rooms(args.num_envs, args.num_steps, args.seed)))
+        print(json.dumps(_bench_lidar(args.env, args.num_envs, args.num_steps, args.seed)))
 
 
 if __name__ == "__main__":

@@ -12,9 +12,20 @@ bank map per episode.
 Every cast goes through K1 (``apx_torch.ops.raycast_cuda``): the step's
 movement cast (1 ray), wall-slide cast (2 rays) and beam scan
 (``raycast_fast``), and the GEOS-typed reset scan (``raycast_typed``).
-apx's default backend ``"auto"`` casts against a bit-packed 16x16 window;
-that form is bitwise-equal to the dense cast computed here (pinned in apx's
-tests/test_lidar.py), so the port's results equal apx's ``"auto"`` env.
+Two of apx's raycast backends are ported:
+
+* ``"auto"`` (the default): apx casts against a bit-packed 16x16 window;
+  that form is bitwise-equal to the dense cast computed here (pinned in
+  apx's tests/test_lidar.py), so the port's results equal apx's ``"auto"``
+  env. The casts run on the whole (H, W) map.
+* ``"pallas_window"``: K2 (``apx_torch.ops.window_cuda``) cuts one (24, 16)
+  window of the ray-padded map per env around the step's pre-move
+  position, and the step's three casts run on it in the window frame
+  (``origin - base``, ``targets - base``); the reset cuts its own window
+  from the reset position for the typed scan. This rounds at other sites
+  than the dense form, so it equals apx's ``"pallas_window"`` env, not the
+  default one.
+
 The other apx backends are not ported (ROADMAP.md, queue 1).
 """
 
@@ -22,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -32,8 +44,10 @@ from ..core.losses import LossFn
 from ..core.numerics import div, fma, sqrt, sum_squares
 from ..core.spaces import Box, DictSpace, Image, Space
 from ..data.floor_map import MapBank
-from ..ops.raycast import lidar_directions_np, seg_length
+from ..ops.raycast import lidar_directions_np, pad_occupancy, seg_length
 from ..ops.raycast_cuda import raycast_fast, raycast_typed
+from ..ops.window import WIN, window_starts
+from ..ops.window_cuda import extract_windows
 from .common import make_regression_loss_and_target_space
 
 __all__ = ["LIDARLocalizationEnv", "LIDARLocalizationParams", "LIDARLocalizationState"]
@@ -46,17 +60,18 @@ class LIDARLocalizationParams:
     static_map_pos: int = 0
     lidar_beam_count: int = 8
     lidar_range: float = 5.0
-    # apx's raycast backend switch. The port computes every cast with K1,
-    # which equals apx's "auto"; the A/B backends stay JAX-only.
+    # apx's raycast backend switch: "auto" (dense casts, equal to apx's
+    # "auto") or "pallas_window" (K2 windows); the other backends stay
+    # JAX-only.
     raycast_backend: str = "auto"
     use_beam_tables: bool = False
     beam_rects: str = "auto"
 
     def __post_init__(self):
-        if self.raycast_backend != "auto":
+        if self.raycast_backend not in ("auto", "pallas_window"):
             raise NotImplementedError(
-                f"raycast_backend={self.raycast_backend!r} is not ported; the port "
-                "casts with K1 only (ROADMAP.md, queue 1: the bitslab window forms)"
+                f"raycast_backend={self.raycast_backend!r} is not ported; the port has "
+                "'auto' and 'pallas_window' (ROADMAP.md, queue 1: the other window forms)"
             )
         if self.use_beam_tables or self.beam_rects == "on":
             raise NotImplementedError(
@@ -66,6 +81,25 @@ class LIDARLocalizationParams:
     @property
     def device(self) -> torch.device:
         return self.map_bank.device
+
+    @property
+    def ray_pad(self) -> int:
+        """Padding of occ_padded: room for the range and, for K2's 8-aligned
+        24-row windows, at least 16 cells (apx's ``ray_pad``)."""
+        base = max(math.ceil(self.lidar_range) + 1, WIN // 2)
+        return max(base, 16) if self.raycast_backend == "pallas_window" else base
+
+    @property
+    def needs_padded_occ(self) -> bool:
+        """Only the window backend reads state.occ_padded; under "auto" it is
+        None, so the state carries no dead buffer."""
+        return self.raycast_backend == "pallas_window"
+
+    @property
+    def use_pallas_window(self) -> bool:
+        """K2 windows when every cast fits the 16-cell window (range <= 6);
+        otherwise the backend casts on the whole map, as apx's does."""
+        return self.raycast_backend == "pallas_window" and self.lidar_range <= WIN // 2 - 2
 
     @functools.cached_property
     def beam_offsets(self) -> torch.Tensor:
@@ -104,6 +138,9 @@ class LIDARLocalizationState:
     # odo_pending is True until that step locks it in.
     initial_pos: torch.Tensor  # (N, 2) f32
     odo_pending: torch.Tensor  # (N,) bool
+    # (N, H+2p, W+2p) bool, ray_pad'ded copy of occ: present only for the
+    # window backend (params.needs_padded_occ), None otherwise.
+    occ_padded: torch.Tensor | None = None
 
 
 class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState]):
@@ -141,15 +178,45 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
     def loss_fn(self, params) -> LossFn:
         return make_regression_loss_and_target_space(2, -1.0, 1.0)[0]
 
+    # ---- casts ----------------------------------------------------------------
+    def _make_window(self, state, params):
+        """One occupancy window shared by a step's casts, cut by K2 from
+        state.occ_padded around floor(state.pos): ((N, 24, 16) bool window,
+        (N, 2) f32 base), or None when the casts run on the whole map."""
+        if not params.use_pallas_window:
+            return None
+        starts, base = window_starts(state.pos, WIN, params.ray_pad)
+        return extract_windows(state.occ_padded, starts, WIN).view(torch.bool), base
+
+    @staticmethod
+    def _cast(kernel, state, origin, targets, window, unfused_len: bool = False):
+        """K1 on the whole map, or on the window in the window frame
+        (``origin - base``, ``targets - base``). Each segment's |d| is
+        ``seg_length``'s contracted form unless ``unfused_len``, as the
+        reference rounds it at the cast's site."""
+        occ = state.occ
+        if window is not None:
+            occ, base = window
+            origin, targets = origin - base, targets - base[:, None, :]
+        seg = None
+        if unfused_len:
+            d = targets - origin[:, None, :]
+            seg = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+        return kernel(occ, origin, targets, seg)
+
     # ---- observation --------------------------------------------------------
-    def _observe(self, state, params, typed: bool = False) -> dict[str, torch.Tensor]:
+    def _observe(self, state, params, typed: bool = False, window=None) -> dict[str, torch.Tensor]:
         targets = state.pos[:, None, :] + params.beam_offsets  # (N, B, 2)
         if typed:
-            lidar = div(raycast_typed(state.occ, state.pos, targets), params.lidar_range)
+            # The reset scan cuts its own window from the reset position.
+            window = self._make_window(state, params)
+            dist = self._cast(raycast_typed, state, state.pos, targets, window)
+            lidar = div(dist, params.lidar_range)
         else:
             # XLA compiles the step's division by the range as a multiply by
             # its float32 reciprocal (the reset scan's stays a division).
-            lidar = raycast_fast(state.occ, state.pos, targets) * params.inv_range
+            dist = self._cast(raycast_fast, state, state.pos, targets, window)
+            lidar = dist * params.inv_range
         return {
             "lidar": lidar.clamp(-1.0, 1.0),
             "odometry": (state.pos - state.initial_pos) * params.inv_map_size,
@@ -199,6 +266,7 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
             pos=pos,
             initial_pos=pos,
             odo_pending=torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device),
+            occ_padded=pad_occupancy(occ, params.ray_pad) if params.needs_padded_occ else None,
         )
         return self._observe(state, params, typed=True), state, self._info(state)
 
@@ -215,12 +283,14 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         total = seg_length(a)
         direction = a / torch.where(total == 0.0, 1.0, total)[:, None]
 
+        # One window per step, from the pre-move position: every cast of the
+        # step stays within it (None on the whole-map path).
+        window = self._make_window(state, params)
+
         # First leg: move up to the nearest wall. This one-ray cast's |d| is
         # not contracted in the reference.
         move_to = (pos + a)[:, None, :]
-        d = move_to - pos[:, None, :]
-        seg = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
-        d2w = raycast_fast(state.occ, pos, move_to, seg)[:, 0]
+        d2w = self._cast(raycast_fast, state, pos, move_to, window, unfused_len=True)[:, 0]
         pos1 = fma(direction, d2w[:, None], pos)
 
         # Wall slide, reference quirks included: only components > 1e-5
@@ -234,7 +304,7 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         cand_diag = torch.where((n_keep == 2)[:, None], rem_vec, v_single[:, None].expand(-1, 2))
         eye = torch.eye(2, dtype=torch.float32, device=pos.device)
         cand = eye * cand_diag[:, None, :]  # (N, 2, 2) candidate moves
-        cand_dist = raycast_fast(state.occ, pos1, pos1[:, None, :] + cand)  # (N, 2)
+        cand_dist = self._cast(raycast_fast, state, pos1, pos1[:, None, :] + cand, window)
         # The surviving candidate, as a binary select (apx's form).
         use0 = cand_dist[:, 0] > 0.0
         sel_cand = torch.where(use0[:, None], cand[:, 0], cand[:, 1])
@@ -260,7 +330,7 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         )
         target = fma(pos, 2.0 * params.inv_map_size, -1.0)
         return APStepResult(
-            obs=self._observe(new_state, params),
+            obs=self._observe(new_state, params, window=window),
             state=new_state,
             base_reward=base_reward,
             terminated=terminated,

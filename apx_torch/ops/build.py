@@ -18,7 +18,8 @@ from pathlib import Path
 __all__ = ["load", "SOURCES", "NVCC_FLAGS", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "raycast_slab.cu", _PKG / "csrc" / "glimpse.cu")
+SOURCES = tuple(_PKG / "csrc" / f for f in (
+    "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu"))
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: no contraction of a*b+c (the kernels write each FMA they
 # want as __fmaf_rn); IEEE division and square root; denormals kept.
@@ -66,6 +67,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 6, ctypes.c_float, ctypes.c_float,
                        ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
+    lib.window_launch.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 4, ptr]
+    lib.window_launch.restype = ctypes.c_int
+    lib.chain_launch.argtypes = [*[ptr] * 6, *[ctypes.c_int] * 4, ptr]
+    lib.chain_launch.restype = ctypes.c_int
     _LIB = lib
     return lib
 

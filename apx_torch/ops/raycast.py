@@ -24,7 +24,8 @@ import torch
 
 from ..core.numerics import fma, sqrt
 
-__all__ = ["lidar_directions", "lidar_directions_np", "raycast_grid", "seg_length"]
+__all__ = ["lidar_directions", "lidar_directions_np", "pad_occupancy", "raycast_grid",
+           "seg_length"]
 
 EPS = 1e-3
 _INF = float("inf")
@@ -45,6 +46,16 @@ def seg_length(d: torch.Tensor) -> torch.Tensor:
     """|d| over the last axis (size 2), rounded as ``jnp.linalg.norm``."""
     dx, dy = d[..., 0], d[..., 1]
     return sqrt(fma(dy, dy, dx * dx))
+
+
+def pad_occupancy(occ: torch.Tensor, pad: int) -> torch.Tensor:
+    """(N, H, W) bool -> (N, H + 2 pad, W + 2 pad), padded with non-wall
+    cells on both axes so windows cut around any in-map position stay in
+    range."""
+    n, h, w = occ.shape
+    out = torch.zeros((n, h + 2 * pad, w + 2 * pad), dtype=torch.bool, device=occ.device)
+    out[:, pad:pad + h, pad:pad + w] = occ
+    return out
 
 
 def _slab_axis(o, d, lo, hi):

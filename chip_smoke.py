@@ -34,12 +34,30 @@ Phases, one line each; any failure exits non-zero:
 7. CircleSquare card vs CPU (CircleSquare-v0 and CircleSquareInverted-v0):
    51 steps at N = 256 with injected reset draws; states, dones and the
    non-glimpse obs bitwise equal, glimpse and rewards within 1e-6.
-8. throughput: ``apx_torch.bench`` at N = 4096 for both workloads (eager
-   and CUDA graph).
+8. window kernels: K2 (``extract_windows``) against its plain form on the
+   card, bitwise, at N = 4096 with starts from ``window_starts`` of
+   positions spread over [0, 32]^2 (corners and edges first), and K1 on
+   K2's (24, 16) windows in the window frame (the casts of phase 3, cut to
+   their windows), bitwise; device time, plain time and bound of each.
+9. window main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
+   num_envs=4096, raycast_backend="pallas_window")``, reset and 250 steps
+   as in phase 4, with the same checks; per masked-merge step K2 is
+   launched twice (step and reset) and ``raycast_fast`` three times,
+   ``raycast_typed`` once per reset.
+10. window card vs CPU: phase 5 with the window backend.
+11. K4 (``chain_cuda``): wide and narrow layouts bitwise equal to the
+    plain ``chain_body`` at rows = 512, iters = 5 and at ``measure()``'s
+    sizes; then the study's entry point ``measure()`` at apx's sizes
+    (rows = 4096, iters = 512, 20 reps), its line printed.
+12. throughput: ``apx_torch.bench`` at N = 4096 for the three workloads
+    (eager and CUDA graph).
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. It needs CUDA and the apx_torch package
-beside it, and exits non-zero without them.
+``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
+its own path, the counts set to 0 just before it: K1's on phase 4 (and
+under ``"window"`` on phase 9), K2's on phase 9, K3's on phase 6, K4's in
+``measure()``. It needs CUDA and the apx_torch package beside it, and
+exits non-zero without them.
 """
 
 from __future__ import annotations
@@ -55,6 +73,10 @@ import torch
 # outside the tensor cores (an FMA counts as two operations).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# float32 instructions issued per second: half of FP32_OPS_PER_S, where an
+# FMA is one instruction (132 SMs x 128 lanes x 1.98 GHz). K4's chain is
+# counted in instructions.
+FP32_ISSUE_PER_S = FP32_OPS_PER_S / 2
 # Operations per (ray, cell) of K1: fast = max, min, compare, and, select,
 # min-reduce; typed adds the clips, the crossing/graze compares and the
 # three graze reductions.
@@ -273,24 +295,130 @@ def phase_glimpse_kernel(dev) -> dict:
     }
 
 
-def reset_all_launch_counts() -> None:
-    from apx_torch.ops import glimpse_cuda, raycast_cuda
+def _launch_modules():
+    from apx_torch.ops import glimpse_cuda, issue_rate_study, raycast_cuda, window_cuda
 
-    raycast_cuda.reset_launch_counts()
-    glimpse_cuda.reset_launch_counts()
+    return raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study
+
+
+def reset_all_launch_counts() -> None:
+    for m in _launch_modules():
+        m.reset_launch_counts()
 
 
 def all_launch_counts() -> dict:
-    from apx_torch.ops import glimpse_cuda, raycast_cuda
-
-    return {**raycast_cuda.LAUNCHES, **glimpse_cuda.LAUNCHES}
+    return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
 
 
-def phase_main_path(dev) -> dict:
+def window_bound(n: int) -> tuple[float, str]:
+    """Least time (ms) for K2: the (24, 16) window read and written per env
+    and the starts read, at the HBM rate; it does no float operations."""
+    from apx_torch.ops.window import WIN, WIN_ROWS
+
+    return n * (2 * WIN_ROWS * WIN + 2 * 4) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_window_kernels(dev) -> tuple[dict, dict]:
+    """K2 against its plain form, then K1 on K2's windows. Returns K2's
+    kernels row and K1's window measurements by kernel name and R."""
+    from apx_torch.data.floor_map import make_rooms_bank
+    from apx_torch.ops import raycast_cuda
+    from apx_torch.ops.raycast import pad_occupancy, raycast_grid, seg_length
+    from apx_torch.ops.window import extract_windows as plain_windows
+    from apx_torch.ops.window import window_starts
+    from apx_torch.ops.window_cuda import extract_windows
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bank = make_rooms_bank(256, device=dev)
+    occ = bank.fetch(torch.randint(0, bank.num_maps, (N,), generator=gen, device=dev))
+    occ_padded = pad_occupancy(occ, 16)
+    pos = torch.rand((N, 2), generator=gen, device=dev) * 32
+    edges = torch.tensor([[0, 0], [32, 32], [0, 32], [32, 0], [16, 0], [0, 16], [32, 16],
+                          [16, 32], [31.999998, 0.5], [7.999999, 8.0]], device=dev)
+    pos[:len(edges)] = edges
+    starts, _ = window_starts(pos, 16, 16)
+    got = extract_windows(occ_padded, starts)
+    want = plain_windows(occ_padded, starts)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "window (K2) not bitwise equal to its plain form")
+    b_ms, b_by = window_bound(N)
+    k2 = {
+        "name": "window", "route": "cuda", "source": "apx_torch/csrc/window.cu",
+        "replaces": "apx/ops/window_pallas.py:70", "launches": None, "max_abs_err": 0.0,
+        "ms": device_ms(lambda: extract_windows(occ_padded, starts), 50),
+        "plain_ms": device_ms(lambda: plain_windows(occ_padded, starts), 4),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,  # no PyTorch call gathers per-env windows at per-env starts
+        "shape": f"N={N} (64, 64) bool -> (24, 16) u8",
+    }
+
+    per_kernel: dict = {}
+    for name, cases in kernel_inputs(bank, gen, dev).items():
+        kernel = getattr(raycast_cuda, name)
+        typed = name == "raycast_typed"
+        for occ_map, origin, targets in cases:
+            starts, base = window_starts(origin, 16, 16)
+            win = extract_windows(pad_occupancy(occ_map, 16), starts).view(torch.bool)
+            o, t = origin - base, targets - base[:, None]
+            seg = seg_length(t - o[:, None])
+            got = kernel(win, o, t, seg)
+            want = raycast_grid(win, o, t, seg, geos_typing=typed)[0]
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"{name} on windows, R={t.shape[1]}: not bitwise equal (max |diff| {err})")
+            r = t.shape[1]
+            w_ms, w_by = bound(name, N, r, *win.shape[1:])
+            per_kernel.setdefault(name, {})[r] = {
+                "ms": device_ms(lambda: kernel(win, o, t, seg), 50),
+                "plain_ms": device_ms(lambda: raycast_grid(win, o, t, seg, geos_typing=typed), 4),
+                "bound_ms": w_ms, "bound_by": w_by, "max_abs_err": err, "shape": "24x16"}
+    return k2, per_kernel
+
+
+def phase_chain(dev) -> dict:
+    """K4: both layouts bitwise against the plain chain, then the study's
+    ``measure()``; returns K4's kernels row."""
+    from apx_torch.ops import issue_rate_study as study
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows, iters = 4096, 512  # measure()'s sizes
+    for layout, lanes in study.LANES.items():
+        for r, it in ((512, 5), (rows, iters)):
+            args = [torch.rand((r, lanes), generator=gen, device=dev) for _ in range(5)]
+            got = study.chain_cuda(*args, iters=it, layout=layout)
+            want = study.chain_body(*args, it)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"chain ({layout}, rows={r}, iters={it}) not bitwise equal to its plain form")
+    reset_all_launch_counts()
+    res = study.measure(rows=rows, iters=iters, reps=20)
+    launches = all_launch_counts()["chain"]
+    print(f"issue-rate study: {json.dumps(res)}", flush=True)
+    check(launches == 2 * 21, f"chain launched {launches} times in measure(), not 42")
+    wide = [torch.rand((rows, study.LANES["wide"]), generator=gen, device=dev) for _ in range(5)]
+    by_layout = {}
+    for layout, lanes in study.LANES.items():
+        ops = rows * lanes * iters * study.CHAIN_OPS_PER_ELEM
+        by_layout[layout] = {"ms": res[layout]["time_us"] / 1e3,
+                             "bound_ms": ops / FP32_ISSUE_PER_S * 1e3, "bound_by": "operations"}
+    return {
+        "name": "chain", "route": "cuda", "source": "apx_torch/csrc/issue_rate_study.cu",
+        "replaces": "apx/ops/issue_rate_study.py:70", "launches": launches, "max_abs_err": 0.0,
+        "ms": by_layout["wide"]["ms"],
+        "plain_ms": device_ms(lambda: study.chain_body(*wide, iters), 1),
+        "bound_ms": by_layout["wide"]["bound_ms"], "bound_by": "operations",
+        "library_ms": None,  # no PyTorch call runs the chain
+        "shape": f"rows={rows} lanes=128 (wide) iters={iters}",
+        "issue_penalty": res["issue_penalty"], "by_layout": by_layout,
+    }
+
+
+def phase_main_path(dev, **overrides) -> dict:
     import apx_torch
 
     steps = 250
-    venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=N, device=dev)
+    venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=N, device=dev, **overrides)
     gen = torch.Generator(device=dev).manual_seed(0)
     zero_pred = torch.zeros((N, 2), device=dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -327,6 +455,10 @@ def phase_main_path(dev) -> dict:
                      "map": (N, 32, 32, 1)}, f"obs shapes {shapes}")
     for name in ("raycast_fast", "raycast_typed"):
         check(launches[name] > 0, f"{name} was never launched on the main path")
+    if params.use_pallas_window:
+        want = {"window": 1 + 2 * steps, "raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"window path launches {got}, expected {want}")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)],
             "episode_ends_min": int(ends.min()), "terminations": int(ends.sum()),
@@ -380,17 +512,18 @@ def phase_circle_square_main_path(dev) -> dict:
             "launches": launches}
 
 
-def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict) -> dict:
-    """One trajectory of ``env_id`` on the card and on the CPU from the same
-    actions, predictions and injected reset draws. Leaves named in ``tol``
-    (obs keys, or "reward") are held to that absolute tolerance; every other
-    leaf of the obs, states, rewards and dones must be bitwise equal."""
+def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, **overrides) -> dict:
+    """One trajectory of ``env_id`` (with parameter ``overrides``) on the
+    card and on the CPU from the same actions, predictions and injected
+    reset draws. Leaves named in ``tol`` (obs keys, or "reward") are held to
+    that absolute tolerance; every other leaf of the obs, states, rewards
+    and dones must be bitwise equal."""
     import apx_torch
     from apx_torch.core.env import tree_map
     from apx_torch.core.spaces import Logit
 
     devices = (torch.device("cpu"), dev)
-    runs = [apx_torch.make_vec(env_id, num_envs=n, device=d) for d in devices]
+    runs = [apx_torch.make_vec(env_id, num_envs=n, device=d, **overrides) for d in devices]
     cpu_venv, cpu_params = runs[0]
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
@@ -444,7 +577,7 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict) -> dict:
             same(rc, rg.cpu(), f"{what} reward")
         for a, b in zip(leaves((sc, *dc)), leaves((sg, *dg))):
             same(a, b, f"{what} state or dones")
-    return {"env": env_id, "num_envs": n, "steps": steps, "max_abs_err": max_err,
+    return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "max_abs_err": max_err,
             "bitwise": sorted(set(oc) - set(tol)) + ["state", "dones"]
             + ([] if "reward" in tol else ["reward"])}
 
@@ -454,7 +587,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
         return 1
     import apx_torch  # noqa: F401  (fails here when run without the repo)
-    from apx_torch.bench import bench_circle_square, bench_lidar_rooms, nvidia_smi_line
+    from apx_torch.bench import (bench_circle_square, bench_lidar_rooms,
+                                 bench_lidar_rooms_window, nvidia_smi_line)
     from apx_torch.ops import build
 
     dev = torch.device("cuda")
@@ -492,7 +626,25 @@ def main() -> int:
         print(f"circle square card vs cpu: {json.dumps(phase_card_vs_cpu(dev, env_id, 256, 51, tol))}",
               flush=True)
 
+    k2, k1_window = phase_window_kernels(dev)
+    print(f"kernels: window {json.dumps(k2)}; raycast on windows {json.dumps(k1_window)}",
+          flush=True)
+    window = {"raycast_backend": "pallas_window"}
+    window_path = phase_main_path(dev, **window)
+    print(f"window main path: {json.dumps(window_path)}", flush=True)
+    for r in rows[:2]:
+        r["window"] = {"launches": window_path["launches"][r["name"]],
+                       "by_r": k1_window[r["name"]]}
+    k2["launches"] = window_path["launches"]["window"]
+    rows.append(k2)
+    print(f"window card vs cpu: "
+          f"{json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}, **window))}",
+          flush=True)
+
+    rows.append(phase_chain(dev))
+
     print(f"throughput: {json.dumps(bench_lidar_rooms(N, 1024))}", flush=True)
+    print(f"throughput: {json.dumps(bench_lidar_rooms_window(N, 1024))}", flush=True)
     print(f"throughput: {json.dumps(bench_circle_square(N, 1020))}", flush=True)
 
     print(json.dumps({"kernels": rows}))

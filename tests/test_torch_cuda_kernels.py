@@ -1,5 +1,5 @@
-"""K1 and K3 on the card: the CUDA kernels against their plain PyTorch
-forms, and the envs that run them against the CPU.
+"""K1-K4 on the card: the CUDA kernels against their plain PyTorch forms,
+and the envs that run them against the CPU.
 
 Marked ``cuda``; each test skips (inside the test, via the fixture) when
 no CUDA device is present, as on the CPU-only test machines. On a GPU
@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from apx_torch.data.floor_map import make_maze_bank, make_rooms_bank
-from apx_torch.ops import build, glimpse_cuda, raycast_cuda
+from apx_torch.ops import build, glimpse_cuda, issue_rate_study, raycast_cuda, window_cuda
 from apx_torch.ops.glimpse import extract_glimpse_batch
-from apx_torch.ops.raycast import lidar_directions_np, raycast_grid, seg_length
+from apx_torch.ops.raycast import lidar_directions_np, pad_occupancy, raycast_grid, seg_length
+from apx_torch.ops.window import extract_windows, window_starts
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -187,3 +188,124 @@ def test_image_env_on_card_matches_cpu(dev):
         tree_map(lambda x: b.append(x.cpu()), sg)
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+def _window_casts(dev, n, gen):
+    """n envs of the rooms bank: padded maps, positions on free cells
+    (generic points, the map's corners and edges first), K2's windows
+    around them and the window bases."""
+    bank = make_rooms_bank(16, device=dev)
+    bank_pos = torch.randint(0, bank.num_maps, (n,), generator=gen, device=dev)
+    occ = bank.fetch(bank_pos)
+    k = torch.randint(0, 2**62, (n,), generator=gen, device=dev) % bank.free_counts[bank_pos]
+    flat = bank.free_cells[bank_pos, k]
+    centre = torch.stack([flat % 32, flat // 32], -1).to(torch.float32) + 0.5
+    pos = centre + (torch.rand((n, 2), generator=gen, device=dev) - 0.5) * 0.9
+    edges = torch.tensor([[0, 0], [32, 32], [0, 32], [32, 0], [16, 0], [0, 16], [31.99, 7.5]],
+                         device=dev)
+    pos[:len(edges)] = edges
+    occ_padded = pad_occupancy(occ, 16)
+    starts, base = window_starts(pos, 16, 16)
+    return occ_padded, starts, base, pos, centre
+
+
+def test_window_kernel_bitwise_equal_to_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    occ_padded, starts, *_ = _window_casts(dev, 1000, gen)
+    clamp = torch.tensor([[-3, -8], [60, 48], [100, -100], [0, 41], [-1, 5]], dtype=torch.int32,
+                         device=dev)
+    starts[:len(clamp)] = clamp
+    before = window_cuda.LAUNCHES["window"]
+    got = window_cuda.extract_windows(occ_padded, starts)
+    torch.cuda.synchronize()
+    assert window_cuda.LAUNCHES["window"] == before + 1
+    assert torch.equal(got, extract_windows(occ_padded, starts))
+    assert torch.equal(got.cpu(), extract_windows(occ_padded.cpu(), starts.cpu()))
+
+
+@pytest.mark.parametrize("typed", [False, True])
+def test_kernel_on_windows_bitwise_equal_to_plain(dev, typed):
+    """K1 on K2's (24, 16) windows in the window frame."""
+    gen = torch.Generator(device=dev).manual_seed(12 + int(typed))
+    occ_padded, starts, base, pos, centre = _window_casts(dev, 1000, gen)
+    origin = centre if typed else pos
+    starts, base = window_starts(origin, 16, 16)
+    win = window_cuda.extract_windows(occ_padded, starts).view(torch.bool)
+    beams = torch.from_numpy(lidar_directions_np(8) * np.float32(5.0)).to(dev)
+    move = (torch.rand((1000, 1, 2), generator=gen, device=dev) * 2 - 1) * 0.7
+    for offs in ([beams.expand(1000, -1, -1)] if typed else
+                 [move, torch.eye(2, device=dev) * move, beams.expand(1000, -1, -1)]):
+        o, t = origin - base, (origin[:, None] + offs) - base[:, None]
+        kernel = raycast_cuda.raycast_typed if typed else raycast_cuda.raycast_fast
+        got = kernel(win, o, t)
+        want = raycast_grid(win, o, t, geos_typing=typed)[0]
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("layout", ["wide", "narrow"])
+def test_chain_kernel_bitwise_equal_to_plain(dev, layout):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lanes = issue_rate_study.LANES[layout]
+    args = [torch.rand((512, lanes), generator=gen, device=dev) for _ in range(5)]
+    before = issue_rate_study.LAUNCHES["chain"]
+    got = issue_rate_study.chain_cuda(*args, iters=5, layout=layout)
+    torch.cuda.synchronize()
+    assert issue_rate_study.LAUNCHES["chain"] == before + 1
+    assert torch.equal(_bits(got), _bits(issue_rate_study.chain_body(*args, 5)))
+    cpu = issue_rate_study.chain_body(*(a.cpu() for a in args), 5)
+    assert torch.equal(_bits(got.cpu()), _bits(cpu))
+
+
+def test_window_env_on_card_matches_cpu(dev):
+    import apx_torch
+    from apx_torch.core.env import tree_map
+
+    n = 64
+    runs = [apx_torch.make_vec("LIDARLocMaze-v0", n, device=d, raycast_backend="pallas_window")
+            for d in ("cpu", dev)]
+    gen = torch.Generator().manual_seed(4)
+    draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
+    carry = [v.reset(p, draws={k: x.to(p.device) for k, x in draws.items()})[:2]
+             for v, p in runs]
+    before = window_cuda.LAUNCHES["window"]
+    for _ in range(110):
+        act = torch.rand((n, 2), generator=gen) * 2 - 1
+        draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
+        outs = []
+        for i, (v, p) in enumerate(runs):
+            o, s, r, te, *_ = v.step(carry[i][1], {"action": act.to(p.device),
+                                                  "prediction": torch.zeros(n, 2, device=p.device)},
+                                     p, reset_draws={k: x.to(p.device) for k, x in draws.items()})
+            carry[i] = (o, s)
+            leaves = []
+            tree_map(lambda x: leaves.append(x.cpu()), (o, s, r, te))
+            outs.append(leaves)
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    assert window_cuda.LAUNCHES["window"] == before + 2 * 110  # the step's and the reset's
+
+
+class _FailingLib:
+    @staticmethod
+    def window_launch(*args):
+        return 98  # cudaErrorInvalidDeviceFunction
+
+    chain_launch = window_launch
+
+
+def test_window_raises_on_cuda_without_fallback(dev, monkeypatch):
+    monkeypatch.setattr(build, "load", lambda: _FailingLib)
+    before = window_cuda.LAUNCHES["window"]
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        window_cuda.extract_windows(torch.zeros((4, 64, 64), dtype=torch.bool, device=dev),
+                                    torch.zeros((4, 2), dtype=torch.int32, device=dev))
+    assert window_cuda.LAUNCHES["window"] == before
+
+
+def test_chain_raises_on_cuda_without_fallback(dev, monkeypatch):
+    monkeypatch.setattr(build, "load", lambda: _FailingLib)
+    before = issue_rate_study.LAUNCHES["chain"]
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        issue_rate_study.chain_cuda(*[torch.zeros((8, 16), device=dev)] * 5, iters=2,
+                                    layout="narrow")
+    assert issue_rate_study.LAUNCHES["chain"] == before

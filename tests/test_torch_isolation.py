@@ -30,8 +30,13 @@ obs, s, _ = venv.reset(p, g)
 act = {"action": torch.rand((4, 2), generator=g), "prediction": torch.zeros(4, 2)}
 for _ in range(18):
     obs, s, r, te, tr, _ = venv.step(s, act, p, g)
+venv, p = apx_torch.make_vec("LIDARLocRooms-v0", 8, device="cpu", raycast_backend="pallas_window")
+obs, s, _ = venv.reset(p, g)
+act = {"action": torch.rand((8, 2), generator=g), "prediction": torch.zeros(8, 2)}
+for _ in range(3):
+    obs, s, r, te, tr, _ = venv.step(s, act, p, g)
 import apx_torch.bench, apx_torch.convert, apx_torch.compat.builders, apx_torch.ops.build
-import apx_torch.ops.glimpse_cuda
+import apx_torch.ops.glimpse_cuda, apx_torch.ops.window_cuda, apx_torch.ops.issue_rate_study
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "apx"))
 print("BAD", bad)

@@ -169,8 +169,11 @@ def test_native_draws_in_range(env_id):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend="bitslab2d")
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend="pallas_window")
+    assert p.use_pallas_window  # ported: the K2 window backend
+    for backend in ("bitslab2d", "mxu_window", "windowed", "pallas"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend=backend)
     with pytest.raises(NotImplementedError):
         apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", use_beam_tables=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,0 +1,360 @@
+"""The window backend of the port: K2's plain form and window arithmetic
+against apx's, and ``raycast_backend="pallas_window"`` trajectories of the
+LIDAR envs against apx's env with the same backend.
+
+apx's window path casts in the window's frame (``origin - base``,
+``targets - base``), so XLA rounds it at other sites than the dense path:
+the port's window path is held to apx's window path, bitwise, and
+``test_window_rounding_sites`` shows that each rounding site written in
+the port is the one apx's jitted step has.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_lidar_env import _draw_fn, _eq, _within_one_ulp
+
+import apx
+from apx.compat.builders import reset_from_draws as jax_reset_from_draws
+from apx.ops.window_pallas import extract_windows_pallas, make_window_extractor
+
+import apx_torch
+from apx_torch.compat.builders import reset_from_draws
+from apx_torch.convert import lidar_state_from_numpy
+from apx_torch.core.numerics import div, sqrt
+from apx_torch.envs.lidar_localization import LIDARLocalizationEnv
+from apx_torch.ops import raycast_cuda, window_cuda
+from apx_torch.ops.raycast import pad_occupancy
+from apx_torch.ops.window import WIN_ROWS, extract_windows, window_starts
+
+torch.set_num_threads(1)
+WIN = "pallas_window"
+
+
+def _starts(rng, n, hp=64, wp=64):
+    """Random in-range starts with 8-aligned rows, then the cases
+    ``jax.lax.dynamic_slice`` brings into range: negative (counted from
+    the end), past the end, unaligned."""
+    s = np.stack([rng.integers(0, wp - 16 + 1, n),
+                  rng.integers(0, (hp - WIN_ROWS) // 8 + 1, n) * 8], -1)
+    edge = [[-3, -8], [wp - 4, hp - 8], [wp - 16, hp - WIN_ROWS], [100, -100], [0, 41],
+            [-1, 5], [-70, 70], [3, -1]]
+    s[:len(edge)] = edge
+    return s.astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_extract_windows_matches_apx(n):
+    rng = np.random.default_rng(n)
+    occ = rng.random((n, 64, 64)) < 0.3
+    starts = _starts(rng, n)
+    want = np.asarray(extract_windows_pallas(jnp.asarray(occ), jnp.asarray(starts),
+                                             interpret=True))
+    batched = np.asarray(jax.vmap(make_window_extractor(interpret=True))(
+        jnp.asarray(occ), jnp.asarray(starts)))
+    np.testing.assert_array_equal(batched, want)
+    t_occ, t_starts = torch.from_numpy(occ), torch.from_numpy(starts)
+    got = extract_windows(t_occ, t_starts)
+    assert got.dtype == torch.uint8 and got.shape == (n, WIN_ROWS, 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The wrapper runs the plain form on CPU tensors, and launches nothing.
+    before = window_cuda.LAUNCHES["window"]
+    assert torch.equal(window_cuda.extract_windows(t_occ, t_starts), got)
+    assert window_cuda.LAUNCHES["window"] == before
+
+
+def test_extract_windows_matches_apx_fallback_paths():
+    """apx's unbatched extractor and its vmapped fallback (a batch that is
+    not a multiple of 8) slice with ``dynamic_slice``: the same windows."""
+    rng = np.random.default_rng(3)
+    occ = rng.random((13, 40, 72)) < 0.5
+    starts = _starts(rng, 13, hp=40, wp=72)
+    ex = make_window_extractor(interpret=True)
+    fallback = np.asarray(jax.vmap(ex)(jnp.asarray(occ), jnp.asarray(starts)))
+    single = np.stack([np.asarray(ex(jnp.asarray(o), jnp.asarray(s)))
+                       for o, s in zip(occ, starts)])
+    got = extract_windows(torch.from_numpy(occ), torch.from_numpy(starts)).numpy()
+    np.testing.assert_array_equal(got, fallback)
+    np.testing.assert_array_equal(got, single)
+
+
+def test_window_wrapper_rejects_bad_input():
+    occ = torch.zeros((2, 64, 64), dtype=torch.bool)
+    with pytest.raises(TypeError):
+        window_cuda.extract_windows(occ, torch.zeros((2, 2), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        window_cuda.extract_windows(occ[:, :20], torch.zeros((2, 2), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        window_cuda.extract_windows(occ, torch.zeros((3, 2), dtype=torch.int32))
+
+
+def _apx_windows(params, pos, occ_padded):
+    """apx's own ``_make_window`` (vmapped): (window, base) per position."""
+    env = apx.envs.lidar_localization.LIDARLocalizationEnv(params.map_bank)
+
+    def one(p, o):
+        _, win, base = env._make_window(types.SimpleNamespace(pos=p, occ_padded=o), params)
+        return win, base
+
+    return jax.jit(jax.vmap(one))(jnp.asarray(pos), jnp.asarray(occ_padded))
+
+
+def test_window_starts_match_apx():
+    """``window_starts`` against apx's arithmetic over a grid of positions
+    in [0, 32]^2, integers, half-cells and the edges included. apx's
+    extractor casts its input to uint8, so a map holding each cell's row
+    (then its column) reads apx's start back from the window's first cell.
+    On the env path the starts need no clamp."""
+    _, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=8, raycast_backend=WIN)
+    assert jp.ray_pad == 16
+    xs = np.unique(np.concatenate([np.arange(33.0), np.arange(32.0) + 0.5,
+                                   [1e-7, 7.999999, 31.999998, 32.0]])).astype(np.float32)
+    pos = np.stack(np.meshgrid(xs, xs), -1).reshape(-1, 2)
+    n = pos.shape[0]
+    rows, cols = np.indices((64, 64)).astype(np.uint8)
+    win_x, base = _apx_windows(jp, pos, np.broadcast_to(cols, (n, 64, 64)))
+    win_y, _ = _apx_windows(jp, pos, np.broadcast_to(rows, (n, 64, 64)))
+    x0, y0a = np.asarray(win_x)[:, 0, 0], np.asarray(win_y)[:, 0, 0]
+    starts, tbase = window_starts(torch.from_numpy(pos), 16, 16)
+    assert starts.dtype == torch.int32 and tbase.dtype == torch.float32
+    np.testing.assert_array_equal(starts.numpy(), np.stack([x0, y0a], -1).astype(np.int32))
+    np.testing.assert_array_equal(tbase.numpy(), np.asarray(base))
+    assert starts[:, 0].min() == 9 and starts[:, 0].max() == 41
+    assert starts[:, 1].min() == 8 and starts[:, 1].max() == 40
+    assert (starts[:, 1] % 8 == 0).all()
+
+
+@pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocMazeStatic-v0"])
+def test_window_trajectory_bitwise_equal_to_apx(env_id):
+    n = 16
+    jvenv, jp = apx.make_vec(env_id, num_envs=n, raycast_backend=WIN)
+    venv, p = apx_torch.make_vec(env_id, n, device="cpu", raycast_backend=WIN)
+    assert jp.use_pallas_window and p.use_pallas_window and p.ray_pad == jp.ray_pad
+    key = jax.random.PRNGKey(11)
+    jobs, js, _ = jax.jit(jvenv.reset)(key, jp)
+    draws = _draw_fn(jp)
+    obs, s, _ = venv.reset(p, draws=draws(jax.random.split(key, n)))
+    for k in jobs:
+        _eq(jobs[k], obs[k], f"reset {k}")
+    _eq(js.inner.inner.occ_padded, s.inner.inner.occ_padded, "reset occ_padded")
+    step = jax.jit(jvenv.step)
+    rng = np.random.default_rng(0)
+    ends = 0
+    for t in range(250):
+        kt = jax.random.fold_in(key, t)
+        act = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+        pred = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+        jobs, js, jr, jte, jtr, _ = step(
+            kt, js, {"action": jnp.asarray(act), "prediction": jnp.asarray(pred)}, jp)
+        _, reset_key = jax.random.split(kt)
+        obs, s, r, te, tr, _ = venv.step(
+            s, {"action": torch.from_numpy(act), "prediction": torch.from_numpy(pred)}, p,
+            reset_draws=draws(jax.random.split(reset_key, n)))
+        what = f"{env_id} step {t}"
+        for k in jobs:
+            _eq(jobs[k], obs[k], f"{what} obs {k}")
+        ji, ti = js.inner.inner, s.inner.inner
+        for leaf in ("pos", "initial_pos", "odo_pending", "occ", "occ_padded"):
+            _eq(getattr(ji, leaf), getattr(ti, leaf), f"{what} {leaf}")
+        _eq(np.asarray(ji.map_idx).astype(np.int64), ti.map_idx, f"{what} map_idx")
+        _eq(js.inner.t, s.inner.t, f"{what} t")
+        _eq(jte, te, f"{what} terminated")
+        _eq(jtr, tr, f"{what} truncated")
+        _within_one_ulp(jr, r, f"{what} reward")
+        ends += int(te.sum())
+    assert ends >= 2 * n
+
+
+@pytest.fixture(scope="module")
+def apx_window_steps():
+    """40 steps of apx's jitted window step at N=64 (zero predictions):
+    (pre-step state, post-step obs, post-step state, reset draws, action)."""
+    n = 64
+    jvenv, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=n, raycast_backend=WIN)
+    key = jax.random.PRNGKey(5)
+    _, js, _ = jax.jit(jvenv.reset)(key, jp)
+    step = jax.jit(jvenv.step)
+    draws = _draw_fn(jp)
+    rng = np.random.default_rng(0)
+    out = []
+    for t in range(40):
+        kt = jax.random.fold_in(key, t)
+        act = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+        o, js1, *_ = step(kt, js, {"action": jnp.asarray(act), "prediction": jnp.zeros((n, 2))},
+                          jp)
+        out.append((js, o, js1, draws(jax.random.split(jax.random.split(kt)[1], n)), act))
+        js = js1
+    return n, out
+
+
+def _steps_differing(n, steps):
+    """Steps (each from apx's own pre-step state) whose lidar or position
+    differs from apx's."""
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu", raycast_backend=WIN)
+    bad = 0
+    for js, jobs, js1, draws, act in steps:
+        i = js.inner.inner
+        s = lidar_state_from_numpy(i.occ, i.pos, i.initial_pos, i.odo_pending, i.bank_pos,
+                                   i.map_idx, js.inner.t, js.prev_done, device="cpu",
+                                   occ_padded=i.occ_padded)
+        obs, s1, *_ = venv.step(s, {"action": torch.from_numpy(act),
+                                    "prediction": torch.zeros(n, 2)}, p, reset_draws=draws)
+        same = (np.array_equal(np.asarray(jobs["lidar"]), obs["lidar"].numpy())
+                and np.array_equal(np.asarray(js1.inner.inner.pos), s1.inner.inner.pos.numpy()))
+        bad += not same
+    return bad
+
+
+_cast = LIDARLocalizationEnv._cast
+
+
+def _dense_casts(kernel, state, origin, targets, window, unfused_len=False):
+    return _cast(kernel, state, origin, targets, None, unfused_len)
+
+
+def _targets_from_origin(kernel, state, origin, targets, window, unfused_len=False):
+    occ_win, base = window
+    o = origin - base
+    t = o[:, None, :] + (targets - origin[:, None, :])
+    seg = None
+    if unfused_len:
+        d = t - o[:, None, :]
+        seg = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    return kernel(occ_win, o, t, seg)
+
+
+def _unfused_lengths(kernel, state, origin, targets, window, unfused_len=False):
+    return _cast(kernel, state, origin, targets, window, True)
+
+
+def _fused_move_length(kernel, state, origin, targets, window, unfused_len=False):
+    return _cast(kernel, state, origin, targets, window, False)
+
+
+_SITES = {
+    "window frame -> map frame": ("_cast", _dense_casts),
+    "targets - base -> (origin - base) + offset": ("_cast", _targets_from_origin),
+    "contracted |d| of slide and beams -> unfused": ("_cast", _unfused_lengths),
+    "unfused |d| of the move -> contracted": ("_cast", _fused_move_length),
+    "fused pull-back -> unfused": ("pull_back", None),
+    "step lidar * f32(1/range) -> / range": ("lidar", None),
+}
+
+
+@pytest.mark.parametrize("site", ["as written", *_SITES])
+def test_window_rounding_sites(apx_window_steps, monkeypatch, site):
+    """The port's window step equals apx's jitted window step on every
+    step; written any other way, each rounding site makes steps differ."""
+    n, steps = apx_window_steps
+    if site == "as written":
+        assert _steps_differing(n, steps) == 0
+        return
+    kind, fn = _SITES[site]
+    if kind == "_cast":
+        monkeypatch.setattr(LIDARLocalizationEnv, "_cast", staticmethod(fn))
+    elif kind == "pull_back":
+        grid = raycast_cuda.raycast_grid
+
+        def unfused(occ, origin, targets, seg, eps, geos_typing):
+            dist, t_hit = grid(occ, origin, targets, seg, eps=eps, geos_typing=geos_typing)
+            if not geos_typing:
+                dist = torch.where(torch.isfinite(t_hit), (t_hit * seg - eps).clamp_min(0.0), seg)
+            return dist, t_hit
+
+        monkeypatch.setattr(raycast_cuda, "raycast_grid", unfused)
+    else:
+        observe = LIDARLocalizationEnv._observe
+
+        def divided(self, state, params, typed=False, window=None):
+            obs = observe(self, state, params, typed, window)
+            if not typed:
+                targets = state.pos[:, None, :] + params.beam_offsets
+                dist = self._cast(raycast_cuda.raycast_fast, state, state.pos, targets, window)
+                obs["lidar"] = div(dist, params.lidar_range).clamp(-1.0, 1.0)
+            return obs
+
+        monkeypatch.setattr(LIDARLocalizationEnv, "_observe", divided)
+    assert _steps_differing(n, steps) > 0
+
+
+def test_window_reset_from_host_draws_matches_apx_builder():
+    jvenv, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=8, raycast_backend=WIN)
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", 8, device="cpu", raycast_backend=WIN)
+    maps = np.asarray(jp.map_bank.maps)[[0, 5, 9, 5, 1, 2, 3, 4]]
+    rng = np.random.default_rng(2)
+    pos = np.stack([np.stack(np.nonzero(~m)[::-1], -1)[rng.integers((~m).sum())] for m in maps])
+    draws = {"occ": maps, "pos": (pos + 0.5).astype(np.float32),
+             "map_idx": np.arange(7, 15, dtype=np.uint32)}
+    jobs, js, _ = jax.jit(lambda d: jax_reset_from_draws(jvenv.env, d, jp))(draws)
+    obs, s, _ = reset_from_draws(venv.env, draws, p)
+    for k in jobs:
+        _eq(jobs[k], obs[k], f"obs {k}")
+    _eq(js.inner.occ_padded, s.inner.occ_padded, "occ_padded")
+    assert s.inner.occ_padded.shape == (8, 64, 64)
+
+
+def test_window_state_carried_across_with_convert():
+    """Start the port's window env from apx's mid-episode state."""
+    n = 16
+    jvenv, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=n, raycast_backend=WIN)
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu", raycast_backend=WIN)
+    key = jax.random.PRNGKey(3)
+    _, js, _ = jax.jit(jvenv.reset)(key, jp)
+    step = jax.jit(jvenv.step)
+    rng = np.random.default_rng(1)
+    for t in range(5):
+        act = {"action": jnp.asarray(rng.uniform(-1, 1, (n, 2)), jnp.float32),
+               "prediction": jnp.zeros((n, 2))}
+        _, js, *_ = step(jax.random.fold_in(key, t), js, act, jp)
+    i = js.inner.inner
+    s = lidar_state_from_numpy(i.occ, i.pos, i.initial_pos, i.odo_pending, i.bank_pos,
+                               i.map_idx, js.inner.t, js.prev_done, device="cpu",
+                               occ_padded=i.occ_padded)
+    _eq(i.occ_padded, s.inner.inner.occ_padded, "occ_padded")
+    act = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+    kt = jax.random.fold_in(key, 99)
+    jobs, js2, jr, *_ = step(kt, js, {"action": jnp.asarray(act), "prediction": jnp.zeros((n, 2))},
+                             jp)
+    obs, s2, r, *_ = venv.step(
+        s, {"action": torch.from_numpy(act), "prediction": torch.zeros(n, 2)}, p,
+        reset_draws=_draw_fn(jp)(jax.random.split(jax.random.split(kt)[1], n)))
+    for k in jobs:
+        _eq(jobs[k], obs[k], f"obs {k}")
+    _eq(js2.inner.inner.pos, s2.inner.inner.pos, "pos")
+    _within_one_ulp(jr, r, "reward")
+
+
+def test_window_backend_params_and_range_fallback():
+    """``ray_pad`` and the range condition as apx's; past range 6 the
+    backend casts on the whole map (still carrying occ_padded), equal to
+    the default backend."""
+    for rng_ in (5.0, 6.0, 7.0):
+        _, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=2, raycast_backend=WIN,
+                             lidar_range=rng_)
+        _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend=WIN,
+                                  lidar_range=rng_)
+        assert (p.ray_pad, p.use_pallas_window, p.needs_padded_occ) == (
+            jp.ray_pad, jp.use_pallas_window, jp.needs_padded_occ)
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu")
+    assert not p.needs_padded_occ and not p.use_pallas_window
+    n = 32
+    runs = [apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu", lidar_range=7.0, **kw)
+            for kw in ({}, {"raycast_backend": WIN})]
+    g = torch.Generator().manual_seed(0)
+    draws = runs[0][0].env.draw_reset(n, runs[0][1], g)
+    carry = [v.reset(p, draws=draws)[1] for v, p in runs]
+    assert carry[0].inner.inner.occ_padded is None
+    assert torch.equal(carry[1].inner.inner.occ_padded,
+                       pad_occupancy(carry[1].inner.inner.occ, runs[1][1].ray_pad))
+    for _ in range(30):
+        act = {"action": torch.rand((n, 2), generator=g) * 2 - 1, "prediction": torch.zeros(n, 2)}
+        draws = runs[0][0].env.draw_reset(n, runs[0][1], g)
+        outs = [v.step(c, act, p, reset_draws=draws) for c, (v, p) in zip(carry, runs)]
+        carry = [o[1] for o in outs]
+        for k in outs[0][0]:
+            assert torch.equal(outs[0][0][k], outs[1][0][k]), k
+        assert torch.equal(carry[0].inner.inner.pos, carry[1].inner.inner.pos)
