@@ -8,9 +8,15 @@ every image env, for both bank dtypes: uint8 (divided by 255 on read) and
 float32 (CircleSquare's bank).
 
 What bounds it, and the design (``apx_torch/csrc/glimpse.cu``): bytes —
-the sensor's pixel footprint, the positions and the output. One thread per
-output element reads only the <= 2 x 2 pixels its bilinear hat touches,
-where the TPU kernel had to reduce densely over every row and column.
+the sensor's pixel footprint, the positions and the output. Each output
+reads only the <= 2 x 2 pixels its bilinear hat touches, where the TPU
+kernel had to reduce densely over every row and column. One warp per env,
+one lane per (column, channel) of a sample row: a lane's column taps stay
+in registers, a row's taps are issued once per warp, loads and stores are
+coalesced, and a uint8 pixel becomes exactly ``x / 255`` in three
+instructions instead of an IEEE division. The first design (one thread
+per output element, 64-bit index divisions, every hat recomputed) lost to
+``grid_sample`` at TinyImageNet's geometry; this one does not (PERF.md).
 
 On a CUDA tensor ``glimpse`` launches the kernel (building the library on
 first use, ``apx_torch.ops.build``) or raises; it never falls back to the

@@ -9,6 +9,18 @@ carries every cast of the LIDAR env step:
 * ``raycast_typed(occ, origin, targets)``: the GEOS-typed reset scan,
   equal to ``raycast.raycast_grid(geos_typing=True)``.
 
+What bounds it, and the design (``apx_torch/csrc/raycast_slab.cu``):
+instruction issue — the per-cell slab test is a few min/max/compare
+instructions, and the bytes (the map once, the segments, the output) take
+less time. One warp per env casts all its rays: the map is packed into
+bits in shared memory once, each ray's reciprocals are computed once, and
+each ray tests only the cells whose column and row slab pairs can hold a
+candidate (near <= 1, far >= 0), 32 cells per pass whatever the map's
+width. A cell outside them fails ``a <= b`` exactly, so the result stays
+bitwise the plain form's; for a segment inside the map they lie in its
+bounding box with a one-cell margin. The first design tested every cell
+of the map with one warp per ray and one lane per column.
+
 Like K1 (its ``len`` input), the kernels take the segment lengths from the
 caller: the jitted reference rounds |d| differently at different call
 sites (``apx_torch.envs.lidar_localization``), and the caller knows which

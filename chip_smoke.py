@@ -12,7 +12,9 @@ Phases, one line each; any failure exits non-zero:
    (``glimpse``) against its plain form within 1e-6 (TF32 off) at
    CircleSquare's geometry (float32 bank, 28x28x1, 5x5 sensor) and
    TinyImageNet's (random uint8 bytes, 64x64x3, 10x10 sensor), N = 4096,
-   positions including the +-1 corners and edges. Device time per launch
+   positions including the +-1 corners and edges. K1 also bitwise on
+   ``edge_casts`` (rooms 32x32, maze 21x21, random 24x16, 7x5 and 1x1
+   maps; R = 1, 2, 3, 8, 33; N = 1003). Device time per launch
    of each (CUDA graph replay, CUDA events), of its plain form, of
    ``grid_sample`` for K3 (the library yardstick; the port never calls
    it), and the bound.
@@ -74,18 +76,21 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float32 instructions issued per second: half of FP32_OPS_PER_S, where an
-# FMA is one instruction (132 SMs x 128 lanes x 1.98 GHz). K4's chain is
-# counted in instructions.
+# FMA is one instruction (132 SMs x 128 lanes x 1.98 GHz). K1, K3 and K4
+# are counted in instructions (min, max, compare and select are one each,
+# as an FMA is), so they are priced at this rate.
 FP32_ISSUE_PER_S = FP32_OPS_PER_S / 2
-# Operations per (ray, cell) of K1: fast = max, min, compare, and, select,
-# min-reduce; typed adds the clips, the crossing/graze compares and the
-# three graze reductions.
+# Instructions per (ray, candidate cell) of K1: fast = max, min, compare,
+# and, select, min-reduce; typed adds the clips, the crossing/graze
+# compares and the three graze reductions.
 OPS_PER_CELL = {"raycast_fast": 6, "raycast_typed": 12}
-# Float operations per glimpse output element, as K3 computes it: two
-# coordinates (9 each: centre, FMA, offset, add, clip), two tap pairs
-# (11 each: floor, two hats), the 4-term bilinear (6 mul, 3 add) and the
-# clip (2); a uint8 image adds four divisions by 255.
-OPS_PER_GLIMPSE = {torch.float32: 51, torch.uint8: 55}
+# Instructions of the glimpse: per sample row or column of an env, its
+# coordinate (centre, FMA, offset, add, clip: 9) and its tap pair (floor,
+# two hats: 11); per output element the 4-term bilinear (6 mul, 3 add) and
+# the clip (2), and for a uint8 image the conversion of its four taps
+# (one instruction each, the least a conversion takes).
+OPS_PER_GLIMPSE_TAP = 20
+OPS_PER_GLIMPSE = {torch.float32: 11, torch.uint8: 15}
 GLIMPSE_TOL = 1e-6
 N = 4096
 
@@ -119,14 +124,134 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
-def bound(name: str, n: int, r: int, h: int, w: int) -> tuple[float, str]:
+def candidate_cells(occ, origin, targets) -> int:
+    """Cells, summed over the casts, that can hold a candidate: a cell
+    passes a <= b only if its column's slab pair has near <= 1 and far >= 0
+    and its row's does too, so only the hull of such columns times the hull
+    of such rows can (the cull K1 does; for a segment inside the map it lies
+    in the segment's bounding box with a one-cell margin, clipped to the
+    map). Computed with the plain form's slab pairs on these inputs."""
+    from apx_torch.ops.raycast import _slab_axis
+
+    _, h, w = occ.shape
+    o = origin[:, None, :]
+    d = targets - o
+
+    def hull(size, axis):
+        lo = torch.arange(size, dtype=torch.float32, device=occ.device)
+        near, far = _slab_axis(o[..., axis:axis + 1], d[..., axis:axis + 1], lo, lo + 1.0)
+        ok = (near <= 1.0) & (far >= 0.0)
+        idx = torch.arange(size, device=occ.device)
+        first = torch.where(ok, idx, size).amin(-1)
+        last = torch.where(ok, idx, -1).amax(-1)
+        return (last - first + 1).clamp_min(0)
+
+    return int((hull(w, 0) * hull(h, 1)).sum())
+
+
+def bound(name: str, occ, origin, targets) -> tuple[float, str]:
     """Least time (ms) for the cast: each input read once (occ as bytes,
     origin, targets, seg), the output written once, at the HBM rate; the
-    per-cell operations at the float32 rate. Returns (ms, bound_by)."""
+    per-cell instructions over the cells that can hold a candidate
+    (``candidate_cells``) at the float32 issue rate. Returns (ms,
+    bound_by)."""
+    n, h, w = occ.shape
+    r = targets.shape[1]
     nbytes = n * h * w + 4 * (n * 2 + n * r * 2 + n * r + n * r)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n * r * h * w * OPS_PER_CELL[name] / FP32_OPS_PER_S * 1e3
+    t_ops = candidate_cells(occ, origin, targets) * OPS_PER_CELL[name] / FP32_ISSUE_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+EDGE_MAPS = {"rooms": (32, 32), "maze": (21, 21), "random24x16": (24, 16),
+             "random7x5": (7, 5), "random1x1": (1, 1)}
+EDGE_RAYS = (1, 2, 3, 8, 33)
+EDGE_N = 1003  # not a multiple of K1's 8 envs per block
+
+
+def edge_maps(kind: str, n: int, rng) -> np.ndarray:
+    """(n, H, W) bool maps of one ``EDGE_MAPS`` kind: apx's rooms (32x32)
+    or maze (21x21) generators over 8 seeds, or random walls (35%)."""
+    from apx_torch.data.floor_map import generate_maze_map, generate_rooms_map
+
+    if kind in ("rooms", "maze"):
+        gen = generate_rooms_map if kind == "rooms" else generate_maze_map
+        maps = np.stack([gen(i) for i in range(8)])
+        return maps[rng.integers(0, len(maps), n)]
+    return rng.random((n, *EDGE_MAPS[kind])) < 0.35
+
+
+def edge_casts(occ: np.ndarray, r: int, rng, centres: bool = False):
+    """One origin per map of ``occ`` (n, H, W) and r segments each, float32
+    (n, 2) and (n, r, 2), drawn to probe the slab test's exact edges.
+    ``centres``: origins at free-cell centres (any cell where none is
+    free) casting the 8 beams of range 5, where corner grazes occur.
+    Otherwise origins are generic points, cell centres, lattice points or
+    on a cell face, and each segment is one of: a random angle and length,
+    axis-aligned (dx or dy exactly 0), zero length, a beam of range 5,
+    leaving the map, past a map corner (its box is the whole map), or
+    ending on a lattice point."""
+    from apx_torch.ops.raycast import lidar_directions_np
+
+    n, h, w = occ.shape
+    size = np.array([w, h], np.float64)
+    rows = np.arange(n)
+    beams = lidar_directions_np(8).astype(np.float64) * 5.0
+    if centres:
+        score = np.where(occ.reshape(n, -1), 0.0, 1.0) + rng.random((n, h * w))
+        flat = score.argmax(-1)  # a random free cell, if any
+        origin = (np.stack([flat % w, flat // w], -1) + 0.5).astype(np.float32)
+        d = beams[np.arange(r) % 8][None]
+        return origin, (origin[:, None] + d).astype(np.float32)
+    p = rng.uniform(0, 1, (n, 2)) * size
+    face = p.copy()
+    axis = rng.integers(0, 2, n)
+    face[rows, axis] = np.round(face[rows, axis])
+    origin = np.stack([p, np.floor(p) + 0.5, np.round(p), face])[rng.integers(0, 4, n), rows]
+    origin = origin.astype(np.float32).astype(np.float64)
+    ang = rng.uniform(-np.pi, np.pi, (n, r))
+    unit = np.stack([np.cos(ang), np.sin(ang)], -1)
+    span = float(max(h, w))
+    corner = np.where(rng.random((n, r, 2)) < 0.5, -1.0, size + 1.0)
+    kinds = np.stack([
+        unit * rng.uniform(0, 6, (n, r, 1)),
+        np.eye(2)[rng.integers(0, 2, (n, r))] * rng.uniform(-6, 6, (n, r, 1)),
+        np.zeros((n, r, 2)),
+        beams[rng.integers(0, 8, (n, r))],
+        unit * rng.uniform(span, 3 * span, (n, r, 1)),
+        corner - origin[:, None],
+        np.round(origin[:, None] + unit * rng.uniform(0, 6, (n, r, 1))) - origin[:, None],
+    ])
+    d = kinds[rng.integers(0, len(kinds), (n, r)), rows[:, None], np.arange(r)[None]]
+    return origin.astype(np.float32), (origin[:, None] + d).astype(np.float32)
+
+
+def phase_edge_casts(dev) -> int:
+    """K1 bitwise against its plain form on ``edge_casts`` over every
+    ``EDGE_MAPS`` kind, R in ``EDGE_RAYS``, both kernels, N = ``EDGE_N``.
+    Returns the number of casts checked."""
+    from apx_torch.ops import raycast_cuda
+    from apx_torch.ops.raycast import raycast_grid
+
+    rng = np.random.default_rng(5)
+    checked = 0
+    for kind in EDGE_MAPS:
+        occ_np = edge_maps(kind, EDGE_N, rng)
+        occ = torch.from_numpy(occ_np).to(dev)
+        for r in EDGE_RAYS:
+            for centres in (False, True):
+                origin, targets = (torch.from_numpy(x).to(dev)
+                                   for x in edge_casts(occ_np, r, rng, centres))
+                for typed, kernel in ((False, raycast_cuda.raycast_fast),
+                                      (True, raycast_cuda.raycast_typed)):
+                    got = kernel(occ, origin, targets)
+                    want = raycast_grid(occ, origin, targets, geos_typing=typed)[0]
+                    torch.cuda.synchronize()
+                    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                          f"{kernel.__name__} on {kind} edge casts, R={r}, centres={centres}: "
+                          f"not bitwise equal (max |diff| {(got - want).abs().max().item()})")
+                    checked += got.numel()
+    return checked
 
 
 def kernel_inputs(bank, gen, dev):
@@ -180,7 +305,7 @@ def phase_kernels(dev) -> list[dict]:
             ms = device_ms(lambda: kernel(occ, origin, targets, seg), 50)
             plain_ms = device_ms(
                 lambda: raycast_grid(occ, origin, targets, seg, geos_typing=typed), 4)
-            b_ms, b_by = bound(name, N, r, *occ.shape[1:])
+            b_ms, b_by = bound(name, occ, origin, targets)
             per_r[r] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "max_abs_err": err}
         main_r = max(per_r)  # the beam scan's R = 8
@@ -202,8 +327,10 @@ def phase_kernels(dev) -> list[dict]:
 def glimpse_bound(images, pos, sensor, scale) -> tuple[float, str]:
     """Least time (ms) for the glimpse: the pixels its hats touch in each
     image (distinct nonzero-weight rows x columns, from these positions),
-    the positions and the output, each once, at the HBM rate; its float
-    operations at the float32 rate. Returns (ms, bound_by)."""
+    the positions and the output, each once, at the HBM rate; its
+    instructions (the taps once per sample row and column of each env, the
+    bilinear and clip per output) at the float32 issue rate. Returns (ms,
+    bound_by)."""
     from apx_torch.ops.glimpse import glimpse_coords, interp_weights
 
     n, h, w, c = images.shape
@@ -214,7 +341,8 @@ def glimpse_bound(images, pos, sensor, scale) -> tuple[float, str]:
     nbytes = int((n_rows * n_cols).sum()) * c * images.element_size() + pos.numel() * 4 \
         + outputs * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = outputs * OPS_PER_GLIMPSE[images.dtype] / FP32_OPS_PER_S * 1e3
+    ops = outputs * OPS_PER_GLIMPSE[images.dtype] + n * (sensor[0] + sensor[1]) * OPS_PER_GLIMPSE_TAP
+    t_ops = ops / FP32_ISSUE_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -368,7 +496,7 @@ def phase_window_kernels(dev) -> tuple[dict, dict]:
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                   f"{name} on windows, R={t.shape[1]}: not bitwise equal (max |diff| {err})")
             r = t.shape[1]
-            w_ms, w_by = bound(name, N, r, *win.shape[1:])
+            w_ms, w_by = bound(name, win, o, t)
             per_kernel.setdefault(name, {})[r] = {
                 "ms": device_ms(lambda: kernel(win, o, t, seg), 50),
                 "plain_ms": device_ms(lambda: raycast_grid(win, o, t, seg, geos_typing=typed), 4),
@@ -607,6 +735,11 @@ def main() -> int:
         f"{r['name']} max|d|={r['max_abs_err']} " + ", ".join(
             f"R={k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms)"
             for k, v in r["by_r"].items()) for r in rows), flush=True)
+    edge = phase_edge_casts(dev)
+    print(f"kernels: K1 bitwise on {edge} edge casts ({', '.join(EDGE_MAPS)}; R in {EDGE_RAYS}; "
+          f"N={EDGE_N})", flush=True)
+    for r in rows:
+        r["edge_casts_checked"] = edge
     k3 = phase_glimpse_kernel(dev)
     print(f"kernels: glimpse {json.dumps(k3['by_geometry'])}", flush=True)
 

@@ -18,6 +18,7 @@ from apx_torch.ops import build, glimpse_cuda, issue_rate_study, raycast_cuda, w
 from apx_torch.ops.glimpse import extract_glimpse_batch
 from apx_torch.ops.raycast import lidar_directions_np, pad_occupancy, raycast_grid, seg_length
 from apx_torch.ops.window import extract_windows, window_starts
+from chip_smoke import EDGE_MAPS, EDGE_N, EDGE_RAYS, edge_casts, edge_maps
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -51,12 +52,22 @@ def _bits(x):
 
 
 @pytest.mark.parametrize("typed", [False, True])
-@pytest.mark.parametrize("kind", ["rooms", "maze"])
+@pytest.mark.parametrize("kind,r", [("rooms", None), ("maze", None),
+                                    *((k, r) for k in EDGE_MAPS for r in EDGE_RAYS)])
 @pytest.mark.parametrize("centres", [False, True])
-def test_kernel_bitwise_equal_to_plain(dev, kind, typed, centres):
-    bank = (make_rooms_bank if kind == "rooms" else make_maze_bank)(16, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(int(typed) + 2 * int(centres))
-    occ, origin, targets = _casts(bank, 1000, gen, dev, centres)
+def test_kernel_bitwise_equal_to_plain(dev, kind, r, typed, centres):
+    """r = None: the env's casts on bank maps (1000 envs, 13 segments);
+    else ``chip_smoke.edge_casts`` with r segments on EDGE_N envs."""
+    seed = int(typed) + 2 * int(centres)
+    if r is None:
+        bank = (make_rooms_bank if kind == "rooms" else make_maze_bank)(16, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        occ, origin, targets = _casts(bank, 1000, gen, dev, centres)
+    else:
+        rng = np.random.default_rng(seed + 4 * r)
+        occ_np = edge_maps(kind, EDGE_N, rng)
+        origin, targets = edge_casts(occ_np, r, rng, centres)
+        occ, origin, targets = (torch.from_numpy(x).to(dev) for x in (occ_np, origin, targets))
     kernel = raycast_cuda.raycast_typed if typed else raycast_cuda.raycast_fast
     before = raycast_cuda.LAUNCHES[kernel.__name__]
     got = kernel(occ, origin, targets)
@@ -116,21 +127,29 @@ def test_numerics_on_card(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
-@pytest.mark.parametrize("shape,sensor,scale", [((28, 28, 1), (5, 5), 1.0),
-                                                ((64, 64, 3), (10, 10), 1.0),
-                                                ((33, 47, 3), (4, 7), 2.5)])
-def test_glimpse_kernel_matches_plain(dev, shape, sensor, scale, dtype):
+@pytest.mark.parametrize("shape,sensor,scale,n", [((28, 28, 1), (5, 5), 1.0, 1000),
+                                                  ((64, 64, 3), (10, 10), 1.0, 1000),
+                                                  ((33, 47, 3), (4, 7), 2.5, 1000),
+                                                  ((28, 28, 1), (3, 6), 0.5, 4097),
+                                                  ((64, 64, 3), (6, 12), 2.0, 1),
+                                                  ((20, 40, 1), (7, 32), 0.5, 4097),
+                                                  ((20, 30, 1), (7, 2), 2.0, 4097),
+                                                  ((16, 16, 3), (4, 4), 0.5, 1),
+                                                  ((64, 64, 3), (10, 10), 0.5, 4097)])
+def test_glimpse_kernel_matches_plain(dev, shape, sensor, scale, n, dtype):
     """K3 within 1e-6 of its plain form (float32 rounding of a 4-term
-    bilinear; TF32 off for the plain form's products)."""
+    bilinear; TF32 off for the plain form's products), on square and
+    non-square sensors, C = 1 and 3, sample rows of s1 * C below, at and
+    above the warp's 32 lanes, and N = 1, 1000, 4097."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(shape[0])
-    n = 1000
     if dtype == torch.uint8:
         images = torch.randint(0, 256, (n, *shape), generator=gen, device=dev, dtype=torch.uint8)
     else:
         images = torch.rand((n, *shape), generator=gen, device=dev)
     pos = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
-    pos[:6] = torch.tensor([[1, 1], [-1, -1], [1, -1], [-1, 1], [0, 1], [1, 0]], device=dev)
+    edges = torch.tensor([[1, 1], [-1, -1], [1, -1], [-1, 1], [0, 1], [1, 0]], device=dev)
+    pos[:6] = edges[:n]
     before = glimpse_cuda.LAUNCHES["glimpse"]
     got = glimpse_cuda.glimpse(images, pos, sensor, scale)
     torch.cuda.synchronize()
@@ -139,6 +158,15 @@ def test_glimpse_kernel_matches_plain(dev, shape, sensor, scale, dtype):
     assert got.shape == want.shape and (got - want).abs().max().item() <= 1e-6
     cpu = extract_glimpse_batch(images.cpu(), pos.cpu(), sensor, scale)
     assert (got.cpu() - cpu).abs().max().item() <= 1e-6
+
+
+def test_glimpse_uint8_conversion_on_card(dev):
+    """K3 converts every uint8 value to i / 255 correctly rounded: a 1x1
+    sensor on a 1x1 image returns the converted pixel itself."""
+    images = torch.arange(256, dtype=torch.uint8, device=dev).reshape(256, 1, 1, 1)
+    got = glimpse_cuda.glimpse(images, torch.zeros((256, 2), device=dev), (1, 1))
+    table = torch.arange(256, dtype=torch.float32) / 255
+    assert torch.equal(got.reshape(256).cpu(), table)
 
 
 def test_glimpse_raises_on_cuda_without_fallback(dev, monkeypatch):

@@ -18,6 +18,7 @@ from apx.ops.glimpse import extract_glimpse_batch as jax_glimpse
 from apx.ops.glimpse import glimpse_coords as jax_coords
 from apx.ops.glimpse_pallas import glimpse_batch_lane_major
 
+from apx_torch.core.numerics import fma
 from apx_torch.ops import build, glimpse_cuda
 from apx_torch.ops.geometry import project_sphere
 from apx_torch.ops.glimpse import extract_glimpse_batch, glimpse_coords, interp_weights
@@ -86,6 +87,27 @@ def test_interp_weights_are_two_tap_hats():
     assert torch.allclose(w.sum(-1), torch.ones(7))
     assert w[5, 0] == 1 and w[6, 7] == 1  # clipped into the image
     assert w[1, 0] == 0.75 and w[1, 1] == 0.25
+
+
+def test_uint8_conversion_is_division_by_255():
+    """K3 converts a uint8 pixel x as q = RN(x r), RN(q + RN(x - 255 q) r)
+    with r = RN(1/255), each FMA rounded once (``pixel`` in
+    apx_torch/csrc/glimpse.cu). Over all 256 values that is the correctly
+    rounded x / 255, i.e. torch.arange(256) / 255 bitwise, numpy's and the
+    plain form's bits; the product x r alone is not. A 1x1 sensor on a 1x1
+    image returns the converted pixel."""
+    x = torch.arange(256, dtype=torch.float32)
+    table = x / 255
+    np.testing.assert_array_equal(table.numpy(),
+                                  np.arange(256, dtype=np.float32) / np.float32(255))
+    r = torch.full((256,), float.fromhex("0x1.010102p-8"), dtype=torch.float32)
+    assert r[0] == torch.tensor(1.0) / 255
+    q = x * r
+    assert not torch.equal(q, table)
+    assert torch.equal(fma(fma(-q, torch.full_like(q, 255.0), x), r, q), table)
+    images = torch.arange(256, dtype=torch.uint8).reshape(256, 1, 1, 1)
+    got = glimpse_cuda.glimpse(images, torch.zeros((256, 2)), (1, 1))
+    assert torch.equal(got.reshape(256), table)
 
 
 def test_unported_window_raises():

@@ -15,13 +15,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from apx.data.floor_map import generate_maze_map, generate_rooms_map
 from apx.ops.raycast import lidar_directions_np as jax_dirs_np
 from apx.ops.raycast import raycast_grid as jax_raycast
 
-from apx_torch.ops.raycast import lidar_directions, lidar_directions_np, raycast_grid
+from apx_torch.core.numerics import fma
+from apx_torch.ops.raycast import (_slab_axis, lidar_directions, lidar_directions_np,
+                                   raycast_grid, seg_length)
 from apx_torch.ops.raycast_cuda import LAUNCHES, raycast_fast, raycast_typed
+from chip_smoke import EDGE_MAPS, EDGE_RAYS, edge_casts, edge_maps
 
 torch.set_num_threads(1)
 
@@ -137,6 +142,109 @@ def test_cpu_wrappers_run_the_plain_forms():
         raycast_fast(args[0].float(), *args[1:])
     with pytest.raises(ValueError):
         raycast_fast(args[0], args[1][:4], args[2])
+
+
+def _hull(near, far, size):
+    """(N, R, K) slab pairs of K cells on one axis -> (N, R, K) mask of the
+    hull of the cells with near <= 1 and far >= 0 (NaN fails both)."""
+    ok = (near <= 1.0) & (far >= 0.0)
+    idx = torch.arange(size)
+    first = torch.where(ok, idx, size).amin(-1, keepdim=True)
+    last = torch.where(ok, idx, -1).amax(-1, keepdim=True)
+    return (idx >= first) & (idx <= last)
+
+
+def _culled_cast(occ, origin, targets, seg, typed, eps=1e-3):
+    """The cast as the redesigned K1 evaluates it: the slab test only on the
+    cells of the column hull times the row hull (``_hull``), the flanks of a
+    graze read from the whole map. Returns distances and the tested-cell
+    mask (N, R, H, W)."""
+    n, h, w = occ.shape
+    o = origin[:, None, :]
+    d = targets - o
+    col = torch.arange(w, dtype=torch.float32)
+    row = torch.arange(h, dtype=torch.float32)
+    nx1, fx1 = _slab_axis(o[..., 0:1], d[..., 0:1], col, col + 1.0)
+    ny1, fy1 = _slab_axis(o[..., 1:2], d[..., 1:2], row, row + 1.0)
+    cells = _hull(ny1, fy1, h)[..., :, None] & _hull(nx1, fx1, w)[..., None, :]
+    walls = occ[:, None] & cells
+    nx, fx = nx1[:, :, None, :], fx1[:, :, None, :]
+    ny, fy = ny1[:, :, :, None], fy1[:, :, :, None]
+    inf = float("inf")
+
+    def pulled(t):
+        return torch.where(torch.isfinite(t), fma(t, seg, -eps).clamp_min(0.0), seg)
+
+    if not typed:
+        a = torch.maximum(nx.clamp_min(0.0), ny.clamp_min(0.0))
+        b = torch.minimum(fx.clamp_max(1.0), fy.clamp_max(1.0))
+        return pulled(torch.where(walls & (a <= b), a, inf).amin(dim=(-2, -1))), cells
+    a = torch.maximum(nx, ny).clamp_min(0.0)
+    b = torch.minimum(fx, fy).clamp_max(1.0)
+    valid = walls & (a <= b)
+    nd = valid & (a < b)
+    pad = torch.nn.functional.pad(occ, (1, 1, 1, 1))[:, None]
+    xm, xp = pad[..., 1:-1, :-2], pad[..., 1:-1, 2:]
+    ym, yp = pad[..., :-2, 1:-1], pad[..., 2:, 1:-1]
+    sx = (d[..., 0] >= 0.0)[:, :, None, None]
+    sy = (d[..., 1] >= 0.0)[:, :, None, None]
+    flank = torch.where(nx >= ny, torch.where(sy, yp, ym) | torch.where(sx, xm, xp),
+                        torch.where(sx, xp, xm) | torch.where(sy, ym, yp))
+    iso = valid & (a == b) & ~flank
+    t_nd = torch.where(nd, a, inf).amin(dim=(-2, -1))
+    iso_min = torch.where(iso, a, inf).amin(dim=(-2, -1))
+    iso_max = torch.where(iso, a, -inf).amax(dim=(-2, -1))
+    any_nd, any_iso = nd.flatten(2).any(-1), iso.flatten(2).any(-1)
+    points = ~any_nd & any_iso
+    t_hit = torch.where(any_nd & ~any_iso, t_nd, torch.where(points, iso_min, inf))
+    return torch.where(points & (iso_min == iso_max), 0.0, pulled(t_hit)), cells
+
+
+def _check_cull(occ_np, origin, targets):
+    """The culled cast equals raycast_grid bitwise for both typings, and for
+    segments inside the map its cells lie in the segment's bounding box
+    with a one-cell margin."""
+    occ = torch.from_numpy(occ_np)
+    origin, targets = torch.from_numpy(origin), torch.from_numpy(targets)
+    seg = seg_length(targets - origin[:, None])
+    for typed in (False, True):
+        want = raycast_grid(occ, origin, targets, seg, geos_typing=typed)[0]
+        got, cells = _culled_cast(occ, origin, targets, seg, typed)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), typed
+    _, h, w = occ.shape
+    ends = torch.stack([origin[:, None].expand_as(targets), targets])  # (2, N, R, 2)
+    inside = ((ends >= 0) & (ends <= torch.tensor([w, h]))).flatten(-2).all(-1).all(0)
+    lo = ends.amin(0).floor() - 1  # (N, R, 2)
+    hi = ends.amax(0).floor() + 1
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    in_box = ((xs >= lo[..., 0, None, None]) & (xs <= hi[..., 0, None, None])
+              & (ys >= lo[..., 1, None, None]) & (ys <= hi[..., 1, None, None]))
+    assert not (cells & ~in_box)[inside].any()
+    return cells
+
+
+@settings(max_examples=30, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2**31 - 1), kind=st.sampled_from(sorted(EDGE_MAPS)),
+       r=st.sampled_from(EDGE_RAYS), centres=st.booleans())
+def test_cull_bitwise_equal_to_dense(seed, kind, r, centres):
+    """K1's cull (only the hull of the columns and of the rows whose slab
+    pair has near <= 1 and far >= 0) changes no distance: drawn cases of
+    ``chip_smoke.edge_casts`` on rooms, maze and random maps (32x32, 21x21,
+    24x16, 7x5, 1x1), numpy-seeded from the drawn seed."""
+    rng = np.random.default_rng(seed)
+    occ = edge_maps(kind, 12, rng)
+    _check_cull(occ, *edge_casts(occ, r, rng, centres))
+
+
+@pytest.mark.parametrize("kind", ["rooms", "maze"])
+def test_cull_on_centre_scans_with_grazes(kind):
+    """The cull on the reset scans from every free-cell centre, where the
+    typed scan meets isolated grazes; a cast tests far fewer cells than
+    the map holds."""
+    occ = _maps()[kind]
+    origin, targets = _centre_scans(occ)
+    cells = _check_cull(np.broadcast_to(occ, (len(origin), *occ.shape)).copy(), origin, targets)
+    assert cells.flatten(2).sum(-1).float().mean() < 0.15 * occ.size
 
 
 def _pallas_k1(occ, origins, targets, block_envs=8, eps=1e-3):
