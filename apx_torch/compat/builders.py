@@ -14,7 +14,6 @@ import torch
 
 from ..envs.image_classification import ImageClassificationEnv
 from ..envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
-from ..ops.raycast import pad_occupancy
 from ..wrappers.base import APWrapper
 
 __all__ = ["reset_from_draws"]
@@ -44,8 +43,6 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
             pos=pos,
             initial_pos=pos,
             odo_pending=torch.ones(n, dtype=torch.bool, device=dev),
-            # As in reset_from_draws: only the window backend reads it.
-            occ_padded=pad_occupancy(occ, params.ray_pad) if params.needs_padded_occ else None,
         )
         obs = {
             **base._observe(state, params, typed=True),

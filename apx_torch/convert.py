@@ -48,10 +48,12 @@ def map_bank_from_numpy(maps, indices, free_counts, free_cells, device="cuda",
 
 
 def lidar_state_from_numpy(occ, pos, initial_pos, odo_pending, bank_pos, map_idx,
-                           t, prev_done, device="cuda", occ_padded=None) -> VectorState:
+                           t, prev_done, device="cuda") -> VectorState:
     """Vector state of ``TimeLimit(LIDARLocalizationEnv)`` from apx's leaves
-    (``state.inner.inner.*``, ``state.inner.t``, ``state.prev_done``);
-    ``occ_padded`` is apx's leaf of the window backend (None otherwise)."""
+    (``state.inner.inner.*``, ``state.inner.t``, ``state.prev_done``), under
+    either backend. apx's window backend also carries the ray-padded map,
+    ``pad_occupancy(occ, ray_pad)``, which the port derives from ``occ``
+    and does not carry."""
     inner = LIDARLocalizationState(
         occ=_t(np.asarray(occ, dtype=np.bool_), torch.bool, device),
         bank_pos=_t(np.asarray(bank_pos).astype(np.int64), torch.int64, device),
@@ -59,8 +61,6 @@ def lidar_state_from_numpy(occ, pos, initial_pos, odo_pending, bank_pos, map_idx
         pos=_t(np.asarray(pos, dtype=np.float32), torch.float32, device),
         initial_pos=_t(np.asarray(initial_pos, dtype=np.float32), torch.float32, device),
         odo_pending=_t(np.asarray(odo_pending, dtype=np.bool_), torch.bool, device),
-        occ_padded=(None if occ_padded is None
-                    else _t(np.asarray(occ_padded, dtype=np.bool_), torch.bool, device)),
     )
     return VectorState(
         inner=TimeLimitState(inner=inner, t=_t(np.asarray(t).astype(np.int32), torch.int32, device)),

@@ -24,7 +24,10 @@ Two of apx's raycast backends are ported:
   (``origin - base``, ``targets - base``); the reset cuts its own window
   from the reset position for the typed scan. This rounds at other sites
   than the dense form, so it equals apx's ``"pallas_window"`` env, not the
-  default one.
+  default one. apx carries the ray-padded map, (N, H + 2 pad, W + 2 pad),
+  as a state leaf; the port does not: K2 cuts the padded map's window from
+  ``occ`` itself (the padding is zeros), so the state keeps the same six
+  leaves under both backends, and every obs, reward and done stays apx's.
 
 The other apx backends are not ported (ROADMAP.md, queue 1).
 """
@@ -44,7 +47,7 @@ from ..core.losses import LossFn
 from ..core.numerics import div, fma, sqrt, sum_squares
 from ..core.spaces import Box, DictSpace, Image, Space
 from ..data.floor_map import MapBank
-from ..ops.raycast import lidar_directions_np, pad_occupancy, seg_length
+from ..ops.raycast import lidar_directions_np, seg_length
 from ..ops.raycast_cuda import raycast_fast, raycast_typed
 from ..ops.window import WIN, window_starts
 from ..ops.window_cuda import extract_windows
@@ -84,16 +87,11 @@ class LIDARLocalizationParams:
 
     @property
     def ray_pad(self) -> int:
-        """Padding of occ_padded: room for the range and, for K2's 8-aligned
-        24-row windows, at least 16 cells (apx's ``ray_pad``)."""
+        """Padding of apx's ray-padded map, which sets the window starts:
+        room for the range and, for K2's 8-aligned 24-row windows, at least
+        16 cells (apx's ``ray_pad``)."""
         base = max(math.ceil(self.lidar_range) + 1, WIN // 2)
         return max(base, 16) if self.raycast_backend == "pallas_window" else base
-
-    @property
-    def needs_padded_occ(self) -> bool:
-        """Only the window backend reads state.occ_padded; under "auto" it is
-        None, so the state carries no dead buffer."""
-        return self.raycast_backend == "pallas_window"
 
     @property
     def use_pallas_window(self) -> bool:
@@ -138,9 +136,6 @@ class LIDARLocalizationState:
     # odo_pending is True until that step locks it in.
     initial_pos: torch.Tensor  # (N, 2) f32
     odo_pending: torch.Tensor  # (N,) bool
-    # (N, H+2p, W+2p) bool, ray_pad'ded copy of occ: present only for the
-    # window backend (params.needs_padded_occ), None otherwise.
-    occ_padded: torch.Tensor | None = None
 
 
 class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState]):
@@ -181,12 +176,13 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
     # ---- casts ----------------------------------------------------------------
     def _make_window(self, state, params):
         """One occupancy window shared by a step's casts, cut by K2 from
-        state.occ_padded around floor(state.pos): ((N, 24, 16) bool window,
-        (N, 2) f32 base), or None when the casts run on the whole map."""
+        the ray-padded map around floor(state.pos), read from state.occ:
+        ((N, 24, 16) bool window, (N, 2) f32 base), or None when the casts
+        run on the whole map."""
         if not params.use_pallas_window:
             return None
         starts, base = window_starts(state.pos, WIN, params.ray_pad)
-        return extract_windows(state.occ_padded, starts, WIN).view(torch.bool), base
+        return extract_windows(state.occ, starts, params.ray_pad, WIN).view(torch.bool), base
 
     @staticmethod
     def _cast(kernel, state, origin, targets, window, unfused_len: bool = False):
@@ -266,7 +262,6 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
             pos=pos,
             initial_pos=pos,
             odo_pending=torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device),
-            occ_padded=pad_occupancy(occ, params.ray_pad) if params.needs_padded_occ else None,
         )
         return self._observe(state, params, typed=True), state, self._info(state)
 

@@ -67,7 +67,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 6, ctypes.c_float, ctypes.c_float,
                        ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
-    lib.window_launch.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 4, ptr]
+    lib.window_launch.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 5, ptr]
     lib.window_launch.restype = ctypes.c_int
     lib.chain_launch.argtypes = [*[ptr] * 6, *[ctypes.c_int] * 4, ptr]
     lib.chain_launch.restype = ctypes.c_int

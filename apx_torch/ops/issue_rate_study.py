@@ -19,10 +19,19 @@ card's float32 issue rate (SMs x 128 float32 lanes x the maximum SM clock,
 read from the device and from nvidia-smi, an FMA counting as one
 operation) checks the method.
 
-    python -m apx_torch.ops.issue_rate_study
+K4 runs the iteration loop unrolled by a compile-time factor, with two
+independent elements per thread interleaved (the kernel's source note).
+
+    python -m apx_torch.ops.issue_rate_study [--sass FILE]
 
 prints one JSON object with both layouts, the penalty, the rate it was
 held to, ``device_kind`` and the power limit. It runs on the card only.
+``--sass FILE`` instead reads FILE (``-`` for stdin), the text that
+``cuobjdump -sass`` prints for the built kernel library, and prints what
+the compiler made of one chain iteration (``sass_loop_counts``): the
+instructions of each chain kernel's main loop by class, per chain
+iteration, beside the 16 operations that ``CHAIN_OPS_PER_ELEM`` prices.
+It needs no card.
 
 ``chain_cuda`` launches K4 on CUDA tensors or raises, and runs the plain
 form ``chain_body`` on CPU tensors; ``LAUNCHES`` counts kernel launches.
@@ -30,14 +39,16 @@ form ``chain_body`` on CPU tensors; ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
+import argparse
 import json
+import re
 
 import torch
 
 from . import build
 
 __all__ = ["CHAIN_OPS_PER_ELEM", "LANES", "chain_body", "chain_cuda", "measure", "issue_rate",
-           "LAUNCHES", "reset_launch_counts"]
+           "LAUNCHES", "reset_launch_counts", "sass_loop_counts"]
 
 # Ops per element per iteration of the chain (2 mul, 2 sub, 1 add at the
 # tail + 3 max, 3 min, 2 compare, 1 and, 1 select, and the x update's
@@ -144,9 +155,93 @@ def measure(rows: int = 4096, iters: int = 512, reps: int = 20, seed: int = 0) -
     return out
 
 
-def main() -> None:
+# SASS opcodes by the part of the chain they carry out; others are "other".
+# The chain does no integer work, so integer adds and compares in its loop
+# (per-thread or uniform) are the loop's own.
+SASS_CLASSES = {
+    "FMNMX": "min/max", "FSETP": "compare", "FSEL": "select", "SEL": "select",
+    "PLOP3": "predicate logic", "FADD": "add/mul/fma", "FMUL": "add/mul/fma",
+    "FFMA": "add/mul/fma", "IADD3": "loop control", "VIADD": "loop control",
+    "UIADD3": "loop control", "ISETP": "loop control", "UISETP": "loop control",
+    "BRA": "loop control",
+}
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_TARGET = re.compile(r"\bBRA\S*\s+`?\(?(\.L_x_\d+|0x[0-9a-f]+)\)?")
+
+
+def _opcode(instr: str) -> str:
+    """Base opcode of one SASS instruction: predicate guard and modifiers
+    dropped (``@!P0 FSETP.GT.AND P0, ...`` -> ``FSETP``)."""
+    words = instr.split()
+    if words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0]
+
+
+def sass_loop_counts(sass: str, kernel: str = "chain_kernel") -> dict:
+    """Instructions per chain iteration in the main loop of every function
+    of ``cuobjdump -sass`` text whose name contains ``kernel``.
+
+    A loop is a backward branch to a label or an address; the main loop is
+    the one with the most FFMA (every chain iteration issues exactly one,
+    the x update), and each class count is divided by its FFMA count.
+    Functions are keyed "wide" / "narrow" by chain_kernel's template
+    argument."""
+    out = {}
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass, re.S):
+        if kernel not in name:
+            continue
+        instrs, targets = [], {}  # targets: label or address -> instruction index
+        for line in body.splitlines():
+            m = _SASS_LABEL.match(line)
+            if m:
+                targets[m.group(1)] = len(instrs)
+                continue
+            m = _SASS_INSTR.search(line)
+            if m:
+                targets[f"0x{int(m.group(1), 16):x}"] = len(instrs)
+                instrs.append(m.group(2))
+        loops = []
+        for end, ins in enumerate(instrs):
+            m = _SASS_TARGET.search(ins)
+            if m is None or _opcode(ins) != "BRA":
+                continue
+            key = m.group(1)
+            start = targets.get(f"0x{int(key, 16):x}" if key.startswith("0x") else key)
+            if start is not None and start <= end:
+                loops.append([_opcode(x) for x in instrs[start:end + 1]])
+        if not loops:
+            raise ValueError(f"no loop in the SASS of {name}")
+        body_ops = max(loops, key=lambda ops: ops.count("FFMA"))
+        iters = body_ops.count("FFMA")
+        by_class: dict[str, int] = {}
+        for op in body_ops:
+            cls = SASS_CLASSES.get(op, "other")
+            by_class[cls] = by_class.get(cls, 0) + 1
+        layout = "narrow" if "ILb1E" in name else "wide"
+        out[layout] = {
+            "function": name,
+            "loop_instructions": len(body_ops),
+            "chain_iterations_per_loop_trip": iters,
+            "per_iteration": {k: v / iters for k, v in sorted(by_class.items())},
+            "instructions_per_iteration": len(body_ops) / iters,
+            "opcodes_per_iteration": {op: body_ops.count(op) / iters for op in sorted(set(body_ops))},
+        }
+    return out
+
+
+def main(argv=None) -> None:
     from ..bench import nvidia_smi_line
 
+    ap = argparse.ArgumentParser(description="K4's issue-rate study on the card")
+    ap.add_argument("--sass", type=argparse.FileType("r"), metavar="FILE",
+                    help="print the chain's SASS counts from FILE (cuobjdump -sass text) instead")
+    args = ap.parse_args(argv)
+    if args.sass is not None:
+        print(json.dumps({"ops_priced_per_iteration": CHAIN_OPS_PER_ELEM,
+                          **sass_loop_counts(args.sass.read())}))
+        return
     res = measure()
     res["device_kind"] = torch.cuda.get_device_name(0)
     res["nvidia_smi"] = nvidia_smi_line()

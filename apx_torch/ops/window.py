@@ -11,6 +11,12 @@ alignment offset; the window base absorbs the offset. The port keeps that
 geometry, so its casts run on the same (24, 16) windows, in the same
 window frame, as apx's.
 
+apx cuts its windows from a ray-padded copy of the map that it carries as
+a leaf of the env state. The padding is all zeros, so the window
+cut at ``starts`` from ``pad_occupancy(occ, pad)`` is a function of the
+unpadded ``occ``, ``starts`` and ``pad`` alone: ``extract_windows``
+computes it from ``occ`` and the port's state carries no padded copy.
+
 ``extract_windows`` is what the CUDA kernel in ``apx_torch/csrc/window.cu``
 is held to bitwise, and what runs when the tensors lie on the CPU
 (``apx_torch.ops.window_cuda`` dispatches).
@@ -58,15 +64,23 @@ def clamp_starts(starts: torch.Tensor, hp: int, wp: int, win: int) -> tuple[torc
             _dynamic_slice_start(starts[:, 1], hp, WIN_ROWS))
 
 
-def extract_windows(occ_padded: torch.Tensor, starts: torch.Tensor, win: int = WIN) -> torch.Tensor:
-    """(N, WIN_ROWS, win) uint8 windows ``occ_padded[n, y0:y0+24, x0:x0+win]``
-    of occ_padded (N, Hp, Wp) bool at starts (N, 2) int32 = (x0, y0), with
-    the starts brought into range as ``jax.lax.dynamic_slice`` brings them
-    (``clamp_starts``)."""
-    n, hp, wp = occ_padded.shape
-    x0, y0 = clamp_starts(starts.to(torch.int64), hp, wp, win)
-    dev = occ_padded.device
-    rows = y0[:, None] + torch.arange(WIN_ROWS, device=dev)  # (N, 24)
-    cols = x0[:, None] + torch.arange(win, device=dev)  # (N, win)
+def extract_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int,
+                    win: int = WIN) -> torch.Tensor:
+    """(N, WIN_ROWS, win) uint8 windows ``padded[n, y0:y0+24, x0:x0+win]``
+    of ``padded = pad_occupancy(occ, pad)``, computed from occ (N, H, W)
+    bool without building the padded copy. starts (N, 2) int32 = (x0, y0)
+    are in padded coordinates and are first brought into range against the
+    padded dimensions (H + 2 pad, W + 2 pad) as ``jax.lax.dynamic_slice``
+    brings them (``clamp_starts``); window cell (r, c) is then
+    ``occ[n, y0 + r - pad, x0 + c - pad]`` where that cell lies inside the
+    map, and 0 elsewhere."""
+    n, h, w = occ.shape
+    x0, y0 = clamp_starts(starts.to(torch.int64), h + 2 * pad, w + 2 * pad, win)
+    dev = occ.device
+    rows = y0[:, None] + torch.arange(-pad, WIN_ROWS - pad, device=dev)  # (N, 24) map rows
+    cols = x0[:, None] + torch.arange(-pad, win - pad, device=dev)  # (N, win) map columns
+    inside = (((rows >= 0) & (rows < h))[:, :, None]
+              & ((cols >= 0) & (cols < w))[:, None, :])
     env = torch.arange(n, device=dev)[:, None, None]
-    return occ_padded[env, rows[:, :, None], cols[:, None, :]].to(torch.uint8)
+    cells = occ[env, rows.clamp(0, h - 1)[:, :, None], cols.clamp(0, w - 1)[:, None, :]]
+    return (cells & inside).to(torch.uint8)

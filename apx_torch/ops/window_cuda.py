@@ -3,13 +3,17 @@
 Replaces apx's Pallas TPU kernel ``apx/ops/window_pallas.py:70``
 (``kernel`` in ``extract_windows_pallas``, batched by
 ``make_window_extractor``), which the TPU's DMA engines could not run on
-16-lane slices. It cuts the (24, 16) window of every env's ray-padded map
-that the LIDAR step's casts run on under ``raycast_backend="pallas_window"``
-(``apx_torch.envs.lidar_localization``).
+16-lane slices. It cuts the (24, 16) window of every env's map that the
+LIDAR step's casts run on under ``raycast_backend="pallas_window"``
+(``apx_torch.envs.lidar_localization``). apx cuts it from a ray-padded
+copy of the map; K2 reads the unpadded map and writes the padding's zeros
+itself, so the port's state carries no padded copy.
 
-What bounds it, and the design (``apx_torch/csrc/window.cu``): bytes — 24
-x 16 bytes read and written per env, plus the starts. One thread per
-output byte, consecutive threads on consecutive bytes of a window row.
+What bounds it, and the design (``apx_torch/csrc/window.cu``): bytes — the
+window's cells inside the map read, 24 x 16 bytes written per env, plus
+the starts. One warp per env with its starts loaded and clamped once,
+32-bit indices with no division per byte, whole words stored per lane,
+and no load for a cell outside the map.
 
 On a CUDA tensor ``extract_windows`` launches the kernel (building the
 library on first use, ``apx_torch.ops.build``) or raises; it never falls
@@ -35,38 +39,41 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(occ_padded: torch.Tensor, starts: torch.Tensor, win: int) -> None:
-    if occ_padded.ndim != 3 or starts.ndim != 2:
-        raise ValueError("expected occ_padded (N, Hp, Wp) and starts (N, 2)")
-    n, hp, wp = occ_padded.shape
+def _check(occ: torch.Tensor, starts: torch.Tensor, pad: int, win: int) -> None:
+    if occ.ndim != 3 or starts.ndim != 2:
+        raise ValueError("expected occ (N, H, W) and starts (N, 2)")
+    n, h, w = occ.shape
     if starts.shape != (n, 2):
-        raise ValueError(f"shape mismatch: occ_padded {tuple(occ_padded.shape)}, "
-                         f"starts {tuple(starts.shape)}")
-    if hp < plain.WIN_ROWS or wp < win or win < 1:
-        raise ValueError(f"a ({plain.WIN_ROWS}, {win}) window does not fit a {hp}x{wp} map")
-    if occ_padded.dtype != torch.bool or starts.dtype != torch.int32:
-        raise TypeError("expected occ_padded bool and starts int32")
-    if occ_padded.device != starts.device:
-        raise ValueError("occ_padded and starts must be on one device")
+        raise ValueError(f"shape mismatch: occ {tuple(occ.shape)}, starts {tuple(starts.shape)}")
+    if h < 1 or w < 1 or pad < 0 or win < 1 or h + 2 * pad < plain.WIN_ROWS or w + 2 * pad < win:
+        raise ValueError(f"a ({plain.WIN_ROWS}, {win}) window does not fit a {h}x{w} map "
+                         f"padded by {pad}")
+    if occ.dtype != torch.bool or starts.dtype != torch.int32:
+        raise TypeError("expected occ bool and starts int32")
+    if occ.device != starts.device:
+        raise ValueError("occ and starts must be on one device")
 
 
-def extract_windows(occ_padded: torch.Tensor, starts: torch.Tensor,
+def extract_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int,
                     win: int = plain.WIN) -> torch.Tensor:
-    """(N, 24, win) uint8 windows of occ_padded (N, Hp, Wp) bool at starts
-    (N, 2) int32 = (x0, y0), brought into range as ``jax.lax.dynamic_slice``
-    brings its starts (``window.extract_windows``)."""
-    _check(occ_padded, starts, win)
-    if occ_padded.device.type == "cpu":
-        return plain.extract_windows(occ_padded, starts, win)
+    """(N, 24, win) uint8 windows of ``pad_occupancy(occ, pad)`` at starts
+    (N, 2) int32 = (x0, y0) in padded coordinates, brought into range as
+    ``jax.lax.dynamic_slice`` brings its starts, cut from occ (N, H, W)
+    bool itself (``window.extract_windows``)."""
+    _check(occ, starts, pad, win)
+    if occ.device.type == "cpu":
+        return plain.extract_windows(occ, starts, pad, win)
     lib = build.load()
-    occ_padded = occ_padded.contiguous()
+    occ = occ.contiguous()
     starts = starts.contiguous()
-    n, hp, wp = occ_padded.shape
-    out = torch.empty((n, plain.WIN_ROWS, win), dtype=torch.uint8, device=occ_padded.device)
+    if starts.data_ptr() % 8:  # the kernel reads each env's starts as one int2
+        starts = starts.clone()
+    n, h, w = occ.shape
+    out = torch.empty((n, plain.WIN_ROWS, win), dtype=torch.uint8, device=occ.device)
     if n == 0:
         return out
-    err = lib.window_launch(occ_padded.data_ptr(), starts.data_ptr(), out.data_ptr(), n, hp,
-                            wp, win, torch.cuda.current_stream(occ_padded.device).cuda_stream)
+    err = lib.window_launch(occ.data_ptr(), starts.data_ptr(), out.data_ptr(), n, h, w, pad, win,
+                            torch.cuda.current_stream(occ.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window kernel launch failed: CUDA error {err}")
     LAUNCHES["window"] += 1

@@ -36,11 +36,19 @@ Phases, one line each; any failure exits non-zero:
 7. CircleSquare card vs CPU (CircleSquare-v0 and CircleSquareInverted-v0):
    51 steps at N = 256 with injected reset draws; states, dones and the
    non-glimpse obs bitwise equal, glimpse and rewards within 1e-6.
-8. window kernels: K2 (``extract_windows``) against its plain form on the
-   card, bitwise, at N = 4096 with starts from ``window_starts`` of
-   positions spread over [0, 32]^2 (corners and edges first), and K1 on
-   K2's (24, 16) windows in the window frame (the casts of phase 3, cut to
-   their windows), bitwise; device time, plain time and bound of each.
+8. window kernels: K2 (``extract_windows``, which cuts the window of the
+   ray-padded map from the unpadded one) against its plain form on the
+   card, bitwise, at N = 4096 rooms maps with starts from
+   ``window_starts`` of positions spread over [0, 32]^2 (corners and edges
+   first), again on a copy of those maps that starts one byte past a word
+   (the kernel's byte loads, timed beside its word loads), and against
+   slicing the padded copy (``pad_occupancy``; also the library yardstick, one
+   advanced-indexing call on ``unfold`` views, which the port never
+   calls); then on 1024 rooms and 1024 maze (21x21) maps with starts drawn
+   outside the env path's range (negative and past the end), so the clamp
+   runs on the card. K1 on K2's (24, 16) windows in the window frame (the
+   casts of phase 3, cut to their windows), bitwise; device time, plain
+   time and bound of each.
 9. window main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
    num_envs=4096, raycast_backend="pallas_window")``, reset and 250 steps
    as in phase 4, with the same checks; per masked-merge step K2 is
@@ -48,9 +56,10 @@ Phases, one line each; any failure exits non-zero:
    ``raycast_typed`` once per reset.
 10. window card vs CPU: phase 5 with the window backend.
 11. K4 (``chain_cuda``): wide and narrow layouts bitwise equal to the
-    plain ``chain_body`` at rows = 512, iters = 5 and at ``measure()``'s
-    sizes; then the study's entry point ``measure()`` at apx's sizes
-    (rows = 4096, iters = 512, 20 reps), its line printed.
+    plain ``chain_body`` at iters = 1, 5, 7 and 512 (below, at and past
+    the unroll factor), at odd row counts (4095 wide, 511 narrow) and at
+    ``measure()``'s sizes; then the study's entry point ``measure()`` at
+    apx's sizes (rows = 4096, iters = 512, 20 reps), its line printed.
 12. throughput: ``apx_torch.bench`` at N = 4096 for the three workloads
     (eager and CUDA graph).
 
@@ -438,46 +447,101 @@ def all_launch_counts() -> dict:
     return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
 
 
-def window_bound(n: int) -> tuple[float, str]:
-    """Least time (ms) for K2: the (24, 16) window read and written per env
-    and the starts read, at the HBM rate; it does no float operations."""
-    from apx_torch.ops.window import WIN, WIN_ROWS
+WINDOW_PAD = 16  # LIDARLocRooms-v0's ray_pad under "pallas_window"
 
-    return n * (2 * WIN_ROWS * WIN + 2 * 4) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+def window_bound(occ, starts, pad: int) -> tuple[float, str]:
+    """Least time (ms) for K2 on these inputs: per env the window's cells
+    that lie inside the map read once (the rest is padding, written as
+    zeros), the (24, 16) window written once and the starts read, at the
+    HBM rate; it does no float operations."""
+    from apx_torch.ops.window import WIN, WIN_ROWS, clamp_starts
+
+    n, h, w = occ.shape
+    x0, y0 = clamp_starts(starts.to(torch.int64), h + 2 * pad, w + 2 * pad, WIN)
+    rows = ((y0 - pad + WIN_ROWS).clamp(max=h) - (y0 - pad).clamp(min=0)).clamp(min=0)
+    cols = ((x0 - pad + WIN).clamp(max=w) - (x0 - pad).clamp(min=0)).clamp(min=0)
+    nbytes = int((rows * cols).sum()) + n * (WIN_ROWS * WIN + 2 * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def phase_window_kernels(dev) -> tuple[dict, dict]:
-    """K2 against its plain form, then K1 on K2's windows. Returns K2's
-    kernels row and K1's window measurements by kernel name and R."""
-    from apx_torch.data.floor_map import make_rooms_bank
+    """K2 against its plain form (with word loads and with byte loads, and
+    against the padded copy), then on out-of-range starts, then K1 on K2's
+    windows.
+    Returns K2's kernels row and K1's window measurements by kernel name
+    and R."""
+    from apx_torch.data.floor_map import make_maze_bank, make_rooms_bank
     from apx_torch.ops import raycast_cuda
     from apx_torch.ops.raycast import pad_occupancy, raycast_grid, seg_length
+    from apx_torch.ops.window import WIN, WIN_ROWS, clamp_starts, window_starts
     from apx_torch.ops.window import extract_windows as plain_windows
-    from apx_torch.ops.window import window_starts
     from apx_torch.ops.window_cuda import extract_windows
 
+    pad = WINDOW_PAD
     gen = torch.Generator(device=dev).manual_seed(3)
     bank = make_rooms_bank(256, device=dev)
     occ = bank.fetch(torch.randint(0, bank.num_maps, (N,), generator=gen, device=dev))
-    occ_padded = pad_occupancy(occ, 16)
     pos = torch.rand((N, 2), generator=gen, device=dev) * 32
     edges = torch.tensor([[0, 0], [32, 32], [0, 32], [32, 0], [16, 0], [0, 16], [32, 16],
                           [16, 32], [31.999998, 0.5], [7.999999, 8.0]], device=dev)
     pos[:len(edges)] = edges
-    starts, _ = window_starts(pos, 16, 16)
-    got = extract_windows(occ_padded, starts)
-    want = plain_windows(occ_padded, starts)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "window (K2) not bitwise equal to its plain form")
-    b_ms, b_by = window_bound(N)
+    starts, _ = window_starts(pos, WIN, pad)
+    want = plain_windows(occ, starts, pad)
+    # The same maps one byte past a word: the kernel reads them by bytes.
+    occ_bytes = torch.zeros(occ.numel() + 1, dtype=torch.bool, device=dev)[1:].view(occ.shape)
+    occ_bytes.copy_(occ)
+    ms = {}
+    for loads, maps in (("words", occ), ("bytes", occ_bytes)):
+        got = extract_windows(maps, starts, pad)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"window (K2, {loads}) not bitwise equal to its plain form")
+        ms[loads] = device_ms(lambda: extract_windows(maps, starts, pad), 50)
+    print(f"window loads: {json.dumps({f'{k}_ms': v for k, v in ms.items()})}", flush=True)
+
+    # The library yardstick: one advanced-indexing gather of the windows
+    # from unfold views of the padded copy, which K2 no longer needs.
+    padded = pad_occupancy(occ, pad)
+    x0, y0 = clamp_starts(starts.to(torch.int64), padded.shape[1], padded.shape[2], WIN)
+    views = padded.unfold(1, WIN_ROWS, 1).unfold(2, WIN, 1)
+    env = torch.arange(N, device=dev)
+
+    def library():
+        return views[env, y0, x0]
+
+    check(torch.equal(library().to(torch.uint8), want),
+          "window (K2) not equal to slicing the padded copy")
+
+    # The clamp on the card: starts outside the env path's range, on rooms
+    # maps (word loads) and maze maps (21 columns: byte loads).
+    clamped = 0
+    for make_bank in (make_rooms_bank, make_maze_bank):
+        maps = make_bank(256, device=dev)
+        far_occ = maps.fetch(torch.randint(0, maps.num_maps, (1024,), generator=gen, device=dev))
+        hp, wp = far_occ.shape[1] + 2 * pad, far_occ.shape[2] + 2 * pad
+        far = torch.stack([torch.randint(-wp - 4, wp + 5, (1024,), generator=gen, device=dev),
+                           torch.randint(-hp - 4, hp + 5, (1024,), generator=gen, device=dev)],
+                          -1).to(torch.int32)
+        far[:4] = torch.tensor([[-wp - 4, -hp - 4], [wp + 4, hp + 4], [-1, -1], [wp, 0]],
+                               dtype=torch.int32, device=dev)
+        got = extract_windows(far_occ, far, pad)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain_windows(far_occ, far, pad)),
+              f"window (K2) on out-of-range starts, {tuple(far_occ.shape[1:])} maps: "
+              "not bitwise equal to its plain form")
+        clamped += far.shape[0]
+
+    b_ms, b_by = window_bound(occ, starts, pad)
     k2 = {
         "name": "window", "route": "cuda", "source": "apx_torch/csrc/window.cu",
         "replaces": "apx/ops/window_pallas.py:70", "launches": None, "max_abs_err": 0.0,
-        "ms": device_ms(lambda: extract_windows(occ_padded, starts), 50),
-        "plain_ms": device_ms(lambda: plain_windows(occ_padded, starts), 4),
+        "ms": ms["words"],
+        "plain_ms": device_ms(lambda: plain_windows(occ, starts, pad), 4),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,  # no PyTorch call gathers per-env windows at per-env starts
-        "shape": f"N={N} (64, 64) bool -> (24, 16) u8",
+        # Reads the padded copy (16 MB at N = 4096), which K2 does not.
+        "library_ms": device_ms(library, 50),
+        "shape": f"N={N} (32, 32) bool, pad {pad} -> (24, {WIN}) u8",
+        "out_of_range_envs_checked": clamped,
     }
 
     per_kernel: dict = {}
@@ -485,8 +549,8 @@ def phase_window_kernels(dev) -> tuple[dict, dict]:
         kernel = getattr(raycast_cuda, name)
         typed = name == "raycast_typed"
         for occ_map, origin, targets in cases:
-            starts, base = window_starts(origin, 16, 16)
-            win = extract_windows(pad_occupancy(occ_map, 16), starts).view(torch.bool)
+            starts, base = window_starts(origin, WIN, pad)
+            win = extract_windows(occ_map, starts, pad).view(torch.bool)
             o, t = origin - base, targets - base[:, None]
             seg = seg_length(t - o[:, None])
             got = kernel(win, o, t, seg)
@@ -512,7 +576,8 @@ def phase_chain(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
     rows, iters = 4096, 512  # measure()'s sizes
     for layout, lanes in study.LANES.items():
-        for r, it in ((512, 5), (rows, iters)):
+        odd = rows - 1 if layout == "wide" else 511
+        for r, it in ((512, 1), (512, 5), (odd, 7), (odd, iters), (rows, iters)):
             args = [torch.rand((r, lanes), generator=gen, device=dev) for _ in range(5)]
             got = study.chain_cuda(*args, iters=it, layout=layout)
             want = study.chain_body(*args, it)

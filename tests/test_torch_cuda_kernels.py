@@ -17,7 +17,7 @@ from apx_torch.data.floor_map import make_maze_bank, make_rooms_bank
 from apx_torch.ops import build, glimpse_cuda, issue_rate_study, raycast_cuda, window_cuda
 from apx_torch.ops.glimpse import extract_glimpse_batch
 from apx_torch.ops.raycast import lidar_directions_np, pad_occupancy, raycast_grid, seg_length
-from apx_torch.ops.window import extract_windows, window_starts
+from apx_torch.ops.window import clamp_starts, extract_windows, window_starts
 from chip_smoke import EDGE_MAPS, EDGE_N, EDGE_RAYS, edge_casts, edge_maps
 
 torch.set_num_threads(1)
@@ -219,9 +219,9 @@ def test_image_env_on_card_matches_cpu(dev):
 
 
 def _window_casts(dev, n, gen):
-    """n envs of the rooms bank: padded maps, positions on free cells
-    (generic points, the map's corners and edges first), K2's windows
-    around them and the window bases."""
+    """n envs of the rooms bank: maps, positions on free cells (generic
+    points, the map's corners and edges first), K2's window starts around
+    them and the window bases."""
     bank = make_rooms_bank(16, device=dev)
     bank_pos = torch.randint(0, bank.num_maps, (n,), generator=gen, device=dev)
     occ = bank.fetch(bank_pos)
@@ -232,33 +232,68 @@ def _window_casts(dev, n, gen):
     edges = torch.tensor([[0, 0], [32, 32], [0, 32], [32, 0], [16, 0], [0, 16], [31.99, 7.5]],
                          device=dev)
     pos[:len(edges)] = edges
-    occ_padded = pad_occupancy(occ, 16)
     starts, base = window_starts(pos, 16, 16)
-    return occ_padded, starts, base, pos, centre
+    return occ, starts, base, pos, centre
 
 
-def test_window_kernel_bitwise_equal_to_plain(dev):
-    gen = torch.Generator(device=dev).manual_seed(11)
-    occ_padded, starts, *_ = _window_casts(dev, 1000, gen)
-    clamp = torch.tensor([[-3, -8], [60, 48], [100, -100], [0, 41], [-1, 5]], dtype=torch.int32,
-                         device=dev)
-    starts[:len(clamp)] = clamp
+def _padded_gather(occ, starts, pad, win):
+    """The window of ``pad_occupancy(occ, pad)`` cut by slicing the padded
+    copy (what K2 read before it read the unpadded map)."""
+    padded = pad_occupancy(occ, pad)
+    x0, y0 = clamp_starts(starts.to(torch.int64), padded.shape[1], padded.shape[2], win)
+    return torch.stack([padded[i, y:y + 24, x:x + win] for i, (x, y) in
+                        enumerate(zip(x0.tolist(), y0.tolist()))]).to(torch.uint8)
+
+
+@pytest.mark.parametrize("kind,hw,pad,win", [
+    ("rooms", (32, 32), 16, 16), ("rooms, byte offset", (32, 32), 16, 16),
+    ("maze", (21, 21), 16, 16), ("random", (20, 36), 8, 16), ("random", (20, 36), 8, 4),
+    ("random", (7, 5), 9, 13), ("random", (40, 64), 0, 48)])
+def test_window_kernel_bitwise_equal_to_plain(dev, kind, hw, pad, win):
+    """K2 on unpadded maps against the plain form on the card and on the CPU
+    and against slicing the padded copy: the env path's starts, then
+    out-of-range ones (negative, past the end) drawn in [-Hp - 4, Hp + 4] x
+    [-Wp - 4, Wp + 4]. win 16, 4 and 13 take the kernel's 16-byte, 4-byte
+    and 1-byte stores. The maze's 21 columns, and rooms maps that start one
+    byte past a word, take its byte loads; the others its word loads."""
+    h, w = hw
+    hp, wp = h + 2 * pad, w + 2 * pad
+    gen = torch.Generator(device=dev).manual_seed(11 + h + pad + win)
+    n = 2000
+    if kind == "random":
+        occ = torch.rand((n, h, w), generator=gen, device=dev) < 0.4
+    else:
+        bank = (make_maze_bank if kind == "maze" else make_rooms_bank)(16, device=dev)
+        occ = bank.fetch(torch.randint(0, bank.num_maps, (n,), generator=gen, device=dev))
+    if kind == "rooms, byte offset":
+        occ = torch.zeros(n * h * w + 1, dtype=torch.bool, device=dev)[1:].view(n, h, w).copy_(occ)
+        assert occ.data_ptr() % 4 == 1
+    pos = torch.rand((n, 2), generator=gen, device=dev) * torch.tensor([w, h], device=dev)
+    starts, _ = window_starts(pos, 16, pad)
+    lo = torch.tensor([-wp - 4, -hp - 4], device=dev)
+    out_of_range = (torch.rand((n // 2, 2), generator=gen, device=dev)
+                    * torch.tensor([2 * wp + 9, 2 * hp + 9], device=dev) + lo).floor()
+    starts[n // 2:] = out_of_range.to(torch.int32)
+    starts[-4:] = torch.tensor([[-wp - 4, -hp - 4], [wp + 4, hp + 4], [-1, -1], [wp, 0]],
+                               dtype=torch.int32, device=dev)
     before = window_cuda.LAUNCHES["window"]
-    got = window_cuda.extract_windows(occ_padded, starts)
+    got = window_cuda.extract_windows(occ, starts, pad, win)
     torch.cuda.synchronize()
     assert window_cuda.LAUNCHES["window"] == before + 1
-    assert torch.equal(got, extract_windows(occ_padded, starts))
-    assert torch.equal(got.cpu(), extract_windows(occ_padded.cpu(), starts.cpu()))
+    assert got.shape == (n, 24, win) and got.dtype == torch.uint8
+    assert torch.equal(got, extract_windows(occ, starts, pad, win))
+    assert torch.equal(got.cpu(), extract_windows(occ.cpu(), starts.cpu(), pad, win))
+    assert torch.equal(got, _padded_gather(occ, starts, pad, win))
 
 
 @pytest.mark.parametrize("typed", [False, True])
 def test_kernel_on_windows_bitwise_equal_to_plain(dev, typed):
     """K1 on K2's (24, 16) windows in the window frame."""
     gen = torch.Generator(device=dev).manual_seed(12 + int(typed))
-    occ_padded, starts, base, pos, centre = _window_casts(dev, 1000, gen)
+    occ, starts, base, pos, centre = _window_casts(dev, 1000, gen)
     origin = centre if typed else pos
     starts, base = window_starts(origin, 16, 16)
-    win = window_cuda.extract_windows(occ_padded, starts).view(torch.bool)
+    win = window_cuda.extract_windows(occ, starts, 16).view(torch.bool)
     beams = torch.from_numpy(lidar_directions_np(8) * np.float32(5.0)).to(dev)
     move = (torch.rand((1000, 1, 2), generator=gen, device=dev) * 2 - 1) * 0.7
     for offs in ([beams.expand(1000, -1, -1)] if typed else
@@ -270,18 +305,25 @@ def test_kernel_on_windows_bitwise_equal_to_plain(dev, typed):
         assert torch.equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("layout", ["wide", "narrow"])
-def test_chain_kernel_bitwise_equal_to_plain(dev, layout):
-    gen = torch.Generator(device=dev).manual_seed(5)
+@pytest.mark.parametrize("iters", [1, 5, 7, 512])
+@pytest.mark.parametrize("layout,rows", [("wide", 512), ("wide", 4095), ("narrow", 512),
+                                         ("narrow", 511)])
+def test_chain_kernel_bitwise_equal_to_plain(dev, layout, rows, iters):
+    """K4 bitwise the plain chain: iteration counts below, at and past the
+    unroll factor with and without a remainder, and odd row counts, where a
+    thread's second element (wide) or a warp's second row (narrow) is
+    missing."""
+    gen = torch.Generator(device=dev).manual_seed(5 + rows + iters)
     lanes = issue_rate_study.LANES[layout]
-    args = [torch.rand((512, lanes), generator=gen, device=dev) for _ in range(5)]
+    args = [torch.rand((rows, lanes), generator=gen, device=dev) for _ in range(5)]
     before = issue_rate_study.LAUNCHES["chain"]
-    got = issue_rate_study.chain_cuda(*args, iters=5, layout=layout)
+    got = issue_rate_study.chain_cuda(*args, iters=iters, layout=layout)
     torch.cuda.synchronize()
     assert issue_rate_study.LAUNCHES["chain"] == before + 1
-    assert torch.equal(_bits(got), _bits(issue_rate_study.chain_body(*args, 5)))
-    cpu = issue_rate_study.chain_body(*(a.cpu() for a in args), 5)
-    assert torch.equal(_bits(got.cpu()), _bits(cpu))
+    assert torch.equal(_bits(got), _bits(issue_rate_study.chain_body(*args, iters)))
+    if iters <= 7:
+        cpu = issue_rate_study.chain_body(*(a.cpu() for a in args), iters)
+        assert torch.equal(_bits(got.cpu()), _bits(cpu))
 
 
 def test_window_env_on_card_matches_cpu(dev):
@@ -325,8 +367,8 @@ def test_window_raises_on_cuda_without_fallback(dev, monkeypatch):
     monkeypatch.setattr(build, "load", lambda: _FailingLib)
     before = window_cuda.LAUNCHES["window"]
     with pytest.raises(RuntimeError, match="CUDA error 98"):
-        window_cuda.extract_windows(torch.zeros((4, 64, 64), dtype=torch.bool, device=dev),
-                                    torch.zeros((4, 2), dtype=torch.int32, device=dev))
+        window_cuda.extract_windows(torch.zeros((4, 32, 32), dtype=torch.bool, device=dev),
+                                    torch.zeros((4, 2), dtype=torch.int32, device=dev), 16)
     assert window_cuda.LAUNCHES["window"] == before
 
 

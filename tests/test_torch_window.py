@@ -7,8 +7,13 @@ apx's window path casts in the window's frame (``origin - base``,
 the port's window path is held to apx's window path, bitwise, and
 ``test_window_rounding_sites`` shows that each rounding site written in
 the port is the one apx's jitted step has.
+
+apx's window state carries the ray-padded map ``occ_padded``; the port's
+does not (K2 cuts the padded map's window from ``occ``), so wherever apx's
+leaf is compared it is held to ``pad_occupancy(port occ, ray_pad)``.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -26,10 +31,10 @@ import apx_torch
 from apx_torch.compat.builders import reset_from_draws
 from apx_torch.convert import lidar_state_from_numpy
 from apx_torch.core.numerics import div, sqrt
-from apx_torch.envs.lidar_localization import LIDARLocalizationEnv
+from apx_torch.envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
 from apx_torch.ops import raycast_cuda, window_cuda
 from apx_torch.ops.raycast import pad_occupancy
-from apx_torch.ops.window import WIN_ROWS, extract_windows, window_starts
+from apx_torch.ops.window import WIN_ROWS, clamp_starts, extract_windows, window_starts
 
 torch.set_num_threads(1)
 WIN = "pallas_window"
@@ -47,23 +52,29 @@ def _starts(rng, n, hp=64, wp=64):
     return s.astype(np.int32)
 
 
+def _padded_np(occ, pad):
+    return np.pad(occ, ((0, 0), (pad, pad), (pad, pad)))
+
+
 @pytest.mark.parametrize("n", [16, 64])
 def test_extract_windows_matches_apx(n):
+    """The port cuts from the unpadded map what apx's kernel (interpret
+    mode, and its batching rule) cuts from the padded one."""
     rng = np.random.default_rng(n)
-    occ = rng.random((n, 64, 64)) < 0.3
+    occ = rng.random((n, 32, 32)) < 0.3
     starts = _starts(rng, n)
-    want = np.asarray(extract_windows_pallas(jnp.asarray(occ), jnp.asarray(starts),
-                                             interpret=True))
+    padded = jnp.asarray(_padded_np(occ, 16))
+    want = np.asarray(extract_windows_pallas(padded, jnp.asarray(starts), interpret=True))
     batched = np.asarray(jax.vmap(make_window_extractor(interpret=True))(
-        jnp.asarray(occ), jnp.asarray(starts)))
+        padded, jnp.asarray(starts)))
     np.testing.assert_array_equal(batched, want)
     t_occ, t_starts = torch.from_numpy(occ), torch.from_numpy(starts)
-    got = extract_windows(t_occ, t_starts)
+    got = extract_windows(t_occ, t_starts, 16)
     assert got.dtype == torch.uint8 and got.shape == (n, WIN_ROWS, 16)
     np.testing.assert_array_equal(got.numpy(), want)
     # The wrapper runs the plain form on CPU tensors, and launches nothing.
     before = window_cuda.LAUNCHES["window"]
-    assert torch.equal(window_cuda.extract_windows(t_occ, t_starts), got)
+    assert torch.equal(window_cuda.extract_windows(t_occ, t_starts, 16), got)
     assert window_cuda.LAUNCHES["window"] == before
 
 
@@ -71,25 +82,64 @@ def test_extract_windows_matches_apx_fallback_paths():
     """apx's unbatched extractor and its vmapped fallback (a batch that is
     not a multiple of 8) slice with ``dynamic_slice``: the same windows."""
     rng = np.random.default_rng(3)
-    occ = rng.random((13, 40, 72)) < 0.5
+    occ = rng.random((13, 8, 40)) < 0.5
     starts = _starts(rng, 13, hp=40, wp=72)
+    padded = jnp.asarray(_padded_np(occ, 16))
     ex = make_window_extractor(interpret=True)
-    fallback = np.asarray(jax.vmap(ex)(jnp.asarray(occ), jnp.asarray(starts)))
-    single = np.stack([np.asarray(ex(jnp.asarray(o), jnp.asarray(s)))
-                       for o, s in zip(occ, starts)])
-    got = extract_windows(torch.from_numpy(occ), torch.from_numpy(starts)).numpy()
+    fallback = np.asarray(jax.vmap(ex)(padded, jnp.asarray(starts)))
+    single = np.stack([np.asarray(ex(o, jnp.asarray(s))) for o, s in zip(padded, starts)])
+    got = extract_windows(torch.from_numpy(occ), torch.from_numpy(starts), 16).numpy()
     np.testing.assert_array_equal(got, fallback)
     np.testing.assert_array_equal(got, single)
 
 
+def _padded_gather(occ_padded, starts, win=16):
+    """The gather K2 did before it read the unpadded map: the window
+    ``occ_padded[n, y0:y0+24, x0:x0+win]`` of the padded map, starts
+    brought into range against its dimensions."""
+    n, hp, wp = occ_padded.shape
+    x0, y0 = clamp_starts(starts.to(torch.int64), hp, wp, win)
+    rows = y0[:, None] + torch.arange(WIN_ROWS)
+    cols = x0[:, None] + torch.arange(win)
+    env = torch.arange(n)[:, None, None]
+    return occ_padded[env, rows[:, :, None], cols[:, None, :]].to(torch.uint8)
+
+
+@pytest.mark.parametrize("pad", [8, 16])
+@pytest.mark.parametrize("hw", [(32, 32), (20, 36)])
+def test_unpadded_windows_equal_padded_gather(hw, pad):
+    """``extract_windows(occ, starts, pad)`` is bitwise the gather on
+    ``pad_occupancy(occ, pad)``, for starts in [-Hp - 4, Hp + 4] (and the
+    same for columns): negative starts, starts past the end, and windows
+    that lie partly or wholly in the padding."""
+    h, w = hw
+    hp, wp = h + 2 * pad, w + 2 * pad
+    rng = np.random.default_rng(h * 100 + pad)
+    n = 512
+    occ = torch.from_numpy(rng.random((n, h, w)) < 0.4)
+    starts = torch.from_numpy(np.stack([rng.integers(-wp - 4, wp + 5, n),
+                                        rng.integers(-hp - 4, hp + 5, n)], -1).astype(np.int32))
+    starts[:4] = torch.tensor([[-wp - 4, -hp - 4], [wp + 4, hp + 4], [-1, -1], [0, 0]])
+    want = _padded_gather(pad_occupancy(occ, pad), starts)
+    got = extract_windows(occ, starts, pad)
+    assert torch.equal(got, want)
+    assert torch.equal(window_cuda.extract_windows(occ, starts, pad), want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
 def test_window_wrapper_rejects_bad_input():
-    occ = torch.zeros((2, 64, 64), dtype=torch.bool)
+    occ = torch.zeros((2, 32, 32), dtype=torch.bool)
+    ok = torch.zeros((2, 2), dtype=torch.int32)
     with pytest.raises(TypeError):
-        window_cuda.extract_windows(occ, torch.zeros((2, 2), dtype=torch.int64))
+        window_cuda.extract_windows(occ, torch.zeros((2, 2), dtype=torch.int64), 16)
     with pytest.raises(ValueError):
-        window_cuda.extract_windows(occ[:, :20], torch.zeros((2, 2), dtype=torch.int32))
+        window_cuda.extract_windows(occ[:, :20], ok, 0)  # 20 rows < 24, no padding
     with pytest.raises(ValueError):
-        window_cuda.extract_windows(occ, torch.zeros((3, 2), dtype=torch.int32))
+        window_cuda.extract_windows(occ, torch.zeros((3, 2), dtype=torch.int32), 16)
+    with pytest.raises(ValueError):
+        window_cuda.extract_windows(occ, ok, -1)
+    with pytest.raises(ValueError):
+        window_cuda.extract_windows(occ, ok, 16, 0)  # an empty window
 
 
 def _apx_windows(params, pos, occ_padded):
@@ -140,7 +190,8 @@ def test_window_trajectory_bitwise_equal_to_apx(env_id):
     obs, s, _ = venv.reset(p, draws=draws(jax.random.split(key, n)))
     for k in jobs:
         _eq(jobs[k], obs[k], f"reset {k}")
-    _eq(js.inner.inner.occ_padded, s.inner.inner.occ_padded, "reset occ_padded")
+    _eq(js.inner.inner.occ_padded, pad_occupancy(s.inner.inner.occ, p.ray_pad),
+        "reset occ_padded")
     step = jax.jit(jvenv.step)
     rng = np.random.default_rng(0)
     ends = 0
@@ -158,8 +209,9 @@ def test_window_trajectory_bitwise_equal_to_apx(env_id):
         for k in jobs:
             _eq(jobs[k], obs[k], f"{what} obs {k}")
         ji, ti = js.inner.inner, s.inner.inner
-        for leaf in ("pos", "initial_pos", "odo_pending", "occ", "occ_padded"):
+        for leaf in ("pos", "initial_pos", "odo_pending", "occ"):
             _eq(getattr(ji, leaf), getattr(ti, leaf), f"{what} {leaf}")
+        _eq(ji.occ_padded, pad_occupancy(ti.occ, p.ray_pad), f"{what} occ_padded")
         _eq(np.asarray(ji.map_idx).astype(np.int64), ti.map_idx, f"{what} map_idx")
         _eq(js.inner.t, s.inner.t, f"{what} t")
         _eq(jte, te, f"{what} terminated")
@@ -199,8 +251,7 @@ def _steps_differing(n, steps):
     for js, jobs, js1, draws, act in steps:
         i = js.inner.inner
         s = lidar_state_from_numpy(i.occ, i.pos, i.initial_pos, i.odo_pending, i.bank_pos,
-                                   i.map_idx, js.inner.t, js.prev_done, device="cpu",
-                                   occ_padded=i.occ_padded)
+                                   i.map_idx, js.inner.t, js.prev_done, device="cpu")
         obs, s1, *_ = venv.step(s, {"action": torch.from_numpy(act),
                                     "prediction": torch.zeros(n, 2)}, p, reset_draws=draws)
         same = (np.array_equal(np.asarray(jobs["lidar"]), obs["lidar"].numpy())
@@ -293,8 +344,8 @@ def test_window_reset_from_host_draws_matches_apx_builder():
     obs, s, _ = reset_from_draws(venv.env, draws, p)
     for k in jobs:
         _eq(jobs[k], obs[k], f"obs {k}")
-    _eq(js.inner.occ_padded, s.inner.occ_padded, "occ_padded")
-    assert s.inner.occ_padded.shape == (8, 64, 64)
+    _eq(js.inner.occ_padded, pad_occupancy(s.inner.occ, p.ray_pad), "occ_padded")
+    assert not hasattr(s.inner, "occ_padded") and s.inner.occ.shape == (8, 32, 32)
 
 
 def test_window_state_carried_across_with_convert():
@@ -312,9 +363,8 @@ def test_window_state_carried_across_with_convert():
         _, js, *_ = step(jax.random.fold_in(key, t), js, act, jp)
     i = js.inner.inner
     s = lidar_state_from_numpy(i.occ, i.pos, i.initial_pos, i.odo_pending, i.bank_pos,
-                               i.map_idx, js.inner.t, js.prev_done, device="cpu",
-                               occ_padded=i.occ_padded)
-    _eq(i.occ_padded, s.inner.inner.occ_padded, "occ_padded")
+                               i.map_idx, js.inner.t, js.prev_done, device="cpu")
+    _eq(i.occ_padded, pad_occupancy(s.inner.inner.occ, p.ray_pad), "occ_padded")
     act = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
     kt = jax.random.fold_in(key, 99)
     jobs, js2, jr, *_ = step(kt, js, {"action": jnp.asarray(act), "prediction": jnp.zeros((n, 2))},
@@ -330,26 +380,33 @@ def test_window_state_carried_across_with_convert():
 
 def test_window_backend_params_and_range_fallback():
     """``ray_pad`` and the range condition as apx's; past range 6 the
-    backend casts on the whole map (still carrying occ_padded), equal to
-    the default backend."""
+    backend casts on the whole map (apx still carrying occ_padded, which
+    the port derives), equal to the default backend. The port's state has
+    no occ_padded field under either backend."""
     for rng_ in (5.0, 6.0, 7.0):
         _, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=2, raycast_backend=WIN,
                              lidar_range=rng_)
         _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend=WIN,
                                   lidar_range=rng_)
-        assert (p.ray_pad, p.use_pallas_window, p.needs_padded_occ) == (
-            jp.ray_pad, jp.use_pallas_window, jp.needs_padded_occ)
+        assert (p.ray_pad, p.use_pallas_window) == (jp.ray_pad, jp.use_pallas_window)
     _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu")
-    assert not p.needs_padded_occ and not p.use_pallas_window
+    assert not p.use_pallas_window
+    assert "occ_padded" not in {f.name for f in dataclasses.fields(LIDARLocalizationState)}
     n = 32
     runs = [apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu", lidar_range=7.0, **kw)
             for kw in ({}, {"raycast_backend": WIN})]
     g = torch.Generator().manual_seed(0)
     draws = runs[0][0].env.draw_reset(n, runs[0][1], g)
     carry = [v.reset(p, draws=draws)[1] for v, p in runs]
-    assert carry[0].inner.inner.occ_padded is None
-    assert torch.equal(carry[1].inner.inner.occ_padded,
-                       pad_occupancy(carry[1].inner.inner.occ, runs[1][1].ray_pad))
+    # apx's window env, reset at the port's maps and positions, carries
+    # the padded map that the port derives.
+    jvenv, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=n, raycast_backend=WIN,
+                             lidar_range=7.0)
+    ti = carry[1].inner.inner
+    _, js, _ = jax_reset_from_draws(jvenv.env, {"occ": ti.occ.numpy(), "pos": ti.pos.numpy(),
+                                                "map_idx": ti.map_idx.numpy().astype(np.uint32)},
+                                    jp)
+    _eq(js.inner.occ_padded, pad_occupancy(ti.occ, runs[1][1].ray_pad), "occ_padded")
     for _ in range(30):
         act = {"action": torch.rand((n, 2), generator=g) * 2 - 1, "prediction": torch.zeros(n, 2)}
         draws = runs[0][0].env.draw_reset(n, runs[0][1], g)
@@ -358,3 +415,25 @@ def test_window_backend_params_and_range_fallback():
         for k in outs[0][0]:
             assert torch.equal(outs[0][0][k], outs[1][0][k]), k
         assert torch.equal(carry[0].inner.inner.pos, carry[1].inner.inner.pos)
+
+
+def test_window_state_has_the_dense_state_leaves():
+    """At N=64 a window-backend state, after its reset and a step, holds
+    the same leaves, shapes and dtypes as the dense backend's: six, with
+    no padded map."""
+    n = 64
+    runs = [apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu", **kw)
+            for kw in ({}, {"raycast_backend": WIN})]
+    g = torch.Generator().manual_seed(1)
+    draws = runs[0][0].env.draw_reset(n, runs[0][1], g)
+    act = {"action": torch.rand((n, 2), generator=g) * 2 - 1, "prediction": torch.zeros(n, 2)}
+    layouts = []
+    for venv, p in runs:
+        _, s, _ = venv.reset(p, draws=draws)
+        _, s, *_ = venv.step(s, act, p, reset_draws=draws)
+        inner = s.inner.inner
+        layouts.append({f.name: (tuple(getattr(inner, f.name).shape),
+                                 getattr(inner, f.name).dtype)
+                        for f in dataclasses.fields(inner)})
+    assert layouts[0] == layouts[1]
+    assert len(layouts[1]) == 6 and layouts[1]["occ"] == ((n, 32, 32), torch.bool)
