@@ -3,9 +3,10 @@
 Batched functional active-perception environments on an NVIDIA GPU. The
 port imports torch and numpy only, never JAX or the apx package. Ported so
 far: the four LIDAR localization envs, with the slab raycast as a CUDA
-kernel, and the 18 CircleSquare classification envs under LOCKSTEP
-autoreset, with the bilinear glimpse as a CUDA kernel (ROADMAP.md lists
-what is still to come).
+kernel, the 18 CircleSquare classification envs under LOCKSTEP autoreset,
+with the bilinear glimpse as a CUDA kernel, LightDark, and the
+``-sparse`` twin of each: 46 ids, each also with ``metrics=True``
+(ROADMAP.md lists what is still to come).
 
     import torch, apx_torch
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)

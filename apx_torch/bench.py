@@ -1,12 +1,13 @@
 """Throughput bench of the port's main paths at N=4096.
 
-Three workloads, each the counterpart of one of the JAX package's
+Four workloads, each the counterpart of one of the JAX package's
 ``bench.py`` workloads or of one of its backends, with its random
 policy: uniform actions in [-1, 1] and standard-normal predictions
 (logits for CircleSquare). As there, the policy's draws are hoisted out of
 the stepping loop, and one element of every observation leaf is folded
 into the next action (times 1e-12) so each step depends on the previous
-step's observation. The reset draws are hoisted too, and injected.
+step's observation. The reset draws and the step draws are hoisted too,
+and injected, so a captured graph holds no generator.
 
 * ``lidar_rooms``: ``TimeLimit(LIDARLocalizationEnv(rooms bank, 256
   maps), 100, issue_termination=True)`` under NEXT_STEP autoreset
@@ -19,7 +20,11 @@ step's observation. The reset draws are hoisted too, and injected.
   it: episodic cycles of 16 DISABLED steps and one
   ``boundary_reset_step``, the step count rounded to whole 17-step cycles.
   The masked-merge ``venv.step`` loop, which runs the reset (an image
-  gather and a second glimpse) on every step, is timed beside it.
+  gather and a second glimpse) on every step, is timed beside it;
+* ``light_dark``: a bare ``LightDarkEnv()`` under NEXT_STEP autoreset,
+  apx's ``make_light_dark`` (``bench.py:334-341``): not a registered id
+  (no TimeLimit), so its workload names a builder. It runs no kernel of
+  the port; its step draws its observation noise.
 
 Two loops are timed per workload, each after a warmup run and each ending
 on a value fetch of the summed rewards:
@@ -29,7 +34,7 @@ on a value fetch of the summed rewards:
   CircleSquare) captured in a CUDA graph and replayed. A capture that
   fails raises.
 
-    python -m apx_torch.bench [--env lidar_rooms|lidar_rooms_window|circle_square]
+    python -m apx_torch.bench [--env lidar_rooms|lidar_rooms_window|circle_square|light_dark]
         [--num-envs 4096] [--num-steps 1024] [--profile]
 
 prints one JSON line with ``<env>_env_steps_per_s`` (the graph loop),
@@ -50,19 +55,33 @@ from typing import Any
 
 import torch
 
-from .core.env import AutoResetMode, VectorAPEnv, tree_map
+from .core.env import AutoResetMode, VectorAPEnv, tree_map, vector_env, with_autoreset
+from .envs.light_dark import LightDarkEnv
 from .registry import make_vec
 
-__all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_circle_square", "profile",
-           "nvidia_smi_line", "CHUNK"]
+__all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_circle_square",
+           "bench_light_dark", "profile", "nvidia_smi_line", "CHUNK", "WORKLOADS"]
 
-CHUNK = 16  # LIDAR steps per captured graph
+CHUNK = 16  # NEXT_STEP steps per captured graph
 PROFILE_STEPS = 34
-# Workload -> (env id, parameter overrides).
+
+
+def _registered(env_id: str, **overrides):
+    return lambda num_envs, dev: make_vec(env_id, num_envs, device=dev, **overrides)
+
+
+def _light_dark(num_envs: int, dev):
+    env = LightDarkEnv(dev)
+    return vector_env(env, num_envs, AutoResetMode.NEXT_STEP), env.default_params()
+
+
+# Workload -> (what it runs, builder (num_envs, device) -> (venv, params)).
 WORKLOADS = {
-    "lidar_rooms": ("LIDARLocRooms-v0", {}),
-    "lidar_rooms_window": ("LIDARLocRooms-v0", {"raycast_backend": "pallas_window"}),
-    "circle_square": ("CircleSquare-v0", {}),
+    "lidar_rooms": ("LIDARLocRooms-v0", _registered("LIDARLocRooms-v0")),
+    "lidar_rooms_window": ("LIDARLocRooms-v0, raycast_backend='pallas_window'",
+                           _registered("LIDARLocRooms-v0", raycast_backend="pallas_window")),
+    "circle_square": ("CircleSquare-v0", _registered("CircleSquare-v0")),
+    "light_dark": ("LightDarkEnv() under NEXT_STEP", _light_dark),
 }
 # Device kernels of the port, by a substring of their names in a trace.
 PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel",
@@ -89,31 +108,36 @@ class _Loop:
     params: Any
     chunk: int
     reset_keys: tuple[str, ...]  # names of the env's reset draws
+    step_keys: tuple[str, ...]  # names of the env's step draws
     period: int | None = None
     inner: VectorAPEnv | None = None
 
 
 def _loop(env: str, num_envs: int, dev, episodic: bool = True) -> _Loop:
-    env_id, overrides = WORKLOADS[env]
-    venv, params = make_vec(env_id, num_envs, device=dev, **overrides)
-    keys = tuple(sorted(venv.env.draw_reset(1, params, torch.Generator(dev))))
+    venv, params = WORKLOADS[env][1](num_envs, dev)
+    g = torch.Generator(dev)
+    keys = (tuple(sorted(venv.env.draw_reset(1, params, g))),
+            tuple(sorted(venv.env.draw_step(1, params, g))))
     if venv.autoreset is AutoResetMode.LOCKSTEP and episodic:
-        inner = dataclasses.replace(venv, autoreset=AutoResetMode.DISABLED)
-        return _Loop(venv, params, params.step_limit + 1, keys, params.step_limit, inner)
+        inner = with_autoreset(venv, AutoResetMode.DISABLED)
+        return _Loop(venv, params, params.step_limit + 1, *keys, params.step_limit, inner)
     chunk = params.step_limit + 1 if venv.autoreset is AutoResetMode.LOCKSTEP else CHUNK
-    return _Loop(venv, params, chunk, keys)
+    return _Loop(venv, params, chunk, *keys)
 
 
 def _draws(lp: _Loop, num_steps: int, generator: torch.Generator) -> tuple[torch.Tensor, ...]:
-    """Hoisted policy and reset draws for ``num_steps`` steps, each with a
-    leading step axis: (actions, predictions, *reset draws by name)."""
+    """Hoisted policy, reset and step draws for ``num_steps`` steps, each
+    with a leading step axis: (actions, predictions, *reset draws by name,
+    *step draws by name)."""
     venv, params = lp.venv, lp.params
     n, dev = venv.num_envs, params.device
     pred_shape = venv.env.prediction_space(params).shape
     act = torch.rand((num_steps, n, 2), generator=generator, device=dev) * 2.0 - 1.0
     pred = torch.randn((num_steps, n, *pred_shape), generator=generator, device=dev)
     resets = [venv.env.draw_reset(n, params, generator) for _ in range(num_steps)]
-    return (act, pred, *(torch.stack([d[k] for d in resets]) for k in lp.reset_keys))
+    steps = [venv.env.draw_step(n, params, generator) for _ in range(num_steps)]
+    return (act, pred, *(torch.stack([d[k] for d in resets]) for k in lp.reset_keys),
+            *(torch.stack([d[k] for d in steps]) for k in lp.step_keys))
 
 
 def _probe(obs) -> torch.Tensor:
@@ -125,18 +149,21 @@ def _steps(lp: _Loop, obs, state, draws, rsum):
     """Step through the leading axis of the hoisted draws, which starts at
     a cycle boundary; adds each step's summed reward into ``rsum`` in
     place."""
-    act, pred, *reset = draws
+    act, pred, *drawn = draws
+    reset, stepd = drawn[:len(lp.reset_keys)], drawn[len(lp.reset_keys):]
     for j in range(act.shape[0]):
         a = (act[j] + _probe(obs) * 1e-12).clamp(-1.0, 1.0)
         full = {"action": a, "prediction": pred[j]}
         reset_draws = {k: v[j] for k, v in zip(lp.reset_keys, reset)}
+        step_draws = {k: v[j] for k, v in zip(lp.step_keys, stepd)}
         if lp.period is None:
-            obs, state, reward, *_ = lp.venv.step(state, full, lp.params, reset_draws=reset_draws)
+            obs, state, reward, *_ = lp.venv.step(state, full, lp.params, reset_draws=reset_draws,
+                                                  step_draws=step_draws)
         elif j % (lp.period + 1) == lp.period:
             obs, state, reward, *_ = lp.venv.boundary_reset_step(
-                state, full, lp.params, reset_draws=reset_draws)
+                state, full, lp.params, reset_draws=reset_draws, step_draws=step_draws)
         else:
-            obs, state, reward, *_ = lp.inner.step(state, full, lp.params)
+            obs, state, reward, *_ = lp.inner.step(state, full, lp.params, step_draws=step_draws)
         rsum += reward.sum()
     return obs, state
 
@@ -216,7 +243,7 @@ def _rates(env: str, num_envs: int, num_steps: int, eager_s: float, graph_s: flo
     }
 
 
-def _bench_lidar(env: str, num_envs: int, num_steps: int, seed: int) -> dict:
+def _bench_next_step(env: str, num_envs: int, num_steps: int, seed: int) -> dict:
     dev = _need_cuda("bench")
     if num_steps % CHUNK:
         raise ValueError(f"num_steps must be a multiple of {CHUNK}")
@@ -228,14 +255,20 @@ def _bench_lidar(env: str, num_envs: int, num_steps: int, seed: int) -> dict:
 
 def bench_lidar_rooms(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
     """Env-steps/s of the eager and the graph-captured LIDARLocRooms loop."""
-    return _bench_lidar("lidar_rooms", num_envs, num_steps, seed)
+    return _bench_next_step("lidar_rooms", num_envs, num_steps, seed)
 
 
 def bench_lidar_rooms_window(num_envs: int = 4096, num_steps: int = 1024,
                              seed: int = 0) -> dict:
     """The same for LIDARLocRooms with ``raycast_backend="pallas_window"``
     (K2 windows); prints ``lidar_rooms_window_*`` keys."""
-    return _bench_lidar("lidar_rooms_window", num_envs, num_steps, seed)
+    return _bench_next_step("lidar_rooms_window", num_envs, num_steps, seed)
+
+
+def bench_light_dark(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
+    """Env-steps/s of the eager and the graph-captured LightDark loop (a
+    bare LightDarkEnv under NEXT_STEP); prints ``light_dark_*`` keys."""
+    return _bench_next_step("light_dark", num_envs, num_steps, seed)
 
 
 def bench_circle_square(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
@@ -278,14 +311,18 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
     total_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     per_step = 1e3 * PROFILE_STEPS
+    # The exact-rounding emulation (core.numerics) is the step's float64
+    # work: its kernels are the ones instantiated for double.
+    f64 = [e for e in kernels if "double" in e.key]
     return {
-        "env": WORKLOADS[env][0],
-        "overrides": WORKLOADS[env][1],
+        "workload": WORKLOADS[env][0],
         "steps": PROFILE_STEPS,
         "wall_ms_per_step": 1e3 * wall / PROFILE_STEPS,
         "device_busy_ms_per_step": total_us / per_step,
         "device_idle_share": max(0.0, 1.0 - total_us / 1e6 / wall),
         "kernel_launches_per_step": sum(e.count for e in kernels) / PROFILE_STEPS,
+        "float64_ms_per_step": sum(e.self_device_time_total for e in f64) / per_step,
+        "float64_launches_per_step": sum(e.count for e in f64) / PROFILE_STEPS,
         "port_kernels_ms_per_step": {
             name: sum(e.self_device_time_total for e in kernels if key in e.key) / per_step
             for name, key in PORT_KERNELS.items()},
@@ -308,7 +345,7 @@ def main(argv=None) -> None:
     elif args.env == "circle_square":
         print(json.dumps(bench_circle_square(args.num_envs, args.num_steps, args.seed)))
     else:
-        print(json.dumps(_bench_lidar(args.env, args.num_envs, args.num_steps, args.seed)))
+        print(json.dumps(_bench_next_step(args.env, args.num_envs, args.num_steps, args.seed)))
 
 
 if __name__ == "__main__":

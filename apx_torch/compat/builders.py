@@ -1,9 +1,10 @@
-"""Batched resets from host-drawn randomness (counterpart of the LIDAR and
-image-classification parts of apx.compat.builders).
+"""Batched resets from host-drawn randomness (counterpart of the LIDAR,
+image-classification and LightDark parts of apx.compat.builders).
 
 ``reset_from_draws(env, draws, params)`` turns host draws into a batched
 (obs, state, info) shaped like the env's own reset and lifts it through
-the wrapper stack with ``wrap_reset``.
+the wrapper stack with ``wrap_reset``. apx's ``apply_step_draws`` has no
+counterpart: the port's step takes its draws directly (``step_draws``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from ..envs.image_classification import ImageClassificationEnv
 from ..envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
+from ..envs.light_dark import LightDarkEnv, LightDarkState, noisy_position
 from ..wrappers.base import APWrapper
 
 __all__ = ["reset_from_draws"]
@@ -49,13 +51,21 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
             **base.obs_derived_from_state(state, params),
         }
         return obs, state, base._info(state)
+    if isinstance(base, LightDarkEnv):
+        # Host draws are standard-normal noise, scaled by obs_std itself.
+        dev = params.device
+        pos = torch.as_tensor(draws["pos"], dtype=torch.float32, device=dev)
+        noise = torch.as_tensor(draws["noise"], dtype=torch.float32, device=dev)
+        obs = {"noisy_position": noisy_position(pos, noise, params.noise_scale, params)}
+        return obs, LightDarkState(pos=pos), {}
     raise TypeError(f"No reset builder for {type(base).__name__}")
 
 
 def reset_from_draws(env, draws: dict[str, Any], params):
     """Batched (obs, state, info) from host draws, wrapper stack applied:
     ``{"occ", "pos", "map_idx"}`` for LIDAR envs, ``{"index", "inverted",
-    "pos"}`` for image classification envs."""
+    "pos"}`` for image classification envs, ``{"pos", "noise"}`` (noise
+    standard normal) for LightDark."""
     stack = _wrapper_stack(env)
     base = stack[-1].env if stack else env
     obs, state, info = _base_reset_from_draws(base, draws, params)

@@ -8,7 +8,11 @@ apx's JAX arrays) and a device.
 * ``image_bank_from_numpy`` builds a ``BankImageDataset`` from apx's bank
   (int32-packed uint8 rows, uint8 or float32 images);
 * ``image_state_from_numpy`` builds the vector state of an
-  ``ImageClassificationEnv`` from apx's state leaves.
+  ``ImageClassificationEnv`` from apx's state leaves;
+* ``light_dark_state_from_numpy`` builds the vector state of a
+  ``TimeLimit(LightDarkEnv)`` from apx's state leaves;
+* ``metrics_state_from_numpy`` wraps a converted vector state in the
+  metrics wrappers' state, from apx's ring buffers and counts.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ from .data.dataset import BankImageDataset
 from .data.floor_map import MapBank, pack_rows
 from .envs.image_perception import ImagePerceptionState
 from .envs.lidar_localization import LIDARLocalizationState
+from .envs.light_dark import LightDarkState
+from .wrappers.metrics import MetricsState
 from .wrappers.time_limit import TimeLimitState
 
 __all__ = ["map_bank_from_numpy", "lidar_state_from_numpy", "image_bank_from_numpy",
-           "image_state_from_numpy"]
+           "image_state_from_numpy", "light_dark_state_from_numpy", "metrics_state_from_numpy"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -97,3 +103,26 @@ def image_state_from_numpy(image, label, data_index, pos, time, label_inverted, 
     )
     return VectorState(inner=inner,
                        prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device))
+
+
+def light_dark_state_from_numpy(pos, t, prev_done, device="cuda") -> VectorState:
+    """Vector state of ``TimeLimit(LightDarkEnv)`` from apx's leaves
+    (``state.inner.inner.pos``, ``state.inner.t``, ``state.prev_done``)."""
+    inner = LightDarkState(pos=_t(np.asarray(pos, dtype=np.float32), torch.float32, device))
+    return VectorState(
+        inner=TimeLimitState(inner=inner, t=_t(np.asarray(t).astype(np.int32), torch.int32, device)),
+        prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device),
+    )
+
+
+def metrics_state_from_numpy(inner: VectorState, buf, count, prev_done,
+                             device="cuda") -> MetricsState:
+    """State of a metrics-wrapped vector env: ``inner`` is the converted
+    vector state (``state.inner`` of apx's), ``buf`` apx's dict of (N, L)
+    ring buffers, ``count`` and ``prev_done`` its (N,) leaves."""
+    return MetricsState(
+        inner=inner,
+        buf={k: _t(np.asarray(v, dtype=np.float32), torch.float32, device) for k, v in buf.items()},
+        count=_t(np.asarray(count).astype(np.int32), torch.int32, device),
+        prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device),
+    )

@@ -4,11 +4,15 @@ apx writes each env for ONE instance and lifts it with ``jax.vmap``; here
 every env function takes and returns tensors with a leading env axis N:
 
     obs, state, info = env.reset_env(num_envs, params, generator)
-    r = env.step_env(state, action, prediction, params)   # APStepResult
+    r = env.step_env(state, action, prediction, params, draws)   # APStepResult
 
-Resets are split into a random draw step (``draw_reset``, from an explicit
-``torch.Generator``) and a deterministic ``reset_from_draws``, so a test
-can inject the exact draws the JAX reference made from its threefry keys.
+Randomness is split into draws from an explicit ``torch.Generator`` and
+deterministic functions of them, so a test can inject the exact draws the
+JAX reference made from its threefry keys: ``draw_reset`` feeds
+``reset_from_draws``, and ``draw_step`` feeds ``step_env`` (apx hands such
+envs a step key, ``step_uses_rng``; envs whose step draws nothing return
+``{}`` and consume nothing). A vector step draws its step draws before its
+reset draws, in the order of apx's split ``(step_key, reset_key)``.
 
 ``VectorAPEnv`` adds the reward composition (``base_reward - loss``) and
 mask autoreset. NEXT_STEP and LOCKSTEP always run the reset for all envs
@@ -43,6 +47,7 @@ __all__ = [
     "rollout_episodic",
     "tree_map",
     "tree_select",
+    "with_autoreset",
 ]
 
 P = TypeVar("P")
@@ -146,7 +151,16 @@ class APEnv(Generic[P, S]):
     def reset_env(self, num_envs: int, params: P, generator: torch.Generator):
         return self.reset_from_draws(self.draw_reset(num_envs, params, generator), params)
 
-    def step_env(self, state: S, action, prediction, params: P) -> APStepResult:
+    def draw_step(
+        self, num_envs: int, params: P, generator: torch.Generator | None
+    ) -> dict[str, torch.Tensor]:
+        """The random numbers one batched step consumes: none by default
+        (and nothing is taken from the generator)."""
+        return {}
+
+    def step_env(self, state: S, action, prediction, params: P, draws=None) -> APStepResult:
+        """One batched step from ``draw_step``'s ``draws`` (ignored by envs
+        whose step draws nothing)."""
         raise NotImplementedError
 
     def prediction_target_on_reset(self, old_state: S, new_state: S, params: P):
@@ -174,9 +188,13 @@ class APEnv(Generic[P, S]):
         obs, state, info = self.reset_env(num_envs, params, generator)
         return self._merge_derived_obs(obs, state, params), state, info
 
-    def step(self, state: S, full_action: dict[str, Any], params: P):
-        """Composite step: reward = base_reward - loss_fn(prediction, target)."""
-        r = self.step_env(state, full_action["action"], full_action["prediction"], params)
+    def step(self, state: S, full_action: dict[str, Any], params: P,
+             generator: torch.Generator | None = None, draws=None):
+        """Composite step: reward = base_reward - loss_fn(prediction, target).
+        The step draws come from ``generator`` unless injected."""
+        if draws is None:
+            draws = self.draw_step(num_envs_of(state), params, generator)
+        r = self.step_env(state, full_action["action"], full_action["prediction"], params, draws)
         loss = self.loss_fn(params)(full_action["prediction"], r.prediction_target)
         reward = r.base_reward - loss
         info = self.compose_info(
@@ -211,17 +229,21 @@ class VectorAPEnv:
         return obs, VectorState(inner=state, prev_done=prev_done), info
 
     def step(self, state: VectorState, full_action: dict[str, Any], params,
-             generator: torch.Generator | None = None, reset_draws=None):
+             generator: torch.Generator | None = None, reset_draws=None, step_draws=None):
         """One vector step. NEXT_STEP resets the envs that were done at the
         previous step, LOCKSTEP all envs once every env is done, from
         ``generator`` or from injected ``reset_draws`` (draws for all N
-        envs; only the reset envs' are used). On a LOCKSTEP reset step the
-        base reward is 0, the dones are False and the loss is taken against
-        the new episode's target (``APEnv.prediction_target_on_reset``)."""
+        envs; only the reset envs' are used). The step's own draws come
+        from ``generator`` first, unless injected as ``step_draws``. On a
+        LOCKSTEP reset step the base reward is 0, the dones are False and
+        the loss is taken against the new episode's target
+        (``APEnv.prediction_target_on_reset``)."""
         env = self.env
         loss_fn = env.loss_fn(params)
+        if step_draws is None:
+            step_draws = env.draw_step(self.num_envs, params, generator)
         r = env.step_env(
-            state.inner, full_action["action"], full_action["prediction"], params
+            state.inner, full_action["action"], full_action["prediction"], params, step_draws
         )
 
         if self.autoreset is AutoResetMode.DISABLED:
@@ -276,12 +298,17 @@ class VectorAPEnv:
         return obs, vstate, reward, terminated, truncated, info
 
     def boundary_reset_step(self, state: VectorState, full_action: dict[str, Any], params,
-                            generator: torch.Generator | None = None, reset_draws=None):
+                            generator: torch.Generator | None = None, reset_draws=None,
+                            step_draws=None):
         """The LOCKSTEP all-done reset step on its own: the outputs of
         ``step`` entered with ``prev_done`` all True, without the step whose
-        results that step masks out (apx/core/env.py:396-426)."""
+        results that step masks out (apx/core/env.py:396-426). It takes
+        from ``generator`` what ``step`` takes, and ``step_draws`` are
+        unused, as apx's boundary step drops its step key."""
         env = self.env
         if reset_draws is None:
+            if step_draws is None:
+                env.draw_step(self.num_envs, params, generator)
             reset_draws = env.draw_reset(self.num_envs, params, _need(generator))
         reset_obs, reset_state, reset_info = env.autoreset_from_draws(
             reset_draws, state.inner, params
@@ -305,11 +332,20 @@ def _need(generator):
     return generator
 
 
+def _first_leaf(tree) -> torch.Tensor:
+    found = []
+    tree_map(found.append, tree)
+    return found[0]
+
+
 def state_device(state) -> torch.device:
     """Device of the first tensor leaf of a state tree."""
-    found = []
-    tree_map(lambda x: found.append(x.device), state)
-    return found[0]
+    return _first_leaf(state).device
+
+
+def num_envs_of(state) -> int:
+    """Leading (env) axis of the first tensor leaf of a state tree."""
+    return _first_leaf(state).shape[0]
 
 
 def vector_env(
@@ -340,6 +376,20 @@ def rollout(
     return obs, state, (torch.stack(rewards), torch.stack(terms), torch.stack(truncs))
 
 
+def with_autoreset(venv, mode: AutoResetMode):
+    """``dataclasses.replace(venv, autoreset=mode)``, recursing through
+    vector-level wrappers (the metrics wrappers) that hold the vector env in
+    a ``venv`` field and delegate ``autoreset`` (apx/core/env.py:530-545)."""
+    if any(f.name == "autoreset" for f in dataclasses.fields(venv)):
+        return dataclasses.replace(venv, autoreset=mode)
+    if hasattr(venv, "venv"):
+        return dataclasses.replace(venv, venv=with_autoreset(venv.venv, mode))
+    raise TypeError(
+        f"cannot set autoreset on {type(venv).__name__}: no autoreset "
+        "field and no inner 'venv' to recurse into"
+    )
+
+
 def rollout_episodic(
     venv: VectorAPEnv,
     params,
@@ -352,22 +402,27 @@ def rollout_episodic(
     (apx/core/env.py:548-609): ``period`` DISABLED steps, then one
     ``boundary_reset_step``, repeated; a trailing partial cycle runs without
     its boundary. Valid when every episode lasts exactly ``period`` steps,
-    as in every image env. Each step draws the reset draws ``venv.step``
-    would draw, so the generator advances as in ``rollout`` and the
-    trajectory is bitwise ``rollout``'s. Returns what ``rollout`` returns."""
+    as in every image env. Each step draws the step and reset draws
+    ``venv.step`` would draw, so the generator advances as in ``rollout``
+    and the trajectory is bitwise ``rollout``'s. ``venv`` may be wrapped by
+    a vector-level wrapper (``with_autoreset``). Returns what ``rollout``
+    returns."""
     if venv.autoreset is not AutoResetMode.LOCKSTEP:
         raise ValueError("rollout_episodic needs a LOCKSTEP vector env")
-    inner = dataclasses.replace(venv, autoreset=AutoResetMode.DISABLED)
+    inner = with_autoreset(venv, AutoResetMode.DISABLED)
+    env, n = venv.env, venv.num_envs
     obs, state, _ = venv.reset(params, generator)
     rewards, terms, truncs = [], [], []
     for i in range(num_steps):
         act = policy_fn(generator, obs)
-        draws = venv.env.draw_reset(venv.num_envs, params, generator)
+        step_draws = env.draw_step(n, params, generator)
+        draws = env.draw_reset(n, params, generator)
         if i % (period + 1) == period:
             obs, state, reward, term, trunc, _ = venv.boundary_reset_step(
-                state, act, params, reset_draws=draws)
+                state, act, params, reset_draws=draws, step_draws=step_draws)
         else:
-            obs, state, reward, term, trunc, _ = inner.step(state, act, params)
+            obs, state, reward, term, trunc, _ = inner.step(
+                state, act, params, step_draws=step_draws)
         rewards.append(reward)
         terms.append(term)
         truncs.append(trunc)

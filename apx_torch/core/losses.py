@@ -1,8 +1,9 @@
 """Differentiable prediction losses (counterpart of apx.core.losses).
 
 Ported: ``LossFn`` with ``.normalized``, ``AffineLossFn``, ``MSELossFn``
-(the regression envs: LIDAR) and ``CrossEntropyLossFn`` (the
-classification envs). Each loss is a frozen dataclass;
+(the regression envs), ``CrossEntropyLossFn`` (the classification envs),
+``WeightedLossFn`` (the sparse ids), ``ZeroLossFn`` (pseudo AP envs) and
+``LambdaLossFn`` (one torch callable). Each loss is a frozen dataclass;
 ``__call__(prediction, target)`` takes torch tensors and reduces the
 trailing feature axis.
 """
@@ -10,13 +11,15 @@ trailing feature axis.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from .numerics import div, sum_squares
 
-__all__ = ["LossFn", "AffineLossFn", "MSELossFn", "CrossEntropyLossFn"]
+__all__ = ["LossFn", "AffineLossFn", "MSELossFn", "CrossEntropyLossFn", "WeightedLossFn",
+           "ZeroLossFn", "LambdaLossFn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,13 +81,21 @@ class AffineLossFn(LossFn):
 @dataclasses.dataclass(frozen=True)
 class MSELossFn(LossFn):
     """mean((prediction - target)^2, axis=-1), with the sum of squares
-    rounded as the jitted reference rounds it (``numerics.sum_squares``)."""
+    rounded as the jitted reference rounds it at the env's call site: one
+    FMA per further element (``numerics.sum_squares``) where XLA-CPU
+    contracts the reduce (LIDAR), each square rounded where it does not
+    (LightDark, whose reduce XLA vectorises)."""
 
     target_std: float | tuple[float, ...] | None = None
+    fused_sum: bool = True
 
     def __call__(self, prediction, target):
         diff = prediction - target
-        return div(sum_squares(diff), diff.shape[-1])
+        if self.fused_sum:
+            total = sum_squares(diff)
+        else:
+            total = (diff * diff).sum(dim=-1)
+        return div(total, diff.shape[-1])
 
     @property
     def lower_bound(self) -> float:
@@ -124,3 +135,83 @@ class CrossEntropyLossFn(LossFn):
         if self.num_classes is None:
             return None
         return float(np.log(self.num_classes))
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightedLossFn(LossFn):
+    """Target {"target", "weight"}: ``inner(prediction, target) * weight``
+    (the sparse ids, where weight = terminated; apx/core/losses.py:260-294)."""
+
+    inner: LossFn = None  # type: ignore[assignment]
+    min_weight: float = 0.0
+    average_weight: float | None = None
+
+    def __call__(self, prediction, target):
+        return self.inner(prediction, target["target"]) * target["weight"]
+
+    @property
+    def lower_bound(self) -> float:
+        return self.min_weight * self.inner.lower_bound
+
+    @property
+    def blind_guessing_expected_value(self) -> float | None:
+        v = self.inner.blind_guessing_expected_value
+        if v is None or self.average_weight is None:
+            return None
+        return self.average_weight * v
+
+
+def _first_tensor(tree) -> torch.Tensor | None:
+    if isinstance(tree, torch.Tensor):
+        return tree
+    children = tree.values() if isinstance(tree, dict) else tree
+    for child in children if isinstance(tree, (dict, tuple, list)) else ():
+        found = _first_tensor(child)
+        if found is not None:
+            return found
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroLossFn(LossFn):
+    """Constant zero (the pseudo AP envs' loss). Predictions and targets
+    may be empty tuples; ``batch_shape`` sets the output's shape. The zeros
+    lie on the device of the first tensor in the prediction or target, else
+    on the CPU."""
+
+    def __call__(self, prediction, target, batch_shape: tuple[int, ...] = ()):
+        leaf = _first_tensor((target, prediction))
+        dev = leaf.device if leaf is not None else torch.device("cpu")
+        return torch.zeros(batch_shape, dtype=torch.float32, device=dev)
+
+    @property
+    def lower_bound(self) -> float:
+        return 0.0
+
+    @property
+    def blind_guessing_expected_value(self) -> float:
+        return 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LambdaLossFn(LossFn):
+    """A user's torch callable ``fn(prediction, target)`` as a loss, with
+    its bounds (apx's LambdaLossFn, whose torch form this is)."""
+
+    fn: Callable[[Any, Any], torch.Tensor] = None  # type: ignore[assignment]
+    lower_bound_value: float = -np.inf
+    blind_guess_value: float | None = None
+
+    def __call__(self, prediction, target):
+        return self.fn(prediction, target)
+
+    @property
+    def lower_bound(self) -> float:
+        return self.lower_bound_value
+
+    @property
+    def blind_guessing_expected_value(self) -> float | None:
+        return self.blind_guess_value
+
+    def __hash__(self):
+        return hash((id(self.fn), self.lower_bound_value, self.blind_guess_value))

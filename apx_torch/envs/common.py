@@ -19,13 +19,15 @@ def make_regression_loss_and_target_space(
     prediction_low: float = -np.inf,
     prediction_high: float = np.inf,
     target_std: float | None = None,
+    fused_sum: bool = True,
 ) -> tuple[LossFn, Box]:
     """MSE loss (normalized if bounds are finite, assuming a uniform target
-    distribution: std = (high - low)/sqrt(12)) and the Box target space."""
+    distribution: std = (high - low)/sqrt(12)) and the Box target space.
+    ``fused_sum``: see ``MSELossFn``."""
     target_space = Box(low=prediction_low, high=prediction_high, shape=(target_dim,))
     if target_std is None and np.isfinite(prediction_low) and np.isfinite(prediction_high):
         target_std = float((prediction_high - prediction_low) / np.sqrt(12))
-    loss: LossFn = MSELossFn(target_std=target_std)
+    loss: LossFn = MSELossFn(target_std=target_std, fused_sum=fused_sum)
     if target_std is not None:
         loss = loss.normalized
     else:

@@ -58,7 +58,7 @@ class ImageClassificationEnv(APEnv[ImagePerceptionParams, ImagePerceptionState])
         return (ImagePerceptionEngine.observe(state, params), state,
                 ImagePerceptionEngine.info(state))
 
-    def step_env(self, state, action, prediction, params) -> APStepResult:
+    def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
         new_state, base_reward, terminated = ImagePerceptionEngine.move(state, action, params)
         return APStepResult(
             obs=ImagePerceptionEngine.observe(new_state, params),

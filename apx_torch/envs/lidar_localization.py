@@ -47,6 +47,7 @@ from ..core.losses import LossFn
 from ..core.numerics import div, fma, sqrt, sum_squares
 from ..core.spaces import Box, DictSpace, Image, Space
 from ..data.floor_map import MapBank
+from ..ops.geometry import normalize_into_unit_ball
 from ..ops.raycast import lidar_directions_np, seg_length
 from ..ops.raycast_cuda import raycast_fast, raycast_typed
 from ..ops.window import WIN, window_starts
@@ -265,16 +266,13 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         )
         return self._observe(state, params, typed=True), state, self._info(state)
 
-    def step_env(self, state, action, prediction, params) -> APStepResult:
+    def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
         # The FMA sites below are where XLA's fused reference contracts a
         # multiply into the following add (core.numerics).
         pos = state.pos
         base_reward = fma(torch.full_like(pos[:, 0], -1e-3), sum_squares(action), 0.1)
 
-        mag = seg_length(action)
-        a = torch.where(
-            (mag > 1.0)[:, None], action / torch.where(mag == 0.0, 1.0, mag)[:, None], action
-        )
+        a = normalize_into_unit_ball(action)
         total = seg_length(a)
         direction = a / torch.where(total == 0.0, 1.0, total)[:, None]
 

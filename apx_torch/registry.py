@@ -1,6 +1,6 @@
 """Environment registry of the port (counterpart of apx.registry).
 
-The port has 22 of apx's ids so far, each built and autoreset as apx
+The port has 46 of apx's 158 ids so far, each built and autoreset as apx
 builds it:
 
 * the four LIDAR base ids, each
@@ -9,13 +9,18 @@ builds it:
 * the 18 CircleSquare and CircleSquareInverted ids of apx's nine suffix
   families (image size, gradient, step limit), each
   ``ImageClassificationEnv(CircleSquare bank, step_limit=T)`` under
-  LOCKSTEP autoreset, the Inverted ones with randomly inverted labels.
+  LOCKSTEP autoreset, the Inverted ones with randomly inverted labels;
+* ``LightDark-v0``, ``TimeLimit(LightDarkEnv(), 50, issue_termination=True)``
+  under NEXT_STEP autoreset;
+* the ``<Name>-sparse-v0`` twin of each, ``Sparsify`` over the same env.
 
 Every other apx id raises ``KeyError``; the order in which they arrive is
-ROADMAP.md's queue 1.
+ROADMAP.md's queue 1. ``make_vec(..., metrics=True)`` wraps the vector env
+in ``ClassificationMetrics`` or ``RegressionMetrics`` with a buffer of the
+id's step limit.
 
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)
-    venv, params = apx_torch.make_vec("CircleSquare-v0", num_envs=4096)
+    venv, params = apx_torch.make_vec("CircleSquare-sparse-v0", num_envs=4096, metrics=True)
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -27,9 +32,12 @@ from typing import Callable
 
 import torch
 
-from .core.env import APEnv, AutoResetMode, VectorAPEnv, vector_env
+from .core.env import APEnv, AutoResetMode, vector_env
 from .envs.image_classification import ImageClassificationEnv
 from .envs.lidar_localization import LIDARLocalizationEnv
+from .envs.light_dark import LightDarkEnv
+from .wrappers.metrics import ClassificationMetrics, RegressionMetrics
+from .wrappers.sparsify import Sparsify
 from .wrappers.time_limit import TimeLimit
 
 __all__ = ["EnvEntry", "make", "make_vec", "env_ids"]
@@ -39,7 +47,10 @@ __all__ = ["EnvEntry", "make", "make_vec", "env_ids"]
 class EnvEntry:
     env_id: str
     build: Callable[[torch.device], APEnv]
+    step_limit: int  # episode length bound (the metrics buffer's length)
+    metrics: str  # "classification" or "regression"
     autoreset: AutoResetMode
+    sparse: bool = False
 
 
 _BANK_CACHE: dict = {}
@@ -85,27 +96,39 @@ _CIRCLE_SQUARE_FAMILIES = [
 ]
 
 
+def _register(reg: dict[str, EnvEntry], entry: EnvEntry) -> None:
+    """The entry and its ``-sparse`` twin (apx/registry.py:112-117)."""
+    reg[entry.env_id] = entry
+    base, ver = entry.env_id.rsplit("-", 1)
+    reg[f"{base}-sparse-{ver}"] = dataclasses.replace(
+        entry, env_id=f"{base}-sparse-{ver}", sparse=True)
+
+
 def _build_registry() -> dict[str, EnvEntry]:
     reg: dict[str, EnvEntry] = {}
     for sfx, size, grad, t in _CIRCLE_SQUARE_FAMILIES:
         for name, invert in (("CircleSquare", False), ("CircleSquareInverted", True)):
-            env_id = f"{name}{sfx}-v0"
-            reg[env_id] = EnvEntry(
-                env_id=env_id,
+            _register(reg, EnvEntry(
+                env_id=f"{name}{sfx}-v0",
                 build=lambda device, size=size, grad=grad, t=t, invert=invert:
                     ImageClassificationEnv(
                         dataset=_circle_square_bank(size, grad, device), step_limit=t,
                         randomly_invert_labels=invert,
                     ),
-                autoreset=AutoResetMode.LOCKSTEP,
-            )
+                step_limit=t, metrics="classification", autoreset=AutoResetMode.LOCKSTEP,
+            ))
+    _register(reg, EnvEntry(
+        env_id="LightDark-v0",
+        build=lambda device: TimeLimit(LightDarkEnv(device), 50, issue_termination=True),
+        step_limit=50, metrics="regression", autoreset=AutoResetMode.NEXT_STEP,
+    ))
     for env_id, kind, static in [
         ("LIDARLocMazeStatic-v0", "maze", True),
         ("LIDARLocMaze-v0", "maze", False),
         ("LIDARLocRoomsStatic-v0", "rooms", True),
         ("LIDARLocRooms-v0", "rooms", False),
     ]:
-        reg[env_id] = EnvEntry(
+        _register(reg, EnvEntry(
             env_id=env_id,
             build=lambda device, kind=kind, static=static: TimeLimit(
                 LIDARLocalizationEnv(
@@ -113,8 +136,8 @@ def _build_registry() -> dict[str, EnvEntry]:
                 ),
                 100, issue_termination=True,
             ),
-            autoreset=AutoResetMode.NEXT_STEP,
-        )
+            step_limit=100, metrics="regression", autoreset=AutoResetMode.NEXT_STEP,
+        ))
     return reg
 
 
@@ -149,6 +172,8 @@ def make(env_id: str, device="cuda", **param_overrides):
     """Single functional env (batched API): returns (env, params)."""
     entry = _entry(env_id)
     env = entry.build(_device(device))
+    if entry.sparse:
+        env = Sparsify(env)
     return env, env.default_params(**param_overrides)
 
 
@@ -156,9 +181,16 @@ def make_vec(
     env_id: str,
     num_envs: int,
     device="cuda",
+    metrics: bool = False,
     autoreset: AutoResetMode | None = None,
     **param_overrides,
-) -> tuple[VectorAPEnv, object]:
-    """Vector env: returns (venv, params)."""
+):
+    """Vector env: returns (venv, params). ``metrics`` wraps it in the
+    id's episode-metrics wrapper (a buffer of the id's step limit)."""
+    entry = _entry(env_id)
     env, params = make(env_id, device=device, **param_overrides)
-    return vector_env(env, num_envs, autoreset or _entry(env_id).autoreset), params
+    venv = vector_env(env, num_envs, autoreset or entry.autoreset)
+    if metrics:
+        cls = ClassificationMetrics if entry.metrics == "classification" else RegressionMetrics
+        return cls(venv, buffer_len=entry.step_limit), params
+    return venv, params

@@ -43,8 +43,11 @@ class APWrapper(APEnv):
     def autoreset_from_draws(self, draws, old_state, params):
         return self.env.autoreset_from_draws(draws, old_state, params)
 
-    def step_env(self, state, action, prediction, params) -> APStepResult:
-        return self.env.step_env(state, action, prediction, params)
+    def draw_step(self, num_envs, params, generator):
+        return self.env.draw_step(num_envs, params, generator)
+
+    def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
+        return self.env.step_env(state, action, prediction, params, draws)
 
     def wrap_reset(self, obs, state, info, params):
         """Lift an inner batched reset result through this wrapper (used to

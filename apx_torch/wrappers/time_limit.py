@@ -1,9 +1,13 @@
 """Batched TimeLimit wrapper (counterpart of apx.wrappers.time_limit).
 
 After ``max_episode_steps`` steps it sets ``terminated``
-(``issue_termination``) or ``truncated``; with ``observe_time_steps``
-(default = issue_termination) a dict observation gains
-``time_step = 2 t / T - 1``, which is -1 on the reset observation.
+(``issue_termination``) or ``truncated``. With ``observe_time_steps``
+(default = issue_termination) the observation carries ``2 t / T - 1``,
+which is -1 on the reset observation: as a ``time_step`` key of a dict
+observation, as the last element of a tuple observation, as one more
+column of a 1-D Box observation ((N, D) batched, so ``ndim == 2``; apx's
+per-env test is ``ndim == 1``), and otherwise as
+``{"observation", "time_step"}``.
 """
 
 from __future__ import annotations
@@ -11,11 +15,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
-from ..core.env import APEnv, APStepResult
+from ..core.env import APEnv, APStepResult, _first_leaf
 from ..core.numerics import time_obs
-from ..core.spaces import Box, DictSpace, Space
+from ..core.spaces import Box, DictSpace, Space, TupleSpace
 from .base import APWrapper
 
 __all__ = ["TimeLimit", "TimeLimitState"]
@@ -49,6 +54,12 @@ class TimeLimit(APWrapper):
         time_space = Box(low=-1.0, high=1.0, shape=())
         if isinstance(inner, DictSpace):
             return DictSpace({**inner.spaces, "time_step": time_space})
+        if isinstance(inner, TupleSpace):
+            return TupleSpace((*inner.spaces, time_space))
+        if isinstance(inner, Box) and len(inner.shape) == 1:
+            return Box(low=np.append(inner.low_arr, np.float32(-1.0)),
+                       high=np.append(inner.high_arr, np.float32(1.0)),
+                       shape=(inner.shape[0] + 1,), dtype=inner.dtype)
         return DictSpace({"observation": inner, "time_step": time_space})
 
     def _time_obs(self, t: torch.Tensor) -> torch.Tensor:
@@ -60,6 +71,10 @@ class TimeLimit(APWrapper):
         time_obs = self._time_obs(t)
         if isinstance(obs, dict):
             return {**obs, "time_step": time_obs}
+        if isinstance(obs, tuple):
+            return (*obs, time_obs)
+        if isinstance(obs, torch.Tensor) and obs.ndim == 2:
+            return torch.cat([obs, time_obs[:, None].to(obs.dtype)], dim=1)
         return {"observation": obs, "time_step": time_obs}
 
     def wrap_reset(self, obs, state, info, params):
@@ -74,8 +89,8 @@ class TimeLimit(APWrapper):
         obs, state, info = self.env.autoreset_from_draws(draws, old_state.inner, params)
         return self.wrap_reset(obs, state, info, params)
 
-    def step_env(self, state, action, prediction, params) -> APStepResult:
-        r = self.env.step_env(state.inner, action, prediction, params)
+    def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
+        r = self.env.step_env(state.inner, action, prediction, params, draws)
         t = state.t + 1
         out_of_time = t >= self.max_episode_steps
         if self.issue_termination:
@@ -94,10 +109,6 @@ class TimeLimit(APWrapper):
 
     def obs_derived_from_state(self, state, params):
         return self.env.obs_derived_from_state(state.inner, params)
-
-
-def _first_leaf(obs) -> torch.Tensor:
-    return next(iter(obs.values())) if isinstance(obs, dict) else obs
 
 
 def _batch(obs) -> int:

@@ -60,15 +60,41 @@ Phases, one line each; any failure exits non-zero:
     the unroll factor), at odd row counts (4095 wide, 511 narrow) and at
     ``measure()``'s sizes; then the study's entry point ``measure()`` at
     apx's sizes (rows = 4096, iters = 512, 20 reps), its line printed.
-12. throughput: ``apx_torch.bench`` at N = 4096 for the three workloads
+12. LightDark main path: ``apx_torch.make_vec("LightDark-v0",
+    num_envs=4096)``, reset and 200 steps of uniform random actions with
+    zero predictions (its step draws its observation noise); every obs
+    finite, ``noisy_position`` in [-2, 2], ``time_step`` in [-1, 1], rewards
+    in [-2.002, 1] (base reward 1 - 1e-3 |a|^2 less a normalized MSE of at
+    most 3), every env through at least three episode ends. It runs no
+    kernel of the port.
+13. wrapped kernel paths: ``make_vec("LIDARLocRooms-sparse-v0",
+    num_envs=4096, metrics=True)`` for 250 steps and
+    ``make_vec("CircleSquare-sparse-v0", num_envs=4096, metrics=True)`` for
+    51, with zero predictions. K1's launches are phase 4's (3
+    ``raycast_fast`` per step, 1 + steps ``raycast_typed``), K3's phase 6's
+    (1 + 2 steps). The weight equals terminated (on a NEXT_STEP autoreset
+    step it is the masked-out step's, as in apx); the reward equals the base
+    reward, bitwise, wherever the weight is 0 or the env was reset, and
+    base_reward - weight * dense loss within 1e-6 elsewhere; the float
+    stats are finite exactly where done; at done ``vector_lengths`` equals
+    the episode's steps (the TimeLimit count: 100 for a LIDAR episode that
+    ends on time, 16 for CircleSquare); CircleSquare's
+    ``avg_correct_label_prob`` is 0.5 within 1e-6.
+14. card vs CPU with step draws: phase 5 for ``LightDark-v0`` (N = 256,
+    120 steps, step draws drawn on the CPU and injected), bitwise; and for
+    ``LIDARLocRooms-sparse-v0`` and ``CircleSquare-sparse-v0`` with
+    ``metrics=True``, at their base ids' tolerances, ``info["stats"]`` and
+    the metrics buffers too (ints, bools and NaN positions bitwise, floats
+    within 1e-6).
+15. throughput: ``apx_torch.bench`` at N = 4096 for the four workloads
     (eager and CUDA graph).
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
 its own path, the counts set to 0 just before it: K1's on phase 4 (and
-under ``"window"`` on phase 9), K2's on phase 9, K3's on phase 6, K4's in
-``measure()``. It needs CUDA and the apx_torch package beside it, and
-exits non-zero without them.
+under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase 13), K2's on
+phase 9, K3's on phase 6 (and phase 13), K4's in ``measure()``. It needs
+CUDA and the apx_torch package beside it, and exits non-zero without them.
 """
 
 from __future__ import annotations
@@ -705,26 +731,35 @@ def phase_circle_square_main_path(dev) -> dict:
             "launches": launches}
 
 
-def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, **overrides) -> dict:
+STATS_TOL = 1e-6  # float stats: softmax, and sums over the ring
+
+
+def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: bool = False,
+                      **overrides) -> dict:
     """One trajectory of ``env_id`` (with parameter ``overrides``) on the
     card and on the CPU from the same actions, predictions and injected
-    reset draws. Leaves named in ``tol`` (obs keys, or "reward") are held to
-    that absolute tolerance; every other leaf of the obs, states, rewards
-    and dones must be bitwise equal."""
+    step and reset draws, drawn on the CPU in the vector step's order.
+    Leaves named in ``tol`` (obs keys, or "reward") are held to that
+    absolute tolerance; every other leaf of the obs, states, rewards and
+    dones must be bitwise equal. With ``metrics``, ``info["stats"]`` and
+    the metrics buffers are compared too: ints, bools and NaN positions
+    bitwise, floats within ``STATS_TOL``."""
     import apx_torch
     from apx_torch.core.env import tree_map
     from apx_torch.core.spaces import Logit
+    from apx_torch.wrappers.metrics import MetricsState
 
     devices = (torch.device("cpu"), dev)
-    runs = [apx_torch.make_vec(env_id, num_envs=n, device=d, **overrides) for d in devices]
+    runs = [apx_torch.make_vec(env_id, num_envs=n, device=d, metrics=metrics, **overrides)
+            for d in devices]
     cpu_venv, cpu_params = runs[0]
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
     logits = isinstance(cpu_venv.env.prediction_space(cpu_params), Logit)
-    max_err = {k: 0.0 for k in tol}
+    max_err = {k: 0.0 for k in (*tol, *(("stats",) if metrics else ()))}
 
-    def draws(d):
-        return {k: v.to(d) for k, v in drawn.items()}
+    def to(tree, d):
+        return tree_map(lambda x: x.to(d), tree)
 
     def leaves(tree):
         out = []
@@ -738,41 +773,170 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, **overrid
         else:
             check(torch.equal(a, b), f"{what} differs")
 
-    def close(a, b, key, what):
-        err = (a.cpu() - b.cpu()).abs().max().item()
+    def close(a, b, key, what, limit):
+        a, b = a.cpu(), b.cpu()
+        check(torch.equal(torch.isnan(a), torch.isnan(b)), f"{what}: NaN positions differ")
+        ok = ~torch.isnan(a)
+        err = (a[ok] - b[ok]).abs().max().item() if bool(ok.any()) else 0.0
         max_err[key] = max(max_err[key], err)
-        check(err <= tol[key], f"{what}: max |diff| {err} > {tol[key]}")
+        check(err <= limit, f"{what}: max |diff| {err} > {limit}")
+
+    def stats_like(a, b, what):
+        for x, y in zip(leaves(a), leaves(b), strict=True):
+            if x.dtype == torch.float32:
+                close(x, y, "stats", what, STATS_TOL)
+            else:
+                same(x, y, what)
+
+    def split(state):
+        """(leaves held bitwise, metrics buffers held as stats)."""
+        if isinstance(state, MetricsState):
+            return (state.inner, state.count, state.prev_done), state.buf
+        return state, {}
 
     drawn = cpu_venv.env.draw_reset(n, cpu_params, gen)
-    carry = [venv.reset(params, draws=draws(d))[:2] for d, (venv, params) in zip(devices, runs)]
+    carry = [venv.reset(params, draws=to(drawn, d))[:2] for d, (venv, params) in zip(devices, runs)]
     for t in range(steps):
         act = torch.from_numpy(rng.uniform(-1, 1, (n, 2)).astype(np.float32))
         pred = rng.standard_normal((n, 2)) if logits else rng.uniform(-1, 1, (n, 2))
         pred = torch.from_numpy(pred.astype(np.float32))
-        drawn = cpu_venv.env.draw_reset(n, cpu_params, gen)
+        step_drawn = cpu_venv.env.draw_step(n, cpu_params, gen)
+        reset_drawn = cpu_venv.env.draw_reset(n, cpu_params, gen)
         outs = []
         for i, (d, (venv, params)) in enumerate(zip(devices, runs)):
-            o, s, r, te, tr, _ = venv.step(
+            o, s, r, te, tr, info = venv.step(
                 carry[i][1], {"action": act.to(d), "prediction": pred.to(d)}, params,
-                reset_draws=draws(d))
+                reset_draws=to(reset_drawn, d), step_draws=to(step_drawn, d))
             carry[i] = (o, s)
-            outs.append((o, s, r, te, tr))
-        (oc, sc, rc, *dc), (og, sg, rg, *dg) = outs
+            outs.append((o, s, r, te, tr, info))
+        (oc, sc, rc, *dc, ic), (og, sg, rg, *dg, ig) = outs
         what = f"{env_id} step {t}"
         for k in oc:
             if k in tol:
-                close(oc[k], og[k], k, f"{what} obs {k}")
+                close(oc[k], og[k], k, f"{what} obs {k}", tol[k])
             else:
                 same(oc[k], og[k].cpu(), f"{what} obs {k}")
         if "reward" in tol:
-            close(rc, rg, "reward", f"{what} reward")
+            close(rc, rg, "reward", f"{what} reward", tol["reward"])
         else:
             same(rc, rg.cpu(), f"{what} reward")
-        for a, b in zip(leaves((sc, *dc)), leaves((sg, *dg))):
+        (bc, fc), (bg, fg) = split(sc), split(sg)
+        for a, b in zip(leaves((bc, *dc)), leaves((bg, *dg)), strict=True):
             same(a, b, f"{what} state or dones")
-    return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "max_abs_err": max_err,
+        if metrics:
+            stats_like(fc, fg, f"{what} metrics buffers")
+            stats_like(ic["stats"], ig["stats"], f"{what} stats")
+    return {"env": env_id, **overrides, "metrics": metrics, "num_envs": n, "steps": steps,
+            "max_abs_err": max_err,
             "bitwise": sorted(set(oc) - set(tol)) + ["state", "dones"]
             + ([] if "reward" in tol else ["reward"])}
+
+
+def phase_light_dark_main_path(dev) -> dict:
+    import apx_torch
+
+    steps = 200
+    venv, params = apx_torch.make_vec("LightDark-v0", num_envs=N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    zero_pred = torch.zeros((N, 2), device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    ranges_ok = torch.ones((), dtype=torch.bool, device=dev)
+    r_lo = torch.full((), float("inf"), device=dev)
+    r_hi = torch.full((), -float("inf"), device=dev)
+    ends = torch.zeros(N, dtype=torch.int64, device=dev)
+
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    obs, state, _ = venv.reset(params, gen)
+    for _ in range(steps):
+        act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+        obs, state, reward, term, trunc, _ = venv.step(
+            state, {"action": act, "prediction": zero_pred}, params, gen)
+        for leaf in obs.values():
+            finite &= torch.isfinite(leaf).all()
+        ranges_ok &= (obs["noisy_position"].abs() <= 2).all() & (obs["time_step"].abs() <= 1).all()
+        r_lo = torch.minimum(r_lo, reward.min())
+        r_hi = torch.maximum(r_hi, reward.max())
+        ends += (term | trunc).to(torch.int64)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launch_counts()
+
+    check(bool(finite), "non-finite observation")
+    check(bool(ranges_ok), "noisy_position outside [-2, 2] or time_step outside [-1, 1]")
+    check(-2.002 <= float(r_lo) and float(r_hi) <= 1.0,
+          f"rewards outside [-2.002, 1]: [{float(r_lo)}, {float(r_hi)}]")
+    check(int(ends.min()) >= 3, f"an env crossed {int(ends.min())} episode ends (< 3)")
+    shapes = {k: tuple(v.shape) for k, v in obs.items()}
+    check(shapes == {"noisy_position": (N, 2), "time_step": (N,)}, f"obs shapes {shapes}")
+    return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
+            "reward_range": [float(r_lo), float(r_hi)], "episode_ends_min": int(ends.min()),
+            "launches": launches}
+
+
+def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
+    """A ``-sparse`` id with ``metrics=True`` at N = 4096, zero predictions:
+    the kernels' launches, the weight, the reward and the stats (phase 13)."""
+    import apx_torch
+    from apx_torch.wrappers.metrics import ClassificationMetrics
+
+    venv, params = apx_torch.make_vec(env_id, num_envs=N, device=dev, metrics=True)
+    classification = isinstance(venv, ClassificationMetrics)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = venv.env.prediction_space(params).shape[-1]
+    zero_pred = torch.zeros((N, k), device=dev)
+    ok = {name: torch.ones((), dtype=torch.bool, device=dev)
+          for name in ("weight", "reward_off", "finite_where_done", "lengths", "half")}
+    err = torch.zeros((), device=dev)
+    ends = torch.zeros(N, dtype=torch.int64, device=dev)
+
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    obs, state, _ = venv.reset(params, gen)
+    for _ in range(steps):
+        prev_done = state.prev_done
+        act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+        obs, state, reward, term, trunc, info = venv.step(
+            state, {"action": act, "prediction": zero_pred}, params, gen)
+        pred_info = info["prediction"]
+        weight = pred_info["target"]["weight"]
+        done = term | trunc
+        live = prev_done.logical_not()
+        ok["weight"] &= (weight == term.to(torch.float32))[live].all()
+        off = (weight == 0) | prev_done
+        ok["reward_off"] &= (reward == info["base_reward"])[off].all()
+        want = info["base_reward"] - weight * pred_info["loss"]
+        err = torch.maximum(err, torch.where(off, 0.0, (reward - want).abs()).max())
+        scalar = info["stats"]["scalar"]
+        for name, v in scalar.items():
+            if not name.startswith("_") and v.dtype == torch.float32:
+                ok["finite_where_done"] &= torch.equal(torch.isfinite(v), done)
+        inner = state.inner.inner  # the episode's step count: TimeLimit's t or the image env's time
+        steps_done = inner.time if classification else inner.t
+        ok["lengths"] &= (info["stats"]["vector_lengths"] == steps_done)[done].all()
+        if classification:
+            half = (scalar["avg_correct_label_prob"] - 0.5).abs() <= 1e-6
+            ok["half"] &= half[done].all()
+        ends += done.to(torch.int64)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launch_counts()
+
+    for name, flag in ok.items():
+        check(bool(flag), f"{env_id} metrics path: check {name!r} failed")
+    check(float(err) <= 1e-6, f"{env_id}: reward vs base - weight * loss |diff| {float(err)}")
+    check(int(ends.min()) >= 2, f"{env_id}: an env crossed {int(ends.min())} episode ends (< 2)")
+    if classification:
+        want_launches = {"glimpse": 1 + 2 * steps}
+    else:
+        want_launches = {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+    got = {name: launches[name] for name in want_launches}
+    check(got == want_launches, f"{env_id} launches {got}, expected {want_launches}")
+    return {"env": env_id, "metrics": True, "steps": steps, "seconds": dt,
+            "ms_per_step": 1e3 * dt / steps, "reward_err_max": float(err),
+            "episode_ends_min": int(ends.min()), "launches": launches}
 
 
 def main() -> int:
@@ -780,7 +944,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
         return 1
     import apx_torch  # noqa: F401  (fails here when run without the repo)
-    from apx_torch.bench import (bench_circle_square, bench_lidar_rooms,
+    from apx_torch.bench import (bench_circle_square, bench_light_dark, bench_lidar_rooms,
                                  bench_lidar_rooms_window, nvidia_smi_line)
     from apx_torch.ops import build
 
@@ -841,9 +1005,27 @@ def main() -> int:
 
     rows.append(phase_chain(dev))
 
+    ld_path = phase_light_dark_main_path(dev)
+    print(f"light dark main path: {json.dumps(ld_path)}", flush=True)
+    lidar_sparse = phase_sparse_metrics_path(dev, "LIDARLocRooms-sparse-v0", 250)
+    print(f"sparse metrics path: {json.dumps(lidar_sparse)}", flush=True)
+    cs_sparse = phase_sparse_metrics_path(dev, "CircleSquare-sparse-v0", 51)
+    print(f"sparse metrics path: {json.dumps(cs_sparse)}", flush=True)
+    for r in rows:
+        for path in (lidar_sparse, cs_sparse):
+            if path["launches"].get(r["name"]):
+                r["sparse_metrics"] = {"env": path["env"], "launches": path["launches"][r["name"]]}
+    for env_id, n, steps, tol in (
+            ("LightDark-v0", 256, 120, {}),
+            ("LIDARLocRooms-sparse-v0", 256, 120, {}),
+            ("CircleSquare-sparse-v0", 256, 51, {"glimpse": GLIMPSE_TOL, "reward": 1e-6})):
+        res = phase_card_vs_cpu(dev, env_id, n, steps, tol, metrics=env_id != "LightDark-v0")
+        print(f"step draws / wrappers card vs cpu: {json.dumps(res)}", flush=True)
+
     print(f"throughput: {json.dumps(bench_lidar_rooms(N, 1024))}", flush=True)
     print(f"throughput: {json.dumps(bench_lidar_rooms_window(N, 1024))}", flush=True)
     print(f"throughput: {json.dumps(bench_circle_square(N, 1020))}", flush=True)
+    print(f"throughput: {json.dumps(bench_light_dark(N, 1024))}", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -379,3 +379,88 @@ def test_chain_raises_on_cuda_without_fallback(dev, monkeypatch):
         issue_rate_study.chain_cuda(*[torch.zeros((8, 16), device=dev)] * 5, iters=2,
                                     layout="narrow")
     assert issue_rate_study.LAUNCHES["chain"] == before
+
+
+def _card_and_cpu_steps(dev, env_id, n, steps, seed, metrics=False):
+    """Yield each step's (CPU outputs, card outputs) of ``env_id`` from the
+    same actions and the same step and reset draws, drawn on the CPU."""
+    import apx_torch
+    from apx_torch.core.env import tree_map
+
+    runs = [apx_torch.make_vec(env_id, n, device=d, metrics=metrics) for d in ("cpu", dev)]
+    env, p0 = runs[0][0].env, runs[0][1]
+    gen = torch.Generator().manual_seed(seed)
+
+    def to(tree, d):
+        return tree_map(lambda x: x.to(d), tree)
+
+    draws = env.draw_reset(n, p0, gen)
+    carry = [v.reset(p, draws=to(draws, p.device))[1] for v, p in runs]
+    for _ in range(steps):
+        act = torch.rand((n, 2), generator=gen) * 2 - 1
+        step_draws, reset_draws = env.draw_step(n, p0, gen), env.draw_reset(n, p0, gen)
+        outs = []
+        for i, (v, p) in enumerate(runs):
+            out = v.step(carry[i], {"action": act.to(p.device), "prediction": act.to(p.device)}, p,
+                         reset_draws=to(reset_draws, p.device), step_draws=to(step_draws, p.device))
+            carry[i] = out[1]
+            outs.append(out)
+        yield outs
+
+
+def test_light_dark_on_card_matches_cpu(dev):
+    """LightDark-v0 with injected step draws: bitwise on the card."""
+    from apx_torch.core.env import tree_map
+
+    for cpu, card in _card_and_cpu_steps(dev, "LightDark-v0", 64, 110, 8):
+        a, b = [], []
+        tree_map(a.append, cpu[:5])
+        tree_map(lambda x: b.append(x.cpu()), card[:5])
+        for x, y in zip(a, b, strict=True):
+            assert torch.equal(x, y)
+
+
+def test_sparse_metrics_lidar_on_card_matches_cpu(dev):
+    """LIDARLocMaze-sparse-v0 with metrics: obs, states, rewards, dones and
+    the prediction info bitwise; the stats' ints, bools and NaN positions
+    bitwise, their floats within 1e-6; K1 launched 3 times per step."""
+    from apx_torch.core.env import tree_map
+
+    def bitwise(out):
+        obs, s, *rest, info = out
+        return obs, s.inner, s.count, s.prev_done, rest, info["prediction"]
+
+    def stats(out):
+        return out[1].buf, out[5]["stats"]
+
+    before = raycast_cuda.LAUNCHES["raycast_fast"]
+    for cpu, card in _card_and_cpu_steps(dev, "LIDARLocMaze-sparse-v0", 64, 110, 9, metrics=True):
+        a, b = [], []
+        tree_map(a.append, bitwise(cpu))
+        tree_map(lambda x: b.append(x.cpu()), bitwise(card))
+        for x, y in zip(a, b, strict=True):
+            assert torch.equal(x, y)
+        a, b = [], []
+        tree_map(a.append, stats(cpu))
+        tree_map(lambda x: b.append(x.cpu()), stats(card))
+        for x, y in zip(a, b, strict=True):
+            if x.dtype == torch.float32:
+                assert torch.equal(torch.isnan(x), torch.isnan(y))
+                ok = ~torch.isnan(x)
+                assert not ok.any() or (x[ok] - y[ok]).abs().max() <= 1e-6
+            else:
+                assert torch.equal(x, y)
+    assert raycast_cuda.LAUNCHES["raycast_fast"] == before + 3 * 110
+
+
+def test_space_sample_lands_on_the_generators_card(dev):
+    """``action_space(params).sample(g)`` with a CUDA generator lands on the
+    card, for a bounded and an unbounded (logit) prediction space."""
+    import apx_torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for env_id in ("LightDark-v0", "CircleSquare-sparse-v0"):
+        venv, p = apx_torch.make_vec(env_id, 4, device=dev)
+        act = venv.env.action_space(p).sample(g, (4,))
+        assert act["action"].device.type == "cuda" and act["prediction"].device.type == "cuda"
+        assert torch.isfinite(act["prediction"]).all()

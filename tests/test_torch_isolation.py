@@ -35,6 +35,15 @@ obs, s, _ = venv.reset(p, g)
 act = {"action": torch.rand((8, 2), generator=g), "prediction": torch.zeros(8, 2)}
 for _ in range(3):
     obs, s, r, te, tr, _ = venv.step(s, act, p, g)
+venv, p = apx_torch.make_vec("LightDark-v0", 4, device="cpu")
+obs, s, _ = venv.reset(p, g)
+for _ in range(3):
+    obs, s, r, te, tr, _ = venv.step(s, venv.env.action_space(p).sample(g, (4,)), p, g)
+venv, p = apx_torch.make_vec("LIDARLocRooms-sparse-v0", 4, device="cpu", metrics=True)
+obs, s, _ = venv.reset(p, g)
+for _ in range(3):
+    obs, s, r, te, tr, info = venv.step(s, venv.env.action_space(p).sample(g, (4,)), p, g)
+assert "stats" in info and set(info["prediction"]["target"]) == {"target", "weight"}
 import apx_torch.bench, apx_torch.convert, apx_torch.compat.builders, apx_torch.ops.build
 import apx_torch.ops.glimpse_cuda, apx_torch.ops.window_cuda, apx_torch.ops.issue_rate_study
 bad = sorted(m for m in sys.modules
@@ -69,7 +78,7 @@ def test_make_vec_defaults_to_cuda():
     import apx_torch
 
     if torch.cuda.is_available():
-        for env_id in ("LIDARLocRooms-v0", "CircleSquare-v0"):
+        for env_id in ("LIDARLocRooms-v0", "CircleSquare-v0", "LightDark-v0"):
             _, params = apx_torch.make_vec(env_id, 2)
             assert params.device.type == "cuda"
     else:
@@ -79,3 +88,5 @@ def test_make_vec_defaults_to_cuda():
             apx_torch.make("LIDARLocMaze-v0")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             apx_torch.make_vec("CircleSquare-v0", 2)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            apx_torch.make_vec("LightDark-v0", 2)
