@@ -1,12 +1,15 @@
 """apx_torch: the PyTorch / CUDA port of apx, beside the JAX package.
 
 Batched functional active-perception environments on an NVIDIA GPU. The
-port imports torch and numpy only, never JAX or the apx package. Ported so
-far: the four LIDAR localization envs, with the slab raycast as a CUDA
-kernel, the 18 CircleSquare classification envs under LOCKSTEP autoreset,
-with the bilinear glimpse as a CUDA kernel, LightDark, and the
-``-sparse`` twin of each: 46 ids, each also with ``metrics=True``
-(ROADMAP.md lists what is still to come).
+port imports torch and numpy only, never JAX or the apx package, and
+``datasets`` only where it loads an image corpus. It makes all 158 of
+apx's ids: the LIDAR localization envs (the slab raycast and the window
+cut as CUDA kernels), the CircleSquare, DoubleCircleSquare and HideAndSeek
+envs, the MNIST / CIFAR10 / TinyImageNet classification and localization
+envs (the bilinear glimpse as a CUDA kernel; the localization reset's
+unique-target sampler), LightDark, and the ``-sparse`` twin of each, each
+with ``metrics=True`` where apx has metrics (ROADMAP.md lists what is
+still to come).
 
     import torch, apx_torch
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)

@@ -1,6 +1,6 @@
 """Throughput bench of the port's main paths at N=4096.
 
-Four workloads, each the counterpart of one of the JAX package's
+Seven workloads, each the counterpart of one of the JAX package's
 ``bench.py`` workloads or of one of its backends, with its random
 policy: uniform actions in [-1, 1] and standard-normal predictions
 (logits for CircleSquare). As there, the policy's draws are hoisted out of
@@ -24,7 +24,22 @@ and injected, so a captured graph holds no generator.
 * ``light_dark``: a bare ``LightDarkEnv()`` under NEXT_STEP autoreset,
   apx's ``make_light_dark`` (``bench.py:334-341``): not a registered id
   (no TimeLimit), so its workload names a builder. It runs no kernel of
-  the port; its step draws its observation noise.
+  the port; its step draws its observation noise;
+* ``tin_loc``: ``ImageLocalizationEnv`` over a synthetic TinyImageNet bank
+  of 100,000 images (apx's banked size, 1.23 GB of uint8 on the card),
+  10x10 sensor, LOCKSTEP (``bench.py:389-451``), stepped as
+  ``circle_square``. Its explicit reset, which runs the unique-target
+  sampler's sweep, is timed on its own (``reset_ms``, with the peak of
+  ``max_memory_allocated``);
+* ``mnist``: ``MNIST-v0``'s ``ImageClassificationEnv`` over a synthetic
+  MNIST bank of 60,000 images (28x28x1 uint8, 5x5 sensor), as
+  ``circle_square``;
+* ``hide_and_seek``: ``make_vec("CircleSquareHideAndSeek-v0")``, the
+  vector-level reward wrapper over a 32-step CircleSquare env, as
+  ``circle_square``.
+
+The synthetic banks are built on the host once per process; the seconds
+it took are printed (``bank_build_s``).
 
 Two loops are timed per workload, each after a warmup run and each ending
 on a value fetch of the summed rewards:
@@ -34,7 +49,8 @@ on a value fetch of the summed rewards:
   CircleSquare) captured in a CUDA graph and replayed. A capture that
   fails raises.
 
-    python -m apx_torch.bench [--env lidar_rooms|lidar_rooms_window|circle_square|light_dark]
+    python -m apx_torch.bench [--env lidar_rooms|lidar_rooms_window|circle_square|light_dark
+                                     |tin_loc|mnist|hide_and_seek]
         [--num-envs 4096] [--num-steps 1024] [--profile]
 
 prints one JSON line with ``<env>_env_steps_per_s`` (the graph loop),
@@ -50,17 +66,22 @@ import argparse
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 from typing import Any
 
 import torch
 
 from .core.env import AutoResetMode, VectorAPEnv, tree_map, vector_env, with_autoreset
+from .data.huggingface import synthetic_image_bank
+from .envs.image_classification import ImageClassificationEnv
+from .envs.image_localization import ImageLocalizationEnv
 from .envs.light_dark import LightDarkEnv
 from .registry import make_vec
 
-__all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_circle_square",
-           "bench_light_dark", "profile", "nvidia_smi_line", "CHUNK", "WORKLOADS"]
+__all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_light_dark",
+           "bench_lockstep", "profile", "nvidia_smi_line", "CHUNK",
+           "WORKLOADS"]
 
 CHUNK = 16  # NEXT_STEP steps per captured graph
 PROFILE_STEPS = 34
@@ -75,6 +96,34 @@ def _light_dark(num_envs: int, dev):
     return vector_env(env, num_envs, AutoResetMode.NEXT_STEP), env.default_params()
 
 
+_BANKS: dict = {}
+BANK_BUILD_S: dict[str, float] = {}
+
+
+def _synthetic_bank(name: str, num_points: int, dev):
+    """apx's synthetic bank of ``num_points`` images, built once per
+    process; its build seconds go to ``BANK_BUILD_S``."""
+    key = (name, num_points, str(dev))
+    if key not in _BANKS:
+        t0 = time.perf_counter()
+        _BANKS[key] = synthetic_image_bank(name, num_points=num_points, device=dev)
+        BANK_BUILD_S[name] = time.perf_counter() - t0
+        print(f"bench: synthetic {name} bank of {num_points} images built in "
+              f"{BANK_BUILD_S[name]:.1f} s", file=sys.stderr, flush=True)
+    return _BANKS[key]
+
+
+def _tin_loc(num_envs: int, dev):
+    env = ImageLocalizationEnv(dataset=_synthetic_bank("zh-plus/tiny-imagenet", 100_000, dev),
+                               sensor_size=(10, 10))
+    return vector_env(env, num_envs, AutoResetMode.LOCKSTEP), env.default_params()
+
+
+def _mnist(num_envs: int, dev):
+    env = ImageClassificationEnv(dataset=_synthetic_bank("mnist", 60_000, dev))
+    return vector_env(env, num_envs, AutoResetMode.LOCKSTEP), env.default_params()
+
+
 # Workload -> (what it runs, builder (num_envs, device) -> (venv, params)).
 WORKLOADS = {
     "lidar_rooms": ("LIDARLocRooms-v0", _registered("LIDARLocRooms-v0")),
@@ -82,7 +131,12 @@ WORKLOADS = {
                            _registered("LIDARLocRooms-v0", raycast_backend="pallas_window")),
     "circle_square": ("CircleSquare-v0", _registered("CircleSquare-v0")),
     "light_dark": ("LightDarkEnv() under NEXT_STEP", _light_dark),
+    "tin_loc": ("ImageLocalizationEnv(synthetic TinyImageNet bank, 100000 images, sensor 10x10)",
+                _tin_loc),
+    "mnist": ("ImageClassificationEnv(synthetic MNIST bank, 60000 images)", _mnist),
+    "hide_and_seek": ("CircleSquareHideAndSeek-v0", _registered("CircleSquareHideAndSeek-v0")),
 }
+LOCKSTEP_WORKLOADS = ("circle_square", "tin_loc", "mnist", "hide_and_seek")
 # Device kernels of the port, by a substring of their names in a trace.
 PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel",
                 "window": "window_kernel"}
@@ -271,21 +325,38 @@ def bench_light_dark(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0)
     return _bench_next_step("light_dark", num_envs, num_steps, seed)
 
 
-def bench_circle_square(num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
-    """Env-steps/s of the eager and the graph-captured episodic CircleSquare
-    loop, with the step count rounded down to whole cycles (at least one),
-    and the ms per step of the masked-merge ``venv.step`` loop."""
+def _reset_cost(lp: _Loop, g: torch.Generator) -> dict:
+    """Milliseconds of one explicit reset (after a warmup reset) and the
+    peak of ``max_memory_allocated`` over it, in bytes."""
+    lp.venv.reset(lp.params, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_s = _timed(lambda: (lp.venv.reset(lp.params, g), torch.cuda.synchronize()))
+    return {"reset_ms": 1e3 * reset_s, "reset_peak_bytes": torch.cuda.max_memory_allocated(),
+            "reset_peak_above_start_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def bench_lockstep(env: str, num_envs: int = 4096, num_steps: int = 1024, seed: int = 0) -> dict:
+    """Env-steps/s of the eager and the graph-captured episodic loop of a
+    LOCKSTEP workload, with the step count rounded down to whole cycles
+    (at least one), the ms per step of the masked-merge ``venv.step``
+    loop, and the explicit reset's ms and peak memory."""
     dev = _need_cuda("bench")
     g = torch.Generator(device=dev).manual_seed(seed)
-    lp = _loop("circle_square", num_envs, dev)
+    lp = _loop(env, num_envs, dev)
     num_steps = max(lp.chunk, num_steps // lp.chunk * lp.chunk)
+    reset = _reset_cost(lp, g)
     eager_s, graph_s = _measure(lp, num_steps, g)
-    merge_eager_s, merge_graph_s = _measure(
-        _loop("circle_square", num_envs, dev, episodic=False), num_steps, g)
-    return {**_rates("circle_square", num_envs, num_steps, eager_s, graph_s),
+    merge_eager_s, merge_graph_s = _measure(_loop(env, num_envs, dev, episodic=False),
+                                            num_steps, g)
+    corpus = {"tin_loc": "zh-plus/tiny-imagenet", "mnist": "mnist"}.get(env)
+    bank = {"bank_build_s": BANK_BUILD_S[corpus]} if corpus else {}
+    return {**_rates(env, num_envs, num_steps, eager_s, graph_s),
             "merge_graph_ms_per_step": 1e3 * merge_graph_s / num_steps,
-            "merge_eager_ms_per_step": 1e3 * merge_eager_s / num_steps,
+            "merge_eager_ms_per_step": 1e3 * merge_eager_s / num_steps, **reset, **bank,
             "num_envs": num_envs, "num_steps": num_steps, **_card()}
+
 
 
 def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: int = 12) -> dict:
@@ -342,8 +413,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.profile:
         print(json.dumps(profile(args.env, args.num_envs, args.seed)))
-    elif args.env == "circle_square":
-        print(json.dumps(bench_circle_square(args.num_envs, args.num_steps, args.seed)))
+    elif args.env in LOCKSTEP_WORKLOADS:
+        print(json.dumps(bench_lockstep(args.env, args.num_envs, args.num_steps, args.seed)))
     else:
         print(json.dumps(_bench_next_step(args.env, args.num_envs, args.num_steps, args.seed)))
 

@@ -1,5 +1,5 @@
 """Batched resets from host-drawn randomness (counterpart of the LIDAR,
-image-classification and LightDark parts of apx.compat.builders).
+image and LightDark parts of apx.compat.builders).
 
 ``reset_from_draws(env, draws, params)`` turns host draws into a batched
 (obs, state, info) shaped like the env's own reset and lifts it through
@@ -14,6 +14,8 @@ from typing import Any
 import torch
 
 from ..envs.image_classification import ImageClassificationEnv
+from ..envs.image_localization import ImageLocalizationEnv
+from ..envs.image_perception import ImagePerceptionEngine
 from ..envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
 from ..envs.light_dark import LightDarkEnv, LightDarkState, noisy_position
 from ..wrappers.base import APWrapper
@@ -33,6 +35,14 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
     if isinstance(base, ImageClassificationEnv):
         # draws {"index", "inverted", "pos"}: the env's own reset_from_draws.
         return base.reset_from_draws(draws, params)
+    if isinstance(base, ImageLocalizationEnv):
+        # draws {"index", "inverted", "pos", "target"}: the target is
+        # resolved on the host, for the sampler's reset and the uniform
+        # autoreset alike.
+        perception = ImagePerceptionEngine.reset_from_draws(draws, params)
+        target = torch.as_tensor(draws["target"], dtype=torch.float32, device=params.device)
+        state = base.make_state(perception, target, params)
+        return base.observe(state, params), state, ImagePerceptionEngine.info(perception)
     if isinstance(base, LIDARLocalizationEnv):
         dev = params.device
         occ = torch.as_tensor(draws["occ"], dtype=torch.bool, device=dev)
@@ -64,8 +74,9 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
 def reset_from_draws(env, draws: dict[str, Any], params):
     """Batched (obs, state, info) from host draws, wrapper stack applied:
     ``{"occ", "pos", "map_idx"}`` for LIDAR envs, ``{"index", "inverted",
-    "pos"}`` for image classification envs, ``{"pos", "noise"}`` (noise
-    standard normal) for LightDark."""
+    "pos"}`` for image classification envs, the same and ``"target"`` for
+    image localization envs, ``{"pos", "noise"}`` (noise standard normal)
+    for LightDark."""
     stack = _wrapper_stack(env)
     base = stack[-1].env if stack else env
     obs, state, info = _base_reset_from_draws(base, draws, params)

@@ -7,8 +7,14 @@ apx's JAX arrays) and a device.
   ``TimeLimit(LIDARLocalizationEnv)`` from apx's state leaves;
 * ``image_bank_from_numpy`` builds a ``BankImageDataset`` from apx's bank
   (int32-packed uint8 rows, uint8 or float32 images);
+* ``hf_bank_from_numpy`` is ``image_bank_from_numpy`` with apx's bank
+  kind (``"huggingface"`` or ``"synthetic"``);
+* ``double_circle_square_from_numpy`` builds a
+  ``DoubleCircleSquareDataset`` from apx's position pairs and fields;
 * ``image_state_from_numpy`` builds the vector state of an
   ``ImageClassificationEnv`` from apx's state leaves;
+* ``image_localization_state_from_numpy`` builds the vector state of an
+  ``ImageLocalizationEnv``;
 * ``light_dark_state_from_numpy`` builds the vector state of a
   ``TimeLimit(LightDarkEnv)`` from apx's state leaves;
 * ``metrics_state_from_numpy`` wraps a converted vector state in the
@@ -21,8 +27,10 @@ import numpy as np
 import torch
 
 from .core.env import VectorState
+from .data.circle_square import DoubleCircleSquareDataset
 from .data.dataset import BankImageDataset
 from .data.floor_map import MapBank, pack_rows
+from .envs.image_localization import ImageLocalizationState
 from .envs.image_perception import ImagePerceptionState
 from .envs.lidar_localization import LIDARLocalizationState
 from .envs.light_dark import LightDarkState
@@ -30,7 +38,9 @@ from .wrappers.metrics import MetricsState
 from .wrappers.time_limit import TimeLimitState
 
 __all__ = ["map_bank_from_numpy", "lidar_state_from_numpy", "image_bank_from_numpy",
-           "image_state_from_numpy", "light_dark_state_from_numpy", "metrics_state_from_numpy"]
+           "hf_bank_from_numpy", "double_circle_square_from_numpy", "image_state_from_numpy",
+           "image_localization_state_from_numpy", "light_dark_state_from_numpy",
+           "metrics_state_from_numpy"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -87,19 +97,60 @@ def image_bank_from_numpy(images, labels, num_classes: int, packed_shape=None,
     return BankImageDataset.from_numpy(images, labels, num_classes, device=device)
 
 
-def image_state_from_numpy(image, label, data_index, pos, time, label_inverted, prev_done,
-                           device="cuda") -> VectorState:
-    """Vector state of ``ImageClassificationEnv`` from apx's leaves
-    (``state.inner.*`` with an (N, H, W, C) uint8 or float32 image, and
-    ``state.prev_done``)."""
+def hf_bank_from_numpy(images, labels, num_classes: int, bank_kind: str, packed_shape=None,
+                       device="cuda") -> BankImageDataset:
+    """``image_bank_from_numpy`` of an apx HF bank, with its kind (apx's
+    ``_bank_kind``: ``"huggingface"`` or ``"synthetic"``)."""
+    bank = image_bank_from_numpy(images, labels, num_classes, packed_shape, device)
+    bank.bank_kind = bank_kind
+    return bank
+
+
+def double_circle_square_from_numpy(positions, image_hw, object_extents: int,
+                                    show_gradient_a: bool, show_gradient_b: bool,
+                                    device="cuda") -> DoubleCircleSquareDataset:
+    """DoubleCircleSquareDataset from apx's ``positions`` (V, 2, 2) and its
+    static fields."""
+    return DoubleCircleSquareDataset(
+        _t(np.asarray(positions).astype(np.int64), torch.int64, device), image_hw,
+        object_extents, show_gradient_a, show_gradient_b)
+
+
+def _perception_state(image, label, data_index, pos, time, label_inverted,
+                      device) -> ImagePerceptionState:
     image = np.asarray(image)
-    inner = ImagePerceptionState(
+    return ImagePerceptionState(
         image=_t(image, torch.uint8 if image.dtype == np.uint8 else torch.float32, device),
         label=_t(np.asarray(label).astype(np.int64), torch.int64, device),
         data_index=_t(np.asarray(data_index).astype(np.int64), torch.int64, device),
         pos=_t(np.asarray(pos, dtype=np.float32), torch.float32, device),
         time=_t(np.asarray(time).astype(np.int32), torch.int32, device),
         label_inverted=_t(np.asarray(label_inverted, dtype=np.bool_), torch.bool, device),
+    )
+
+
+def image_state_from_numpy(image, label, data_index, pos, time, label_inverted, prev_done,
+                           device="cuda") -> VectorState:
+    """Vector state of ``ImageClassificationEnv`` from apx's leaves
+    (``state.inner.*`` with an (N, H, W, C) uint8 or float32 image, and
+    ``state.prev_done``)."""
+    inner = _perception_state(image, label, data_index, pos, time, label_inverted, device)
+    return VectorState(inner=inner,
+                       prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device))
+
+
+def image_localization_state_from_numpy(image, label, data_index, pos, time, label_inverted,
+                                        target, target_glimpse, prev_done,
+                                        device="cuda") -> VectorState:
+    """Vector state of ``ImageLocalizationEnv`` from apx's leaves
+    (``state.inner.perception.*`` as for ``image_state_from_numpy``,
+    ``state.inner.target`` (N, 2), ``state.inner.target_glimpse``
+    (N, s0, s1, C) and ``state.prev_done``)."""
+    inner = ImageLocalizationState(
+        perception=_perception_state(image, label, data_index, pos, time, label_inverted,
+                                     device),
+        target=_t(np.asarray(target, dtype=np.float32), torch.float32, device),
+        target_glimpse=_t(np.asarray(target_glimpse, dtype=np.float32), torch.float32, device),
     )
     return VectorState(inner=inner,
                        prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device))

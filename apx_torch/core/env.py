@@ -14,7 +14,8 @@ envs a step key, ``step_uses_rng``; envs whose step draws nothing return
 ``{}`` and consume nothing). A vector step draws its step draws before its
 reset draws, in the order of apx's split ``(step_key, reset_key)``.
 
-``VectorAPEnv`` adds the reward composition (``base_reward - loss``) and
+``VectorAPEnv`` adds the reward composition (``base_reward - loss``, as
+``LossFn.reward`` rounds it) and
 mask autoreset. NEXT_STEP and LOCKSTEP always run the reset for all envs
 and merge it under the reset mask: apx gates the same merge behind
 ``lax.cond`` and pins the two forms bitwise-equal (apx/core/env.py:228-238,
@@ -195,8 +196,10 @@ class APEnv(Generic[P, S]):
         if draws is None:
             draws = self.draw_step(num_envs_of(state), params, generator)
         r = self.step_env(state, full_action["action"], full_action["prediction"], params, draws)
-        loss = self.loss_fn(params)(full_action["prediction"], r.prediction_target)
-        reward = r.base_reward - loss
+        loss_fn = self.loss_fn(params)
+        loss = loss_fn(full_action["prediction"], r.prediction_target)
+        reward = loss_fn.reward(r.base_reward, loss, full_action["prediction"],
+                                r.prediction_target)
         info = self.compose_info(
             r.info, r.base_reward, r.prediction_target, loss,
             full_action["prediction"], params,
@@ -248,7 +251,8 @@ class VectorAPEnv:
 
         if self.autoreset is AutoResetMode.DISABLED:
             loss = loss_fn(full_action["prediction"], r.prediction_target)
-            reward = r.base_reward - loss
+            reward = loss_fn.reward(r.base_reward, loss, full_action["prediction"],
+                                    r.prediction_target)
             info = env.compose_info(
                 r.info, r.base_reward, r.prediction_target, loss,
                 full_action["prediction"], params,
@@ -285,12 +289,13 @@ class VectorAPEnv:
                 r.prediction_target,
             )
             loss = loss_fn(full_action["prediction"], pred_target)
-            reward = base_reward - loss
+            reward = loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target)
         else:
             pred_target = r.prediction_target
             loss = loss_fn(full_action["prediction"], pred_target)
             loss = torch.where(mask, 0.0, loss)
-            reward = torch.where(mask, 0.0, base_reward - loss)
+            reward = torch.where(
+                mask, 0.0, loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target))
         info = env.compose_info(
             info, base_reward, pred_target, loss, full_action["prediction"], params
         )
@@ -315,10 +320,11 @@ class VectorAPEnv:
         )
         target = env.prediction_target_on_reset(state.inner, reset_state, params)
         prediction = full_action["prediction"]
-        loss = env.loss_fn(params)(prediction, target)
+        loss_fn = env.loss_fn(params)
+        loss = loss_fn(prediction, target)
         dev = state.prev_done.device
         base_reward = torch.zeros(self.num_envs, dtype=torch.float32, device=dev)
-        reward = base_reward - loss
+        reward = loss_fn.reward(base_reward, loss, prediction, target)
         done = torch.zeros(self.num_envs, dtype=torch.bool, device=dev)
         info = env.compose_info(reset_info, base_reward, target, loss, prediction, params)
         obs = env._merge_derived_obs(reset_obs, reset_state, params)

@@ -16,7 +16,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .numerics import div, sum_squares
+from .numerics import div, fma, sum_squares
 
 __all__ = ["LossFn", "AffineLossFn", "MSELossFn", "CrossEntropyLossFn", "WeightedLossFn",
            "ZeroLossFn", "LambdaLossFn"]
@@ -28,6 +28,11 @@ class LossFn:
 
     def __call__(self, prediction, target):
         raise NotImplementedError
+
+    def reward(self, base_reward, loss, prediction, target):
+        """``base_reward - loss`` (``loss`` is this function's value), as
+        the jitted reference rounds the env's reward."""
+        return base_reward - loss
 
     @property
     def lower_bound(self) -> float:
@@ -68,6 +73,21 @@ class AffineLossFn(LossFn):
         offset = float(np.float32(self.offset))
         return self.inner(prediction, target) * scale + offset
 
+    def reward(self, base_reward, loss, prediction, target):
+        """Over an ``MSELossFn(contract_reward=True)`` with no offset: XLA
+        folds the mean's ``1 / D`` and the scale into one constant and
+        contracts the product into the reward's subtraction,
+        ``fma(-sum((p - t)^2), f32(1 / D) * f32(scale), base_reward)``
+        (the same value as the loss's rounding only when D is a power of
+        two, as at the localization envs' site, D = 2)."""
+        inner = self.inner
+        if not (isinstance(inner, MSELossFn) and inner.contract_reward and self.offset == 0.0):
+            return base_reward - loss
+        diff = prediction - target
+        total = inner.sum_of_squares(diff)
+        k = float(np.float32(1.0) / np.float32(diff.shape[-1]) * np.float32(self.scale))
+        return fma(total, torch.full_like(total, -k), base_reward)
+
     @property
     def lower_bound(self) -> float:
         return self.inner.lower_bound * self.scale + self.offset
@@ -84,18 +104,20 @@ class MSELossFn(LossFn):
     rounded as the jitted reference rounds it at the env's call site: one
     FMA per further element (``numerics.sum_squares``) where XLA-CPU
     contracts the reduce (LIDAR), each square rounded where it does not
-    (LightDark, whose reduce XLA vectorises)."""
+    (LightDark and the localization envs, whose reduce XLA vectorises).
+    ``contract_reward``: the normalized loss's product is contracted into
+    the reward (``AffineLossFn.reward``; the localization envs)."""
 
     target_std: float | tuple[float, ...] | None = None
     fused_sum: bool = True
+    contract_reward: bool = False
+
+    def sum_of_squares(self, diff):
+        return sum_squares(diff) if self.fused_sum else (diff * diff).sum(dim=-1)
 
     def __call__(self, prediction, target):
         diff = prediction - target
-        if self.fused_sum:
-            total = sum_squares(diff)
-        else:
-            total = (diff * diff).sum(dim=-1)
-        return div(total, diff.shape[-1])
+        return div(self.sum_of_squares(diff), diff.shape[-1])
 
     @property
     def lower_bound(self) -> float:

@@ -52,9 +52,13 @@ class ImageDataset:
 
 class BankImageDataset(ImageDataset):
     """Fully materialized dataset: ``images`` (D, H, W, C) uint8 or float32
-    and ``labels`` (D,) int64, on one device."""
+    and ``labels`` (D,) int64, on one device. ``bank_kind`` says where the
+    images came from: ``"huggingface"`` (a loaded corpus), ``"synthetic"``
+    (apx's procedural stand-in, ``data.huggingface``) or None (built by the
+    caller)."""
 
-    def __init__(self, images: torch.Tensor, labels: torch.Tensor, n_classes: int):
+    def __init__(self, images: torch.Tensor, labels: torch.Tensor, n_classes: int,
+                 bank_kind: str | None = None):
         if images.ndim != 4 or images.dtype not in (torch.uint8, torch.float32):
             raise ValueError("images must be (D, H, W, C) uint8 or float32")
         if labels.shape != images.shape[:1]:
@@ -62,6 +66,7 @@ class BankImageDataset(ImageDataset):
         self.images = images
         self.labels = labels.to(torch.int64)
         self.n_classes = int(n_classes)
+        self.bank_kind = bank_kind
 
     @property
     def length(self) -> int:
@@ -82,9 +87,12 @@ class BankImageDataset(ImageDataset):
     def fetch_raw(self, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return self.images[idx], self.labels[idx]
 
+    def fetch_label(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.labels[idx]
+
     @staticmethod
     def from_numpy(images: np.ndarray, labels: np.ndarray, num_classes: int,
-                   device="cuda") -> "BankImageDataset":
+                   device="cuda", bank_kind: str | None = None) -> "BankImageDataset":
         """From host arrays: (D, H, W) gains a channel axis; uint8 stays
         uint8, anything else becomes float32."""
         images = np.asarray(images)
@@ -96,4 +104,5 @@ class BankImageDataset(ImageDataset):
             images=torch.from_numpy(np.array(images, copy=True, order="C")).to(device),
             labels=torch.from_numpy(np.asarray(labels).astype(np.int64)).to(device),
             n_classes=num_classes,
+            bank_kind=bank_kind,
         )

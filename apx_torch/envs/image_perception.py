@@ -16,22 +16,39 @@ Same semantics as apx's engine (after ap_gym's image_perception_module):
 Every glimpse, of a step and of a reset, goes through K3
 (``apx_torch.ops.glimpse_cuda``). The state carries the episode's image as
 an (N, H, W, C) tensor in the bank's dtype (apx's ``image_storage="array"``,
-its default); apx's other storage modes and its unique-target sampler (the
-image localization envs' reset) are not ported (ROADMAP.md, queue 1).
+its default); apx's other storage modes are not ported (ROADMAP.md, queue
+1).
+
+The unique-target sampler (the image localization envs' explicit reset)
+ranks a grid of candidate positions by how unlike their glimpses are to
+every other candidate's: the uniqueness of candidate i is
+``min over j != i of mse(glimpse_i, glimpse_j)``, from a Gram product
+``(|a|^2 + |b|^2 - 2 a.b) / d`` in row blocks of 128, and the target is a
+uniform pick among the ``unique_sampling_top_k`` most unique, jittered by
+up to one grid cell. The candidate glimpses come from apx's cartesian
+factorization (the row product once per candidate row, reused across the
+columns). The products are library matmuls, as in apx (plain ``jnp``
+there, outside any Pallas kernel), in full float32: TF32 is switched off
+inside the sweep. apx's ``glimpse_precision`` is a TPU MXU setting and a
+no-op on its CPU; the port accepts its values and computes in float32 for
+all of them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..core.numerics import fma, time_obs
 from ..core.spaces import Box, DictSpace, Discrete, Image
 from ..data.dataset import ImageDataset
 from ..ops.geometry import norm2, project_sphere
+from ..ops.glimpse import interp_weights, sensor_pos_lim_pixels
 from ..ops.glimpse_cuda import glimpse
 
 __all__ = ["ImagePerceptionParams", "ImagePerceptionState", "ImagePerceptionEngine"]
@@ -39,8 +56,8 @@ __all__ = ["ImagePerceptionParams", "ImagePerceptionState", "ImagePerceptionEngi
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ImagePerceptionParams:
-    """The fields of apx's ImagePerceptionParams that the classification
-    path reads."""
+    """apx's ImagePerceptionParams: the fields the image envs read, the
+    sampler's, and apx's render-only ones (carried, not read)."""
 
     dataset: ImageDataset
     sensor_size: tuple[int, int] = (5, 5)
@@ -48,11 +65,34 @@ class ImagePerceptionParams:
     max_step_length: tuple[float, float] = (0.2, 0.2)
     step_limit: int = 16
     randomly_invert_labels: bool = False
+    unique_sampling_max_grid_cell_size_rel: float = 0.2
+    unique_sampling_top_k: int = 10
+    unique_sampling_backend: str = "auto"
+    glimpse_precision: str = "default"
     # apx's A/B switches: "auto" resolves to what apx resolves it to.
     glimpse_window: str = "auto"
     image_storage: str = "auto"
+    display_visitation: bool = True
+    render_unvisited_opacity: float = 0.0
+    render_visited_opacity: float = 0.3
 
     def __post_init__(self):
+        if self.unique_sampling_backend in ("chunked", "streamed"):
+            raise NotImplementedError(
+                f"unique_sampling_backend={self.unique_sampling_backend!r} is not ported; "
+                "apx pins it to the cartesian sweep and keeps it as an A/B surface "
+                "(ROADMAP.md, queue 1)"
+            )
+        if self.unique_sampling_backend not in ("auto", "cartesian"):
+            raise ValueError(
+                f"unknown unique_sampling_backend {self.unique_sampling_backend!r}; "
+                "expected 'auto', 'cartesian', 'chunked' or 'streamed'"
+            )
+        if self.glimpse_precision not in ("default", "high", "highest"):
+            raise ValueError(
+                f"unknown glimpse_precision {self.glimpse_precision!r}; "
+                "expected 'default', 'high' or 'highest'"
+            )
         if self.glimpse_window not in ("auto", "off"):
             raise NotImplementedError(
                 f"glimpse_window={self.glimpse_window!r} is not ported; apx pins 'rows' "
@@ -176,9 +216,156 @@ class ImagePerceptionEngine:
     def info(state: ImagePerceptionState) -> dict[str, torch.Tensor]:
         return {"index": state.data_index}
 
+    # ---- the unique-target sampler ----------------------------------------
     @staticmethod
-    def sample_unique_glimpse_position(*args, **kwargs):
-        """apx's unique-target sampler (the image localization reset)."""
-        raise NotImplementedError(
-            "the unique-target sampler is not ported yet (ROADMAP.md, queue 1)"
-        )
+    def _candidate_axes_np(params: ImagePerceptionParams):
+        """Host float64 axes of the candidate grid, xs (c0,) and ys (c1,),
+        and the (2,) largest cell: cells no wider than
+        ``unique_sampling_max_grid_cell_size_rel`` sensors, so each axis has
+        ``ceil(2 / max_cell)`` points (apx's rules, copied)."""
+        h, w, _ = params.dataset.image_shape
+        s0, s1 = params.sensor_size
+        eff = np.array([s0, s1]) * params.sensor_scale
+        lim = np.array([(w - 1) / 2 - (eff[0] - 1) / 2, (h - 1) / 2 - (eff[1] - 1) / 2])
+        max_cell = eff / lim * params.unique_sampling_max_grid_cell_size_rel
+        counts = np.ceil(2.0 / max_cell).astype(int)
+        return np.linspace(-1, 1, counts[0]), np.linspace(-1, 1, counts[1]), max_cell
+
+    @staticmethod
+    def candidate_grid(params: ImagePerceptionParams) -> tuple[torch.Tensor, torch.Tensor]:
+        """(P, 2) float32 candidate positions, candidate k = i * c1 + j at
+        (xs[i], ys[j]), and the (2,) float32 largest cell, on the device."""
+        xs, ys, max_cell = ImagePerceptionEngine._candidate_axes_np(params)
+        grid = np.stack(np.meshgrid(xs, ys, indexing="ij"), axis=-1).reshape(-1, 2)
+        dev = params.device
+        return (torch.from_numpy(grid.astype(np.float32)).to(dev),
+                torch.from_numpy(max_cell.astype(np.float32)).to(dev))
+
+    @staticmethod
+    def candidate_axes(params: ImagePerceptionParams) -> tuple[np.ndarray, np.ndarray]:
+        """The grid's axes as float32, xs (c0,) and ys (c1,): candidate
+        ``i * c1 + j`` of ``candidate_grid`` is exactly (xs[i], ys[j])."""
+        xs, ys, _ = ImagePerceptionEngine._candidate_axes_np(params)
+        return xs.astype(np.float32), ys.astype(np.float32)
+
+    @staticmethod
+    def _candidate_weights(params: ImagePerceptionParams) -> tuple[torch.Tensor, torch.Tensor]:
+        """The hat weights of the candidates' sample rows, (c1, s0, H), and
+        columns, (c0, s1, W). The centre pixels ``xs * lim + (W - 1) / 2``
+        are computed on the host in float32 with two roundings: XLA folds
+        them into constants of apx's jitted sweep, multiply and add apart."""
+        h, w, _ = params.dataset.image_shape
+        s0, s1 = params.sensor_size
+        xs, ys = ImagePerceptionEngine.candidate_axes(params)
+        lim = sensor_pos_lim_pixels((h, w), params.sensor_size, params.sensor_scale)
+        x_pix = xs * lim[0] + np.float32((w - 1) / 2.0)
+        y_pix = ys * lim[1] + np.float32((h - 1) / 2.0)
+        scale = np.float32(params.sensor_scale)
+        off0 = (np.arange(s0, dtype=np.float32) - np.float32((s0 - 1) / 2.0)) * scale
+        off1 = (np.arange(s1, dtype=np.float32) - np.float32((s1 - 1) / 2.0)) * scale
+        dev = params.device
+        rows = torch.from_numpy(y_pix[:, None] + off0[None, :]).to(dev)  # (c1, s0)
+        cols = torch.from_numpy(x_pix[:, None] + off1[None, :]).to(dev)  # (c0, s1)
+        return interp_weights(rows, h), interp_weights(cols, w)
+
+    @staticmethod
+    def _cartesian_factors(image: torch.Tensor, params: ImagePerceptionParams):
+        """apx's cartesian factorization of the candidate sweep: glimpse rows
+        depend only on a candidate's y and columns only on its x, so the row
+        product runs once per candidate row. Returns the row-contracted
+        images (N, c1, s0, W, C) and the column weights (c0, s1, W). A uint8
+        image is scaled by ``f32(1 / 255)``, the reciprocal multiply XLA
+        makes of apx's ``/ 255`` here."""
+        n, h, w, c = image.shape
+        s0 = params.sensor_size[0]
+        w_rows, w_cols = ImagePerceptionEngine._candidate_weights(params)
+        c1 = w_rows.shape[0]
+        img = image.to(torch.float32)
+        if image.dtype == torch.uint8:
+            img = img * float(np.float32(1.0) / np.float32(255.0))
+        tmp = torch.matmul(w_rows.reshape(c1 * s0, h), img.reshape(n, h, w * c))
+        return tmp.reshape(n, c1, s0, w, c), w_cols
+
+    @staticmethod
+    def _candidate_flat(image: torch.Tensor, params: ImagePerceptionParams) -> torch.Tensor:
+        """(N, P, d) candidate glimpses of images (N, H, W, C), flattened in
+        (s0, s1, C) order, P in ``candidate_grid`` order, clipped to [0, 1]:
+        the column product of ``_cartesian_factors``' intermediate forms
+        every candidate."""
+        tmp, w_cols = ImagePerceptionEngine._cartesian_factors(image, params)
+        n, c1, s0, w, c = tmp.shape
+        c0, s1 = w_cols.shape[:2]
+        g = torch.matmul(tmp.transpose(3, 4), w_cols.reshape(c0 * s1, w).T)  # (N, c1, s0, C, c0 s1)
+        g = g.reshape(n, c1, s0, c, c0, s1).permute(0, 4, 1, 2, 5, 3)  # (N, c0, c1, s0, s1, C)
+        return g.reshape(n, c0 * c1, s0 * s1 * c).clamp_(0.0, 1.0)  # one copy, clipped in place
+
+    @staticmethod
+    def _min_pairwise_mse(flat: torch.Tensor) -> torch.Tensor:
+        """(N, P) uniqueness: for each candidate the least mean squared
+        difference to any other candidate, from Gram rows in blocks of 128
+        (the min is exact, so the blocks do not change it). The mean is
+        ``* f32(1 / d)``, the reciprocal multiply XLA makes of apx's
+        ``/ d``; the diagonal is masked with inf."""
+        n, p, d = flat.shape
+        inv_d = float(np.float32(1.0) / np.float32(d))
+        sq = (flat * flat).sum(dim=-1)  # (N, P)
+        col = torch.arange(p, device=flat.device)
+        out = torch.empty((n, p), dtype=flat.dtype, device=flat.device)
+        for b0 in range(0, p, 128):
+            b1 = min(p, b0 + 128)
+            g = torch.matmul(flat[:, b0:b1], flat.transpose(1, 2))  # (N, pb, P)
+            # (sq_i + sq_j - 2 g) * inv_d, in place where the rounding allows.
+            diff = sq[:, b0:b1, None] + sq[:, None, :]
+            diff.sub_(g.mul_(2.0)).mul_(inv_d)
+            diag = torch.arange(b0, b1, device=flat.device)[:, None] == col[None, :]
+            out[:, b0:b1] = diff.masked_fill_(diag, float("inf")).amin(dim=-1)
+        return out
+
+    @staticmethod
+    def uniqueness(image: torch.Tensor, params: ImagePerceptionParams) -> torch.Tensor:
+        """(N, P) uniqueness scores of the candidates of images (N, H, W, C),
+        computed in full float32 (TF32 off)."""
+        with _full_float32():
+            return ImagePerceptionEngine._min_pairwise_mse(
+                ImagePerceptionEngine._candidate_flat(image, params))
+
+    @staticmethod
+    def unique_target_top_k(image: torch.Tensor, params: ImagePerceptionParams) -> torch.Tensor:
+        """(N, top_k) candidate indices, most unique first; ties keep the
+        lower index (a stable sort, as ``jnp.argsort``)."""
+        u = ImagePerceptionEngine.uniqueness(image, params)
+        return torch.argsort(-u, dim=-1, stable=True)[:, :params.unique_sampling_top_k]
+
+    @staticmethod
+    def unique_target_from_draws(image: torch.Tensor, sel: torch.Tensor, jitter: torch.Tensor,
+                                 params: ImagePerceptionParams) -> torch.Tensor:
+        """(N, 2) float32 targets: the ``sel``-th (N,) most unique
+        candidate, plus ``jitter`` (N, 2), clipped to [-1, 1]."""
+        candidates, _ = ImagePerceptionEngine.candidate_grid(params)
+        top = ImagePerceptionEngine.unique_target_top_k(image, params)
+        pick = top.gather(1, sel.to(torch.int64)[:, None])[:, 0]
+        return (candidates[pick] + jitter).clamp(-1.0, 1.0)
+
+    @staticmethod
+    def draw_unique_target(num_envs: int, params: ImagePerceptionParams,
+                           generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """The sampler's draws: ``sel`` uniform in [0, top_k) and ``jitter``
+        uniform in [-max_cell, max_cell)^2."""
+        _, max_cell = ImagePerceptionEngine.candidate_grid(params)
+        dev = params.device
+        sel = torch.randint(0, params.unique_sampling_top_k, (num_envs,), generator=generator,
+                            device=dev)
+        u = torch.rand((num_envs, 2), generator=generator, device=dev)
+        return {"sel": sel, "jitter": u * (2.0 * max_cell) - max_cell}
+
+
+@contextlib.contextmanager
+def _full_float32():
+    """float32 products in full precision on the card, whatever the global
+    setting (TF32 off), restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -40,14 +40,19 @@ class VectorToSingle:
     def env(self):
         return self.vec.env
 
+    def _spaces_source(self, name: str):
+        """The vector wrapper where it defines ``name`` (HideAndSeek's
+        masked spaces and zero loss), else the inner env, as apx does."""
+        return self.vec if hasattr(self.vec, name) else self.vec.env
+
     def inner_action_space(self, params):
-        return self.env.inner_action_space(params)
+        return self._spaces_source("inner_action_space").inner_action_space(params)
 
     def prediction_space(self, params):
-        return self.env.prediction_space(params)
+        return self._spaces_source("prediction_space").prediction_space(params)
 
     def loss_fn(self, params):
-        return self.env.loss_fn(params)
+        return self._spaces_source("loss_fn").loss_fn(params)
 
     def reset(self, params, generator: torch.Generator | None = None, draws=None):
         obs, state, info = self.vec.reset(params, generator, draws=_unsqueeze0(draws))

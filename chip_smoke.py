@@ -10,9 +10,10 @@ Phases, one line each; any failure exits non-zero:
    R = 8 from cell centres, where corner grazes occur) against its plain
    PyTorch form on the card, bitwise, at N = 4096 on rooms maps; K3
    (``glimpse``) against its plain form within 1e-6 (TF32 off) at
-   CircleSquare's geometry (float32 bank, 28x28x1, 5x5 sensor) and
-   TinyImageNet's (random uint8 bytes, 64x64x3, 10x10 sensor), N = 4096,
-   positions including the +-1 corners and edges. K1 also bitwise on
+   CircleSquare's geometry (float32 bank, 28x28x1, 5x5 sensor) and, on
+   random uint8 bytes, TinyImageNet's (64x64x3, 10x10 sensor), MNIST's
+   (28x28x1, 5x5) and CIFAR10's (32x32x3, 5x5), N = 4096, positions
+   including the +-1 corners and edges. K1 also bitwise on
    ``edge_casts`` (rooms 32x32, maze 21x21, random 24x16, 7x5 and 1x1
    maps; R = 1, 2, 3, 8, 33; N = 1003). Device time per launch
    of each (CUDA graph replay, CUDA events), of its plain form, of
@@ -86,19 +87,42 @@ Phases, one line each; any failure exits non-zero:
     ``metrics=True``, at their base ids' tolerances, ``info["stats"]`` and
     the metrics buffers too (ints, bools and NaN positions bitwise, floats
     within 1e-6).
-15. throughput: ``apx_torch.bench`` at N = 4096 for the four workloads
-    (eager and CUDA graph).
+15. TinyImageNetLoc main path: ``apx_torch.make_vec("TinyImageNetLoc-v0",
+    num_envs=4096)`` over the registry's synthetic bank (its kind
+    printed): the explicit reset, which runs the unique-target sweep
+    (cuBLAS, TF32 off), timed with its peak ``max_memory_allocated``; then
+    51 steps (three 17-step LOCKSTEP cycles) of uniform actions with zero
+    predictions. Every obs finite, glimpse and target glimpse in [0, 1],
+    rewards in [-3.0015, 0] (base -1e-3 |a| less a normalized MSE of at
+    most 3), every env through at least two LOCKSTEP resets; ``glimpse``
+    launched twice by the reset (obs and target) and three times per
+    masked-merge step (the step's obs, the autoreset's obs and target).
+16. card vs CPU, the new ids: the sweep of ``TinyImageNetLoc-v0`` at
+    N = 64 from the same draws (scores within 3e-6; top-k and targets
+    equal on every env whose ranking the scores decide, their count
+    printed); its trajectory, 51 steps from the CPU's reset state (targets,
+    ints and bools bitwise, glimpses, target glimpses and rewards within
+    1e-6); ``DoubleCircleSquare-v0``, ``MNIST-v0``, ``CIFAR10-v0``,
+    ``CircleSquareHideAndSeek-v0`` and
+    ``CircleSquareHideAndSeekNoPrediction-sparse-v0`` at N = 256 for 51
+    steps at CircleSquare's tolerances, ``glimpse`` launched 1 + 2 per
+    step on the card.
+17. throughput: ``apx_torch.bench`` at N = 4096 for the seven workloads
+    (eager and CUDA graph; ``tin_loc`` builds its 100,000-image bank).
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
 its own path, the counts set to 0 just before it: K1's on phase 4 (and
 under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase 13), K2's on
-phase 9, K3's on phase 6 (and phase 13), K4's in ``measure()``. It needs
-CUDA and the apx_torch package beside it, and exits non-zero without them.
+phase 9, K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
+and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
+``measure()``. It needs CUDA and the apx_torch package beside it, and
+exits non-zero without them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -383,8 +407,9 @@ def glimpse_bound(images, pos, sensor, scale) -> tuple[float, str]:
 
 def glimpse_inputs(dev) -> dict:
     """N=4096 glimpses at CircleSquare's geometry (images from its float32
-    bank) and TinyImageNet's (seeded random uint8 bytes); positions uniform
-    in [-1, 1)^2 with the corners and edge midpoints first."""
+    bank) and, of seeded random uint8 bytes, TinyImageNet's (64x64x3, 10x10
+    sensor), MNIST's (28x28x1, 5x5) and CIFAR10's (32x32x3, 5x5); positions
+    uniform in [-1, 1)^2 with the corners and edge midpoints first."""
     from apx_torch.data.circle_square import make_circle_square_bank
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -398,9 +423,14 @@ def glimpse_inputs(dev) -> dict:
 
     bank = make_circle_square_bank(device=dev)
     cs = bank.images[torch.randint(0, bank.length, (N,), generator=gen, device=dev)]
-    tin = torch.randint(0, 256, (N, 64, 64, 3), generator=gen, device=dev, dtype=torch.uint8)
+
+    def u8(h, w, c):
+        return torch.randint(0, 256, (N, h, w, c), generator=gen, device=dev, dtype=torch.uint8)
+
     return {"circle_square": (cs, positions(), (5, 5), 1.0),
-            "tiny_imagenet": (tin, positions(), (10, 10), 1.0)}
+            "tiny_imagenet": (u8(64, 64, 3), positions(), (10, 10), 1.0),
+            "mnist": (u8(28, 28, 1), positions(), (5, 5), 1.0),
+            "cifar10": (u8(32, 32, 3), positions(), (5, 5), 1.0)}
 
 
 def phase_glimpse_kernel(dev) -> dict:
@@ -735,10 +765,12 @@ STATS_TOL = 1e-6  # float stats: softmax, and sums over the ring
 
 
 def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: bool = False,
-                      **overrides) -> dict:
+                      start_from_cpu: bool = False, **overrides) -> dict:
     """One trajectory of ``env_id`` (with parameter ``overrides``) on the
     card and on the CPU from the same actions, predictions and injected
     step and reset draws, drawn on the CPU in the vector step's order.
+    ``start_from_cpu``: the card starts from the CPU's reset state instead
+    of its own reset (the localization sweep's ties are compared apart).
     Leaves named in ``tol`` (obs keys, or "reward") are held to that
     absolute tolerance; every other leaf of the obs, states, rewards and
     dones must be bitwise equal. With ``metrics``, ``info["stats"]`` and
@@ -755,7 +787,8 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
     cpu_venv, cpu_params = runs[0]
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
-    logits = isinstance(cpu_venv.env.prediction_space(cpu_params), Logit)
+    space = cpu_venv.env.prediction_space(cpu_params)
+    logits, width = isinstance(space, Logit), space.shape[-1]
     max_err = {k: 0.0 for k in (*tol, *(("stats",) if metrics else ()))}
 
     def to(tree, d):
@@ -789,16 +822,28 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
                 same(x, y, what)
 
     def split(state):
-        """(leaves held bitwise, metrics buffers held as stats)."""
+        """(leaves held bitwise, metrics buffers held as stats, the state's
+        glimpse leaves, held as their obs)."""
+        glimpses = {}
+        vec = state.inner if isinstance(state, MetricsState) else state
+        if hasattr(vec.inner, "target_glimpse"):  # the localization envs' carried glimpse
+            glimpses["target_glimpse"] = vec.inner.target_glimpse
+            vec = dataclasses.replace(vec, inner=dataclasses.replace(vec.inner,
+                                                                     target_glimpse=None))
         if isinstance(state, MetricsState):
-            return (state.inner, state.count, state.prev_done), state.buf
-        return state, {}
+            return (vec, state.count, state.prev_done), state.buf, glimpses
+        return vec, {}, glimpses
 
     drawn = cpu_venv.env.draw_reset(n, cpu_params, gen)
-    carry = [venv.reset(params, draws=to(drawn, d))[:2] for d, (venv, params) in zip(devices, runs)]
+    if start_from_cpu:
+        start = cpu_venv.reset(cpu_params, draws=drawn)[:2]
+        carry = [start, to(start, dev)]
+    else:
+        carry = [venv.reset(params, draws=to(drawn, d))[:2]
+                 for d, (venv, params) in zip(devices, runs)]
     for t in range(steps):
         act = torch.from_numpy(rng.uniform(-1, 1, (n, 2)).astype(np.float32))
-        pred = rng.standard_normal((n, 2)) if logits else rng.uniform(-1, 1, (n, 2))
+        pred = rng.standard_normal((n, width)) if logits else rng.uniform(-1, 1, (n, width))
         pred = torch.from_numpy(pred.astype(np.float32))
         step_drawn = cpu_venv.env.draw_step(n, cpu_params, gen)
         reset_drawn = cpu_venv.env.draw_reset(n, cpu_params, gen)
@@ -820,9 +865,11 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
             close(rc, rg, "reward", f"{what} reward", tol["reward"])
         else:
             same(rc, rg.cpu(), f"{what} reward")
-        (bc, fc), (bg, fg) = split(sc), split(sg)
+        (bc, fc, gc), (bg, fg, gg) = split(sc), split(sg)
         for a, b in zip(leaves((bc, *dc)), leaves((bg, *dg)), strict=True):
             same(a, b, f"{what} state or dones")
+        for k in gc:
+            close(gc[k], gg[k], k, f"{what} state {k}", tol[k])
         if metrics:
             stats_like(fc, fg, f"{what} metrics buffers")
             stats_like(ic["stats"], ig["stats"], f"{what} stats")
@@ -939,13 +986,127 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
             "episode_ends_min": int(ends.min()), "launches": launches}
 
 
+SCORE_TOL = 3e-6  # uniqueness scores at TinyImageNet's geometry, card vs CPU
+TOP_K = 10
+
+
+def phase_tin_loc_main_path(dev) -> dict:
+    """``make_vec("TinyImageNetLoc-v0", 4096)`` (the registry's 8192-image
+    synthetic bank): the explicit reset, which runs the unique-target
+    sweep, timed and its peak memory read; then 51 steps (three 17-step
+    LOCKSTEP cycles) of uniform actions with zero predictions."""
+    import apx_torch
+
+    steps = 51
+    venv, params = apx_torch.make_vec("TinyImageNetLoc-v0", num_envs=N, device=dev)
+    print(f"tin_loc bank: {params.dataset.bank_kind}, {params.dataset.length} images of "
+          f"{params.dataset.image_shape}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    zero_pred = torch.zeros((N, 2), device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    glimpse_ok = torch.ones((), dtype=torch.bool, device=dev)
+    r_lo = torch.full((), float("inf"), device=dev)
+    r_hi = torch.full((), -float("inf"), device=dev)
+    resets = torch.zeros(N, dtype=torch.int64, device=dev)
+
+    venv.reset(params, gen)  # warm up: builds the kernels' launch path and cuBLAS handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    obs, state, _ = venv.reset(params, gen)
+    torch.cuda.synchronize()
+    reset_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    reset_launches = all_launch_counts()["glimpse"]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+        obs, state, reward, term, trunc, _ = venv.step(
+            state, {"action": act, "prediction": zero_pred}, params, gen)
+        for leaf in obs.values():
+            finite &= torch.isfinite(leaf).all()
+        for key in ("glimpse", "target_glimpse"):
+            glimpse_ok &= ((obs[key] >= 0) & (obs[key] <= 1)).all()
+        r_lo = torch.minimum(r_lo, reward.min())
+        r_hi = torch.maximum(r_hi, reward.max())
+        resets += (state.inner.perception.time == 0).to(torch.int64)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launch_counts()
+
+    check(bool(finite), "non-finite observation")
+    check(bool(glimpse_ok), "glimpse or target_glimpse outside [0, 1]")
+    check(-3.0015 <= float(r_lo) and float(r_hi) <= 0.0,
+          f"rewards outside [-3.0015, 0]: [{float(r_lo)}, {float(r_hi)}]")
+    check(int(resets.min()) >= 2, f"an env went through {int(resets.min())} resets (< 2)")
+    shapes = {k: tuple(v.shape) for k, v in obs.items()}
+    check(shapes == {"glimpse": (N, 10, 10, 3), "glimpse_pos": (N, 2), "time_step": (N,),
+                     "target_glimpse": (N, 10, 10, 3)}, f"obs shapes {shapes}")
+    # The explicit reset: the obs and the target glimpse; a masked-merge
+    # step: the step's obs, and the autoreset's obs and target glimpse.
+    check(reset_launches == 2, f"glimpse launched {reset_launches} times in the reset, not 2")
+    check(launches["glimpse"] == 2 + 3 * steps,
+          f"glimpse launched {launches['glimpse']} times, not 2 + 3 per step ({2 + 3 * steps})")
+    return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
+            "reset_ms": reset_ms, "reset_peak_bytes": peak,
+            "reset_peak_above_start_bytes": peak - start_bytes,
+            "reward_range": [float(r_lo), float(r_hi)], "resets_min": int(resets.min()),
+            "launches": launches}
+
+
+def phase_sweep_card_vs_cpu(dev, n: int = 64) -> dict:
+    """The unique-target sweep of ``TinyImageNetLoc-v0`` on the card and on
+    the CPU from the same injected reset draws: scores within SCORE_TOL;
+    the top-k and the explicit reset's targets equal on every env whose
+    ranking the scores decide (each gap between distinct CPU scores among
+    the first k + 1 wider than 2 SCORE_TOL, no exact tie across the k-th
+    place, the CPU's exact ties within the top k exact on the card)."""
+    import apx_torch
+    from apx_torch.envs.image_perception import ImagePerceptionEngine as engine
+
+    runs = {d: apx_torch.make_vec("TinyImageNetLoc-v0", num_envs=n, device=d)
+            for d in ("cpu", dev)}
+    cpu_venv, cpu_params = runs["cpu"]
+    drawn = cpu_venv.env.draw_reset(n, cpu_params, torch.Generator().manual_seed(7))
+    _, s_cpu, _ = cpu_venv.reset(cpu_params, draws=drawn)
+    dev_venv, dev_params = runs[dev]
+    _, s_dev, _ = dev_venv.reset(dev_params, draws={k: v.to(dev) for k, v in drawn.items()})
+    images = s_cpu.inner.perception.image
+    u_cpu = engine.uniqueness(images, cpu_params).numpy()
+    u_dev = engine.uniqueness(images.to(dev), dev_params).cpu().numpy()
+    err = float(np.abs(u_cpu - u_dev).max())
+    check(err <= SCORE_TOL, f"uniqueness card vs cpu: max |diff| {err} > {SCORE_TOL}")
+    top_cpu = np.argsort(-u_cpu, axis=-1, kind="stable")[:, :TOP_K]
+    top_dev = engine.unique_target_top_k(images.to(dev), dev_params).cpu().numpy()
+    compared, low = 0, float("inf")
+    for i in range(n):
+        order = np.argsort(-u_cpu[i], kind="stable")[:TOP_K + 1]
+        srt = u_cpu[i][order]
+        gaps = srt[:-1] - srt[1:]
+        ties_hold = gaps[-1] > 0 and all(u_dev[i][order[j]] == u_dev[i][order[j + 1]]
+                                         for j in np.flatnonzero(gaps == 0))
+        if not ties_hold or gaps[gaps > 0].min() <= 2 * SCORE_TOL:
+            continue
+        gap = float(gaps[gaps > 0].min())
+        compared += 1
+        low = min(low, gap)
+        check(np.array_equal(top_cpu[i], top_dev[i]), f"top-k of env {i} differs card vs cpu")
+        check(torch.equal(s_cpu.inner.target[i], s_dev.inner.target[i].cpu()),
+              f"target of env {i} differs card vs cpu")
+    check(compared > 0, "no env's ranking was decided")
+    return {"env": "TinyImageNetLoc-v0", "num_envs": n, "score_max_abs_err": err,
+            "score_tol": SCORE_TOL, "envs_compared": compared, "smallest_gap": low}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
         return 1
     import apx_torch  # noqa: F401  (fails here when run without the repo)
-    from apx_torch.bench import (bench_circle_square, bench_light_dark, bench_lidar_rooms,
-                                 bench_lidar_rooms_window, nvidia_smi_line)
+    from apx_torch.bench import (bench_light_dark, bench_lidar_rooms, bench_lidar_rooms_window,
+                                 bench_lockstep, nvidia_smi_line)
     from apx_torch.ops import build
 
     dev = torch.device("cuda")
@@ -1022,10 +1183,36 @@ def main() -> int:
         res = phase_card_vs_cpu(dev, env_id, n, steps, tol, metrics=env_id != "LightDark-v0")
         print(f"step draws / wrappers card vs cpu: {json.dumps(res)}", flush=True)
 
+    tin_path = phase_tin_loc_main_path(dev)
+    print(f"tin_loc main path: {json.dumps(tin_path)}", flush=True)
+    k3["tin_loc"] = {"launches": tin_path["launches"]["glimpse"],
+                     "geometry": k3["by_geometry"]["tiny_imagenet"]["shape"]}
+    print(f"sweep card vs cpu: {json.dumps(phase_sweep_card_vs_cpu(dev))}", flush=True)
+    res = phase_card_vs_cpu(dev, "TinyImageNetLoc-v0", 64, 51, {
+        "glimpse": GLIMPSE_TOL, "target_glimpse": GLIMPSE_TOL, "reward": 1e-6},
+        start_from_cpu=True)
+    print(f"tin_loc card vs cpu: {json.dumps(res)}", flush=True)
+    tol = {"glimpse": GLIMPSE_TOL, "reward": 1e-6}
+    for env_id, geometry in (("DoubleCircleSquare-v0", None), ("MNIST-v0", "mnist"),
+                             ("CIFAR10-v0", "cifar10"), ("CircleSquareHideAndSeek-v0", None),
+                             ("CircleSquareHideAndSeekNoPrediction-sparse-v0", None)):
+        reset_all_launch_counts()
+        res = phase_card_vs_cpu(dev, env_id, 256, 51, tol)
+        res["glimpse_launches"] = all_launch_counts()["glimpse"]
+        check(res["glimpse_launches"] == 1 + 2 * 51,
+              f"{env_id}: glimpse launched {res['glimpse_launches']} times, not 1 + 2 per step")
+        if geometry:
+            k3["by_geometry"][geometry]["launches"] = res["glimpse_launches"]
+            k3["by_geometry"][geometry]["launches_path"] = f"{env_id}, N=256, 51 steps"
+        print(f"new ids card vs cpu: {json.dumps(res)}", flush=True)
+
     print(f"throughput: {json.dumps(bench_lidar_rooms(N, 1024))}", flush=True)
     print(f"throughput: {json.dumps(bench_lidar_rooms_window(N, 1024))}", flush=True)
-    print(f"throughput: {json.dumps(bench_circle_square(N, 1020))}", flush=True)
+    print(f"throughput: {json.dumps(bench_lockstep("circle_square", N, 1020))}", flush=True)
     print(f"throughput: {json.dumps(bench_light_dark(N, 1024))}", flush=True)
+    for env in ("tin_loc", "mnist", "hide_and_seek"):
+        steps = 1020 if env != "hide_and_seek" else 990  # whole 17- and 33-step cycles
+        print(f"throughput: {json.dumps(bench_lockstep(env, N, steps))}", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -135,12 +135,15 @@ def test_numerics_on_card(dev):
                                                   ((20, 40, 1), (7, 32), 0.5, 4097),
                                                   ((20, 30, 1), (7, 2), 2.0, 4097),
                                                   ((16, 16, 3), (4, 4), 0.5, 1),
-                                                  ((64, 64, 3), (10, 10), 0.5, 4097)])
+                                                  ((64, 64, 3), (10, 10), 0.5, 4097),
+                                                  ((28, 28, 1), (5, 5), 1.0, 4096),
+                                                  ((32, 32, 3), (5, 5), 1.0, 4096)])
 def test_glimpse_kernel_matches_plain(dev, shape, sensor, scale, n, dtype):
     """K3 within 1e-6 of its plain form (float32 rounding of a 4-term
     bilinear; TF32 off for the plain form's products), on square and
     non-square sensors, C = 1 and 3, sample rows of s1 * C below, at and
-    above the warp's 32 lanes, and N = 1, 1000, 4097."""
+    above the warp's 32 lanes, and N = 1, 1000, 4097; and at the MNIST and
+    CIFAR10 envs' geometries at N = 4096."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(shape[0])
     if dtype == torch.uint8:
@@ -464,3 +467,55 @@ def test_space_sample_lands_on_the_generators_card(dev):
         act = venv.env.action_space(p).sample(g, (4,))
         assert act["action"].device.type == "cuda" and act["prediction"].device.type == "cuda"
         assert torch.isfinite(act["prediction"]).all()
+
+
+def test_sampler_on_card_matches_cpu(dev):
+    """The unique-target sweep on the card (cuBLAS, TF32 off) against the
+    CPU's at TinyImageNet's geometry: scores within 3e-6 (the tolerance of
+    tests/test_torch_image_localization.py against apx), and TF32 left as
+    the caller set it."""
+    from apx_torch.data.huggingface import synthetic_image_bank
+    from apx_torch.envs.image_perception import ImagePerceptionEngine, ImagePerceptionParams
+
+    bank = synthetic_image_bank("zh-plus/tiny-imagenet", num_points=64, device="cpu")
+    p_cpu = ImagePerceptionParams(dataset=bank, sensor_size=(10, 10))
+    card = synthetic_image_bank("zh-plus/tiny-imagenet", num_points=64, device=dev)
+    p_dev = ImagePerceptionParams(dataset=card, sensor_size=(10, 10))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    u_dev = ImagePerceptionEngine.uniqueness(card.images, p_dev)
+    assert torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    u_cpu = ImagePerceptionEngine.uniqueness(bank.images, p_cpu)
+    assert (u_dev.cpu() - u_cpu).abs().max().item() <= 3e-6
+
+
+def test_new_envs_on_card_match_cpu(dev):
+    """DoubleCircleSquare's synthesis bitwise, and HideAndSeek and
+    TinyImageNetLoc (from the CPU's reset state, so the sampler's ties do
+    not enter) stepped on the card and the CPU: ints, bools and targets
+    bitwise, glimpses and rewards within 1e-6."""
+    import apx_torch
+    from apx_torch.core.env import tree_map
+
+    idx = torch.randint(0, 900_000, (4096,), generator=torch.Generator().manual_seed(0))
+    dcs = {d: apx_torch.make("DoubleCircleSquare-v0", device=d)[1].dataset for d in ("cpu", dev)}
+    assert torch.equal(dcs["cpu"].fetch_raw(idx)[0], dcs[dev].fetch_raw(idx.to(dev))[0].cpu())
+    for env_id in ("CircleSquareHideAndSeek-v0", "TinyImageNetLoc-v0"):
+        runs = {d: apx_torch.make_vec(env_id, 64, device=d) for d in ("cpu", dev)}
+        g = torch.Generator().manual_seed(1)
+        obs, s_cpu, _ = runs["cpu"][0].reset(runs["cpu"][1], g)
+        s_dev = tree_map(lambda x: x.to(dev), s_cpu)
+        for t in range(34):
+            act = {"action": torch.rand((64, 2), generator=g) * 2 - 1,
+                   "prediction": torch.randn((64, 2), generator=g)}
+            draws = runs["cpu"][0].env.draw_reset(64, runs["cpu"][1], g)
+            oc, s_cpu, rc, tc, *_ = runs["cpu"][0].step(s_cpu, act, runs["cpu"][1], reset_draws=draws)
+            og, s_dev, rg, tg, *_ = runs[dev][0].step(s_dev, tree_map(lambda x: x.to(dev), act),
+                                                     runs[dev][1],
+                                                     reset_draws=tree_map(lambda x: x.to(dev), draws))
+            assert torch.equal(tc, tg.cpu()) and (rc - rg.cpu()).abs().max() <= 1e-6
+            for k in oc:
+                if "glimpse" in k and k != "glimpse_pos":
+                    assert (oc[k] - og[k].cpu()).abs().max() <= 1e-6, k
+                else:
+                    assert torch.equal(oc[k], og[k].cpu()), k

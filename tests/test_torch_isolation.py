@@ -1,5 +1,6 @@
-"""apx_torch stands alone: it imports neither JAX nor the apx package, and
-its entry points default to the GPU with no fallback to the CPU."""
+"""apx_torch stands alone: it imports neither JAX nor the apx package (nor
+``datasets`` when it is imported), and its entry points default to the GPU
+with no fallback to the CPU."""
 
 import os
 import re
@@ -18,6 +19,7 @@ PKG = ROOT / "apx_torch"
 _SCRIPT = """
 import sys, torch
 import apx_torch
+assert "datasets" not in sys.modules, "import apx_torch imported datasets"
 torch.set_num_threads(1)
 venv, p = apx_torch.make_vec("LIDARLocRooms-v0", 4, device="cpu")
 g = torch.Generator().manual_seed(0)
@@ -44,8 +46,14 @@ obs, s, _ = venv.reset(p, g)
 for _ in range(3):
     obs, s, r, te, tr, info = venv.step(s, venv.env.action_space(p).sample(g, (4,)), p, g)
 assert "stats" in info and set(info["prediction"]["target"]) == {"target", "weight"}
+venv, p = apx_torch.make_vec("CircleSquareHideAndSeekNoPrediction-sparse-v0", 4, device="cpu")
+obs, s, _ = venv.reset(p, g)
+venv, p = apx_torch.make_vec("DoubleCircleSquare-s15-v0", 4, device="cpu")
+obs, s, _ = venv.reset(p, g)
 import apx_torch.bench, apx_torch.convert, apx_torch.compat.builders, apx_torch.ops.build
 import apx_torch.ops.glimpse_cuda, apx_torch.ops.window_cuda, apx_torch.ops.issue_rate_study
+import apx_torch.data.huggingface, apx_torch.envs.image_localization
+assert "datasets" not in sys.modules, "a port module imported datasets"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "apx"))
 print("BAD", bad)
@@ -90,3 +98,8 @@ def test_make_vec_defaults_to_cuda():
             apx_torch.make_vec("CircleSquare-v0", 2)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             apx_torch.make_vec("LightDark-v0", 2)
+        for env_id in ("TinyImageNetLoc-v0", "MNIST-test-v0", "DoubleCircleSquare-v0"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                apx_torch.make_vec(env_id, 2)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            apx_torch.make("CircleSquareHideAndSeek-v0")
