@@ -8,8 +8,11 @@ cut as CUDA kernels), the CircleSquare, DoubleCircleSquare and HideAndSeek
 envs, the MNIST / CIFAR10 / TinyImageNet classification and localization
 envs (the bilinear glimpse as a CUDA kernel; the localization reset's
 unique-target sampler), LightDark, and the ``-sparse`` twin of each, each
-with ``metrics=True`` where apx has metrics (ROADMAP.md lists what is
-still to come).
+with ``metrics=True`` where apx has metrics. Around them: env-batch
+sharding over ``torch.distributed`` (``apx_torch.distrib``), checkpoints
+(``apx_torch.utils.checkpoint``), host streaming and device bank rotation
+(``apx_torch.data.stream``) and the native map-bank generator
+(``apx_torch.data.native``). ROADMAP.md lists what is still to come.
 
     import torch, apx_torch
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)

@@ -58,6 +58,15 @@ prints one JSON line with ``<env>_env_steps_per_s`` (the graph loop),
 ``power_limit_w``. ``--profile`` instead traces ``PROFILE_STEPS`` eager
 steps with ``torch.profiler`` and prints where the device time goes. It
 runs on the card only.
+
+    torchrun --standalone --nproc_per_node=K -m apx_torch.bench --distributed
+        [--env ...] [--num-envs 4096] [--backend nccl|gloo] [--device cuda]
+
+runs ``bench_sharded`` on K ranks, one card each (``cuda:LOCAL_RANK``),
+over nccl: the same loops on each rank's block of ``--num-envs`` envs,
+and rank 0 prints ``<env>_sharded_env_steps_per_s`` beside the plain
+loop's rate. Two ranks on one card: ``--nproc_per_node=2 --backend gloo
+--device cuda:0`` (NCCL refuses two ranks on one GPU).
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from .core.env import AutoResetMode, VectorAPEnv, tree_map, vector_env, with_autoreset
 from .data.huggingface import synthetic_image_bank
@@ -80,8 +90,8 @@ from .envs.light_dark import LightDarkEnv
 from .registry import make_vec
 
 __all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_light_dark",
-           "bench_lockstep", "profile", "nvidia_smi_line", "CHUNK",
-           "WORKLOADS"]
+           "bench_lockstep", "bench_sharded", "graph_chunk", "profile", "nvidia_smi_line",
+           "CHUNK", "WORKLOADS"]
 
 CHUNK = 16  # NEXT_STEP steps per captured graph
 PROFILE_STEPS = 34
@@ -222,7 +232,19 @@ def _steps(lp: _Loop, obs, state, draws, rsum):
     return obs, state
 
 
-def _timed(fn) -> float:
+def _finish(rsum: torch.Tensor, sharding=None) -> None:
+    """The end of a timed window: a value fetch of the summed rewards; in a
+    sharded run after one all_reduce of them over the ranks, so the window
+    ends when the slowest rank is done."""
+    if sharding is not None:
+        rsum = rsum.clone()
+        dist.all_reduce(rsum, group=sharding.group)
+    float(rsum)
+
+
+def _timed(fn, sharding=None) -> float:
+    if sharding is not None:  # line the ranks up before the window starts
+        _finish(torch.zeros((), device=sharding.device), sharding)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -235,26 +257,12 @@ def _need_cuda(what: str) -> torch.device:
     return torch.device("cuda")
 
 
-def _measure(lp: _Loop, num_steps: int, g: torch.Generator) -> tuple[float, float]:
-    """Seconds of the eager and of the graph-replayed loop over
-    ``num_steps`` steps (a multiple of ``lp.chunk``)."""
-    obs, state, _ = lp.venv.reset(lp.params, g)
-    rsum = torch.zeros((), dtype=torch.float32, device=lp.params.device)
-
-    # Eager: warmup, then the timed run.
-    warm = _draws(lp, lp.chunk, g)
-    obs, state = _steps(lp, obs, state, warm, rsum)
-    draws = _draws(lp, num_steps, g)
-    carry = {}
-
-    def eager():
-        carry["out"] = _steps(lp, obs, state, draws, rsum)
-        float(rsum)
-
-    eager_s = _timed(eager)
-    obs, state = carry["out"]
-
-    # Graph: static buffers for the carry and one chunk of draws.
+def graph_chunk(lp: _Loop, obs, state, draws, rsum: torch.Tensor):
+    """One chunk of ``lp.chunk`` steps captured in a CUDA graph from static
+    copies of (obs, state); returns ``replay(xs, c)``, which copies chunk
+    ``c`` of the hoisted draws ``xs`` (``_draws``; ``draws`` gives the
+    buffers' shapes) into the graph's buffers and replays it, carrying the
+    state and adding the rewards into ``rsum``."""
     static = tree_map(torch.clone, (obs, state))
     chunk = tuple(torch.empty_like(x[:lp.chunk]) for x in draws)
     side = torch.cuda.Stream()
@@ -269,15 +277,45 @@ def _measure(lp: _Loop, num_steps: int, g: torch.Generator) -> tuple[float, floa
         out = _steps(lp, *static, chunk, rsum)
         tree_map(lambda dst, src: dst.copy_(src), static, out)
 
+    def replay(xs, c: int) -> None:
+        for buf, src in zip(chunk, xs):
+            buf.copy_(src[c * lp.chunk:(c + 1) * lp.chunk])
+        graph.replay()
+
+    return replay
+
+
+def _measure(lp: _Loop, num_steps: int, g: torch.Generator,
+             sharding=None) -> tuple[float, float]:
+    """Seconds of the eager and of the graph-replayed loop over
+    ``num_steps`` steps (a multiple of ``lp.chunk``). With a ``sharding``
+    (``apx_torch.distrib``) every window starts on a collective that lines
+    the ranks up and ends on one all_reduce (``_finish``)."""
+    obs, state, _ = lp.venv.reset(lp.params, g)
+    rsum = torch.zeros((), dtype=torch.float32, device=lp.params.device)
+
+    # Eager: warmup, then the timed run.
+    warm = _draws(lp, lp.chunk, g)
+    obs, state = _steps(lp, obs, state, warm, rsum)
+    draws = _draws(lp, num_steps, g)
+    carry = {}
+
+    def eager():
+        carry["out"] = _steps(lp, obs, state, draws, rsum)
+        _finish(rsum, sharding)
+
+    eager_s = _timed(eager, sharding)
+    obs, state = carry["out"]
+
+    replay_chunk = graph_chunk(lp, obs, state, draws, rsum)
+
     def replay(xs):
         for c in range(xs[0].shape[0] // lp.chunk):
-            for buf, src in zip(chunk, xs):
-                buf.copy_(src[c * lp.chunk:(c + 1) * lp.chunk])
-            graph.replay()
-        float(rsum)
+            replay_chunk(xs, c)
+        _finish(rsum, sharding)
 
     replay(warm)  # warmup replay
-    graph_s = _timed(lambda: replay(draws))
+    graph_s = _timed(lambda: replay(draws), sharding)
     return eager_s, graph_s
 
 
@@ -358,6 +396,48 @@ def bench_lockstep(env: str, num_envs: int = 4096, num_steps: int = 1024, seed: 
             "num_envs": num_envs, "num_steps": num_steps, **_card()}
 
 
+def bench_sharded(env: str, sharding, num_envs: int = 4096, num_steps: int = 1024,
+                  seed: int = 0) -> dict | None:
+    """One rank of the sharded bench (JAX package: ``bench_env_multihost``):
+    the eager and graph-chunk loops of ``env`` on this rank's block of
+    ``num_envs`` envs, each window starting on a collective and ending on
+    one all_reduce; then the slowest rank's seconds (an all_reduce MAX),
+    and on rank 0 the plain one-process loops at all ``num_envs`` while the
+    other ranks wait. Each rank seeds its own draws (``seed + rank``), so
+    the blocks step distinct envs. Returns rank 0's line
+    (``<env>_sharded_env_steps_per_s`` = num_envs x steps / the slowest
+    rank's graph seconds, beside the plain loop's ``<env>_env_steps_per_s``
+    from the same process), None on the other ranks."""
+    dev = sharding.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"the sharded bench measures GPUs; this rank's device is {dev}")
+    block = sharding.block(num_envs)
+    lp = _loop(env, block.stop - block.start, dev)
+    if env in LOCKSTEP_WORKLOADS:
+        num_steps = max(lp.chunk, num_steps // lp.chunk * lp.chunk)
+    elif num_steps % CHUNK:
+        raise ValueError(f"num_steps must be a multiple of {CHUNK}")
+    g = torch.Generator(dev).manual_seed(seed + sharding.rank)
+    eager_s, graph_s = _measure(lp, num_steps, g, sharding)
+    slowest = torch.tensor([eager_s, graph_s], dtype=torch.float64, device=dev)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=sharding.group)
+    plain = None
+    if sharding.rank == 0:
+        plain = _measure(_loop(env, num_envs, dev), num_steps,
+                         torch.Generator(dev).manual_seed(seed))
+    _finish(torch.zeros((), device=dev), sharding)  # the other ranks wait here
+    if sharding.rank != 0:
+        return None
+    steps = num_envs * num_steps
+    return {f"{env}_sharded_env_steps_per_s": steps / float(slowest[1]),
+            f"{env}_sharded_eager_env_steps_per_s": steps / float(slowest[0]),
+            "sharded_graph_ms_per_step": 1e3 * float(slowest[1]) / num_steps,
+            "rank0_graph_ms_per_step": 1e3 * graph_s / num_steps,
+            **_rates(env, num_envs, num_steps, *plain),
+            "world_size": sharding.world_size, "backend": dist.get_backend(sharding.group),
+            "device": str(dev), "num_envs": num_envs, "num_steps": num_steps, **_card()}
+
+
 
 def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: int = 12) -> dict:
     """Device time per step of the eager loop by kernel, from a
@@ -410,8 +490,23 @@ def main(argv=None) -> None:
     ap.add_argument("--num-steps", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--distributed", action="store_true",
+                    help="one rank of the sharded bench, under torchrun")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.profile:
+    if args.distributed:
+        from .distrib import init_distributed, make_env_mesh
+
+        init_distributed(backend=args.backend, device=args.device)
+        try:
+            res = bench_sharded(args.env, make_env_mesh(args.device), args.num_envs,
+                                args.num_steps, args.seed)
+        finally:
+            dist.destroy_process_group()
+        if res is not None:
+            print(json.dumps(res))
+    elif args.profile:
         print(json.dumps(profile(args.env, args.num_envs, args.seed)))
     elif args.env in LOCKSTEP_WORKLOADS:
         print(json.dumps(bench_lockstep(args.env, args.num_envs, args.num_steps, args.seed)))

@@ -6,8 +6,11 @@ bitwise the map apx (and the reference ap_gym dataset) makes for index i.
 Maps are boolean occupancy grids, True = wall; wall cell (row y, col x)
 spans [x, x+1] x [y, y+1].
 
-Only the Python generators are ported (``backend="python"``); apx's C++
-bank generator makes different maps and stays with apx.
+Banks come from the Python generators (``backend="python"``, the
+default) or from the port's copy of apx's C++ generator
+(``backend="native"``, ``data/native.py``; ``"auto"`` picks it when it
+builds): the same map family, other maps per index, bitwise apx's native
+maps.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import sys
 
 import numpy as np
 import torch
+
+from .native import generate_maze_bank_native, generate_rooms_bank_native, native_available
 
 __all__ = [
     "generate_maze_map",
@@ -164,6 +169,14 @@ class MapBank:
         shifts = torch.arange(w, dtype=torch.int64, device=words.device)
         return ((words[..., None] >> shifts) & 1) == 1
 
+    def fetch_halves(self, bank_idx: torch.Tensor) -> torch.Tensor:
+        """(..., H, 2) int32: each fetched row's occupancy bits as two
+        little-endian 16-bit half-words, ``words & 0xFFFF`` and ``words >>
+        16``, bitwise apx's ``MapBank.fetch_halves``. (apx's bitslab raycast
+        backends window from these; the port has none yet.)"""
+        words = self.row_words[bank_idx]  # (..., H)
+        return torch.stack([words & 0xFFFF, words >> 16], dim=-1).to(torch.int32)
+
 
 def pack_rows(maps: np.ndarray) -> np.ndarray:
     """(M, H) int64 row words of (M, H, W) bool maps: bit x of word y is
@@ -196,12 +209,8 @@ def bank_from_maps(maps: np.ndarray, indices: np.ndarray, kind: str, device) -> 
     )
 
 
-def _make_bank(gen, num_maps: int, seed: int | None, explicit_indices,
+def _make_bank(gen, num_maps: int, seed: int | None, explicit_indices, native_gen,
                backend: str, kind: str, device) -> MapBank:
-    if backend != "python":
-        raise NotImplementedError(
-            f"map bank backend {backend!r} is not ported; only 'python' is"
-        )
     if explicit_indices is not None:
         indices = np.asarray(explicit_indices, dtype=np.uint64)
     elif seed is None:
@@ -211,7 +220,14 @@ def _make_bank(gen, num_maps: int, seed: int | None, explicit_indices,
         indices = np.random.default_rng(seed).integers(
             0, 2**32, size=num_maps, endpoint=True, dtype=np.uint64
         )
-    maps = np.stack([gen(int(i)) for i in indices])
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown backend {backend!r}")
+    use_native = False
+    if backend in ("auto", "native"):
+        use_native = native_available()
+        if backend == "native" and not use_native:
+            raise RuntimeError("native map generator unavailable")
+    maps = native_gen(indices) if use_native else np.stack([gen(int(i)) for i in indices])
     # The recorded identity narrows to uint32 as in apx (the 2**32 edge
     # value wraps to 0 there too).
     return bank_from_maps(maps, indices.astype(np.uint32), kind, device)
@@ -227,9 +243,15 @@ def make_maze_bank(
     backend: str = "python",
     device="cuda",
 ) -> MapBank:
+    """backend="python" (default) matches the reference's NumPy draws
+    bitwise; "native" uses the C++ generator (same map family, different
+    per-index maps, bitwise apx's native ones); "auto" is native where it
+    builds."""
     return _make_bank(
         lambda i: generate_maze_map(i, width, height, branching_prob),
-        num_maps, seed, indices, backend, "maze", device,
+        num_maps, seed, indices,
+        lambda idx: generate_maze_bank_native(idx, width, height, branching_prob),
+        backend, "maze", device,
     )
 
 
@@ -249,5 +271,7 @@ def make_rooms_bank(
                          f"got {width}x{height}")
     return _make_bank(
         lambda i: generate_rooms_map(i, width, height, max_rooms, door_width),
-        num_maps, seed, indices, backend, "rooms", device,
+        num_maps, seed, indices,
+        lambda idx: generate_rooms_bank_native(idx, width, height, max_rooms, door_width),
+        backend, "rooms", device,
     )

@@ -1,0 +1,25 @@
+"""Env-batch data parallelism of the port over ``torch.distributed``."""
+
+from .mesh import (
+    EnvSharding,
+    init_distributed,
+    make_env_mesh,
+    shard_env_batch,
+    shard_params,
+    sharded_rollout,
+    sharded_vector_env_step,
+)
+from .metrics import all_mean, all_sum, episode_stats_psum
+
+__all__ = [
+    "EnvSharding",
+    "all_mean",
+    "all_sum",
+    "episode_stats_psum",
+    "init_distributed",
+    "make_env_mesh",
+    "shard_env_batch",
+    "shard_params",
+    "sharded_rollout",
+    "sharded_vector_env_step",
+]

@@ -109,6 +109,33 @@ Phases, one line each; any failure exits non-zero:
     step on the card.
 17. throughput: ``apx_torch.bench`` at N = 4096 for the seven workloads
     (eager and CUDA graph; ``tin_loc`` builds its 100,000-image bank).
+18. sharded LIDAR, world 1 over nccl: ``python -m
+    apx_torch.distrib.selftest`` (one process, a FileStore,
+    ``NCCL_SOCKET_IFNAME=lo``), ``sharded_rollout`` of
+    ``LIDARLocRooms-v0`` at N = 4096 for 250 steps: the final state
+    bitwise the one-process ``rollout`` on the card with the same seed, done
+    counts equal, mean rewards within rtol 1e-6, K1 launched 3 (fast) and 1
+    (typed) per step and 1 (typed) at the reset, in both runs.
+19. two gloo ranks on cuda:0 (NCCL refuses two ranks on one GPU), N = 4096
+    in all: LIDARLocRooms-v0 for 250 steps and the episodic CircleSquare-v0
+    (period 16) for 51, each rank's block bitwise the solo run's block,
+    the same counts and tolerance, K3 launched once per step and once at
+    the reset on each rank.
+20. checkpoint: LIDARLocRooms-v0 and CircleSquare-v0 with ``metrics=True``
+    at N = 4096, saved after k steps with the generator's state, restored
+    into a fresh state on the card and continued: bitwise the uninterrupted
+    run; the card checkpoint restored onto a CPU ``like`` and back, bitwise.
+21. BankRotator with two 1.23 GB uint8 slabs (TinyImageNet's banked
+    size): each swap bitwise its host slab; the H2D rate alone and while the
+    ``tin_loc`` graph loop runs, and that loop's ms per step before the
+    rotator, and in the chunks wholly inside and wholly outside the copy
+    (CUDA events on one timeline).
+22. native banks: the C++ generator built on this machine, rooms and maze
+    banks on the card equal to the CPU's, ``fetch_halves`` bitwise.
+23. sharded throughput: ``torchrun --standalone -m apx_torch.bench
+    --distributed`` for ``lidar_rooms`` and ``circle_square``, one rank over
+    nccl and two gloo ranks on cuda:0 (rank 0's line: the sharded rate
+    beside the plain loop's, measured in the same process).
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
@@ -116,16 +143,23 @@ its own path, the counts set to 0 just before it: K1's on phase 4 (and
 under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase 13), K2's on
 phase 9, K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
 and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
-``measure()``. It needs CUDA and the apx_torch package beside it, and
-exits non-zero without them.
+``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
+on phases 18-19, set to 0 in the worker just before its sharded rollout.
+Every process it starts is killed at PHASE_TIMEOUT_S. It needs CUDA and
+the apx_torch package beside it, and exits non-zero without them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1100,6 +1134,305 @@ def phase_sweep_card_vs_cpu(dev, n: int = 64) -> dict:
             "score_tol": SCORE_TOL, "envs_compared": compared, "smallest_gap": low}
 
 
+ROOT = Path(__file__).resolve().parent
+SHARDED_STEPS = 250  # the LIDAR main path's
+EPISODIC_STEPS = 51  # three 17-step CircleSquare cycles
+PHASE_TIMEOUT_S = 600
+
+
+def _spawn(cmds: list[list[str]], env_extra: dict) -> list[str]:
+    """Run the commands at once, each in a process of its own, from the
+    repo root; kill any still running after PHASE_TIMEOUT_S. Returns their
+    standard outputs; a nonzero exit raises with its output."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT), **env_extra}
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for cmd in cmds]
+    deadline = time.monotonic() + PHASE_TIMEOUT_S
+    try:
+        outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        check(p.returncode == 0, f"{' '.join(cmd[2:])} exited {p.returncode}:\n{out[-3000:]}\n"
+                                 f"{err[-3000:]}")
+    return [out for out, _ in outs]
+
+
+def _tagged(out: str, tag: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith(tag)]
+    check(len(lines) == 1, f"expected one {tag!r} line, got {len(lines)}")
+    return json.loads(lines[0][len(tag):])
+
+
+def path_launches(env_id: str, steps: int) -> dict:
+    """Kernel launches of one rollout of ``steps`` steps from its reset: the
+    LIDAR masked-merge step casts 3 fast and 1 typed (the reset scan, run
+    for every env every step), the reset 1 typed; an episodic CircleSquare
+    step (DISABLED or boundary) and the reset one glimpse each."""
+    if env_id.startswith("LIDAR"):
+        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+    return {"glimpse": 1 + steps}
+
+
+def phase_sharded_rollout(env_id: str, world: int, backend: str, steps: int,
+                          period: int | None = None) -> dict:
+    """``world`` ranks of ``python -m apx_torch.distrib.selftest`` on cuda:0
+    over ``backend``, N = 4096 in all: each rank's block of the final state
+    bitwise the one-process rollout's (rank 0 runs it on the card with the
+    same seed), equal done counts, mean rewards within rtol 1e-6, and each
+    rank's and the solo run's kernel launches ``path_launches``."""
+    store = tempfile.mkdtemp(prefix="apx_store_")
+    try:
+        extra = ["--episodic-period", str(period)] if period is not None else []
+        outs = _spawn([[sys.executable, "-m", "apx_torch.distrib.selftest", "--rank", str(r),
+                        "--world", str(world), "--init", f"file://{store}/store",
+                        "--backend", backend, "--device", "cuda:0", "--env", env_id,
+                        "--num-envs", str(N), "--steps", str(steps), *extra]
+                       for r in range(world)],
+                      {"NCCL_SOCKET_IFNAME": "lo"} if backend == "nccl" else {})
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    ranks = [_tagged(out, "SELFTEST ") for out in outs]
+    solo = ranks[0]["solo"]
+    want = path_launches(env_id, steps)
+    what = f"{env_id} sharded over {world} {backend} rank(s)"
+    check({k: solo["launches"].get(k, 0) for k in want} == want,
+          f"{what}: the solo run launched {solo['launches']}, expected {want}")
+    for r, out in enumerate(ranks):
+        check(out["rank"] == r and out["backend"] == backend and out["device"] == "cuda:0",
+              f"{what}: rank {r} ran as {out['rank']} on {out['device']} over {out['backend']}")
+        check(out["digest"] == solo["digests"][r],
+              f"{what}: rank {r}'s block is not bitwise the solo run's")
+        check(out["done_count"] == solo["done_count"],
+              f"{what}: done count {out['done_count']} vs solo {solo['done_count']}")
+        rel = abs(out["mean_reward"] - solo["mean_reward"]) / abs(solo["mean_reward"])
+        check(rel <= 1e-6, f"{what}: mean reward {out['mean_reward']} vs solo "
+                           f"{solo['mean_reward']} (rel {rel})")
+        check({k: out["launches"].get(k, 0) for k in want} == want,
+              f"{what}: rank {r} launched {out['launches']}, expected {want}")
+    return {"env": env_id, "world_size": world, "backend": backend, "num_envs": N,
+            "steps": steps, "episodic_period": period,
+            "ranks": [{k: out[k] for k in ("rank", "block", "seconds", "launches",
+                                             "mean_reward", "done_count")}
+                      | {"ms_per_step": 1e3 * out["seconds"] / steps} for out in ranks],
+            "solo": {k: solo[k] for k in ("seconds", "launches", "mean_reward", "done_count")}
+            | {"ms_per_step": 1e3 * solo["seconds"] / steps}}
+
+
+def _bytes(tree) -> list[torch.Tensor]:
+    return [x.detach().cpu().reshape(-1).view(torch.uint8) for x in _leaves_of(tree)]
+
+
+def _same(a, b, what: str) -> None:
+    la, lb = _bytes(a), _bytes(b)
+    check(len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb)),
+          f"{what}: not bitwise equal")
+
+
+def phase_checkpoint(dev) -> dict:
+    """Checkpoint resume on the card: save after k steps (obs, state and the
+    generator's state), continue m steps; restore into a fresh state made on
+    the card and continue m steps: bitwise the uninterrupted run. Then the
+    card checkpoint restored onto a CPU ``like`` (leaves on the CPU, bitwise)
+    and that state saved and restored onto the card again, bitwise."""
+    import apx_torch
+    from apx_torch.utils.checkpoint import restore_state, save_state
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for env_id, metrics, k, m in (("LIDARLocRooms-v0", False, 60, 50),
+                                      ("CircleSquare-v0", True, 10, 30)):
+            def steps(venv, params, obs, state, g, count):
+                out = []
+                pred = venv.env.prediction_space(params).shape[-1]
+                for _ in range(count):
+                    act = {"action": torch.rand((N, 2), generator=g, device=dev) * 2 - 1,
+                           "prediction": torch.randn((N, pred), generator=g, device=dev)}
+                    obs, state, *rest = venv.step(state, act, params, g)
+                    out.append((obs, state, *rest))
+                return out
+
+            venv, params = apx_torch.make_vec(env_id, N, device=dev, metrics=metrics)
+            g = torch.Generator(dev).manual_seed(11)
+            obs, state, _ = venv.reset(params, g)
+            obs, state = steps(venv, params, obs, state, g, k)[-1][:2]
+            path = f"{tmp}/{env_id}.pt"
+            t0 = time.perf_counter()
+            save_state(path, {"obs": obs, "state": state, "generator": g.get_state()})
+            save_s = time.perf_counter() - t0
+            want = steps(venv, params, obs, state, g, m)
+
+            g2 = torch.Generator(dev).manual_seed(12)
+            obs2, like, _ = venv.reset(params, g2)
+            t0 = time.perf_counter()
+            got = restore_state(path, {"obs": obs2, "state": like, "generator": g2.get_state()})
+            restore_s = time.perf_counter() - t0
+            g2.set_state(got["generator"])
+            _same(want, steps(venv, params, got["obs"], got["state"], g2, m),
+                  f"{env_id}: resumed run on the card")
+
+            cpu_venv, cpu_params = apx_torch.make_vec(env_id, N, device="cpu", metrics=metrics)
+            cpu_obs, cpu_like, _ = cpu_venv.reset(cpu_params, torch.Generator().manual_seed(0))
+            on_cpu = restore_state(path, {"obs": cpu_obs, "state": cpu_like,
+                                          "generator": g2.get_state()})
+            devices = {x.device.type for x in _leaves_of(on_cpu)}
+            check(devices == {"cpu"}, f"{env_id}: restored onto a CPU like, leaves on {devices}")
+            _same(on_cpu["state"], state, f"{env_id}: card checkpoint restored on the CPU")
+            back = f"{tmp}/{env_id}.cpu.pt"
+            save_state(back, on_cpu)
+            again = restore_state(back, {"obs": obs2, "state": like, "generator": g2.get_state()})
+            check({x.device.type for x in _leaves_of(again["state"])} == {"cuda"},
+                  f"{env_id}: CPU checkpoint restored onto a card like left the card")
+            _same(again["state"], state, f"{env_id}: CPU checkpoint restored on the card")
+            res[env_id] = {"metrics": metrics, "k": k, "m": m, "bytes": os.path.getsize(path),
+                           "save_s": save_s, "restore_s": restore_s}
+    return res
+
+
+def _leaves_of(tree) -> list[torch.Tensor]:
+    from apx_torch.core.env import tree_map
+
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+SLAB_SHAPE = (100_000, 64, 64, 3)  # TinyImageNet's banked size, 1.23 GB of uint8
+ROTATOR_CHUNKS = 1500  # tin_loc graph chunks (17 steps each) replayed while a slab stages
+
+
+def host_slab(k: int) -> np.ndarray:
+    """A 1.23 GB uint8 slab: a seeded random 1024-image block, repeated."""
+    block = np.random.default_rng(100 + k).integers(0, 256, (1024, *SLAB_SHAPE[1:]),
+                                                    dtype=np.uint8)
+    return np.resize(block, SLAB_SHAPE)
+
+
+def phase_bank_rotator(dev) -> dict:
+    """BankRotator with 1.23 GB slabs: each swap bitwise its host slab; the
+    H2D rate of the first slab's copies (nothing else running) and of the
+    second's, staged while the ``tin_loc`` graph loop (N = 4096) replays;
+    that loop's ms per step from CUDA events per 17-step chunk, before the
+    rotator exists and, placed on the device timeline by the copies'
+    events, in the chunks that ran wholly during the second copy and those
+    wholly outside it."""
+    from apx_torch.bench import _draws, _loop, graph_chunk
+    from apx_torch.data.stream import BankRotator
+
+    slabs = [host_slab(0), host_slab(1)]
+    nbytes = slabs[0].nbytes
+    lp = _loop("tin_loc", N, dev)  # the bank the throughput phase built
+    g = torch.Generator(dev).manual_seed(0)
+    obs, state, _ = lp.venv.reset(lp.params, g)
+    rsum = torch.zeros((), device=dev)
+    draws = _draws(lp, 4 * lp.chunk, g)
+    replay = graph_chunk(lp, obs, state, draws, rsum)
+
+    def run_chunks(count: int):
+        ref = torch.cuda.Event(enable_timing=True)
+        ref.record()
+        ends = []
+        for c in range(count):
+            replay(draws, c % 4)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+        torch.cuda.synchronize()
+        t = [ref.elapsed_time(e) for e in ends]
+        return ref, [(a, b) for a, b in zip([0.0] + t[:-1], t)]
+
+    def ms_per_step(spans) -> float:
+        return float(np.median([b - a for a, b in spans])) / lp.chunk
+
+    run_chunks(20)
+    _, before = run_chunks(300)
+
+    remaining = iter(slabs)  # a third load raises StopIteration, for a third swap
+    rot = BankRotator(lambda: next(remaining), device=dev)
+    try:
+        t0 = time.perf_counter()
+        first = rot.swap()
+        first_s = time.perf_counter() - t0
+        c0, c1 = rot.last_copy_events
+        c1.synchronize()
+        alone_ms = c0.elapsed_time(c1)
+        # At once: the thread pins and copies slab 1 while the chunks run.
+        ref, spans = run_chunks(ROTATOR_CHUNKS)
+        second = rot.swap()
+        c0, c1 = rot.last_copy_events
+        c1.synchronize()
+        copy = (ref.elapsed_time(c0), ref.elapsed_time(c1))
+        for k, got in enumerate((first, second)):
+            check(got.dtype == torch.uint8 and tuple(got.shape) == SLAB_SHAPE,
+                  f"swap {k} returned {got.dtype} {tuple(got.shape)}")
+            check(np.array_equal(got.cpu().numpy(), slabs[k]),
+                  f"slab {k} is not bitwise its host slab")
+    finally:
+        rot.close()
+    inside = [sp for sp in spans if sp[0] >= copy[0] and sp[1] <= copy[1]]
+    outside = [sp for sp in spans if sp[1] <= copy[0] or sp[0] >= copy[1]]
+    check(len(inside) > 0, f"the second copy ({copy[1] - copy[0]:.2f} ms at "
+                           f"{copy[0]:.1f} ms) overlapped no whole chunk of the "
+                           f"{spans[-1][1]:.1f} ms loop")
+    del first, second
+    torch.cuda.empty_cache()
+    return {"slab_bytes": nbytes, "first_swap_s": first_s,
+            "h2d_alone_ms": alone_ms, "h2d_alone_gb_per_s": nbytes / alone_ms / 1e6,
+            "h2d_during_loop_ms": copy[1] - copy[0],
+            "h2d_during_loop_gb_per_s": nbytes / (copy[1] - copy[0]) / 1e6,
+            "tin_loc_graph_ms_per_step_before": ms_per_step(before),
+            "tin_loc_graph_ms_per_step_copy_in_flight": ms_per_step(inside),
+            "tin_loc_graph_ms_per_step_outside_copy": ms_per_step(outside),
+            "chunks_during_copy": len(inside), "chunks_outside_copy": len(outside),
+            "chunk_steps": lp.chunk}
+
+
+def phase_native_bank(dev) -> dict:
+    """The native C++ bank generator built on this machine (g++, into
+    apx_torch/_build/): rooms (32x32) and maze (21x21) banks of 256 maps on
+    the card equal to the same banks built on the CPU, and ``fetch_halves``
+    on the card bitwise its CPU result for (N,) and (N, 3) indices."""
+    from apx_torch.data import native
+    from apx_torch.data.floor_map import make_maze_bank, make_rooms_bank
+
+    t0 = time.perf_counter()
+    check(native.native_available(), f"{native.SRC} did not build")
+    res = {"build_or_load_s": time.perf_counter() - t0}
+    gen = torch.Generator().manual_seed(9)
+    for kind, mk in (("rooms", make_rooms_bank), ("maze", make_maze_bank)):
+        t0 = time.perf_counter()
+        bank = mk(256, backend="native", device=dev)
+        res[f"{kind}_bank_s"] = time.perf_counter() - t0
+        cpu = mk(256, backend="native", device="cpu")
+        for f in ("maps", "indices", "free_counts", "row_words", "free_cells"):
+            check(torch.equal(getattr(bank, f).cpu(), getattr(cpu, f)),
+                  f"native {kind} bank: {f} differs card vs cpu")
+        for shape in ((N,), (N, 3)):
+            idx = torch.randint(0, 256, shape, generator=gen)
+            got = bank.fetch_halves(idx.to(dev))
+            check(got.dtype == torch.int32 and torch.equal(got.cpu(), cpu.fetch_halves(idx)),
+                  f"native {kind} bank: fetch_halves{shape} differs card vs cpu")
+    return res
+
+
+def phase_sharded_bench(env: str, nproc: int, backend: str) -> dict:
+    """``torchrun --standalone --nproc_per_node=nproc -m apx_torch.bench
+    --distributed`` (rank 0's line: the sharded and the plain rates)."""
+    device = "cuda:0" if nproc > 1 else "cuda"
+    out = _spawn([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   f"--nproc_per_node={nproc}", "-m", "apx_torch.bench", "--distributed",
+                   "--env", env, "--backend", backend, "--device", device]],
+                 {"NCCL_SOCKET_IFNAME": "lo"})[0]
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"sharded bench {env}: {len(lines)} result lines")
+    res = json.loads(lines[0])
+    check(res["world_size"] == nproc and res["backend"] == backend,
+          f"sharded bench ran {res['world_size']} ranks over {res['backend']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
@@ -1213,6 +1546,27 @@ def main() -> int:
     for env in ("tin_loc", "mnist", "hide_and_seek"):
         steps = 1020 if env != "hide_and_seek" else 990  # whole 17- and 33-step cycles
         print(f"throughput: {json.dumps(bench_lockstep(env, N, steps))}", flush=True)
+
+    sharded = phase_sharded_rollout("LIDARLocRooms-v0", 1, "nccl", SHARDED_STEPS)
+    print(f"sharded rollout: {json.dumps(sharded)}", flush=True)
+    gloo_lidar = phase_sharded_rollout("LIDARLocRooms-v0", 2, "gloo", SHARDED_STEPS)
+    print(f"sharded rollout: {json.dumps(gloo_lidar)}", flush=True)
+    gloo_cs = phase_sharded_rollout("CircleSquare-v0", 2, "gloo", EPISODIC_STEPS, period=16)
+    print(f"sharded rollout: {json.dumps(gloo_cs)}", flush=True)
+    for r in rows:
+        for path in (sharded, gloo_lidar, gloo_cs):
+            if r["name"] in path["ranks"][0]["launches"]:
+                r.setdefault("sharded", []).append({
+                    "env": path["env"], "world_size": path["world_size"],
+                    "backend": path["backend"], "steps": path["steps"],
+                    "launches_per_rank": [x["launches"][r["name"]] for x in path["ranks"]]})
+    print(f"checkpoint: {json.dumps(phase_checkpoint(dev))}", flush=True)
+    print(f"bank rotator: {json.dumps(phase_bank_rotator(dev))}", flush=True)
+    print(f"native bank: {json.dumps(phase_native_bank(dev))}", flush=True)
+    for nproc, backend in ((1, "nccl"), (2, "gloo")):
+        for env in ("lidar_rooms", "circle_square"):
+            res = phase_sharded_bench(env, nproc, backend)
+            print(f"sharded throughput: {json.dumps(res)}", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -519,3 +519,62 @@ def test_new_envs_on_card_match_cpu(dev):
                     assert (oc[k] - og[k].cpu()).abs().max() <= 1e-6, k
                 else:
                     assert torch.equal(oc[k], og[k].cpu()), k
+
+
+def test_bank_rotator_on_card(dev):
+    """BankRotator stages pinned slabs on its own stream: each swap is its
+    host slab bitwise, on the card, after the copy's event."""
+    from apx_torch.data.stream import BankRotator
+
+    slabs = [{"images": np.random.default_rng(k).integers(0, 256, (64, 8, 8, 3), dtype=np.uint8),
+              "labels": np.arange(64, dtype=np.int64) + k} for k in range(3)]
+    remaining = iter(slabs)
+    rot = BankRotator(lambda: next(remaining), device=dev)
+    try:
+        for want in slabs:
+            got = rot.swap()
+            start, done = rot.last_copy_events
+            assert start.elapsed_time(done) >= 0
+            for k in want:
+                assert got[k].device.type == "cuda"
+                np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])
+    finally:
+        rot.close()
+
+
+def test_checkpoint_card_to_cpu_and_back(dev, tmp_path):
+    """A state saved on the card restores onto a CPU like and back, bitwise."""
+    import apx_torch
+    from apx_torch.utils.checkpoint import restore_state, save_state
+
+    venv, params = apx_torch.make_vec("CircleSquare-v0", 64, device=dev, metrics=True)
+    g = torch.Generator(dev).manual_seed(0)
+    _, state, _ = venv.reset(params, g)
+    act = {"action": torch.rand((64, 2), generator=g, device=dev) * 2 - 1,
+           "prediction": torch.randn((64, 2), generator=g, device=dev)}
+    for _ in range(5):
+        _, state, *_ = venv.step(state, act, params, g)
+    save_state(str(tmp_path / "s.pt"), state)
+    cpu_venv, cpu_params = apx_torch.make_vec("CircleSquare-v0", 64, device="cpu", metrics=True)
+    on_cpu = restore_state(str(tmp_path / "s.pt"), cpu_venv.reset(cpu_params, torch.Generator())[1])
+    back = restore_state(str(tmp_path / "s.pt"), state)
+    leaves = {}
+    for name, tree in (("card", state), ("cpu", on_cpu), ("back", back)):
+        out = []
+        apx_torch.core.env.tree_map(out.append, tree)
+        leaves[name] = out
+    for a, b, c in zip(leaves["card"], leaves["cpu"], leaves["back"], strict=True):
+        assert b.device.type == "cpu" and c.device == a.device
+        bits = a.cpu().reshape(-1).view(torch.uint8)
+        assert torch.equal(bits, b.reshape(-1).view(torch.uint8))
+        assert torch.equal(bits, c.cpu().reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("make_bank", [make_rooms_bank, make_maze_bank])
+def test_native_bank_and_fetch_halves_on_card(dev, make_bank):
+    bank = make_bank(64, backend="native", device=dev)
+    cpu = make_bank(64, backend="native", device="cpu")
+    assert torch.equal(bank.maps.cpu(), cpu.maps)
+    idx = torch.randint(0, 64, (1000, 3), generator=torch.Generator().manual_seed(0))
+    got = bank.fetch_halves(idx.to(dev))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), cpu.fetch_halves(idx))

@@ -54,8 +54,8 @@ def test_explicit_indices_and_static_bank():
     ours = tfm.make_rooms_bank(num_maps=1, indices=[0], device="cpu")
     ref = jfm.make_rooms_bank(num_maps=1, indices=[0], backend="python")
     _assert_bank_equal(ours, ref)
-    with pytest.raises(NotImplementedError):
-        tfm.make_rooms_bank(2, backend="native", device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tfm.make_rooms_bank(2, backend="bogus", device="cpu")
     with pytest.raises(ValueError):
         tfm.make_rooms_bank(2, width=32, height=30, device="cpu")
 

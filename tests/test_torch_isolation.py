@@ -53,6 +53,9 @@ obs, s, _ = venv.reset(p, g)
 import apx_torch.bench, apx_torch.convert, apx_torch.compat.builders, apx_torch.ops.build
 import apx_torch.ops.glimpse_cuda, apx_torch.ops.window_cuda, apx_torch.ops.issue_rate_study
 import apx_torch.data.huggingface, apx_torch.envs.image_localization
+import apx_torch.data.stream, apx_torch.data.native, apx_torch.utils.checkpoint
+import apx_torch.core.checks, apx_torch.distrib, apx_torch.distrib.selftest
+assert apx_torch.data.floor_map.make_rooms_bank(4, backend="native", device="cpu").num_maps == 4
 assert "datasets" not in sys.modules, "a port module imported datasets"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "apx"))
