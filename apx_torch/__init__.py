@@ -11,8 +11,11 @@ unique-target sampler), LightDark, and the ``-sparse`` twin of each, each
 with ``metrics=True`` where apx has metrics. Around them: env-batch
 sharding over ``torch.distributed`` (``apx_torch.distrib``), checkpoints
 (``apx_torch.utils.checkpoint``), host streaming and device bank rotation
-(``apx_torch.data.stream``) and the native map-bank generator
-(``apx_torch.data.native``). ROADMAP.md lists what is still to come.
+(``apx_torch.data.stream``), the native map-bank generator
+(``apx_torch.data.native``), and the gymnasium drop-in adapter
+(``apx_torch.compat.make`` / ``make_vec``, numpy in and out, seeded
+episodes equal to apx.compat's) with its renderer (``apx_torch.render``).
+ROADMAP.md lists what is still to come.
 
     import torch, apx_torch
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=4096)

@@ -59,6 +59,19 @@ prints one JSON line with ``<env>_env_steps_per_s`` (the graph loop),
 steps with ``torch.profiler`` and prints where the device time goes. It
 runs on the card only.
 
+    python -m apx_torch.bench --compat [--env lidar_rooms|circle_square]
+
+times the gymnasium drop-in adapter's core (``apx_torch.compat``, the
+counterpart of the JAX package's ``bench_compat``, ``bench.py:509-548``):
+``rng="native"``, no log wrapper, 8 rotating numpy action batches, a
+warmup that crosses a done and one step beyond it, then 64 timed steps
+from a fresh reset. Each step uploads the actions, steps eagerly on the
+card, copies the host-visible outputs in one transfer and composes the
+reward on the host. It prints a per-step breakdown line (median over 64
+more steps with timing on), then ``<env>_compat_env_steps_per_s``. The
+core is what ``make_vec`` returns wrapped in gymnasium classes, which the
+GPU machine lacks; the shells only delegate.
+
     torchrun --standalone --nproc_per_node=K -m apx_torch.bench --distributed
         [--env ...] [--num-envs 4096] [--backend nccl|gloo] [--device cuda]
 
@@ -79,6 +92,7 @@ import sys
 import time
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -90,8 +104,8 @@ from .envs.light_dark import LightDarkEnv
 from .registry import make_vec
 
 __all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_light_dark",
-           "bench_lockstep", "bench_sharded", "graph_chunk", "profile", "nvidia_smi_line",
-           "CHUNK", "WORKLOADS"]
+           "bench_lockstep", "bench_sharded", "bench_compat", "graph_chunk", "profile",
+           "nvidia_smi_line", "CHUNK", "COMPAT_IDS", "WORKLOADS"]
 
 CHUNK = 16  # NEXT_STEP steps per captured graph
 PROFILE_STEPS = 34
@@ -396,6 +410,71 @@ def bench_lockstep(env: str, num_envs: int = 4096, num_steps: int = 1024, seed: 
             "num_envs": num_envs, "num_steps": num_steps, **_card()}
 
 
+# The ids the compat bench times, by workload name (apx's COMPAT_IDS).
+COMPAT_IDS = {"lidar_rooms": "LIDARLocRooms-v0", "circle_square": "CircleSquare-v0"}
+COMPAT_STEPS = 64
+
+
+def _compat_actions(core, rng) -> dict:
+    n, p = core.num_envs, core.params
+    pred_shape = core.env.prediction_space(p).shape
+    return {"action": rng.uniform(-1, 1, (n, *core.env.inner_action_space(p).shape))
+            .astype(np.float32),
+            "prediction": rng.normal(size=(n, *pred_shape)).astype(np.float32)}
+
+
+def bench_compat(env: str, num_envs: int = 4096, num_steps: int = COMPAT_STEPS,
+                 seed: int = 0) -> dict:
+    """Env-steps/s through the drop-in adapter's core, and the median
+    per-step breakdown: the action upload, the host time to issue the
+    device step, the transfer (the wait for the step and the copy), the
+    device ms of the step and of the copy (CUDA events), the bytes copied
+    with the wire codec and without it, the host compose, the wire decode
+    and the tracker."""
+    from .compat import make_core
+
+    dev = _need_cuda("compat bench")
+    core = make_core(COMPAT_IDS[env], num_envs, device=dev, rng="native")
+    rng = np.random.default_rng(seed)
+    acts = [_compat_actions(core, rng) for _ in range(8)]
+    core.reset(seed=seed)
+    # The warmup crosses an episode boundary and takes one step past the
+    # done: the NEXT_STEP reset-merge runs on the step after the done.
+    done_seen = False
+    warmup = 0
+    for i in range(512):
+        *_, term, trunc, _ = core.step(acts[i % 8])
+        warmup += 1
+        if done_seen:
+            break
+        done_seen = bool(np.any(term | trunc))
+    core.reset(seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(num_steps):
+        core.step(acts[i % 8])
+    dt = time.perf_counter() - t0
+    core.record_timings = True
+    core.reset(seed=seed)
+    for i in range(num_steps):
+        core.step(acts[i % 8])
+    rows = core.timings
+    med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    breakdown = {
+        "upload_ms": 1e3 * med["upload_s"], "issue_ms": 1e3 * med["issue_s"],
+        "transfer_ms": 1e3 * med["transfer_s"], "compose_ms": 1e3 * med["compose_s"],
+        "decode_ms": 1e3 * med["decode_s"], "tracker_ms": 1e3 * med["tracker_s"],
+        "device_step_ms": med["device_step_ms"], "copy_ms": med["copy_ms"],
+        "wire_bytes": int(med["bytes"]), "unencoded_bytes": int(med["unencoded_bytes"]),
+        "host_ms_per_step": 1e3 * sum(med[k] for k in ("upload_s", "issue_s", "transfer_s",
+                                                      "compose_s", "decode_s", "tracker_s")),
+    }
+    return {f"{env}_compat_env_steps_per_s": num_envs * num_steps / dt,
+            "ms_per_step": 1e3 * dt / num_steps, "breakdown": breakdown,
+            "warmup_steps": warmup, "num_envs": num_envs, "num_steps": num_steps,
+            "env_id": COMPAT_IDS[env], **_card()}
+
+
 def bench_sharded(env: str, sharding, num_envs: int = 4096, num_steps: int = 1024,
                   seed: int = 0) -> dict | None:
     """One rank of the sharded bench (JAX package: ``bench_env_multihost``):
@@ -490,6 +569,8 @@ def main(argv=None) -> None:
     ap.add_argument("--num-steps", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--compat", action="store_true",
+                    help="time the drop-in adapter (--env lidar_rooms or circle_square)")
     ap.add_argument("--distributed", action="store_true",
                     help="one rank of the sharded bench, under torchrun")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
@@ -506,6 +587,10 @@ def main(argv=None) -> None:
             dist.destroy_process_group()
         if res is not None:
             print(json.dumps(res))
+    elif args.compat:
+        res = bench_compat(args.env, args.num_envs, COMPAT_STEPS, args.seed)
+        print(f"breakdown: {json.dumps(res.pop('breakdown'))}")
+        print(json.dumps(res))
     elif args.profile:
         print(json.dumps(profile(args.env, args.num_envs, args.seed)))
     elif args.env in LOCKSTEP_WORKLOADS:

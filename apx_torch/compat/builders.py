@@ -1,10 +1,12 @@
-"""Batched resets from host-drawn randomness (counterpart of the LIDAR,
-image and LightDark parts of apx.compat.builders).
+"""Batched resets and steps from host-drawn randomness (counterpart of
+apx.compat.builders).
 
 ``reset_from_draws(env, draws, params)`` turns host draws into a batched
 (obs, state, info) shaped like the env's own reset and lifts it through
-the wrapper stack with ``wrap_reset``. apx's ``apply_step_draws`` has no
-counterpart: the port's step takes its draws directly (``step_draws``).
+the wrapper stack with ``wrap_reset``. ``apply_step_draws`` overwrites the
+stochastic part of a raw batched step result with host draws (LightDark's
+observation noise, the only env step that draws); ``unwrap_state`` digs to
+the base env's state.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationSta
 from ..envs.light_dark import LightDarkEnv, LightDarkState, noisy_position
 from ..wrappers.base import APWrapper
 
-__all__ = ["reset_from_draws"]
+__all__ = ["reset_from_draws", "apply_step_draws", "unwrap_state"]
 
 
 def _wrapper_stack(env) -> list[APWrapper]:
@@ -29,6 +31,13 @@ def _wrapper_stack(env) -> list[APWrapper]:
         stack.append(env)
         env = env.env
     return stack  # outermost first
+
+
+def unwrap_state(state):
+    """Dig to the base env's state through wrapper states (``inner``)."""
+    while hasattr(state, "inner"):
+        state = state.inner
+    return state
 
 
 def _base_reset_from_draws(base, draws: dict[str, Any], params):
@@ -83,3 +92,22 @@ def reset_from_draws(env, draws: dict[str, Any], params):
     for w in reversed(stack):  # innermost wrapper first
         obs, state, info = w.wrap_reset(obs, state, info, params)
     return obs, state, info
+
+
+def apply_step_draws(env, result, draws: dict[str, Any] | None, params):
+    """Overwrite the stochastic parts of a raw batched step result with
+    host draws: LightDark's observation from standard-normal ``noise``
+    (N, 2) at the moved position, ``clip(fma(noise, obs_std(pos), pos), -2,
+    2)``, the rounding of apx's jitted adapter step. Other envs' steps draw
+    nothing and pass through."""
+    if draws is None:
+        return result
+    base = env
+    while isinstance(base, APWrapper):
+        base = base.env
+    if isinstance(base, LightDarkEnv) and "noise" in draws:
+        pos = unwrap_state(result.state).pos
+        noise = torch.as_tensor(draws["noise"], dtype=torch.float32, device=pos.device)
+        noisy = noisy_position(pos, noise, params.noise_scale, params)
+        return result.replace(obs={**result.obs, "noisy_position": noisy})
+    return result

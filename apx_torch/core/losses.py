@@ -3,9 +3,11 @@
 Ported: ``LossFn`` with ``.normalized``, ``AffineLossFn``, ``MSELossFn``
 (the regression envs), ``CrossEntropyLossFn`` (the classification envs),
 ``WeightedLossFn`` (the sparse ids), ``ZeroLossFn`` (pseudo AP envs) and
-``LambdaLossFn`` (one torch callable). Each loss is a frozen dataclass;
-``__call__(prediction, target)`` takes torch tensors and reduces the
-trailing feature axis.
+``LambdaLossFn`` (a torch callable, and optionally a numpy one). Each loss
+is a frozen dataclass; ``__call__(prediction, target)`` takes torch tensors
+and reduces the trailing feature axis. ``numpy(prediction, target)`` is
+apx's host form, op for op: the gymnasium adapter (``apx_torch.compat``)
+composes its rewards with it, bitwise apx.compat's.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ class LossFn:
     """Base loss: loss(prediction, target) -> batch-shaped tensor."""
 
     def __call__(self, prediction, target):
+        raise NotImplementedError
+
+    def numpy(self, prediction, target):
+        """Host numpy form of the loss (apx's ``LossFn.numpy``)."""
         raise NotImplementedError
 
     def reward(self, base_reward, loss, prediction, target):
@@ -72,6 +78,11 @@ class AffineLossFn(LossFn):
         scale = float(np.float32(self.scale))
         offset = float(np.float32(self.offset))
         return self.inner(prediction, target) * scale + offset
+
+    def numpy(self, prediction, target):
+        """``scale`` and ``offset`` unrounded, as apx's host form: a float64
+        scale (the cross-entropy's) makes the result float64."""
+        return self.inner.numpy(prediction, target) * self.scale + self.offset
 
     def reward(self, base_reward, loss, prediction, target):
         """Over an ``MSELossFn(contract_reward=True)`` with no offset: XLA
@@ -119,6 +130,9 @@ class MSELossFn(LossFn):
         diff = prediction - target
         return div(self.sum_of_squares(diff), diff.shape[-1])
 
+    def numpy(self, prediction, target):
+        return np.mean((np.asarray(prediction) - np.asarray(target)) ** 2, axis=-1)
+
     @property
     def lower_bound(self) -> float:
         return 0.0
@@ -148,15 +162,23 @@ class CrossEntropyLossFn(LossFn):
         onehot = classes == target[..., None].to(torch.int64)
         return -torch.where(onehot, logp, 0.0).sum(dim=-1)
 
+    def numpy(self, prediction, target):
+        import scipy.special
+
+        logp = scipy.special.log_softmax(prediction, axis=-1)
+        return -np.take_along_axis(logp, np.asarray(target)[..., None], axis=-1)[..., 0]
+
     @property
     def lower_bound(self) -> float:
         return 0.0
 
     @property
     def blind_guessing_expected_value(self) -> float | None:
+        """A numpy float64 scalar, as apx's: it makes the normalized loss's
+        host form float64, as in the reference."""
         if self.num_classes is None:
             return None
-        return float(np.log(self.num_classes))
+        return np.log(self.num_classes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +192,9 @@ class WeightedLossFn(LossFn):
 
     def __call__(self, prediction, target):
         return self.inner(prediction, target["target"]) * target["weight"]
+
+    def numpy(self, prediction, target):
+        return self.inner.numpy(prediction, target["target"]) * target["weight"]
 
     @property
     def lower_bound(self) -> float:
@@ -206,6 +231,9 @@ class ZeroLossFn(LossFn):
         dev = leaf.device if leaf is not None else torch.device("cpu")
         return torch.zeros(batch_shape, dtype=torch.float32, device=dev)
 
+    def numpy(self, prediction, target, batch_shape: tuple[int, ...] = ()):
+        return np.zeros(batch_shape, dtype=np.float32)
+
     @property
     def lower_bound(self) -> float:
         return 0.0
@@ -218,14 +246,21 @@ class ZeroLossFn(LossFn):
 @dataclasses.dataclass(frozen=True)
 class LambdaLossFn(LossFn):
     """A user's torch callable ``fn(prediction, target)`` as a loss, with
-    its bounds (apx's LambdaLossFn, whose torch form this is)."""
+    its bounds and, optionally, its numpy form ``numpy_fn`` (apx's
+    LambdaLossFn, whose torch form ``fn`` is)."""
 
     fn: Callable[[Any, Any], torch.Tensor] = None  # type: ignore[assignment]
     lower_bound_value: float = -np.inf
     blind_guess_value: float | None = None
+    numpy_fn: Callable[[Any, Any], np.ndarray] | None = None
 
     def __call__(self, prediction, target):
         return self.fn(prediction, target)
+
+    def numpy(self, prediction, target):
+        if self.numpy_fn is None:
+            raise NotImplementedError("Loss function is not implemented for numpy.")
+        return self.numpy_fn(prediction, target)
 
     @property
     def lower_bound(self) -> float:
@@ -236,4 +271,5 @@ class LambdaLossFn(LossFn):
         return self.blind_guess_value
 
     def __hash__(self):
-        return hash((id(self.fn), self.lower_bound_value, self.blind_guess_value))
+        return hash((id(self.fn), id(self.numpy_fn), self.lower_bound_value,
+                     self.blind_guess_value))

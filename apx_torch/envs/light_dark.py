@@ -70,18 +70,20 @@ class LightDarkState:
     pos: torch.Tensor  # (N, 2) f32
 
 
-def brightness(pos: torch.Tensor, params: LightDarkParams) -> torch.Tensor:
+def brightness(pos: torch.Tensor, params: LightDarkParams, fused: bool = True) -> torch.Tensor:
     """h^2 / (|pos - light|^2 + h^2) over the last axis, rounded as the
     jitted reference rounds it: the sum of squares contracted, then a true
-    division."""
+    division. ``fused=False`` rounds each square, as apx's unjitted call
+    does (its renderer's brightness field)."""
     h2 = float(np.float32(params.light_height ** 2))
-    dist_sq = sum_squares(pos - params.light) + h2
+    d = pos - params.light
+    dist_sq = (sum_squares(d) if fused else (d * d).sum(dim=-1)) + h2
     return torch.full_like(dist_sq, h2) / dist_sq
 
 
-def obs_std(pos: torch.Tensor, params: LightDarkParams) -> torch.Tensor:
+def obs_std(pos: torch.Tensor, params: LightDarkParams, fused: bool = True) -> torch.Tensor:
     """(1 - brightness) * noise_scale: the std of standard-normal noise."""
-    return (1.0 - brightness(pos, params)) * params.noise_scale
+    return (1.0 - brightness(pos, params, fused)) * params.noise_scale
 
 
 def noisy_position(pos, noise, scale: float, params: LightDarkParams) -> torch.Tensor:

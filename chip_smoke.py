@@ -60,7 +60,8 @@ Phases, one line each; any failure exits non-zero:
     plain ``chain_body`` at iters = 1, 5, 7 and 512 (below, at and past
     the unroll factor), at odd row counts (4095 wide, 511 narrow) and at
     ``measure()``'s sizes; then the study's entry point ``measure()`` at
-    apx's sizes (rows = 4096, iters = 512, 20 reps), its line printed.
+    apx's sizes (rows = 4096, iters = 512, 20 reps), its line printed, and
+    the plain chain's device time at each layout.
 12. LightDark main path: ``apx_torch.make_vec("LightDark-v0",
     num_envs=4096)``, reset and 200 steps of uniform random actions with
     zero predictions (its step draws its observation noise); every obs
@@ -137,6 +138,31 @@ Phases, one line each; any failure exits non-zero:
     nccl and two gloo ranks on cuda:0 (rank 0's line: the sharded rate
     beside the plain loop's, measured in the same process).
 
+24. compat, card against CPU: the drop-in adapter's gymnasium-free core
+    (``apx_torch.compat.make_core``, what ``make_vec`` wraps) in
+    ``rng="reference"`` mode, seed 0, on the card and on the CPU from the
+    same numpy actions (uniform) and predictions (uniform, normal logits):
+    ``LIDARLocRooms-v0`` at N = 64 for 210 steps (two 100-step TimeLimit
+    boundaries and their NEXT_STEP resets on host-generated maps), the same
+    with ``raycast_backend="pallas_window"``, ``LightDark-v0`` at N = 64 for
+    210 steps, all bitwise (obs through the wire codec, reward, dones, info
+    and every dtype); ``CircleSquare-v0`` at N = 64 for 40 steps (two
+    LOCKSTEP boundaries) and ``TinyImageNetLoc-v0`` at N = 4 (the reset's
+    host sweep and 10 steps): ints and bools bitwise, floats within 1e-6.
+    The log stats of the gymnasium-free aggregation (``compat.stats``) are
+    compared the same way. K1, K2 and K3 launches on the card's run, the
+    counts set to 0 just before each path: ``raycast_fast`` 3 per step,
+    ``raycast_typed`` 1 at the reset and 1 per NEXT_STEP merge step (a step
+    that follows a done), K2 ``window`` 1 per step plus those, ``glimpse`` 1
+    per step plus 1 at the reset (CircleSquare) and 2 at the reset
+    (TinyImageNetLoc: obs and target).
+25. compat throughput: ``apx_torch.bench.bench_compat`` for ``lidar_rooms``
+    and ``circle_square`` at N = 4096 (``rng="native"``, 64 timed steps),
+    with the per-step breakdown and the bytes copied per step with the wire
+    codec and without it. The gymnasium shells and the PIL frames need
+    gymnasium and pillow, which the card's machine lacks; the CPU tests
+    cover them (one line says so).
+
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
 its own path, the counts set to 0 just before it: K1's on phase 4 (and
@@ -144,7 +170,8 @@ under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase 13), K2's on
 phase 9, K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
 and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 ``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
-on phases 18-19, set to 0 in the worker just before its sharded rollout.
+on phases 18-19, set to 0 in the worker just before its sharded rollout;
+their ``"compat"`` entries are the counts on each phase-24 path.
 Every process it starts is killed at PHASE_TIMEOUT_S. It needs CUDA and
 the apx_torch package beside it, and exits non-zero without them.
 """
@@ -679,17 +706,18 @@ def phase_chain(dev) -> dict:
     launches = all_launch_counts()["chain"]
     print(f"issue-rate study: {json.dumps(res)}", flush=True)
     check(launches == 2 * 21, f"chain launched {launches} times in measure(), not 42")
-    wide = [torch.rand((rows, study.LANES["wide"]), generator=gen, device=dev) for _ in range(5)]
     by_layout = {}
     for layout, lanes in study.LANES.items():
         ops = rows * lanes * iters * study.CHAIN_OPS_PER_ELEM
+        args = [torch.rand((rows, lanes), generator=gen, device=dev) for _ in range(5)]
         by_layout[layout] = {"ms": res[layout]["time_us"] / 1e3,
+                             "plain_ms": device_ms(lambda: study.chain_body(*args, iters), 1),
                              "bound_ms": ops / FP32_ISSUE_PER_S * 1e3, "bound_by": "operations"}
     return {
         "name": "chain", "route": "cuda", "source": "apx_torch/csrc/issue_rate_study.cu",
         "replaces": "apx/ops/issue_rate_study.py:70", "launches": launches, "max_abs_err": 0.0,
         "ms": by_layout["wide"]["ms"],
-        "plain_ms": device_ms(lambda: study.chain_body(*wide, iters), 1),
+        "plain_ms": by_layout["wide"]["plain_ms"],
         "bound_ms": by_layout["wide"]["bound_ms"], "bound_by": "operations",
         "library_ms": None,  # no PyTorch call runs the chain
         "shape": f"rows={rows} lanes=128 (wide) iters={iters}",
@@ -1433,13 +1461,132 @@ def phase_sharded_bench(env: str, nproc: int, backend: str) -> dict:
     return res
 
 
+COMPAT_N = 64
+COMPAT_FLOAT_TOL = 1e-6  # image ids: glimpses (K3 against the plain form), stats
+
+
+def _np_same(a, b, what: str, tol: float | None, err: dict) -> None:
+    """Host trees equal: same keys, dtypes and shapes; floats bitwise, or
+    within ``tol`` with NaNs in the same places; object arrays (the vector
+    stats' per-env series) element by element."""
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and set(a) == set(b), f"{what}: keys differ")
+        for k in a:
+            _np_same(a[k], b[k], f"{what}/{k}", tol, err)
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    check(a.dtype == b.dtype and a.shape == b.shape,
+          f"{what}: {a.dtype}{a.shape} against {b.dtype}{b.shape}")
+    if a.dtype == object:
+        for i, (x, y) in enumerate(zip(a, b)):
+            _np_same(np.asarray(x, np.float32), np.asarray(y, np.float32), f"{what}[{i}]",
+                     tol, err)
+        return
+    if a.dtype.kind == "f" and tol is not None:
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"{what}: NaN positions differ")
+        ok = ~np.isnan(a)
+        d = float(np.max(np.abs(a[ok].astype(np.float64) - b[ok]))) if ok.any() else 0.0
+        err["max_abs_err"] = max(err["max_abs_err"], d)
+        check(d <= tol, f"{what}: max |diff| {d} > {tol}")
+    elif a.dtype.kind == "f":
+        check(np.array_equal(a.view(f"u{a.itemsize}"), b.view(f"u{b.itemsize}")),
+              f"{what}: not bitwise equal")
+    else:
+        check(np.array_equal(a, b), f"{what}: not equal")
+
+
+def phase_compat_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: float | None,
+                             **overrides) -> dict:
+    """The adapter core on the card and on the CPU in reference mode, seed
+    0, from the same numpy actions, with the gymnasium-free log stats;
+    every output held bitwise, or (``tol``) floats within ``tol``. Returns
+    the card run's kernel launches (counts set to 0 just before it) and the
+    number of NEXT_STEP merge steps it ran."""
+    from apx_torch.compat import make_core
+    from apx_torch.compat.stats import VectorClassificationStats, VectorRegressionStats
+    from apx_torch.core.spaces import Logit
+
+    cores = [make_core(env_id, n, device=d, rng="reference", **overrides)
+             for d in (torch.device("cpu"), dev)]
+    space = cores[0].env.prediction_space(cores[0].params)
+    logits, width = isinstance(space, Logit), space.shape[-1]
+    stats = [VectorClassificationStats(n, width) if logits else VectorRegressionStats(n)
+             for _ in cores]
+    rng = np.random.default_rng(0)
+    err = {"max_abs_err": 0.0}
+    merges = 0
+    prev_done = False  # any env of the card's run done at the previous step
+    t0 = time.perf_counter()
+    outs = [cores[0].reset(seed=0)]
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    outs.append(cores[1].reset(seed=0))
+    for k, x, y in zip(("obs", "info"), *outs):
+        _np_same(x, y, f"{env_id} reset {k}", tol, err)
+    for t in range(steps):
+        act = {"action": rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+               "prediction": (rng.standard_normal((n, width)) if logits
+                              else rng.uniform(-1, 1, (n, width))).astype(np.float32)}
+        merges += int(cores[1].autoreset == "next_step" and prev_done)
+        outs = []
+        for core, st in zip(cores, stats):
+            obs, reward, term, trunc, info = core.step(act)
+            outs.append((obs, reward, term, trunc, st.update(act, term, trunc, info)))
+        for k, x, y in zip(("obs", "reward", "terminated", "truncated", "info"), *outs):
+            _np_same(x, y, f"{env_id} step {t} {k}", tol, err)
+        prev_done = bool(np.any(outs[1][2] | outs[1][3]))
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    ends = int(sum(np.asarray(outs[1][2]) | np.asarray(outs[1][3])))
+    return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "merge_steps": merges,
+            "seconds": time.perf_counter() - t0, "launches": launches,
+            "compared": "bitwise" if tol is None else f"ints and bools bitwise, floats {tol}",
+            "last_step_ends": ends, **err}
+
+
+def phase_compat(dev) -> tuple[list[dict], dict]:
+    """Phase 24: the compat paths card against CPU, each kernel's launches
+    held to the prediction from the code. Returns (results, launches by
+    kernel name: a list of {"env", "launches"} per path)."""
+    cases = [
+        ("LIDARLocRooms-v0", COMPAT_N, 210, None, {}),
+        ("LIDARLocRooms-v0", COMPAT_N, 210, None, {"raycast_backend": "pallas_window"}),
+        ("LightDark-v0", COMPAT_N, 210, None, {}),
+        ("CircleSquare-v0", COMPAT_N, 40, COMPAT_FLOAT_TOL, {}),
+        ("TinyImageNetLoc-v0", 4, 10, COMPAT_FLOAT_TOL, {}),
+    ]
+    results, by_kernel = [], {}
+    for env_id, n, steps, tol, kw in cases:
+        res = phase_compat_card_vs_cpu(dev, env_id, n, steps, tol, **kw)
+        got, m = res["launches"], res["merge_steps"]
+        if env_id.startswith("LIDAR"):
+            want = {"raycast_fast": 3 * steps, "raycast_typed": 1 + m}
+            if kw:
+                want["window"] = steps + 1 + m
+            check(m == 2, f"{env_id}: {m} NEXT_STEP merge steps, expected the two boundaries")
+        elif env_id == "CircleSquare-v0":
+            want = {"glimpse": 1 + steps}
+        elif env_id == "TinyImageNetLoc-v0":
+            want = {"glimpse": 2 + steps}
+        else:
+            want = {}
+        check(all(got[k] == v for k, v in want.items()),
+              f"{env_id} {kw}: launches {got}, expected {want}")
+        res["launches_expected"] = want
+        for k in want:
+            by_kernel.setdefault(k, []).append({"env": env_id, **kw, "num_envs": n,
+                                                "steps": steps, "launches": got[k]})
+        results.append(res)
+    return results, by_kernel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
         return 1
     import apx_torch  # noqa: F401  (fails here when run without the repo)
-    from apx_torch.bench import (bench_light_dark, bench_lidar_rooms, bench_lidar_rooms_window,
-                                 bench_lockstep, nvidia_smi_line)
+    from apx_torch.bench import (bench_compat, bench_light_dark, bench_lidar_rooms,
+                                 bench_lidar_rooms_window, bench_lockstep, nvidia_smi_line)
     from apx_torch.ops import build
 
     dev = torch.device("cuda")
@@ -1567,6 +1714,18 @@ def main() -> int:
         for env in ("lidar_rooms", "circle_square"):
             res = phase_sharded_bench(env, nproc, backend)
             print(f"sharded throughput: {json.dumps(res)}", flush=True)
+
+    compat, compat_launches = phase_compat(dev)
+    for res in compat:
+        print(f"compat card vs cpu: {json.dumps(res)}", flush=True)
+    for r in rows:
+        if r["name"] in compat_launches:
+            r["compat"] = compat_launches[r["name"]]
+    for env in ("lidar_rooms", "circle_square"):
+        print(f"compat throughput: {json.dumps(bench_compat(env, N))}", flush=True)
+    print("compat: the gymnasium shells (make / make_vec) and the PIL frames need gymnasium "
+          "and pillow, absent here; tests/test_torch_compat*.py and test_torch_render.py "
+          "cover them on the CPU", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

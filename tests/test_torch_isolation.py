@@ -1,6 +1,8 @@
 """apx_torch stands alone: it imports neither JAX nor the apx package (nor
 ``datasets`` when it is imported), and its entry points default to the GPU
-with no fallback to the CPU."""
+with no fallback to the CPU. The compat adapter's core runs without
+gymnasium and PIL, and its gymnasium entry points say which package they
+need."""
 
 import os
 import re
@@ -57,6 +59,8 @@ import apx_torch.data.stream, apx_torch.data.native, apx_torch.utils.checkpoint
 import apx_torch.core.checks, apx_torch.distrib, apx_torch.distrib.selftest
 assert apx_torch.data.floor_map.make_rooms_bank(4, backend="native", device="cpu").num_maps == 4
 assert "datasets" not in sys.modules, "a port module imported datasets"
+import apx_torch.compat.stats, apx_torch.render
+assert "gymnasium" not in sys.modules and "PIL" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "apx"))
 print("BAD", bad)
@@ -106,3 +110,55 @@ def test_make_vec_defaults_to_cuda():
                 apx_torch.make_vec(env_id, 2)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             apx_torch.make("CircleSquareHideAndSeek-v0")
+
+
+_NO_GYM_SCRIPT = """
+import sys
+import numpy as np
+import torch
+sys.modules["gymnasium"] = None
+sys.modules["PIL"] = None
+torch.set_num_threads(1)
+import apx_torch.compat as apc
+from apx_torch.compat.stats import VectorRegressionStats
+for env_id, n, steps in (("LIDARLocRooms-v0", 4, 102), ("LightDark-v0", 4, 5),
+                         ("CircleSquare-v0", 4, 18)):
+    core = apc.make_core(env_id, n, device="cpu")
+    obs, info = core.reset(seed=0)
+    stats = VectorRegressionStats(n)
+    rng = np.random.default_rng(0)
+    for _ in range(steps):
+        act = {"action": rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+               "prediction": rng.uniform(-1, 1, (n, 2)).astype(np.float32)}
+        obs, reward, term, trunc, info = core.step(act)
+        if not env_id.startswith("Circle"):
+            info = stats.update(act, term, trunc, info)
+    assert reward.dtype == np.float64 and np.isfinite(reward).all()
+try:
+    apc.make_vec("LIDARLocRooms-v0", 2, device="cpu")
+except ImportError as exc:
+    assert "gymnasium" in str(exc), exc
+    print("RAISED", exc)
+try:
+    apc.make("CircleSquare-v0", device="cpu")
+except ImportError as exc:
+    assert "gymnasium" in str(exc), exc
+else:
+    raise AssertionError("make without gymnasium did not raise")
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in ("gymnasium", "PIL", "jax", "apx"))
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_compat_core_runs_without_gymnasium_or_pil():
+    """The adapter core resets and steps (LIDAR across its boundary,
+    LightDark, CircleSquare across its LOCKSTEP boundary) with gymnasium
+    and PIL unimportable; ``make_vec`` and ``make`` then raise an
+    ImportError that names gymnasium."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", _NO_GYM_SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "RAISED" in out.stdout and "BAD []" in out.stdout
