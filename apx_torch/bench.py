@@ -56,7 +56,10 @@ on a value fetch of the summed rewards:
 prints one JSON line with ``<env>_env_steps_per_s`` (the graph loop),
 ``<env>_eager_env_steps_per_s``, ``num_envs``, ``device_kind`` and
 ``power_limit_w``. ``--profile`` instead traces ``PROFILE_STEPS`` eager
-steps with ``torch.profiler`` and prints where the device time goes. It
+steps with ``torch.profiler`` and prints where the device time goes;
+``--trace DIR`` also writes that trace and a trace of four replays of
+the captured graph chunk as chrome JSON (``DIR/eager.json``,
+``DIR/graph.json``) for ``python -m apx_torch.tools.parse_trace``. It
 runs on the card only.
 
     python -m apx_torch.bench --compat [--env lidar_rooms|circle_square]
@@ -87,6 +90,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -105,10 +109,11 @@ from .registry import make_vec
 
 __all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_light_dark",
            "bench_lockstep", "bench_sharded", "bench_compat", "graph_chunk", "profile",
-           "nvidia_smi_line", "CHUNK", "COMPAT_IDS", "WORKLOADS"]
+           "profile_graph", "nvidia_smi_line", "CHUNK", "COMPAT_IDS", "WORKLOADS"]
 
 CHUNK = 16  # NEXT_STEP steps per captured graph
 PROFILE_STEPS = 34
+PROFILE_CHUNKS = 4  # graph replays traced by profile_graph
 
 
 def _registered(env_id: str, **overrides):
@@ -518,10 +523,12 @@ def bench_sharded(env: str, sharding, num_envs: int = 4096, num_steps: int = 102
 
 
 
-def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: int = 12) -> dict:
+def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: int = 12,
+            trace_path: str | None = None) -> dict:
     """Device time per step of the eager loop by kernel, from a
     ``torch.profiler`` trace of PROFILE_STEPS steps (two CircleSquare
-    cycles) after a warmup."""
+    cycles) after a warmup. With ``trace_path`` the trace is also written
+    there as chrome JSON (``apx_torch.tools.parse_trace`` reads it)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     dev = _need_cuda("profile")
@@ -537,6 +544,8 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
         _steps(lp, obs, state, draws, rsum)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -558,8 +567,55 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
             for name, key in PORT_KERNELS.items()},
         "top": [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / per_step,
                  "calls_per_step": e.count / PROFILE_STEPS} for e in kernels[:top]],
+        "trace": trace_path,
         **_card(),
     }
+
+
+def profile_graph(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0,
+                  trace_path: str | None = None) -> dict:
+    """``torch.profiler`` over PROFILE_CHUNKS replays of the captured graph
+    chunk (``graph_chunk``), after a warmup replay outside the profiler
+    and one under it that the profiler's schedule drops, written to
+    ``trace_path`` as chrome JSON when given; what CUPTI recorded inside
+    the graph is read from the trace (``apx_torch.tools.parse_trace``).
+    Returns the steps traced, the wall milliseconds per step of the traced
+    replays and of as many replays with the profiler off (CUPTI's tracing
+    of a graph launch costs milliseconds of host time, so the idle share
+    is read against the latter)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile, schedule
+
+    dev = _need_cuda("profile")
+    lp = _loop(env, num_envs, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    obs, state, _ = lp.venv.reset(lp.params, g)
+    rsum = torch.zeros((), dtype=torch.float32, device=dev)
+    draws = _draws(lp, lp.chunk * (PROFILE_CHUNKS + 2), g)
+    replay = graph_chunk(lp, obs, state, draws, rsum)
+
+    def replays() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(2, PROFILE_CHUNKS + 2):
+            replay(draws, c)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    replay(draws, 0)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        replay(draws, 1)
+        torch.cuda.synchronize()
+        prof.step()
+        wall = replays()
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
+    plain = replays()
+    steps = PROFILE_CHUNKS * lp.chunk
+    return {"workload": WORKLOADS[env][0], "steps": steps, "chunk": lp.chunk,
+            "wall_ms_per_step": 1e3 * wall / steps,
+            "unprofiled_wall_ms_per_step": 1e3 * plain / steps, "trace": trace_path,
+            **_card()}
 
 
 def main(argv=None) -> None:
@@ -569,6 +625,9 @@ def main(argv=None) -> None:
     ap.add_argument("--num-steps", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="with --profile: write the eager trace (eager.json) and a trace "
+                         "of four replays of the graph chunk (graph.json) to DIR")
     ap.add_argument("--compat", action="store_true",
                     help="time the drop-in adapter (--env lidar_rooms or circle_square)")
     ap.add_argument("--distributed", action="store_true",
@@ -592,7 +651,13 @@ def main(argv=None) -> None:
         print(f"breakdown: {json.dumps(res.pop('breakdown'))}")
         print(json.dumps(res))
     elif args.profile:
-        print(json.dumps(profile(args.env, args.num_envs, args.seed)))
+        trace = None if args.trace is None else os.path.join(args.trace, "eager.json")
+        if args.trace is not None:
+            os.makedirs(args.trace, exist_ok=True)
+        print(json.dumps(profile(args.env, args.num_envs, args.seed, trace_path=trace)))
+        if args.trace is not None:
+            print(json.dumps(profile_graph(args.env, args.num_envs, args.seed,
+                                           trace_path=os.path.join(args.trace, "graph.json"))))
     elif args.env in LOCKSTEP_WORKLOADS:
         print(json.dumps(bench_lockstep(args.env, args.num_envs, args.num_steps, args.seed)))
     else:

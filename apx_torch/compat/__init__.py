@@ -20,6 +20,13 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 ImportError that names it. The device-facing core needs neither:
 ``adapter.VectorAdapter`` (reset, step, the wire codec, the tracker) and
 ``stats`` (the log wrappers' aggregation), which ``make_core`` builds.
+
+The reference's class layer is here too (``gym_classes``, ``gym_spaces``,
+``dataset_classes``, ``perception_module``, and ``ap_gym_alias``, which
+makes ``import ap_gym`` resolve to it); ``ensure_active_perception_env``
+and ``ensure_active_perception_vector_env`` are re-exported as apx.compat
+re-exports them, imported on first use so that ``import apx_torch.compat``
+needs no gymnasium.
 """
 
 from __future__ import annotations
@@ -37,7 +44,21 @@ __all__ = [
     "VectorAdapter",
     "CompatLossFn",
     "to_gym_space",
+    "ensure_active_perception_env",
+    "ensure_active_perception_vector_env",
 ]
+
+_CLASS_LAYER = ("ensure_active_perception_env", "ensure_active_perception_vector_env")
+
+
+def __getattr__(name: str):
+    # Full reference dispatch (passthrough -> RestoreWrapper -> PseudoWrapper,
+    # active_perception_env.py:251-258), from the gymnasium class layer.
+    if name in _CLASS_LAYER:
+        from . import gym_classes
+
+        return getattr(gym_classes, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _gym_shells():

@@ -21,10 +21,12 @@ by a device tensor instead.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-__all__ = ["fma", "sum_squares", "div", "sqrt", "time_obs"]
+__all__ = ["fma", "sum_squares", "div", "sqrt", "time_obs", "matmul_tf32"]
 
 
 def _fma_f64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -92,3 +94,17 @@ def time_obs(t: torch.Tensor, limit: int) -> torch.Tensor:
     inv = float(np.float32(1.0) / np.float32(limit))
     t2 = 2.0 * t.to(torch.float32)
     return fma(t2, torch.full_like(t2, inv), -1.0)
+
+
+@contextlib.contextmanager
+def matmul_tf32(enabled: bool):
+    """float32 products on the card in TF32 (``enabled``) or in full float32,
+    whatever the global setting, which is restored after. The CPU's float32
+    products ignore the setting."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = prev

@@ -36,7 +36,6 @@ all of them.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 from typing import Any
@@ -44,7 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..core.numerics import fma, time_obs
+from ..core.numerics import fma, matmul_tf32, time_obs
 from ..core.spaces import Box, DictSpace, Discrete, Image
 from ..data.dataset import ImageDataset
 from ..ops.geometry import norm2, project_sphere
@@ -325,7 +324,7 @@ class ImagePerceptionEngine:
     def uniqueness(image: torch.Tensor, params: ImagePerceptionParams) -> torch.Tensor:
         """(N, P) uniqueness scores of the candidates of images (N, H, W, C),
         computed in full float32 (TF32 off)."""
-        with _full_float32():
+        with matmul_tf32(False):
             return ImagePerceptionEngine._min_pairwise_mse(
                 ImagePerceptionEngine._candidate_flat(image, params))
 
@@ -359,13 +358,3 @@ class ImagePerceptionEngine:
         return {"sel": sel, "jitter": u * (2.0 * max_cell) - max_cell}
 
 
-@contextlib.contextmanager
-def _full_float32():
-    """float32 products in full precision on the card, whatever the global
-    setting (TF32 off), restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev

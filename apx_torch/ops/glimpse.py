@@ -21,16 +21,19 @@ Coordinate conventions (ap_gym's image_perception_module):
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-from ..core.numerics import div, fma
+from ..core.numerics import div, fma, matmul_tf32
 
 __all__ = [
     "sensor_pos_lim_pixels",
     "interp_weights",
     "glimpse_coords",
     "extract_glimpse_batch",
+    "PRECISIONS",
 ]
 
 
@@ -78,16 +81,28 @@ def interp_weights(coords: torch.Tensor, size: int) -> torch.Tensor:
     return torch.clamp_min(1.0 - (c[..., None] - grid).abs(), 0.0)
 
 
+PRECISIONS = ("highest", "high", "default")
+
+
 def extract_glimpse_batch(images: torch.Tensor, pos_norm: torch.Tensor,
                           sensor_size: tuple[int, int], sensor_scale: float = 1.0,
-                          window: str = "off") -> torch.Tensor:
+                          window: str = "off", precision: str | None = None) -> torch.Tensor:
     """(N, H, W, C) uint8 or float32 images, (N, 2) float32 positions ->
-    (N, s0, s1, C) float32 glimpses in [0, 1]."""
+    (N, s0, s1, C) float32 glimpses in [0, 1].
+
+    ``precision`` is apx's matmul precision of the two products (its
+    ``glimpse_precision``): ``None`` (the default) float32 products under
+    the caller's TF32 setting, ``"highest"`` full float32 (TF32 off on the
+    card), ``"high"`` TF32 on the card (on the CPU the same as
+    ``"highest"``), ``"default"`` bfloat16 inputs to each product (its
+    float32 sum rounded to bfloat16 by the product, then widened)."""
     if window != "off":
         raise NotImplementedError(
             f"glimpse window={window!r} is not ported; apx pins its 'rows' window "
             "bitwise-equal to 'off' and keeps it as an A/B surface (ROADMAP.md, queue 1)"
         )
+    if precision is not None and precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     _, h, w, _ = images.shape
     rows, cols = glimpse_coords(pos_norm, (h, w), tuple(sensor_size), sensor_scale)
     w_rows = interp_weights(rows, h)  # (N, s0, H)
@@ -95,6 +110,13 @@ def extract_glimpse_batch(images: torch.Tensor, pos_norm: torch.Tensor,
     img = images.to(torch.float32)
     if images.dtype == torch.uint8:
         img = div(img, 255.0)
-    tmp = torch.einsum("nsh,nhwc->nswc", w_rows, img)
-    out = torch.einsum("nswc,ntw->nstc", tmp, w_cols)
+    if precision == "default":
+        bf = torch.bfloat16
+        tmp = torch.einsum("nsh,nhwc->nswc", w_rows.to(bf), img.to(bf))
+        out = torch.einsum("nswc,ntw->nstc", tmp, w_cols.to(bf)).to(torch.float32)
+    else:
+        tf32 = contextlib.nullcontext() if precision is None else matmul_tf32(precision == "high")
+        with tf32:
+            tmp = torch.einsum("nsh,nhwc->nswc", w_rows, img)
+            out = torch.einsum("nswc,ntw->nstc", tmp, w_cols)
     return out.clamp(0.0, 1.0)

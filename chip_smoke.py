@@ -162,6 +162,38 @@ Phases, one line each; any failure exits non-zero:
     codec and without it. The gymnasium shells and the PIL frames need
     gymnasium and pillow, which the card's machine lacks; the CPU tests
     cover them (one line says so).
+26. perception module, card against CPU: the reference's
+    ``ImagePerceptionModule`` (``apx_torch.compat.perception_module``) over
+    the host ``CircleSquareDataset`` (28x28, 5x5 sensor) at N = 4096 on the
+    card and on the CPU from one seed: reset and 32 steps of seeded numpy
+    actions and qualities, observations, rewards, dones, infos, labels and
+    positions bitwise; then ``sample_unique_glimpse_positions`` on the card
+    (N = 4096) against the CPU's scores and positions of PM_UNIQUE_CPU_ENVS
+    envs spread over the batch (every 64th, so every block of the card's
+    sweep has one) from the same draws: scores bitwise (the count
+    of envs whose top-k the drift could reorder is printed, 0 when they are
+    bitwise), positions equal on the rest. The card's ms per step, reset
+    and sample ms.
+27. glimpse study: ``apx_torch.ops.glimpse_study.run_study`` at apx's
+    geometry (N = 4096, 64x64x3, 10x10 sensor, 32 chained steps, CUDA
+    graph, CUDA events): every variant's us per batch in apx's chain (its
+    footprints stay in L2), in the chain that moves 0.2 per axis a step and
+    alone, and its max |error| against the float64 oracle, K3 and tap2
+    within 1e-5 of the fp32 plain form, the row gathers, and K3's launches
+    in it.
+28. parse_trace on the card's traces: ``bench.profile`` of the eager
+    LIDARLocRooms-v0 loop at N = 4096 writes its chrome trace;
+    ``apx_torch.tools.parse_trace`` reads it: its device activities per
+    step equal ``kernel_launches_per_step`` and their summed time is within
+    1% of ``device_busy_ms_per_step``; the union busy time, the idle share
+    and the five longest idle gaps with the host event over each. Then one
+    trace of four replays of the captured graph chunk: busy ms and
+    activities per step as CUPTI records them inside the graph (or a line
+    saying it recorded none), the idle share against the same replays'
+    wall time with the profiler off and against the profiled wall (which
+    holds CUPTI's host cost on the first traced graph launch).
+29. one line naming the parts that need gymnasium, pillow or imageio
+    (absent here) and the CPU test files that cover them.
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
@@ -171,7 +203,8 @@ phase 9, K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
 and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 ``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
 on phases 18-19, set to 0 in the worker just before its sharded rollout;
-their ``"compat"`` entries are the counts on each phase-24 path.
+their ``"compat"`` entries are the counts on each phase-24 path; K3's
+``"glimpse_study"`` entry its launches in phase 27 (set to 0 just before).
 Every process it starts is killed at PHASE_TIMEOUT_S. It needs CUDA and
 the apx_torch package beside it, and exits non-zero without them.
 """
@@ -1580,6 +1613,178 @@ def phase_compat(dev) -> tuple[list[dict], dict]:
     return results, by_kernel
 
 
+PM_N = 4096
+PM_STEPS = 32
+PM_UNIQUE_CPU_ENVS = 64  # the CPU's score sweep is ~0.1 s per env
+
+
+def phase_perception_module(dev) -> dict:
+    """Phase 26: the perception module on the card against the CPU."""
+    import copy
+
+    from apx_torch.compat.dataset_classes import CircleSquareDataset
+    from apx_torch.compat.perception_module import ImagePerceptionConfig, ImagePerceptionModule
+
+    cfg = ImagePerceptionConfig(dataset=CircleSquareDataset(), prefetch=False)
+    card = ImagePerceptionModule(PM_N, cfg, device=dev)
+    cpu = ImagePerceptionModule(PM_N, cfg, device="cpu")
+    card.seed(0)
+    cpu.seed(0)
+    t0 = time.perf_counter()
+    obs_c, info_c = card.reset()
+    reset_ms = 1e3 * (time.perf_counter() - t0)
+    obs_u, info_u = cpu.reset()
+    _np_same({"obs": obs_c, "info": info_c, "labels": card.current_labels},
+             {"obs": obs_u, "info": info_u, "labels": cpu.current_labels}, "reset", None, {})
+    keys = ("obs", "reward", "terminated", "truncated", "info")
+    rng = np.random.default_rng(1)
+    card_s = cpu_s = 0.0
+    ends = 0
+    for t in range(PM_STEPS):
+        act = rng.uniform(-1.5, 1.5, (PM_N, 2))
+        quality = rng.uniform(0, 1, PM_N)
+        t0 = time.perf_counter()
+        out_c = card.step(act, quality)  # numpy out: ends on the copy
+        t1 = time.perf_counter()
+        out_u = cpu.step(act, quality)
+        card_s += t1 - t0
+        cpu_s += time.perf_counter() - t1
+        ends += int(out_c[2].all())
+        check(all(np.isfinite(v).all() for v in out_c[0].values()), f"step {t}: obs not finite")
+        _np_same({**dict(zip(keys, out_c)), "labels": card.current_labels,
+                  "pos": card._episode.pos, "pos_dev": card._episode.pos_dev.cpu().numpy()},
+                 {**dict(zip(keys, out_u)), "labels": cpu.current_labels,
+                  "pos": cpu._episode.pos, "pos_dev": cpu._episode.pos_dev.numpy()},
+                 f"step {t}", None, {})
+    # Where a card step's time goes: one canvas stamp (host numpy, on
+    # copies of the canvases) and one observation (device sensing, copy).
+    from apx_torch.render.render import stamp_rect
+
+    counts, qmap = card._canvas.counts.copy(), card._canvas.quality.copy()
+    t0 = time.perf_counter()
+    stamp_rect(counts, qmap, *card._sensor_footprint(), rng.uniform(0, 1, PM_N))
+    stamp_ms = 1e3 * (time.perf_counter() - t0)
+    del counts, qmap
+    t0 = time.perf_counter()
+    card._get_obs()
+    obs_ms = 1e3 * (time.perf_counter() - t0)
+    # The unique sampler: the card's at N=4096 against the CPU's on envs
+    # spread over the batch, with the same draws.
+    m = PM_UNIQUE_CPU_ENVS
+    envs = slice(0, PM_N, PM_N // m)
+    cell, grid = card._candidate_grid()
+    draws = copy.deepcopy(card._rng)
+    t0 = time.perf_counter()
+    pos_card = card.sample_unique_glimpse_positions()
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    scores_card = card._uniqueness_scores(grid)
+    scores_cpu = cpu._uniqueness_scores(grid, envs)
+    check(scores_cpu.shape[0] == m, f"{scores_cpu.shape[0]} envs scored on the CPU")
+    drift = float(np.abs(scores_card[envs] - scores_cpu).max())
+    top = -np.sort(-scores_cpu, axis=-1)[:, :cfg.unique_sampling_top_k + 1]
+    undecided = np.zeros(m, bool) if drift == 0 else \
+        (np.diff(-top, axis=-1) <= 2 * drift).any(axis=-1)
+    ranking = np.argsort(-scores_cpu)
+    pick = draws.integers(0, cfg.unique_sampling_top_k, size=PM_N)
+    jitter = draws.uniform(-cell, cell, (PM_N, 2))
+    pos_cpu = np.clip(grid[ranking[np.arange(m), pick[envs]]] + jitter[envs], -1, 1)
+    check(np.array_equal(pos_card[envs][~undecided], pos_cpu[~undecided]),
+          "unique positions: card and CPU differ where the scores decide them")
+    check(np.isfinite(pos_card).all() and (np.abs(pos_card) <= 1).all(),
+          "unique positions outside [-1, 1]")
+    card.close()
+    cpu.close()
+    check(ends == PM_STEPS // (cfg.step_limit + 1), f"{ends} LOCKSTEP episode ends")
+    return {"num_envs": PM_N, "steps": PM_STEPS, "episode_ends": ends,
+            "compared": "obs, rewards, dones, infos, labels, positions bitwise",
+            "card_ms_per_step": 1e3 * card_s / PM_STEPS,
+            "cpu_ms_per_step": 1e3 * cpu_s / PM_STEPS, "card_reset_ms": reset_ms,
+            "host_stamp_ms": stamp_ms, "card_observation_ms": obs_ms,
+            "candidates": len(grid), "card_sample_unique_ms": sample_ms,
+            "unique_compared_envs": m, "unique_compared_stride": envs.step,
+            "score_drift": drift,
+            "undecided_envs": int(undecided.sum())}
+
+
+def phase_glimpse_study(dev) -> dict:
+    """Phase 27: apx's glimpse study at its geometry, on the card."""
+    from apx_torch.ops import glimpse_study
+
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    res = glimpse_study.run_study(dev)
+    res["seconds"] = time.perf_counter() - t0
+    launched = all_launch_counts()["glimpse"]
+    check(launched == res["k3_launches"] and launched > 0,
+          f"glimpse study: K3 launched {launched} times, the study counted {res['k3_launches']}")
+    for name, v in res["variants"].items():
+        for key in ("us_per_batch", "moving_us_per_batch", "alone_us_per_batch"):
+            check(v[key] is not None and v[key] > 0, f"{name}: {key} not timed")
+    return res
+
+
+def phase_parse_trace(dev) -> list[str]:
+    """Phase 28: parse_trace on the eager and graph traces of the LIDAR
+    loop. Returns the lines to print."""
+    import collections
+
+    from apx_torch.bench import profile, profile_graph
+    from apx_torch.tools import parse_trace as pt
+
+    tmp = tempfile.mkdtemp(prefix="apx_trace_")
+    try:
+        prof = profile("lidar_rooms", N, trace_path=os.path.join(tmp, "eager.json"))
+        trace = pt.load_trace(prof["trace"])
+        steps = prof["steps"]
+        dev_events = pt.device_events(trace)
+        launches = len(dev_events) / steps
+        summed = pt.device_summed_us(trace) / 1e3 / steps
+        check(launches == prof["kernel_launches_per_step"],
+              f"parse_trace: {launches} device activities per step, profile() counts "
+              f"{prof['kernel_launches_per_step']}")
+        busy = prof["device_busy_ms_per_step"]
+        check(abs(summed - busy) <= 0.01 * busy,
+              f"parse_trace: summed {summed} ms per step against profile()'s {busy}")
+        union = pt.device_busy_us(trace) / 1e3 / steps
+        gaps = pt.idle_gaps(trace, 5)
+        cats = collections.Counter(e.get("cat") for e in dev_events)
+        names = pt._process_names(trace["traceEvents"])
+        procs = sorted({names.get(e.get("pid"), "?") for e in dev_events})
+        eager = {"workload": prof["workload"], "num_envs": N, "steps": steps,
+                 "activities_per_step": launches,
+                 "profile_kernel_launches_per_step": prof["kernel_launches_per_step"],
+                 "summed_ms_per_step": summed, "profile_device_busy_ms_per_step": busy,
+                 "union_busy_ms_per_step": union,
+                 "wall_ms_per_step": prof["wall_ms_per_step"],
+                 "idle_share": 1.0 - union / prof["wall_ms_per_step"],
+                 "device_categories": dict(cats), "device_processes": procs,
+                 "idle_gaps": gaps}
+        g = profile_graph("lidar_rooms", N, trace_path=os.path.join(tmp, "graph.json"))
+        gtrace = pt.load_trace(g["trace"])
+        gevents = pt.device_events(gtrace)
+        host_launches = sum(1 for e in gtrace.get("traceEvents", [])
+                            if e.get("ph") == "X" and "GraphLaunch" in str(e.get("name")))
+        graph = {"workload": g["workload"], "steps": g["steps"], "chunk": g["chunk"],
+                 "wall_ms_per_step": g["wall_ms_per_step"],
+                 "unprofiled_wall_ms_per_step": g["unprofiled_wall_ms_per_step"],
+                 "host_graph_launches": host_launches}
+        if gevents:
+            gu = pt.device_busy_us(gtrace) / 1e3 / g["steps"]
+            graph.update({"activities_per_step": len(gevents) / g["steps"],
+                          "union_busy_ms_per_step": gu,
+                          "summed_ms_per_step": pt.device_summed_us(gtrace) / 1e3 / g["steps"],
+                          "idle_share": 1.0 - gu / g["unprofiled_wall_ms_per_step"],
+                          "idle_share_profiled_wall": 1.0 - gu / g["wall_ms_per_step"],
+                          "device_categories": dict(collections.Counter(
+                              e.get("cat") for e in gevents)),
+                          "idle_gaps": pt.idle_gaps(gtrace, 5)})
+        else:
+            graph["note"] = "CUPTI recorded no device activity from inside the graph"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [f"parse_trace eager: {json.dumps(eager)}", f"parse_trace graph: {json.dumps(graph)}"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
@@ -1726,6 +1931,24 @@ def main() -> int:
     print("compat: the gymnasium shells (make / make_vec) and the PIL frames need gymnasium "
           "and pillow, absent here; tests/test_torch_compat*.py and test_torch_render.py "
           "cover them on the CPU", flush=True)
+
+    print(f"perception module: {json.dumps(phase_perception_module(dev))}", flush=True)
+    study = phase_glimpse_study(dev)
+    print(f"glimpse study: {json.dumps(study)}", flush=True)
+    k3["glimpse_study"] = {"launches": study["k3_launches"],
+                           "geometry": f"N={study['n']} {'x'.join(map(str, study['image']))} u8 "
+                                       f"and f32, 10x10, {study['reps']} chained steps",
+                           "us_per_batch": {k: study["variants"][k]["us_per_batch"]
+                                            for k in ("k3[u8]", "k3[f32]")},
+                           "moving_us_per_batch": {k: study["variants"][k]["moving_us_per_batch"]
+                                                   for k in ("k3[u8]", "k3[f32]")}}
+    for line in phase_parse_trace(dev):
+        print(line, flush=True)
+    print("class layer: the gymnasium classes (gym_classes, gym_spaces, ap_gym_alias, the "
+          "spaces of perception_module), render() frames (pillow) and the tools create_env_vid, "
+          "create_gifs (imageio) and mk_env_doc (gymnasium) need packages absent here; "
+          "tests/test_torch_class_layer.py, test_torch_perception_module.py and "
+          "test_torch_tools.py cover them on the CPU", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

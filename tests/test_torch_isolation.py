@@ -60,7 +60,10 @@ import apx_torch.core.checks, apx_torch.distrib, apx_torch.distrib.selftest
 assert apx_torch.data.floor_map.make_rooms_bank(4, backend="native", device="cpu").num_maps == 4
 assert "datasets" not in sys.modules, "a port module imported datasets"
 import apx_torch.compat.stats, apx_torch.render
+import apx_torch.compat.perception_module, apx_torch.compat.dataset_classes
+import apx_torch.tools.parse_trace, apx_torch.ops.glimpse_study
 assert "gymnasium" not in sys.modules and "PIL" not in sys.modules
+assert "imageio" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "apx"))
 print("BAD", bad)
@@ -118,6 +121,7 @@ import numpy as np
 import torch
 sys.modules["gymnasium"] = None
 sys.modules["PIL"] = None
+sys.modules["imageio"] = None
 torch.set_num_threads(1)
 import apx_torch.compat as apc
 from apx_torch.compat.stats import VectorRegressionStats
@@ -145,8 +149,31 @@ except ImportError as exc:
     assert "gymnasium" in str(exc), exc
 else:
     raise AssertionError("make without gymnasium did not raise")
+try:
+    apc.ensure_active_perception_env
+except ImportError as exc:
+    assert "gymnasium" in str(exc), exc
+else:
+    raise AssertionError("the class layer imported without gymnasium")
+# The perception module's engine: reset, steps across the lockstep
+# rollover and the unique sampler, numpy out.
+from apx_torch.compat.dataset_classes import CircleSquareDataset
+from apx_torch.compat.perception_module import ImagePerceptionConfig, ImagePerceptionModule
+mod = ImagePerceptionModule(4, ImagePerceptionConfig(dataset=CircleSquareDataset(),
+                                                     prefetch=False), device="cpu")
+mod.seed(0)
+obs, info = mod.reset()
+for _ in range(18):
+    obs, reward, term, trunc, info = mod.step(np.full((4, 2), 0.2), np.zeros(4))
+assert obs["glimpse"].shape == (4, 5, 5, 1) and obs["glimpse"].dtype == np.float32
+assert mod.sample_unique_glimpse_positions().shape == (4, 2)
+from apx_torch.tools import parse_trace
+from apx_torch.ops import glimpse_study
+res = glimpse_study.run_study("cpu", n=4, hw=(12, 12), c=3, sensor_size=(3, 3), reps=1,
+                              gather_rows=8, gather_bytes=8)
+assert res["row_gather"]["same_bytes"]
 bad = sorted(m for m in sys.modules if sys.modules[m] is not None
-             and m.split(".")[0] in ("gymnasium", "PIL", "jax", "apx"))
+             and m.split(".")[0] in ("gymnasium", "PIL", "imageio", "jax", "apx"))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """
@@ -154,9 +181,11 @@ sys.exit(1 if bad else 0)
 
 def test_compat_core_runs_without_gymnasium_or_pil():
     """The adapter core resets and steps (LIDAR across its boundary,
-    LightDark, CircleSquare across its LOCKSTEP boundary) with gymnasium
-    and PIL unimportable; ``make_vec`` and ``make`` then raise an
-    ImportError that names gymnasium."""
+    LightDark, CircleSquare across its LOCKSTEP boundary) with gymnasium,
+    PIL and imageio unimportable; ``make_vec``, ``make`` and the class
+    layer's ``ensure_*`` then raise an ImportError that names gymnasium.
+    The perception module's engine, ``parse_trace`` and ``glimpse_study``
+    import and run without them too."""
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", _NO_GYM_SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
