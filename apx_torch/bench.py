@@ -75,14 +75,27 @@ more steps with timing on), then ``<env>_compat_env_steps_per_s``. The
 core is what ``make_vec`` returns wrapped in gymnasium classes, which the
 GPU machine lacks; the shells only delegate.
 
+    python -m apx_torch.bench --env lidar_rooms --raycast-backend bitslab2d
+        [--beam-rects on] | --beam-tables
+    python -m apx_torch.bench --env tin_loc --image-storage packed|flat|gather
+        | --glimpse-window rows | --sampler streamed [--num-envs 16384]
+
+A/B one of apx's switches against the workload's default, in one process,
+interleaved default, variant, variant, default (``bench_ab``): the graph
+loop's ms per step of each run, or, for ``--sampler``, the explicit
+reset's ms and peak memory. With ``--profile`` the switch applies to the
+profiled loop instead.
+
     torchrun --standalone --nproc_per_node=K -m apx_torch.bench --distributed
-        [--env ...] [--num-envs 4096] [--backend nccl|gloo] [--device cuda]
+        [--env ...] [--num-envs 4096] [--backend nccl|gloo] [--device cuda] [--shard-bank]
 
 runs ``bench_sharded`` on K ranks, one card each (``cuda:LOCAL_RANK``),
 over nccl: the same loops on each rank's block of ``--num-envs`` envs,
 and rank 0 prints ``<env>_sharded_env_steps_per_s`` beside the plain
 loop's rate. Two ranks on one card: ``--nproc_per_node=2 --backend gloo
---device cuda:0`` (NCCL refuses two ranks on one GPU).
+--device cuda:0`` (NCCL refuses two ranks on one GPU). ``--shard-bank``
+runs ``bench_sharded_bank`` instead: the eager loop with the bank
+replicated and sharded over the ranks, and the bytes its fetches move.
 """
 
 from __future__ import annotations
@@ -108,21 +121,30 @@ from .envs.light_dark import LightDarkEnv
 from .registry import make_vec
 
 __all__ = ["bench_lidar_rooms", "bench_lidar_rooms_window", "bench_light_dark",
-           "bench_lockstep", "bench_sharded", "bench_compat", "graph_chunk", "profile",
-           "profile_graph", "nvidia_smi_line", "CHUNK", "COMPAT_IDS", "WORKLOADS"]
+           "bench_lockstep", "bench_sharded", "bench_sharded_bank", "bench_ab", "bench_compat",
+           "graph_chunk", "profile", "profile_graph", "nvidia_smi_line", "AB_SWITCHES", "CHUNK",
+           "COMPAT_IDS", "WORKLOADS"]
 
 CHUNK = 16  # NEXT_STEP steps per captured graph
 PROFILE_STEPS = 34
 PROFILE_CHUNKS = 4  # graph replays traced by profile_graph
 
 
-def _registered(env_id: str, **overrides):
-    return lambda num_envs, dev: make_vec(env_id, num_envs, device=dev, **overrides)
+def _registered(env_id: str, **fixed):
+    """Builder of a registered id; under ``use_beam_tables=True`` its map
+    bank gets the beam face tables that the switch reads."""
+    def build(num_envs, dev, **overrides):
+        venv, params = make_vec(env_id, num_envs, device=dev, **fixed, **overrides)
+        if overrides.get("use_beam_tables"):
+            params = dataclasses.replace(params, map_bank=params.map_bank.with_beam_tables())
+        return venv, params
+
+    return build
 
 
-def _light_dark(num_envs: int, dev):
+def _light_dark(num_envs: int, dev, **overrides):
     env = LightDarkEnv(dev)
-    return vector_env(env, num_envs, AutoResetMode.NEXT_STEP), env.default_params()
+    return vector_env(env, num_envs, AutoResetMode.NEXT_STEP), env.default_params(**overrides)
 
 
 _BANKS: dict = {}
@@ -142,15 +164,15 @@ def _synthetic_bank(name: str, num_points: int, dev):
     return _BANKS[key]
 
 
-def _tin_loc(num_envs: int, dev):
+def _tin_loc(num_envs: int, dev, **overrides):
     env = ImageLocalizationEnv(dataset=_synthetic_bank("zh-plus/tiny-imagenet", 100_000, dev),
                                sensor_size=(10, 10))
-    return vector_env(env, num_envs, AutoResetMode.LOCKSTEP), env.default_params()
+    return vector_env(env, num_envs, AutoResetMode.LOCKSTEP), env.default_params(**overrides)
 
 
-def _mnist(num_envs: int, dev):
+def _mnist(num_envs: int, dev, **overrides):
     env = ImageClassificationEnv(dataset=_synthetic_bank("mnist", 60_000, dev))
-    return vector_env(env, num_envs, AutoResetMode.LOCKSTEP), env.default_params()
+    return vector_env(env, num_envs, AutoResetMode.LOCKSTEP), env.default_params(**overrides)
 
 
 # Workload -> (what it runs, builder (num_envs, device) -> (venv, params)).
@@ -196,8 +218,23 @@ class _Loop:
     inner: VectorAPEnv | None = None
 
 
-def _loop(env: str, num_envs: int, dev, episodic: bool = True) -> _Loop:
-    venv, params = WORKLOADS[env][1](num_envs, dev)
+def _loop(env: str, num_envs: int, dev, episodic: bool = True, overrides=None,
+          sharding=None) -> _Loop:
+    """The workload's loop, its params built with ``overrides`` (an A/B
+    switch); with a ``sharding`` and ``overrides["shard_bank"]`` its bank is
+    sharded over the ranks (``shard_params(shard_leading=True)``)."""
+    overrides = dict(overrides or {})
+    shard_bank = overrides.pop("shard_bank", False)
+    if shard_bank:  # built on the host: only this rank's block reaches the device
+        from .distrib import shard_params
+
+        venv, params = WORKLOADS[env][1](num_envs, torch.device("cpu"), **overrides)
+        params = shard_params(sharding, params, shard_leading=True)
+        if params.device != sharding.device:
+            raise ValueError(f"{env} has no bank to shard")
+        dev = params.device
+    else:
+        venv, params = WORKLOADS[env][1](num_envs, dev, **overrides)
     g = torch.Generator(dev)
     keys = (tuple(sorted(venv.env.draw_reset(1, params, g))),
             tuple(sorted(venv.env.draw_step(1, params, g))))
@@ -304,12 +341,13 @@ def graph_chunk(lp: _Loop, obs, state, draws, rsum: torch.Tensor):
     return replay
 
 
-def _measure(lp: _Loop, num_steps: int, g: torch.Generator,
-             sharding=None) -> tuple[float, float]:
+def _measure(lp: _Loop, num_steps: int, g: torch.Generator, sharding=None,
+             eager: bool = True, graph: bool = True) -> tuple[float | None, float | None]:
     """Seconds of the eager and of the graph-replayed loop over
-    ``num_steps`` steps (a multiple of ``lp.chunk``). With a ``sharding``
-    (``apx_torch.distrib``) every window starts on a collective that lines
-    the ranks up and ends on one all_reduce (``_finish``)."""
+    ``num_steps`` steps (a multiple of ``lp.chunk``), None for a loop not
+    asked for. With a ``sharding`` (``apx_torch.distrib``) every window
+    starts on a collective that lines the ranks up and ends on one
+    all_reduce (``_finish``)."""
     obs, state, _ = lp.venv.reset(lp.params, g)
     rsum = torch.zeros((), dtype=torch.float32, device=lp.params.device)
 
@@ -319,12 +357,15 @@ def _measure(lp: _Loop, num_steps: int, g: torch.Generator,
     draws = _draws(lp, num_steps, g)
     carry = {}
 
-    def eager():
+    def run_eager():
         carry["out"] = _steps(lp, obs, state, draws, rsum)
         _finish(rsum, sharding)
 
-    eager_s = _timed(eager, sharding)
-    obs, state = carry["out"]
+    eager_s = _timed(run_eager, sharding) if eager else None
+    if not graph:
+        return eager_s, None
+    if eager:
+        obs, state = carry["out"]
 
     replay_chunk = graph_chunk(lp, obs, state, draws, rsum)
 
@@ -523,8 +564,95 @@ def bench_sharded(env: str, sharding, num_envs: int = 4096, num_steps: int = 102
 
 
 
+def bench_sharded_bank(env: str, sharding, num_envs: int = 4096, num_steps: int = 256,
+                       seed: int = 0) -> dict | None:
+    """One rank of the sharded-bank A/B: the eager loop of ``env`` on this
+    rank's block with the bank replicated and with it sharded over the
+    ranks (``shard_params(shard_leading=True)``, every bank fetch two
+    all_reduces), interleaved replicated, sharded, sharded, replicated in
+    these processes; the slowest rank's ms per step of each run and the
+    bytes per step the sharded runs' fetches moved on this rank. A
+    collective cannot be captured in a CUDA graph over gloo, so only the
+    eager loop is timed. Returns rank 0's line, None on the other ranks."""
+    from .distrib import COLLECTIVE_BYTES
+
+    dev = sharding.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"the sharded bench measures GPUs; this rank's device is {dev}")
+    block = sharding.block(num_envs)
+    loops = {name: _loop(env, block.stop - block.start, dev, overrides={"shard_bank": sharded},
+                         sharding=sharding)
+             for name, sharded in (("replicated", False), ("sharded", True))}
+    lp = loops["replicated"]
+    if env in LOCKSTEP_WORKLOADS:
+        num_steps = max(lp.chunk, num_steps // lp.chunk * lp.chunk)
+    elif num_steps % CHUNK:
+        raise ValueError(f"num_steps must be a multiple of {CHUNK}")
+    ms = {name: [] for name in loops}
+    moved = {}
+    for i, name in enumerate(("replicated", "sharded", "sharded", "replicated")):
+        g = torch.Generator(dev).manual_seed(seed + sharding.rank)
+        before = COLLECTIVE_BYTES["bank_fetch"]
+        eager_s, _ = _measure(loops[name], num_steps, g, sharding, graph=False)
+        slowest = torch.tensor([eager_s], dtype=torch.float64, device=dev)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=sharding.group)
+        ms[name].append(1e3 * float(slowest[0]) / num_steps)
+        if name == "sharded":
+            # _measure steps a warmup chunk and the timed run from one reset
+            moved[i] = (COLLECTIVE_BYTES["bank_fetch"] - before) / (num_steps + lp.chunk)
+    if sharding.rank != 0:
+        return None
+    bank = (getattr(loops["sharded"].params, "map_bank", None)
+            or loops["sharded"].params.dataset)
+    return {"env": env, "eager_ms_per_step": ms, "bank_fetch_bytes_per_step_rank0":
+            sorted(moved.values()), "bank_rows_per_rank": bank.shard.hi - bank.shard.lo,
+            "bank_rows": bank.shard.num_rows, "world_size": sharding.world_size,
+            "backend": dist.get_backend(sharding.group), "device": str(dev),
+            "num_envs": num_envs, "num_steps": num_steps, **_card()}
+
+
+# The A/B switches the bench takes: command-line dest -> the env param it sets.
+AB_SWITCHES = {"raycast_backend": "raycast_backend", "beam_tables": "use_beam_tables",
+               "beam_rects": "beam_rects", "image_storage": "image_storage",
+               "glimpse_window": "glimpse_window", "sampler": "unique_sampling_backend"}
+
+
+def bench_ab(env: str, overrides: dict, num_envs: int = 4096, num_steps: int = 1024,
+             seed: int = 0, reset: bool = False) -> dict:
+    """A/B of one switch (``overrides``, env params) against the workload's
+    default, in one process, interleaved default, variant, variant,
+    default: the graph loop's ms per step of each run (PERF.md: graph
+    loops sit at levels ~18% apart between processes, so only pairs in one
+    process count). With ``reset`` (the sampler), the explicit reset's ms
+    and peak memory of each run instead, each measured after a warmup
+    reset of its own."""
+    dev = _need_cuda("bench")
+    loops = {"default": _loop(env, num_envs, dev), "variant": _loop(env, num_envs, dev,
+                                                                    overrides=overrides)}
+    lp = loops["default"]
+    if env in LOCKSTEP_WORKLOADS:
+        num_steps = max(lp.chunk, num_steps // lp.chunk * lp.chunk)
+    elif num_steps % CHUNK:
+        raise ValueError(f"num_steps must be a multiple of {CHUNK}")
+    runs = {name: [] for name in loops}
+    for name in ("default", "variant", "variant", "default"):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if reset:
+            runs[name].append(_reset_cost(loops[name], g))
+        else:
+            _, graph_s = _measure(loops[name], num_steps, g, eager=False)
+            runs[name].append(1e3 * graph_s / num_steps)
+    key = "reset" if reset else "graph_ms_per_step"
+    out = {"env": env, "switch": overrides, f"default_{key}": runs["default"],
+           f"variant_{key}": runs["variant"], "num_envs": num_envs, **_card()}
+    if not reset:
+        out["variant_over_default"] = sum(runs["variant"]) / sum(runs["default"])
+        out["num_steps"] = num_steps
+    return out
+
+
 def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: int = 12,
-            trace_path: str | None = None) -> dict:
+            trace_path: str | None = None, overrides: dict | None = None) -> dict:
     """Device time per step of the eager loop by kernel, from a
     ``torch.profiler`` trace of PROFILE_STEPS steps (two CircleSquare
     cycles) after a warmup. With ``trace_path`` the trace is also written
@@ -532,7 +660,7 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     dev = _need_cuda("profile")
-    lp = _loop(env, num_envs, dev)
+    lp = _loop(env, num_envs, dev, overrides=overrides)
     g = torch.Generator(device=dev).manual_seed(seed)
     obs, state, _ = lp.venv.reset(lp.params, g)
     rsum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -555,6 +683,7 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
     f64 = [e for e in kernels if "double" in e.key]
     return {
         "workload": WORKLOADS[env][0],
+        "overrides": overrides or {},
         "steps": PROFILE_STEPS,
         "wall_ms_per_step": 1e3 * wall / PROFILE_STEPS,
         "device_busy_ms_per_step": total_us / per_step,
@@ -634,18 +763,37 @@ def main(argv=None) -> None:
                     help="one rank of the sharded bench, under torchrun")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--raycast-backend", default=None,
+                    help="A/B a LIDAR raycast backend against the default")
+    ap.add_argument("--beam-tables", action="store_true",
+                    help="A/B the beam-table scan (LIDAR)")
+    ap.add_argument("--beam-rects", default=None, choices=("on", "off", "auto"),
+                    help="A/B per-beam rectangles (with --raycast-backend bitslab2d)")
+    ap.add_argument("--image-storage", default=None,
+                    choices=("array", "packed", "flat", "gather"))
+    ap.add_argument("--glimpse-window", default=None, choices=("off", "rows"))
+    ap.add_argument("--sampler", default=None, choices=("cartesian", "chunked", "streamed"),
+                    help="A/B the unique-target sampler's explicit reset (tin_loc)")
+    ap.add_argument("--shard-bank", action="store_true",
+                    help="with --distributed: A/B the bank sharded against replicated")
     args = ap.parse_args(argv)
+    switch = {param: getattr(args, dest) for dest, param in AB_SWITCHES.items()
+              if getattr(args, dest) not in (None, False)}
     if args.distributed:
         from .distrib import init_distributed, make_env_mesh
 
         init_distributed(backend=args.backend, device=args.device)
         try:
-            res = bench_sharded(args.env, make_env_mesh(args.device), args.num_envs,
-                                args.num_steps, args.seed)
+            fn = bench_sharded_bank if args.shard_bank else bench_sharded
+            res = fn(args.env, make_env_mesh(args.device), args.num_envs, args.num_steps,
+                     args.seed)
         finally:
             dist.destroy_process_group()
         if res is not None:
             print(json.dumps(res))
+    elif switch and not args.profile:
+        print(json.dumps(bench_ab(args.env, switch, args.num_envs, args.num_steps, args.seed,
+                                  reset="unique_sampling_backend" in switch)))
     elif args.compat:
         res = bench_compat(args.env, args.num_envs, COMPAT_STEPS, args.seed)
         print(f"breakdown: {json.dumps(res.pop('breakdown'))}")
@@ -654,7 +802,8 @@ def main(argv=None) -> None:
         trace = None if args.trace is None else os.path.join(args.trace, "eager.json")
         if args.trace is not None:
             os.makedirs(args.trace, exist_ok=True)
-        print(json.dumps(profile(args.env, args.num_envs, args.seed, trace_path=trace)))
+        print(json.dumps(profile(args.env, args.num_envs, args.seed, trace_path=trace,
+                                 overrides=switch or None)))
         if args.trace is not None:
             print(json.dumps(profile_graph(args.env, args.num_envs, args.seed,
                                            trace_path=os.path.join(args.trace, "graph.json"))))

@@ -18,7 +18,9 @@ import torch
 from ..envs.image_classification import ImageClassificationEnv
 from ..envs.image_localization import ImageLocalizationEnv
 from ..envs.image_perception import ImagePerceptionEngine
-from ..envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
+from ..envs.lidar_localization import (LIDARBitslabState, LIDARLocalizationEnv,
+                                       LIDARLocalizationState)
+from ..ops.raycast import pack_row_halves
 from ..envs.light_dark import LightDarkEnv, LightDarkState, noisy_position
 from ..wrappers.base import APWrapper
 
@@ -57,7 +59,7 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
         occ = torch.as_tensor(draws["occ"], dtype=torch.bool, device=dev)
         pos = torch.as_tensor(draws["pos"], dtype=torch.float32, device=dev)
         n = occ.shape[0]
-        state = LIDARLocalizationState(
+        leaves = dict(
             occ=occ,
             bank_pos=torch.zeros(n, dtype=torch.int64, device=dev),
             map_idx=torch.as_tensor(draws["map_idx"], dtype=torch.int64, device=dev),
@@ -65,6 +67,10 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
             initial_pos=pos,
             odo_pending=torch.ones(n, dtype=torch.bool, device=dev),
         )
+        if params.needs_row_halves:  # the bit windows' rows, packed from the host map
+            state = LIDARBitslabState(**leaves, row_halves=pack_row_halves(occ))
+        else:
+            state = LIDARLocalizationState(**leaves)
         obs = {
             **base._observe(state, params, typed=True),
             **base.obs_derived_from_state(state, params),

@@ -4,9 +4,11 @@ apx's JAX arrays) and a device.
 
 * ``map_bank_from_numpy`` builds a ``MapBank`` from apx's bank arrays;
 * ``lidar_state_from_numpy`` builds the vector state of a
-  ``TimeLimit(LIDARLocalizationEnv)`` from apx's state leaves;
+  ``TimeLimit(LIDARLocalizationEnv)`` from apx's state leaves (with the
+  bitslab backends' ``row_halves``);
 * ``image_bank_from_numpy`` builds a ``BankImageDataset`` from apx's bank
-  (int32-packed uint8 rows, uint8 or float32 images);
+  (int32-packed uint8 rows, unpacked or kept packed, uint8 or float32
+  images);
 * ``hf_bank_from_numpy`` is ``image_bank_from_numpy`` with apx's bank
   kind (``"huggingface"`` or ``"synthetic"``);
 * ``double_circle_square_from_numpy`` builds a
@@ -32,7 +34,7 @@ from .data.dataset import BankImageDataset
 from .data.floor_map import MapBank, pack_rows
 from .envs.image_localization import ImageLocalizationState
 from .envs.image_perception import ImagePerceptionState
-from .envs.lidar_localization import LIDARLocalizationState
+from .envs.lidar_localization import LIDARBitslabState, LIDARLocalizationState
 from .envs.light_dark import LightDarkState
 from .wrappers.metrics import MetricsState
 from .wrappers.time_limit import TimeLimitState
@@ -48,11 +50,17 @@ def _t(x, dtype, device) -> torch.Tensor:
 
 
 def map_bank_from_numpy(maps, indices, free_counts, free_cells, device="cuda",
-                        kind: str = "custom") -> MapBank:
+                        kind: str = "custom", beam_face=None, beam_axis=None) -> MapBank:
     """MapBank from apx's ``maps`` (M, H, W) bool, ``indices`` (M,) uint32,
-    ``free_counts`` (M,) and ``free_cells`` (M, max_free). The packed rows
-    are rebuilt from ``maps`` (apx's are uint32, the port's int64)."""
+    ``free_counts`` (M,) and ``free_cells`` (M, max_free), and its beam
+    tables when it has them (``with_beam_tables``: ``beam_face`` (M, 8, 2,
+    H, W) f32, ``beam_axis`` bool). The packed rows are rebuilt from
+    ``maps`` (apx's are uint32, the port's int64)."""
     maps = np.asarray(maps, dtype=np.bool_)
+    tables = {}
+    if beam_face is not None:
+        tables = dict(beam_face=_t(np.asarray(beam_face, np.float32), torch.float32, device),
+                      beam_axis=_t(np.asarray(beam_axis, np.bool_), torch.bool, device))
     return MapBank(
         maps=_t(maps, torch.bool, device),
         indices=_t(np.asarray(indices).astype(np.int64), torch.int64, device),
@@ -60,17 +68,19 @@ def map_bank_from_numpy(maps, indices, free_counts, free_cells, device="cuda",
         row_words=_t(pack_rows(maps), torch.int64, device),
         free_cells=_t(np.asarray(free_cells).astype(np.int64), torch.int64, device),
         kind=kind,
+        **tables,
     )
 
 
 def lidar_state_from_numpy(occ, pos, initial_pos, odo_pending, bank_pos, map_idx,
-                           t, prev_done, device="cuda") -> VectorState:
+                           t, prev_done, device="cuda", row_halves=None) -> VectorState:
     """Vector state of ``TimeLimit(LIDARLocalizationEnv)`` from apx's leaves
     (``state.inner.inner.*``, ``state.inner.t``, ``state.prev_done``), under
-    either backend. apx's window backend also carries the ray-padded map,
-    ``pad_occupancy(occ, ray_pad)``, which the port derives from ``occ``
-    and does not carry."""
-    inner = LIDARLocalizationState(
+    any backend: the bitslab backends' ``row_halves`` (N, H, 2) int32 make a
+    ``LIDARBitslabState``. apx's window backends also carry the ray-padded
+    map, ``pad_occupancy(occ, ray_pad)``, which the port derives from
+    ``occ`` and does not carry."""
+    leaves = dict(
         occ=_t(np.asarray(occ, dtype=np.bool_), torch.bool, device),
         bank_pos=_t(np.asarray(bank_pos).astype(np.int64), torch.int64, device),
         map_idx=_t(np.asarray(map_idx).astype(np.int64), torch.int64, device),
@@ -78,6 +88,11 @@ def lidar_state_from_numpy(occ, pos, initial_pos, odo_pending, bank_pos, map_idx
         initial_pos=_t(np.asarray(initial_pos, dtype=np.float32), torch.float32, device),
         odo_pending=_t(np.asarray(odo_pending, dtype=np.bool_), torch.bool, device),
     )
+    if row_halves is None:
+        inner = LIDARLocalizationState(**leaves)
+    else:
+        inner = LIDARBitslabState(**leaves, row_halves=_t(np.asarray(row_halves, np.int32),
+                                                          torch.int32, device))
     return VectorState(
         inner=TimeLimitState(inner=inner, t=_t(np.asarray(t).astype(np.int32), torch.int32, device)),
         prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device),
@@ -85,23 +100,24 @@ def lidar_state_from_numpy(occ, pos, initial_pos, odo_pending, bank_pos, map_idx
 
 
 def image_bank_from_numpy(images, labels, num_classes: int, packed_shape=None,
-                          device="cuda") -> BankImageDataset:
+                          device="cuda", pack: bool = False) -> BankImageDataset:
     """BankImageDataset from apx's ``images``, ``labels`` and ``n_classes``.
     With apx's ``packed_shape`` (H, W, C), ``images`` are its (D, R) int32
-    words of packed uint8 rows, unpacked here on the host (torch has no
-    uint32 shifts); otherwise (D, H, W, C) uint8 or float32."""
+    words of packed uint8 rows: kept as they are with ``pack``, else
+    unpacked on the host (their bytes); otherwise (D, H, W, C) uint8 or
+    float32."""
     images = np.asarray(images)
     if packed_shape is not None:
         images = np.ascontiguousarray(images).view(np.uint8).reshape(
             (images.shape[0], *packed_shape))
-    return BankImageDataset.from_numpy(images, labels, num_classes, device=device)
+    return BankImageDataset.from_numpy(images, labels, num_classes, device=device, pack=pack)
 
 
 def hf_bank_from_numpy(images, labels, num_classes: int, bank_kind: str, packed_shape=None,
-                       device="cuda") -> BankImageDataset:
+                       device="cuda", pack: bool = False) -> BankImageDataset:
     """``image_bank_from_numpy`` of an apx HF bank, with its kind (apx's
     ``_bank_kind``: ``"huggingface"`` or ``"synthetic"``)."""
-    bank = image_bank_from_numpy(images, labels, num_classes, packed_shape, device)
+    bank = image_bank_from_numpy(images, labels, num_classes, packed_shape, device, pack)
     bank.bank_kind = bank_kind
     return bank
 
@@ -119,8 +135,10 @@ def double_circle_square_from_numpy(positions, image_hw, object_extents: int,
 def _perception_state(image, label, data_index, pos, time, label_inverted,
                       device) -> ImagePerceptionState:
     image = np.asarray(image)
+    dtype = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32}.get(
+        image.dtype, torch.float32)
     return ImagePerceptionState(
-        image=_t(image, torch.uint8 if image.dtype == np.uint8 else torch.float32, device),
+        image=_t(image, dtype, device),
         label=_t(np.asarray(label).astype(np.int64), torch.int64, device),
         data_index=_t(np.asarray(data_index).astype(np.int64), torch.int64, device),
         pos=_t(np.asarray(pos, dtype=np.float32), torch.float32, device),
@@ -132,8 +150,9 @@ def _perception_state(image, label, data_index, pos, time, label_inverted,
 def image_state_from_numpy(image, label, data_index, pos, time, label_inverted, prev_done,
                            device="cuda") -> VectorState:
     """Vector state of ``ImageClassificationEnv`` from apx's leaves
-    (``state.inner.*`` with an (N, H, W, C) uint8 or float32 image, and
-    ``state.prev_done``)."""
+    (``state.inner.*`` and ``state.prev_done``). The image leaf is in the
+    form of apx's ``image_storage``: (N, H, W, C) uint8 or float32, (N, R)
+    int32 words ("packed"), (N, H*W*C) ("flat") or (N, 0) ("gather")."""
     inner = _perception_state(image, label, data_index, pos, time, label_inverted, device)
     return VectorState(inner=inner,
                        prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device))

@@ -53,6 +53,16 @@
 // same two nonzero terms per pass, so the two agree to within float32
 // rounding of a 4-term bilinear. Positions are taken to be finite (the env
 // clips them to [-1, 1]).
+//
+// Optional index: with a non-null `index` (N,) int64, glimpse n reads image
+// index[n] of `images` (M, H, W, C) instead of image n, so a glimpse can
+// read a bank row (image_storage="gather") or several glimpses one image
+// (the chunked unique-target sampler) without a copy. The index is the
+// only change: one load per lane before the image pointer is formed. It is
+// a template parameter, so the kernel without it compiles as it did
+// before the index existed: taken as a run-time branch, the index slowed
+// the uint8 64x64x3 glimpse from 6.8 to 8.0 us on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,10 +123,11 @@ __device__ __forceinline__ float pixel(const uint8_t* img, int i) {
 }
 
 // rows_per_pass sample rows per pass of the warp, `active` lanes of it
-// busy (see the design note).
-template <typename T>
+// busy (see the design note); kIndexed: read image index[env].
+template <typename T, bool kIndexed>
 __global__ void __launch_bounds__(kWarps * 32)
 glimpse_kernel(const T* __restrict__ images, const float* __restrict__ pos,
+               const long long* __restrict__ index,
                float* __restrict__ out, int n, int h, int w, int c, int s0, int s1,
                float lim_x, float lim_y, float scale, int rows_per_pass, int active) {
   const int lane = threadIdx.x & 31;
@@ -127,7 +138,8 @@ glimpse_kernel(const T* __restrict__ images, const float* __restrict__ pos,
   const int j0 = p >= 32 ? lane : lane - s_sub * p;
   const int jstep = p >= 32 ? 32 : p;
   const float px = pos[2 * env], py = pos[2 * env + 1];
-  const T* img = images + static_cast<size_t>(env) * h * w * c;
+  const size_t row = kIndexed ? static_cast<size_t>(index[env]) : static_cast<size_t>(env);
+  const T* img = images + row * h * w * c;
   float* dst = out + static_cast<size_t>(env) * s0 * p;  // (s0, s1, C), contiguous
   for (int j = j0; j < p; j += jstep) {
     const int t = j / c, ch = j - t * c;
@@ -148,16 +160,18 @@ glimpse_kernel(const T* __restrict__ images, const float* __restrict__ pos,
 }
 
 template <typename T>
-int launch(const void* images, const void* pos, void* out, int n, int h, int w, int c,
-           int s0, int s1, float lim_x, float lim_y, float scale, void* stream) {
+int launch(const void* images, const void* pos, const void* index, void* out, int n, int h,
+           int w, int c, int s0, int s1, float lim_x, float lim_y, float scale, void* stream) {
   if (n <= 0 || s0 <= 0 || s1 <= 0 || c <= 0) return 0;
   if (h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int p = s1 * c;
   const int rows_per_pass = p >= 32 ? 1 : 32 / p;
   const int active = p >= 32 ? 32 : rows_per_pass * p;
   const unsigned blocks = static_cast<unsigned>((n + kWarps - 1) / kWarps);
-  glimpse_kernel<T><<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(images), static_cast<const float*>(pos), static_cast<float*>(out),
+  const auto kernel = index != nullptr ? glimpse_kernel<T, true> : glimpse_kernel<T, false>;
+  kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(images), static_cast<const float*>(pos),
+      static_cast<const long long*>(index), static_cast<float*>(out),
       n, h, w, c, s0, s1, lim_x, lim_y, scale, rows_per_pass, active);
   return static_cast<int>(cudaGetLastError());
 }
@@ -165,18 +179,22 @@ int launch(const void* images, const void* pos, void* out, int n, int h, int w, 
 }  // namespace
 
 // Plain C interface, bound with ctypes (apx_torch/ops/glimpse_cuda.py).
-// Pointers are device pointers: images (N, H, W, C) float32 or uint8,
-// pos (N, 2) float32 normalized (x, y), out (N, s0, s1, C) float32; all
-// contiguous. lim_x, lim_y are sensor_pos_lim_pixels. Launches on `stream`
-// and returns the CUDA error of the launch (0 on success).
-extern "C" int glimpse_f32_launch(const void* images, const void* pos, void* out, int n, int h,
-                                  int w, int c, int s0, int s1, float lim_x, float lim_y,
-                                  float scale, void* stream) {
-  return launch<float>(images, pos, out, n, h, w, c, s0, s1, lim_x, lim_y, scale, stream);
+// Pointers are device pointers: images (N, H, W, C) float32 or uint8 (or
+// (M, H, W, C) with an index), pos (N, 2) float32 normalized (x, y), index
+// (N,) int64 rows of `images` in [0, M) or null, out (N, s0, s1, C)
+// float32; all contiguous. lim_x, lim_y are sensor_pos_lim_pixels.
+// Launches on `stream` and returns the CUDA error of the launch (0 on
+// success).
+extern "C" int glimpse_f32_launch(const void* images, const void* pos, const void* index,
+                                  void* out, int n, int h, int w, int c, int s0, int s1,
+                                  float lim_x, float lim_y, float scale, void* stream) {
+  return launch<float>(images, pos, index, out, n, h, w, c, s0, s1, lim_x, lim_y, scale,
+                       stream);
 }
 
-extern "C" int glimpse_u8_launch(const void* images, const void* pos, void* out, int n, int h,
-                                 int w, int c, int s0, int s1, float lim_x, float lim_y,
-                                 float scale, void* stream) {
-  return launch<uint8_t>(images, pos, out, n, h, w, c, s0, s1, lim_x, lim_y, scale, stream);
+extern "C" int glimpse_u8_launch(const void* images, const void* pos, const void* index,
+                                 void* out, int n, int h, int w, int c, int s0, int s1,
+                                 float lim_x, float lim_y, float scale, void* stream) {
+  return launch<uint8_t>(images, pos, index, out, n, h, w, c, s0, s1, lim_x, lim_y, scale,
+                         stream);
 }

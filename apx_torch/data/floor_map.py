@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+from typing import Any
 
 import numpy as np
 import torch
@@ -31,6 +32,10 @@ __all__ = [
     "make_rooms_bank",
     "bank_from_maps",
     "pack_rows",
+    "BEAM_SIGNS",
+    "build_beam_tables",
+    "unpack_words",
+    "halves_of_words",
 ]
 
 
@@ -139,7 +144,14 @@ class MapBank:
     ``row_words`` holds each map row's bits (bit x of word y = maps[m, y, x])
     and ``fetch`` unpacks THOSE, as apx does. apx keeps them as uint32;
     torch has no shifts on uint32, so they are int64 here (the values are
-    the same, < 2**32)."""
+    the same, < 2**32).
+
+    A bank sharded across ranks (``distrib.shard_params(...,
+    shard_leading=True)``) holds this rank's block of every leaf with a
+    leading bank axis and a ``shard`` (``distrib.mesh.BankShard``); its
+    reads (``fetch``, ``fetch_halves``, ``spawn``, ``free_count``) are then
+    collectives that every rank makes together. The beam tables stay
+    whole."""
 
     maps: torch.Tensor  # (M, H, W) bool
     indices: torch.Tensor  # (M,) int64 — dataset index of each map (uint32 range)
@@ -149,10 +161,55 @@ class MapBank:
     # 0-padded past free_counts[m] — the spawn draw's "k-th free cell".
     free_cells: torch.Tensor
     kind: str = "custom"
+    # Optional beam face tables (``with_beam_tables``): (M, 8, 2, H, W)
+    # float32 faces and bool axes, for the table observation scan.
+    beam_face: torch.Tensor | None = None
+    beam_axis: torch.Tensor | None = None
+    shard: Any = dataclasses.field(default=None, compare=False)
+
+    def with_beam_tables(self) -> "MapBank":
+        """The bank with the first-wall face tables of the 8 default beam
+        directions (``build_beam_tables``, a host numpy build)."""
+        face, axis_x = build_beam_tables(self.maps.cpu().numpy())
+        return dataclasses.replace(self, beam_face=torch.from_numpy(face).to(self.device),
+                                   beam_axis=torch.from_numpy(axis_x).to(self.device))
 
     @property
     def num_maps(self) -> int:
-        return int(self.maps.shape[0])
+        return self.shard.num_rows if self.shard is not None else int(self.maps.shape[0])
+
+    def _take(self, bank_idx: torch.Tensor, *leaves) -> list[torch.Tensor]:
+        """``leaf[bank_idx]`` (or ``leaf[bank_idx, col]`` for a (leaf, col)
+        pair) of each leaf; on a sharded bank one collective for all."""
+        pairs = [x if isinstance(x, tuple) else (x, None) for x in leaves]
+        if self.shard is not None:
+            return self.shard.take(bank_idx, pairs)
+        return [leaf[bank_idx] if col is None else leaf[bank_idx, col] for leaf, col in pairs]
+
+    def free_count(self, bank_idx: torch.Tensor) -> torch.Tensor:
+        """Free cells of the maps at ``bank_idx``."""
+        return self._take(bank_idx, self.free_counts)[0]
+
+    def spawn(self, bank_idx: torch.Tensor,
+              k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """What a reset reads of the bank, in one fetch: the row words (...,
+        H) of the maps at ``bank_idx``, the row-major index of each map's
+        ``k``-th free cell and the maps' dataset indices."""
+        words, flat, index = self._take(bank_idx, self.row_words, (self.free_cells, k),
+                                        self.indices)
+        return words, flat, index
+
+    def sharded(self, shard, block, whole) -> "MapBank":
+        """This rank's block [shard.lo, shard.hi) of every leaf with a
+        leading bank axis, ``block(leaf)``, with ``shard`` set; the beam
+        tables stay whole, ``whole(leaf)`` (``distrib.shard_params`` places
+        both on the rank's device)."""
+        tables = {f: None if getattr(self, f) is None else whole(getattr(self, f))
+                  for f in ("beam_face", "beam_axis")}
+        return dataclasses.replace(
+            self, **{f: block(getattr(self, f)) for f in
+                     ("maps", "indices", "free_counts", "row_words", "free_cells")},
+            **tables, shard=shard)
 
     @property
     def map_hw(self) -> tuple[int, int]:
@@ -164,18 +221,27 @@ class MapBank:
 
     def fetch(self, bank_idx: torch.Tensor) -> torch.Tensor:
         """(..., H, W) bool maps at bank positions ``bank_idx``."""
-        _, w = self.map_hw
-        words = self.row_words[bank_idx]  # (..., H)
-        shifts = torch.arange(w, dtype=torch.int64, device=words.device)
-        return ((words[..., None] >> shifts) & 1) == 1
+        return unpack_words(self._take(bank_idx, self.row_words)[0], self.map_hw[1])
 
     def fetch_halves(self, bank_idx: torch.Tensor) -> torch.Tensor:
         """(..., H, 2) int32: each fetched row's occupancy bits as two
         little-endian 16-bit half-words, ``words & 0xFFFF`` and ``words >>
-        16``, bitwise apx's ``MapBank.fetch_halves``. (apx's bitslab raycast
-        backends window from these; the port has none yet.)"""
-        words = self.row_words[bank_idx]  # (..., H)
-        return torch.stack([words & 0xFFFF, words >> 16], dim=-1).to(torch.int32)
+        16``, bitwise apx's ``MapBank.fetch_halves``: what the bitslab
+        raycast backends window from."""
+        return halves_of_words(self._take(bank_idx, self.row_words)[0])
+
+
+def unpack_words(words: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., H, W) bool maps of row words (..., H): bit x of word y is cell
+    (y, x)."""
+    shifts = torch.arange(w, dtype=torch.int64, device=words.device)
+    return ((words[..., None] >> shifts) & 1) == 1
+
+
+def halves_of_words(words: torch.Tensor) -> torch.Tensor:
+    """(..., H, 2) int32 half-words ``words & 0xFFFF``, ``words >> 16`` of
+    row words (..., H)."""
+    return torch.stack([words & 0xFFFF, words >> 16], dim=-1).to(torch.int32)
 
 
 def pack_rows(maps: np.ndarray) -> np.ndarray:
@@ -275,3 +341,113 @@ def make_rooms_bank(
         lambda idx: generate_rooms_bank_native(idx, width, height, max_rooms, door_width),
         backend, "rooms", device,
     )
+
+
+# ---------------------------------------------------------------------------
+# Beam face tables (apx's, copied): per map cell and per default beam
+# direction, the coordinate of the first wall face the beam crosses, so the
+# observation scan is one lookup per beam (``ops.raycast.lidar_table_scan``).
+
+# Integer direction (sx, sy) of the beams at angles linspace(-pi, pi, 8,
+# endpoint=False): 0:-x, 1:(-x,-y), 2:-y, 3:(+x,-y), 4:+x, 5:(+x,+y),
+# 6:+y, 7:(-x,+y).
+BEAM_SIGNS = np.array(
+    [(-1, 0), (-1, -1), (0, -1), (1, -1), (1, 0), (1, 1), (0, 1), (-1, 1)],
+    dtype=np.int32,
+)
+_MISS = 1.0e6  # face sentinel: t becomes huge and positive, a miss
+
+
+def _axis_face_tables(occ: np.ndarray) -> dict:
+    """(M, H, W) first-wall face coordinate along each axis direction."""
+    h, w = occ.shape[1:]
+    col = np.arange(w)[None, None, :]
+    row = np.arange(h)[None, :, None]
+    big = np.full_like(occ, _MISS, dtype=np.float64)
+
+    # +x: the nearest wall column > cx; its near face is the column.
+    px = np.flip(np.minimum.accumulate(np.flip(np.where(occ, col, _MISS).astype(np.float64),
+                                               -1), -1), -1)
+    face_px = np.concatenate([px[..., 1:], big[..., :1]], axis=-1)
+    # -x: the nearest wall column < cx; its near face is column + 1.
+    nx_ = np.maximum.accumulate(np.where(occ, col, -_MISS).astype(np.float64), -1)
+    face_nx = np.concatenate([-big[..., :1], nx_[..., :-1] + 1.0], axis=-1)
+    face_nx = np.where(face_nx < -_MISS / 2, -_MISS, face_nx)
+    # +y / -y over rows.
+    py = np.flip(np.minimum.accumulate(np.flip(np.where(occ, row, _MISS).astype(np.float64),
+                                               -2), -2), -2)
+    face_py = np.concatenate([py[..., 1:, :], big[..., :1, :]], axis=-2)
+    ny_ = np.maximum.accumulate(np.where(occ, row, -_MISS).astype(np.float64), -2)
+    face_ny = np.concatenate([-big[..., :1, :], ny_[..., :-1, :] + 1.0], axis=-2)
+    face_ny = np.where(face_ny < -_MISS / 2, -_MISS, face_ny)
+    return {(1, 0): face_px, (-1, 0): face_nx, (0, 1): face_py, (0, -1): face_ny}
+
+
+def _diag_face_tables(occ: np.ndarray, sx: int, sy: int):
+    """The exact 45-degree staircase walk from every cell: per variant (0 =
+    x crossing first, 1 = y crossing first) the first wall face and whether
+    it is an x face. |dx| == |dy|, so the crossings alternate and the walk
+    from a cell depends only on which comes first."""
+    m, h, w = occ.shape
+    faces = np.empty((2, m, h, w), dtype=np.float64)
+    axes_x = np.empty((2, m, h, w), dtype=bool)
+    midx = np.arange(m)[:, None, None]
+    for v in range(2):
+        cx = np.broadcast_to(np.arange(w)[None, None, :], (m, h, w)).copy()
+        cy = np.broadcast_to(np.arange(h)[None, :, None], (m, h, w)).copy()
+        face = np.full((m, h, w), _MISS * (sx if sx else 1), dtype=np.float64)
+        ax_x = np.ones((m, h, w), dtype=bool)
+        done = np.zeros((m, h, w), dtype=bool)
+        for k in range(2 * (h + w)):
+            if (k % 2 == 0) == (v == 0):  # an x crossing
+                nxt = cx + sx
+                oob = (nxt < 0) | (nxt >= w)
+                hit = np.zeros_like(done)
+                live = ~done & ~oob
+                hit[live] = occ[midx, cy, np.clip(nxt, 0, w - 1)][live]
+                newly = ~done & hit
+                face[newly] = (nxt + (0 if sx > 0 else 1))[newly]
+                ax_x[newly] = True
+                done |= newly | (~done & oob)
+                cx = np.where(done, cx, nxt)
+            else:
+                nyt = cy + sy
+                oob = (nyt < 0) | (nyt >= h)
+                hit = np.zeros_like(done)
+                live = ~done & ~oob
+                hit[live] = occ[midx, np.clip(nyt, 0, h - 1), cx][live]
+                newly = ~done & hit
+                face[newly] = (nyt + (0 if sy > 0 else 1))[newly]
+                ax_x[newly] = False
+                done |= newly | (~done & oob)
+                cy = np.where(done, cy, nyt)
+            if done.all():
+                break
+        # A miss keeps the sentinel, signed as the x direction so that
+        # t = (face - p) * inv is huge and positive.
+        miss = ~done | (np.abs(face) >= _MISS / 2)
+        face[miss] = _MISS * (1 if sx > 0 else -1)
+        ax_x[miss] = True
+        faces[v] = face
+        axes_x[v] = ax_x
+    return faces, axes_x
+
+
+def build_beam_tables(maps: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(face, axis_x) of shape (M, 8, 2, H, W): face is the first wall face
+    coordinate of beam b from cell (cy, cx) under staircase variant v (axis
+    beams ignore v), float32; axis_x whether it is an x = const face."""
+    occ = np.asarray(maps, dtype=bool)
+    m, h, w = occ.shape
+    axis_tables = _axis_face_tables(occ)
+    face = np.empty((m, 8, 2, h, w), dtype=np.float32)
+    axis_x = np.empty((m, 8, 2, h, w), dtype=bool)
+    for b, (sx, sy) in enumerate(BEAM_SIGNS):
+        if sx == 0 or sy == 0:
+            face[:, b, 0] = face[:, b, 1] = axis_tables[(int(sx), int(sy))].astype(np.float32)
+            axis_x[:, b, :] = sy == 0  # x faces for the x-axis beams
+        else:
+            f, ax = _diag_face_tables(occ, int(sx), int(sy))
+            face[:, b] = f.transpose(1, 0, 2, 3).astype(np.float32)
+            axis_x[:, b] = ax.transpose(1, 0, 2, 3)
+    return face, axis_x

@@ -1,6 +1,8 @@
 """Env-batch data parallelism of the port over ``torch.distributed``."""
 
 from .mesh import (
+    COLLECTIVE_BYTES,
+    BankShard,
     EnvSharding,
     init_distributed,
     make_env_mesh,
@@ -12,6 +14,8 @@ from .mesh import (
 from .metrics import all_mean, all_sum, episode_stats_psum
 
 __all__ = [
+    "BankShard",
+    "COLLECTIVE_BYTES",
     "EnvSharding",
     "all_mean",
     "all_sum",

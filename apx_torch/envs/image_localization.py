@@ -119,7 +119,8 @@ class ImageLocalizationEnv(APEnv[ImagePerceptionParams, ImageLocalizationState])
         perception = ImagePerceptionEngine.reset_from_draws(draws, params)
         dev = params.device
         target = ImagePerceptionEngine.unique_target_from_draws(
-            perception.image, torch.as_tensor(draws["sel"], device=dev),
+            ImagePerceptionEngine.image_raw(perception, params),
+            torch.as_tensor(draws["sel"], device=dev),
             torch.as_tensor(draws["jitter"], device=dev).to(torch.float32), params)
         return self._reset(perception, target, params)
 

@@ -14,10 +14,22 @@ Same semantics as apx's engine (after ap_gym's image_perception_module):
     position uniform in [-1, 1)^2.
 
 Every glimpse, of a step and of a reset, goes through K3
-(``apx_torch.ops.glimpse_cuda``). The state carries the episode's image as
-an (N, H, W, C) tensor in the bank's dtype (apx's ``image_storage="array"``,
-its default); apx's other storage modes are not ported (ROADMAP.md, queue
-1).
+(``apx_torch.ops.glimpse_cuda``), but under apx's ``glimpse_window="rows"``
+(below). apx's ``image_storage`` switch says how the state carries the
+episode's image; all four modes give the same trajectories:
+
+* ``"array"`` (``"auto"``, apx's default): (N, H, W, C) in the bank's dtype;
+* ``"packed"``: the uint8 row as (N, H*W*C/4) int32 words (banks whose rows
+  pack); K3 reads the words' bytes in place (a uint8 view, no unpack);
+* ``"flat"``: (N, H*W*C) in the bank's dtype, a reshape for K3;
+* ``"gather"``: no image (an (N, 0) leaf); K3 reads the bank's row
+  ``data_index`` through its index argument, every glimpse.
+
+``image_raw`` gives the logical (N, H, W, C) image under any mode.
+``glimpse_window="rows"`` runs apx's row-band form
+(``ops.glimpse.extract_glimpse_batch(window="rows")``), bitwise the plain
+``"off"`` form; it is apx's XLA form, plain PyTorch on the card too, and
+``"auto"`` resolves to ``"off"`` as in apx.
 
 The unique-target sampler (the image localization envs' explicit reset)
 ranks a grid of candidate positions by how unlike their glimpses are to
@@ -25,13 +37,24 @@ every other candidate's: the uniqueness of candidate i is
 ``min over j != i of mse(glimpse_i, glimpse_j)``, from a Gram product
 ``(|a|^2 + |b|^2 - 2 a.b) / d`` in row blocks of 128, and the target is a
 uniform pick among the ``unique_sampling_top_k`` most unique, jittered by
-up to one grid cell. The candidate glimpses come from apx's cartesian
-factorization (the row product once per candidate row, reused across the
-columns). The products are library matmuls, as in apx (plain ``jnp``
-there, outside any Pallas kernel), in full float32: TF32 is switched off
-inside the sweep. apx's ``glimpse_precision`` is a TPU MXU setting and a
-no-op on its CPU; the port accepts its values and computes in float32 for
-all of them.
+up to one grid cell. apx's ``unique_sampling_backend`` picks how the
+scores are computed:
+
+* ``"cartesian"`` (``"auto"``): the candidate glimpses from apx's cartesian
+  factorization (the row product once per candidate row, reused across
+  the columns), all P at once, then the Gram rows;
+* ``"chunked"``: each candidate's glimpse through K3, 27 candidates per
+  launch (the image read through K3's index), then the Gram rows;
+* ``"streamed"``: no (N, P, d) buffer: the column blocks of the cartesian
+  factors are recomputed per pair of grid columns, with a running min over
+  the (c1, c1) Gram blocks; memory is the (N, c1, s0, C, W) intermediate
+  and two (N, c1, d) blocks (apx's route to TinyImageNetLoc at N=16384).
+
+The products are library matmuls, as in apx (plain ``jnp`` there,
+outside any Pallas kernel), in full float32: TF32 is switched off inside
+the sweep. apx's ``glimpse_precision`` is a TPU MXU setting and a no-op on
+its CPU; the port accepts its values and computes in float32 for all of
+them.
 """
 
 from __future__ import annotations
@@ -45,12 +68,17 @@ import torch
 
 from ..core.numerics import fma, matmul_tf32, time_obs
 from ..core.spaces import Box, DictSpace, Discrete, Image
-from ..data.dataset import ImageDataset
+from ..data.dataset import ImageDataset, unpack_rows
 from ..ops.geometry import norm2, project_sphere
-from ..ops.glimpse import interp_weights, sensor_pos_lim_pixels
+from ..ops.glimpse import extract_glimpse_batch, interp_weights, sensor_pos_lim_pixels
 from ..ops.glimpse_cuda import glimpse
 
-__all__ = ["ImagePerceptionParams", "ImagePerceptionState", "ImagePerceptionEngine"]
+__all__ = ["ImagePerceptionParams", "ImagePerceptionState", "ImagePerceptionEngine",
+           "IMAGE_STORAGES", "SAMPLERS"]
+
+IMAGE_STORAGES = ("auto", "array", "packed", "flat", "gather")
+SAMPLERS = ("auto", "cartesian", "chunked", "streamed")
+CHUNK = 27  # candidates per chunk of the "chunked" sampler (apx's)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -76,13 +104,7 @@ class ImagePerceptionParams:
     render_visited_opacity: float = 0.3
 
     def __post_init__(self):
-        if self.unique_sampling_backend in ("chunked", "streamed"):
-            raise NotImplementedError(
-                f"unique_sampling_backend={self.unique_sampling_backend!r} is not ported; "
-                "apx pins it to the cartesian sweep and keeps it as an A/B surface "
-                "(ROADMAP.md, queue 1)"
-            )
-        if self.unique_sampling_backend not in ("auto", "cartesian"):
+        if self.unique_sampling_backend not in SAMPLERS:
             raise ValueError(
                 f"unknown unique_sampling_backend {self.unique_sampling_backend!r}; "
                 "expected 'auto', 'cartesian', 'chunked' or 'streamed'"
@@ -92,16 +114,10 @@ class ImagePerceptionParams:
                 f"unknown glimpse_precision {self.glimpse_precision!r}; "
                 "expected 'default', 'high' or 'highest'"
             )
-        if self.glimpse_window not in ("auto", "off"):
-            raise NotImplementedError(
-                f"glimpse_window={self.glimpse_window!r} is not ported; apx pins 'rows' "
-                "bitwise-equal to 'off' and keeps it as an A/B surface (ROADMAP.md, queue 1)"
-            )
-        if self.image_storage not in ("auto", "array"):
-            raise NotImplementedError(
-                f"image_storage={self.image_storage!r} is not ported; the state carries "
-                "the image as an array, apx's default (ROADMAP.md, queue 1)"
-            )
+        if self.glimpse_window not in ("auto", "off", "rows"):
+            raise ValueError(f"unknown glimpse_window {self.glimpse_window!r}; "
+                             "expected 'auto', 'off' or 'rows'")
+        ImagePerceptionEngine.storage(self)  # raises apx's ValueError on a bad mode
 
     @property
     def device(self) -> torch.device:
@@ -115,7 +131,11 @@ class ImagePerceptionParams:
 
 @dataclasses.dataclass
 class ImagePerceptionState:
-    image: torch.Tensor  # (N, H, W, C) uint8 or float32, the episode's image
+    # The episode's image in the form of params.image_storage: (N, H, W, C)
+    # ("array"), (N, R) int32 words ("packed"), (N, H*W*C) ("flat") or an
+    # (N, 0) placeholder ("gather"); ImagePerceptionEngine.image_raw gives
+    # the logical image.
+    image: torch.Tensor
     label: torch.Tensor  # (N,) int64
     data_index: torch.Tensor  # (N,) int64
     pos: torch.Tensor  # (N, 2) float32 normalized (x, y)
@@ -148,6 +168,74 @@ class ImagePerceptionEngine:
         return Box(low=-1.0, high=1.0, shape=(2,))
 
     @staticmethod
+    def storage(params: ImagePerceptionParams) -> str:
+        """The resolved ``image_storage`` mode: "array" for "auto"."""
+        mode = params.image_storage
+        if mode not in IMAGE_STORAGES:
+            raise ValueError(f"unknown image_storage {mode!r}; "
+                             "expected 'auto', 'packed', 'array', 'flat' or 'gather'")
+        if mode == "packed" and params.dataset.stored_packed_shape is None:
+            raise ValueError("image_storage='packed' requires an int32-packed bank")
+        return "array" if mode == "auto" else mode
+
+    @staticmethod
+    def resolved_glimpse_window(params: ImagePerceptionParams) -> str:
+        """``glimpse_window`` with "auto" resolved to "off", as in apx."""
+        return "off" if params.glimpse_window == "auto" else params.glimpse_window
+
+    @staticmethod
+    def fetch_state_image(idx: torch.Tensor,
+                          params: ImagePerceptionParams) -> tuple[torch.Tensor, torch.Tensor]:
+        """(image-state leaf, label) of dataset indices ``idx`` (N,), in the
+        form the resolved storage mode carries."""
+        mode = ImagePerceptionEngine.storage(params)
+        ds = params.dataset
+        if mode == "gather":
+            return torch.zeros((idx.shape[0], 0), dtype=torch.uint8, device=idx.device), \
+                ds.fetch_label(idx)
+        if mode == "packed":
+            return ds.fetch_stored(idx)
+        img, label = ds.fetch_raw(idx)
+        if mode == "flat":
+            img = img.reshape(img.shape[0], -1)
+        return img, label
+
+    @staticmethod
+    def image_raw(state: ImagePerceptionState, params: ImagePerceptionParams) -> torch.Tensor:
+        """The logical (N, H, W, C) image in the bank's dtype, whatever the
+        storage mode."""
+        mode = ImagePerceptionEngine.storage(params)
+        shape = tuple(params.dataset.image_shape)
+        if mode == "gather":
+            return params.dataset.fetch_raw(state.data_index)[0]
+        if mode == "packed":
+            return unpack_rows(state.image, shape)
+        if mode == "flat":
+            return state.image.reshape(state.image.shape[0], *shape)
+        return state.image
+
+    @staticmethod
+    def glimpse_source(state: ImagePerceptionState,
+                       params: ImagePerceptionParams) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """What K3 reads for the state's glimpses, with no copy: (images,
+        None) with images (N, H, W, C), or (bank images (D, H, W, C),
+        data_index) under "gather". A packed row's words are viewed as their
+        bytes, which are the unpacked image's."""
+        mode = ImagePerceptionEngine.storage(params)
+        shape = tuple(params.dataset.image_shape)
+        n = state.pos.shape[0]
+        if mode == "gather":
+            bank = params.dataset.glimpse_images()
+            if bank is None:  # a procedural dataset: synthesize the rows
+                return params.dataset.fetch_raw(state.data_index)[0], None
+            return bank, state.data_index
+        if mode == "packed":
+            return state.image.view(torch.uint8).reshape(n, *shape), None
+        if mode == "flat":
+            return state.image.reshape(n, *shape), None
+        return state.image, None
+
+    @staticmethod
     def draw_reset(num_envs: int, params: ImagePerceptionParams,
                    generator: torch.Generator) -> dict[str, torch.Tensor]:
         """index ~ U[0, D), inverted ~ Bernoulli(1/2) when labels are
@@ -167,7 +255,7 @@ class ImagePerceptionEngine:
                          params: ImagePerceptionParams) -> ImagePerceptionState:
         dev = params.device
         idx = torch.as_tensor(draws["index"], device=dev).to(torch.int64)
-        image, label = params.dataset.fetch_raw(idx)
+        image, label = ImagePerceptionEngine.fetch_state_image(idx, params)
         inverted = torch.as_tensor(draws["inverted"], device=dev).to(torch.bool)
         if params.randomly_invert_labels:
             label = torch.where(inverted, params.dataset.num_classes - label - 1, label)
@@ -194,9 +282,21 @@ class ImagePerceptionEngine:
         return dataclasses.replace(state, pos=pos, time=time), base_reward, terminated
 
     @staticmethod
+    def glimpses(images: torch.Tensor, pos: torch.Tensor, params: ImagePerceptionParams,
+                 index: torch.Tensor | None = None) -> torch.Tensor:
+        """(N, s0, s1, C) glimpses at ``pos`` (N, 2) of ``images`` (or of
+        ``images[index]``): K3, or under ``glimpse_window="rows"`` apx's row
+        band, plain PyTorch on every device."""
+        if ImagePerceptionEngine.resolved_glimpse_window(params) == "rows":
+            return extract_glimpse_batch(images if index is None else images[index], pos,
+                                         params.sensor_size, params.sensor_scale, window="rows")
+        return glimpse(images, pos, params.sensor_size, params.sensor_scale, index=index)
+
+    @staticmethod
     def get_glimpse(state: ImagePerceptionState, pos: torch.Tensor,
                     params: ImagePerceptionParams) -> torch.Tensor:
-        return glimpse(state.image, pos, params.sensor_size, params.sensor_scale)
+        images, index = ImagePerceptionEngine.glimpse_source(state, params)
+        return ImagePerceptionEngine.glimpses(images, pos, params, index)
 
     @staticmethod
     def observe(state: ImagePerceptionState, params: ImagePerceptionParams) -> dict[str, torch.Tensor]:
@@ -321,12 +421,81 @@ class ImagePerceptionEngine:
         return out
 
     @staticmethod
+    def _candidate_flat_chunked(image: torch.Tensor,
+                                params: ImagePerceptionParams) -> torch.Tensor:
+        """(N, P, d) candidate glimpses, each extracted on its own (apx's
+        per-candidate form), CHUNK candidates of every env per K3 launch:
+        the launch reads image n for its glimpses n * CHUNK + c through K3's
+        index, so no image is copied."""
+        n = image.shape[0]
+        candidates, _ = ImagePerceptionEngine.candidate_grid(params)
+        p = candidates.shape[0]
+        index = torch.arange(n, device=image.device).repeat_interleave(CHUNK)
+        out = []
+        for c0 in range(0, p, CHUNK):
+            cand = candidates[c0:c0 + CHUNK]
+            k = cand.shape[0]
+            idx = index if k == CHUNK else torch.arange(n, device=image.device).repeat_interleave(k)
+            g = ImagePerceptionEngine.glimpses(image, cand.repeat(n, 1), params, idx)
+            out.append(g.reshape(n, k, -1))
+        return torch.cat(out, dim=1)
+
+    @staticmethod
+    def _unique_scores_streamed(image: torch.Tensor,
+                                params: ImagePerceptionParams) -> torch.Tensor:
+        """(N, P) uniqueness without the (N, P, d) candidate buffer: the
+        column block of grid column i, (N, c1, d) glimpses, is recomputed
+        from the cartesian factors whenever it is needed, and a running min
+        is kept over the (c1, c1) Gram blocks of every pair of columns (i,
+        j), the diagonal masked only where i == j. The factors are kept as
+        (N, c1, s0, C, W), so a column block is one product over W into
+        (s0, C, s1) order: the Gram sums run over the same d terms as the
+        cartesian form's (s0, s1, C) order, summed in another order."""
+        n, h, w, c = image.shape
+        w_rows, w_cols = ImagePerceptionEngine._candidate_weights(params)
+        c1, s0 = w_rows.shape[:2]
+        c0, s1 = w_cols.shape[:2]
+        d = s0 * s1 * c
+        inv_d = float(np.float32(1.0) / np.float32(d))
+        img = image.to(torch.float32)
+        if image.dtype == torch.uint8:
+            img = img * float(np.float32(1.0) / np.float32(255.0))
+        img = img.permute(0, 1, 3, 2).reshape(n, h, c * w)  # (N, H, C W)
+        tmp = torch.matmul(w_rows.reshape(c1 * s0, h), img).reshape(-1, w)  # (N c1 s0 C, W)
+        del img
+
+        def block(i):
+            return torch.matmul(tmp, w_cols[i].T).reshape(n, c1, d).clamp_(0.0, 1.0)
+
+        sq = torch.stack([(b * b).sum(-1) for b in map(block, range(c0))], 1)  # (N, c0, c1)
+        eye = torch.eye(c1, dtype=torch.bool, device=image.device)
+        out = torch.empty((n, c0, c1), dtype=torch.float32, device=image.device)
+        for i in range(c0):
+            fb = block(i)
+            run = torch.full((n, c1), float("inf"), device=image.device)
+            for j in range(c0):
+                g = torch.matmul(fb, (fb if j == i else block(j)).transpose(1, 2))  # (N, c1, c1)
+                mse = sq[:, i, :, None] + sq[:, j, None, :]
+                mse.sub_(g.mul_(2.0)).mul_(inv_d)
+                if j == i:
+                    mse.masked_fill_(eye, float("inf"))
+                run = torch.minimum(run, mse.amin(-1))
+            out[:, i] = run
+        return out.reshape(n, c0 * c1)  # candidate_grid order k = i * c1 + j
+
+    @staticmethod
     def uniqueness(image: torch.Tensor, params: ImagePerceptionParams) -> torch.Tensor:
         """(N, P) uniqueness scores of the candidates of images (N, H, W, C),
-        computed in full float32 (TF32 off)."""
+        computed in full float32 (TF32 off), by the params' sampler."""
+        backend = params.unique_sampling_backend
         with matmul_tf32(False):
-            return ImagePerceptionEngine._min_pairwise_mse(
-                ImagePerceptionEngine._candidate_flat(image, params))
+            if backend == "streamed":
+                return ImagePerceptionEngine._unique_scores_streamed(image, params)
+            if backend == "chunked":
+                flat = ImagePerceptionEngine._candidate_flat_chunked(image, params)
+            else:
+                flat = ImagePerceptionEngine._candidate_flat(image, params)
+            return ImagePerceptionEngine._min_pairwise_mse(flat)
 
     @staticmethod
     def unique_target_top_k(image: torch.Tensor, params: ImagePerceptionParams) -> torch.Tensor:

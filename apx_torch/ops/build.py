@@ -64,7 +64,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in ("glimpse_f32_launch", "glimpse_u8_launch"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 6, ctypes.c_float, ctypes.c_float,
+        fn.argtypes = [ptr, ptr, ptr, ptr, *[ctypes.c_int] * 6, ctypes.c_float, ctypes.c_float,
                        ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     lib.window_launch.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 5, ptr]

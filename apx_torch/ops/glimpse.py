@@ -33,6 +33,7 @@ __all__ = [
     "interp_weights",
     "glimpse_coords",
     "extract_glimpse_batch",
+    "row_window",
     "PRECISIONS",
 ]
 
@@ -84,11 +85,27 @@ def interp_weights(coords: torch.Tensor, size: int) -> torch.Tensor:
 PRECISIONS = ("highest", "high", "default")
 
 
+def row_window(rows: torch.Tensor, h: int, sensor_rows: int,
+               sensor_scale: float) -> tuple[int, torch.Tensor]:
+    """apx's row band of ``window="rows"``: its height ``rwin = min(H,
+    ceil((s0 - 1) scale) + 2)`` and each glimpse's first row ``r0 =
+    clip(floor(min rows), 0, H - rwin)`` (N,) int64, for sample rows (N, s0)
+    already clipped to [0, H - 1]. Rows outside the band carry hat weight
+    exactly 0."""
+    rwin = min(h, int(np.ceil((sensor_rows - 1) * sensor_scale)) + 2)
+    r0 = torch.floor(rows.amin(dim=-1)).to(torch.int64).clamp(0, h - rwin)
+    return rwin, r0
+
+
 def extract_glimpse_batch(images: torch.Tensor, pos_norm: torch.Tensor,
                           sensor_size: tuple[int, int], sensor_scale: float = 1.0,
                           window: str = "off", precision: str | None = None) -> torch.Tensor:
     """(N, H, W, C) uint8 or float32 images, (N, 2) float32 positions ->
     (N, s0, s1, C) float32 glimpses in [0, 1].
+
+    ``window="rows"`` (apx's row band) runs the row product over the band
+    of ``row_window`` rows cut per glimpse instead of the whole image: the
+    rows left out carry hat weight 0, so the result is bitwise ``"off"``'s.
 
     ``precision`` is apx's matmul precision of the two products (its
     ``glimpse_precision``): ``None`` (the default) float32 products under
@@ -96,16 +113,20 @@ def extract_glimpse_batch(images: torch.Tensor, pos_norm: torch.Tensor,
     card), ``"high"`` TF32 on the card (on the CPU the same as
     ``"highest"``), ``"default"`` bfloat16 inputs to each product (its
     float32 sum rounded to bfloat16 by the product, then widened)."""
-    if window != "off":
-        raise NotImplementedError(
-            f"glimpse window={window!r} is not ported; apx pins its 'rows' window "
-            "bitwise-equal to 'off' and keeps it as an A/B surface (ROADMAP.md, queue 1)"
-        )
+    if window not in ("off", "rows"):
+        raise ValueError(f"glimpse window must be 'off' or 'rows', got {window!r}")
     if precision is not None and precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    _, h, w, _ = images.shape
+    n, h, w, _ = images.shape
     rows, cols = glimpse_coords(pos_norm, (h, w), tuple(sensor_size), sensor_scale)
-    w_rows = interp_weights(rows, h)  # (N, s0, H)
+    if window == "rows":
+        rows = rows.clamp(0.0, float(h - 1))
+        rwin, r0 = row_window(rows, h, sensor_size[0], sensor_scale)
+        band = r0[:, None] + torch.arange(rwin, device=images.device)
+        images = images[torch.arange(n, device=images.device)[:, None], band]  # (N, rwin, W, C)
+        w_rows = interp_weights(rows - r0[:, None].to(torch.float32), rwin)
+    else:
+        w_rows = interp_weights(rows, h)  # (N, s0, H)
     w_cols = interp_weights(cols, w)  # (N, s1, W)
     img = images.to(torch.float32)
     if images.dtype == torch.uint8:

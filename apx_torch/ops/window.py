@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["WIN_ROWS", "WIN", "window_starts", "extract_windows", "clamp_starts"]
+__all__ = ["WIN_ROWS", "WIN", "window_starts", "extract_windows", "clamp_starts", "cut_windows"]
 
 WIN_ROWS = 24  # an 8-aligned row start + the 16 needed rows fits any y0 % 8
 WIN = 16
@@ -64,23 +64,29 @@ def clamp_starts(starts: torch.Tensor, hp: int, wp: int, win: int) -> tuple[torc
             _dynamic_slice_start(starts[:, 1], hp, WIN_ROWS))
 
 
+def cut_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int, rows: int,
+                cols: int) -> torch.Tensor:
+    """(N, rows, cols) bool windows ``padded[n, y0:y0+rows, x0:x0+cols]`` of
+    ``padded = pad_occupancy(occ, pad)``, computed from occ (N, H, W) bool
+    without building the padded copy. starts (N, 2) = (x0, y0) are in padded
+    coordinates and are first brought into range against the padded
+    dimensions as ``jax.lax.dynamic_slice`` brings them; window cell (r, c)
+    is then ``occ[n, y0 + r - pad, x0 + c - pad]`` where that cell lies
+    inside the map, and False elsewhere."""
+    n, h, w = occ.shape
+    x0 = _dynamic_slice_start(starts[:, 0].to(torch.int64), w + 2 * pad, cols)
+    y0 = _dynamic_slice_start(starts[:, 1].to(torch.int64), h + 2 * pad, rows)
+    dev = occ.device
+    r = y0[:, None] + torch.arange(-pad, rows - pad, device=dev)  # (N, rows) map rows
+    c = x0[:, None] + torch.arange(-pad, cols - pad, device=dev)  # (N, cols) map columns
+    inside = ((r >= 0) & (r < h))[:, :, None] & ((c >= 0) & (c < w))[:, None, :]
+    env = torch.arange(n, device=dev)[:, None, None]
+    return occ[env, r.clamp(0, h - 1)[:, :, None], c.clamp(0, w - 1)[:, None, :]] & inside
+
+
 def extract_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int,
                     win: int = WIN) -> torch.Tensor:
     """(N, WIN_ROWS, win) uint8 windows ``padded[n, y0:y0+24, x0:x0+win]``
-    of ``padded = pad_occupancy(occ, pad)``, computed from occ (N, H, W)
-    bool without building the padded copy. starts (N, 2) int32 = (x0, y0)
-    are in padded coordinates and are first brought into range against the
-    padded dimensions (H + 2 pad, W + 2 pad) as ``jax.lax.dynamic_slice``
-    brings them (``clamp_starts``); window cell (r, c) is then
-    ``occ[n, y0 + r - pad, x0 + c - pad]`` where that cell lies inside the
-    map, and 0 elsewhere."""
-    n, h, w = occ.shape
-    x0, y0 = clamp_starts(starts.to(torch.int64), h + 2 * pad, w + 2 * pad, win)
-    dev = occ.device
-    rows = y0[:, None] + torch.arange(-pad, WIN_ROWS - pad, device=dev)  # (N, 24) map rows
-    cols = x0[:, None] + torch.arange(-pad, win - pad, device=dev)  # (N, win) map columns
-    inside = (((rows >= 0) & (rows < h))[:, :, None]
-              & ((cols >= 0) & (cols < w))[:, None, :])
-    env = torch.arange(n, device=dev)[:, None, None]
-    cells = occ[env, rows.clamp(0, h - 1)[:, :, None], cols.clamp(0, w - 1)[:, None, :]]
-    return (cells & inside).to(torch.uint8)
+    of ``padded = pad_occupancy(occ, pad)`` (``cut_windows``, the starts
+    clamped against (H + 2 pad, W + 2 pad) as ``clamp_starts`` does)."""
+    return cut_windows(occ, starts, pad, WIN_ROWS, win).to(torch.uint8)

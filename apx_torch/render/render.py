@@ -400,13 +400,14 @@ def render_env(base_env, state, params, tracker: RenderTracker | None = None):
     from ..compat.builders import unwrap_state
     from ..envs.image_classification import ImageClassificationEnv
     from ..envs.image_localization import ImageLocalizationEnv
+    from ..envs.image_perception import ImagePerceptionEngine
     from ..envs.lidar_localization import LIDARLocalizationEnv
     from ..envs.light_dark import LightDarkEnv
 
     s = unwrap_state(state)
 
     if isinstance(base_env, ImageClassificationEnv):
-        img, pos = _env0(s.image), _env0(s.pos)
+        img, pos = _env0(ImagePerceptionEngine.image_raw(s, params)), _env0(s.pos)
         if img.dtype == np.uint8:
             img = img.astype(np.float32) / 255.0
         return render_image_perception(
@@ -416,7 +417,8 @@ def render_env(base_env, state, params, tracker: RenderTracker | None = None):
             unvisited_opacity=params.render_unvisited_opacity,
         )
     if isinstance(base_env, ImageLocalizationEnv):
-        img, pos = _env0(s.perception.image), _env0(s.perception.pos)
+        img = _env0(ImagePerceptionEngine.image_raw(s.perception, params))
+        pos = _env0(s.perception.pos)
         target = _env0(s.target)
         if img.dtype == np.uint8:
             img = img.astype(np.float32) / 255.0

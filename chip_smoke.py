@@ -194,6 +194,42 @@ Phases, one line each; any failure exits non-zero:
     holds CUPTI's host cost on the first traced graph launch).
 29. one line naming the parts that need gymnasium, pillow or imageio
     (absent here) and the CPU test files that cover them.
+30. K1 on the window-frame backends' windows at N = 4096 (the casts of
+    phase 3): ``"windowed"``'s 18x18 (scans) and 6x6 (moves) windows and
+    ``"mxu_window"``'s 16x16 ones, bitwise the plain form; device, plain
+    and bound ms of each. Device ms of ``bitslab2d``'s plain pieces: its
+    bit window and its three rho-sliced lattice casts.
+31. raycast backends: ``LIDARLocRooms-v0`` at N = 4096 under each of
+    ``bitslab2d``, ``bitslab``, ``windowed``, ``hybrid``, ``mxu_window``,
+    ``pallas``, ``xla``, ``bitslab2d`` with ``beam_rects="on"`` and the beam
+    tables, reset and 50 steps (lidar in [0, 1], rewards in [-2.9, 0.1], K1
+    launched as ``backend_launches`` says: 3 fast per step and 1 typed at
+    the reset and per step; no fast cast under the bit windows, 2 under the
+    tables, the reset scans fast under ``pallas``); card vs CPU at N = 256
+    for 30 steps, bitwise; the graph ms per step against the default in one
+    process (``bench.bench_ab``, 128 steps, default, variant, variant,
+    default); ``bench.profile`` of ``bitslab2d``.
+32. samplers: ``TinyImageNetLoc-v0``'s explicit reset with
+    ``"streamed"`` at N = 16384 (ms and peak memory; the card's scores
+    against the CPU's on every 1024th env within 3e-6), with
+    ``"streamed"``, ``"chunked"`` (K3 launched 27 + 2 times) and the
+    cartesian sweep at N = 4096, and the cartesian sweep at N = 16384 (or
+    a line saying it does not fit).
+33. image storage: ``tin_loc`` (100,000 images) at N = 4096 under
+    ``image_storage`` ``"packed"``, ``"flat"``, ``"gather"`` and under
+    ``glimpse_window="rows"``, 20 steps from the ``"array"`` run's draws:
+    obs and rewards bitwise (the row window's glimpses bitwise the plain
+    ``"off"`` form and within 1e-6 of K3's), K3 launched as under
+    ``"array"`` (2 at the reset, 3 per step; none under the row window);
+    graph ms per step of each against ``"array"`` / ``"off"`` in one
+    process; K3 by index over the 1.23 GB bank, K3 on the gathered rows and
+    the row gather itself.
+34. sharded bank: ``selftest --shard-bank`` on two gloo ranks on cuda:0 for
+    ``LIDARLocRooms-v0`` (N = 4096, 30 steps) and the episodic
+    ``CircleSquare-v0`` (34 steps), at once: each rank's block bitwise the
+    replicated solo run's, each rank holding only its bank block, the
+    bytes per step of its fetches; ``bench --distributed --shard-bank``
+    (eager ms per step replicated and sharded, interleaved).
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
@@ -204,7 +240,10 @@ and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 ``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
 on phases 18-19, set to 0 in the worker just before its sharded rollout;
 their ``"compat"`` entries are the counts on each phase-24 path; K3's
-``"glimpse_study"`` entry its launches in phase 27 (set to 0 just before).
+``"glimpse_study"`` entry its launches in phase 27 (set to 0 just before);
+K1's ``"backends"`` its launches on each phase-31 path, K3's ``"chunked"``
+and ``"storage"`` entries its launches on the phase-32 chunked reset and
+on each phase-33 path (each set to 0 just before).
 Every process it starts is killed at PHASE_TIMEOUT_S. It needs CUDA and
 the apx_torch package beside it, and exits non-zero without them.
 """
@@ -860,7 +899,7 @@ STATS_TOL = 1e-6  # float stats: softmax, and sums over the ring
 
 
 def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: bool = False,
-                      start_from_cpu: bool = False, **overrides) -> dict:
+                      start_from_cpu: bool = False, build=None, **overrides) -> dict:
     """One trajectory of ``env_id`` (with parameter ``overrides``) on the
     card and on the CPU from the same actions, predictions and injected
     step and reset draws, drawn on the CPU in the vector step's order.
@@ -870,14 +909,16 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
     absolute tolerance; every other leaf of the obs, states, rewards and
     dones must be bitwise equal. With ``metrics``, ``info["stats"]`` and
     the metrics buffers are compared too: ints, bools and NaN positions
-    bitwise, floats within ``STATS_TOL``."""
+    bitwise, floats within ``STATS_TOL``. ``build(n, device)``, where
+    given, makes the vector env and params instead of ``make_vec``."""
     import apx_torch
     from apx_torch.core.env import tree_map
     from apx_torch.core.spaces import Logit
     from apx_torch.wrappers.metrics import MetricsState
 
     devices = (torch.device("cpu"), dev)
-    runs = [apx_torch.make_vec(env_id, num_envs=n, device=d, metrics=metrics, **overrides)
+    runs = [build(n, d) if build is not None else
+            apx_torch.make_vec(env_id, num_envs=n, device=d, metrics=metrics, **overrides)
             for d in devices]
     cpu_venv, cpu_params = runs[0]
     gen = torch.Generator().manual_seed(7)
@@ -1151,6 +1192,21 @@ def phase_tin_loc_main_path(dev) -> dict:
             "launches": launches}
 
 
+def ranking_gap(u_ref: np.ndarray, u_got: np.ndarray) -> float | None:
+    """The smallest gap between distinct ``u_ref`` scores among its first
+    TOP_K + 1 when those scores decide the top-k of ``u_got`` too (every
+    such gap wider than 2 SCORE_TOL, no exact tie across the k-th place,
+    ``u_ref``'s exact ties within the top k exact in ``u_got``), else None."""
+    order = np.argsort(-u_ref, kind="stable")[:TOP_K + 1]
+    srt = u_ref[order]
+    gaps = srt[:-1] - srt[1:]
+    ties_hold = gaps[-1] > 0 and all(u_got[order[j]] == u_got[order[j + 1]]
+                                     for j in np.flatnonzero(gaps == 0))
+    if not ties_hold or gaps[gaps > 0].min() <= 2 * SCORE_TOL:
+        return None
+    return float(gaps[gaps > 0].min())
+
+
 def phase_sweep_card_vs_cpu(dev, n: int = 64) -> dict:
     """The unique-target sweep of ``TinyImageNetLoc-v0`` on the card and on
     the CPU from the same injected reset draws: scores within SCORE_TOL;
@@ -1177,14 +1233,9 @@ def phase_sweep_card_vs_cpu(dev, n: int = 64) -> dict:
     top_dev = engine.unique_target_top_k(images.to(dev), dev_params).cpu().numpy()
     compared, low = 0, float("inf")
     for i in range(n):
-        order = np.argsort(-u_cpu[i], kind="stable")[:TOP_K + 1]
-        srt = u_cpu[i][order]
-        gaps = srt[:-1] - srt[1:]
-        ties_hold = gaps[-1] > 0 and all(u_dev[i][order[j]] == u_dev[i][order[j + 1]]
-                                         for j in np.flatnonzero(gaps == 0))
-        if not ties_hold or gaps[gaps > 0].min() <= 2 * SCORE_TOL:
+        gap = ranking_gap(u_cpu[i], u_dev[i])
+        if gap is None:
             continue
-        gap = float(gaps[gaps > 0].min())
         compared += 1
         low = min(low, gap)
         check(np.array_equal(top_cpu[i], top_dev[i]), f"top-k of env {i} differs card vs cpu")
@@ -1723,6 +1774,422 @@ def phase_glimpse_study(dev) -> dict:
     return res
 
 
+# ---- apx's A/B surfaces ---------------------------------------------------------
+
+BACKEND_STEPS = 50  # masked-merge steps of each raycast backend's main path
+BACKEND_CPU_STEPS = 30  # card vs CPU steps per backend, N = 256
+AB_STEPS = 128  # graph steps per A/B run (default, variant, variant, default)
+LIDAR_CONFIGS = {
+    **{b: {"raycast_backend": b} for b in ("bitslab2d", "bitslab", "windowed", "hybrid",
+                                           "mxu_window", "pallas", "xla")},
+    "beam_rects": {"raycast_backend": "bitslab2d", "beam_rects": "on"},
+    "beam_tables": {"use_beam_tables": True},
+}
+
+
+def backend_launches(name: str, steps: int) -> dict:
+    """K1 launches of a LIDAR path of ``steps`` masked-merge steps from its
+    reset, under one of LIDAR_CONFIGS: the typed reset scan once at the
+    reset and once per step (the merge's reset runs for every env), and 3
+    fast casts per step; none under the bit windows (plain PyTorch), 2 under
+    the beam tables (the scan is a lookup); under "pallas" every reset scan
+    is fast too."""
+    if name in ("bitslab2d", "bitslab", "beam_rects"):
+        return {"raycast_fast": 0, "raycast_typed": 1 + steps}
+    if name == "beam_tables":
+        return {"raycast_fast": 2 * steps, "raycast_typed": 1 + steps}
+    if name == "pallas":
+        return {"raycast_fast": 3 * steps + 1 + steps, "raycast_typed": 0}
+    return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+
+
+def _lidar_build(config: dict):
+    """``build(n, device)`` of LIDARLocRooms-v0 under ``config`` (with the
+    bank's beam tables under ``use_beam_tables``)."""
+    from apx_torch.bench import _registered
+
+    return lambda n, dev: _registered("LIDARLocRooms-v0")(n, dev, **config)
+
+
+def phase_backend_kernels(dev) -> dict:
+    """K1 on the windows of the window-frame backends, at N = 4096 on rooms
+    maps with the step's casts (``kernel_inputs``): ``"windowed"``'s
+    (2r + 2)^2 windows around each cast's origin (18x18 for the beam and
+    reset scans, 6x6 for the moves) and ``"mxu_window"``'s 16x16 one-hot
+    windows around the pre-move position, bitwise the plain form in the
+    window frame; device ms, plain ms and bound of each. Then the pieces of
+    ``bitslab2d``'s step, plain PyTorch: its bit window and its three
+    lattice casts, device ms each."""
+    from apx_torch.data.floor_map import make_rooms_bank
+    from apx_torch.ops import raycast_cuda
+    from apx_torch.ops.raycast import (bitslab_window_2d, extract_window_mxu,
+                                       raycast_grid, raycast_grid_bitslab2d, seg_length,
+                                       windowed_window)
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    bank = make_rooms_bank(256, device=dev)
+    out: dict = {}
+    for name, cases in kernel_inputs(bank, gen, dev).items():
+        kernel = getattr(raycast_cuda, name)
+        typed = name == "raycast_typed"
+        for occ, origin, targets in cases:
+            r = targets.shape[1]
+            forms = {"windowed": windowed_window(occ, origin, 8 if r == 8 else 2, 8),
+                     "mxu": extract_window_mxu(occ, 8, origin)}
+            for form, (win, base) in forms.items():
+                o, t = origin - base, targets - base[:, None]
+                seg = seg_length(t - o[:, None])
+                got = kernel(win, o, t, seg)
+                want = raycast_grid(win, o, t, seg, geos_typing=typed)[0]
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                      f"{name} on {form} windows, R={r}: not bitwise equal (max |diff| {err})")
+                b_ms, b_by = bound(name, win, o, t)
+                out.setdefault(name, {}).setdefault(form, {})[r] = {
+                    "ms": device_ms(lambda: kernel(win, o, t, seg), 50),
+                    "plain_ms": device_ms(
+                        lambda: raycast_grid(win, o, t, seg, geos_typing=typed), 4),
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                    "shape": "x".join(map(str, win.shape[1:]))}
+    # bitslab2d's step pieces: the window from the row halves, then the
+    # move (rho 2: 6x6), the slide (rho 2) and the beams (rho 6: 14x14).
+    occ, origin, _ = kernel_inputs(bank, gen, dev)["raycast_fast"][0]
+    bank_pos = torch.randint(0, bank.num_maps, (N,), generator=gen, device=dev)
+    halves = bank.fetch_halves(bank_pos)
+    base = torch.floor(origin) - 7
+    win = bitslab_window_2d(halves, base[:, 0], base[:, 1], 32)
+    casts = {f"R={t.shape[1]}": (t, rho) for (_, _, t), rho in
+             zip(kernel_inputs(bank, gen, dev)["raycast_fast"], (2, 2, 6))}
+    pieces = {"window_ms": device_ms(
+        lambda: bitslab_window_2d(halves, base[:, 0], base[:, 1], 32), 20)}
+    for key, (targets, rho) in casts.items():
+        lo, hi = 7 - rho - 1, 7 + rho + 1
+        sub, bx, by = win[:, lo:hi, lo:hi], base[:, 0] + lo, base[:, 1] + lo
+        pieces[f"lattice_{key}_ms"] = device_ms(
+            lambda: raycast_grid_bitslab2d(sub, bx, by, origin, targets), 10)
+    out["bitslab2d_pieces"] = pieces
+    return out
+
+
+def phase_backend_path(dev, name: str, config: dict) -> dict:
+    """LIDARLocRooms-v0 at N = 4096 under one of LIDAR_CONFIGS: the reset and
+    BACKEND_STEPS steps of uniform actions with zero predictions, every obs
+    finite, lidar in [0, 1], rewards in [-2.9, 0.1], and the K1 launches of
+    ``backend_launches``, counted from 0 over the path."""
+    venv, params = _lidar_build(config)(N, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    zero_pred = torch.zeros((N, 2), device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    r_lo = torch.full((), float("inf"), device=dev)
+    r_hi = torch.full((), -float("inf"), device=dev)
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    obs, state, _ = venv.reset(params, gen)
+    for _ in range(BACKEND_STEPS):
+        act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+        obs, state, reward, *_ = venv.step(state, {"action": act, "prediction": zero_pred},
+                                           params, gen)
+        for leaf in obs.values():
+            ok &= torch.isfinite(leaf).all()
+        ok &= ((obs["lidar"] >= 0) & (obs["lidar"] <= 1)).all()
+        r_lo = torch.minimum(r_lo, reward.min())
+        r_hi = torch.maximum(r_hi, reward.max())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launch_counts()
+    check(bool(ok), f"{name}: non-finite obs or lidar outside [0, 1]")
+    check(-2.9 <= float(r_lo) and float(r_hi) <= 0.1,
+          f"{name}: rewards outside [-2.9, 0.1]: [{float(r_lo)}, {float(r_hi)}]")
+    want = backend_launches(name, BACKEND_STEPS)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{name} path launches {got}, expected {want}")
+    return {"backend": name, "config": config, "steps": BACKEND_STEPS,
+            "eager_ms_per_step": 1e3 * dt / BACKEND_STEPS, "launches": got}
+
+
+def phase_raycast_backends(dev) -> dict:
+    """Every LIDAR config: its main path (``phase_backend_path``), its
+    card vs CPU trajectory at N = 256 (bitwise, BACKEND_CPU_STEPS steps),
+    the graph ms per step against the default in one process
+    (``bench.bench_ab``), and for bitslab2d the profiled busy time with its
+    pieces' share (``phase_backend_kernels``)."""
+    from apx_torch.bench import bench_ab, profile
+
+    res: dict = {"paths": {}, "card_vs_cpu": {}, "ab": {}}
+    for name, config in LIDAR_CONFIGS.items():
+        res["paths"][name] = phase_backend_path(dev, name, config)
+        cv = phase_card_vs_cpu(dev, "LIDARLocRooms-v0", 256, BACKEND_CPU_STEPS, {},
+                               build=_lidar_build(config))
+        res["card_vs_cpu"][name] = {"steps": cv["steps"], "bitwise": cv["bitwise"]}
+        ab = bench_ab("lidar_rooms", config, N, AB_STEPS)
+        res["ab"][name] = {k: ab[k] for k in ("default_graph_ms_per_step",
+                                              "variant_graph_ms_per_step",
+                                              "variant_over_default")}
+    prof = profile("lidar_rooms", N, overrides=LIDAR_CONFIGS["bitslab2d"])
+    res["bitslab2d_profile"] = {k: prof[k] for k in ("device_busy_ms_per_step",
+                                                     "kernel_launches_per_step",
+                                                     "device_idle_share", "float64_ms_per_step")}
+    return res
+
+
+SWEEP_N = 16384
+SWEEP_CPU_EVERY = 1024  # the streamed sweep's envs compared with the CPU
+
+
+def _sweep_reset(venv, params, draws) -> dict:
+    """One explicit reset from ``draws``: its ms and the peak of
+    ``max_memory_allocated`` above the start, and its K3 launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = venv.reset(params, draws=draws)
+    torch.cuda.synchronize()
+    return {"ms": 1e3 * (time.perf_counter() - t0),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_start_bytes": torch.cuda.max_memory_allocated() - start,
+            "glimpse_launches": all_launch_counts()["glimpse"]}, out
+
+
+def phase_samplers(dev) -> dict:
+    """TinyImageNetLoc-v0's explicit reset under the samplers: streamed at
+    N = 16384 (ms, peak memory; its scores against the CPU's on every
+    SWEEP_CPU_EVERY-th env, within SCORE_TOL, top-k equal where the gaps
+    decide), chunked and cartesian (and streamed) at N = 4096, cartesian at
+    N = 16384 where it fits in the card's memory. Each reset after a warmup
+    reset of its own; chunked launches K3 once per 27 candidates. At N =
+    4096 the chunked and streamed scores of one set of images are held to
+    the cartesian scores within SCORE_TOL, their top-k equal where the gaps
+    decide, and one chunk of K3 by index (4096 x 27 glimpses) to its plain
+    form on the same inputs within GLIMPSE_TOL."""
+    import apx_torch
+    from apx_torch.core.numerics import matmul_tf32
+    from apx_torch.envs.image_perception import CHUNK, ImagePerceptionEngine as engine
+    from apx_torch.ops.glimpse import extract_glimpse_batch
+    from apx_torch.ops.glimpse_cuda import glimpse
+
+    res: dict = {}
+    images_n, scores = None, {}  # the N = 4096 images and each sampler's scores of them
+    for backend, n in (("streamed", SWEEP_N), ("streamed", N), ("chunked", N), ("auto", N),
+                       ("auto", SWEEP_N)):
+        venv, params = apx_torch.make_vec("TinyImageNetLoc-v0", num_envs=n, device=dev,
+                                          unique_sampling_backend=backend)
+        draws = venv.env.draw_reset(n, params, torch.Generator(device=dev).manual_seed(n))
+        key = f"{'cartesian' if backend == 'auto' else backend}_n{n}"
+        try:
+            venv.reset(params, draws=draws)  # warmup
+            res[key], (_, state, _) = _sweep_reset(venv, params, draws)
+        except torch.cuda.OutOfMemoryError as e:
+            res[key] = {"fits": False, "error": str(e).splitlines()[0][:200]}
+            torch.cuda.empty_cache()
+            continue
+        want = 2 + (27 if backend == "chunked" else 0)
+        check(res[key]["glimpse_launches"] == want,
+              f"{key}: glimpse launched {res[key]['glimpse_launches']} times, not {want}")
+        if (backend, n) == ("streamed", SWEEP_N):
+            images = engine.image_raw(state.inner.perception, params)
+            u_dev = engine.uniqueness(images, params)[::SWEEP_CPU_EVERY].cpu().numpy()
+            cpu_params = apx_torch.make("TinyImageNetLoc-v0", device="cpu",
+                                        unique_sampling_backend="streamed")[1]
+            u_cpu = engine.uniqueness(images[::SWEEP_CPU_EVERY].cpu(), cpu_params).numpy()
+            err = float(np.abs(u_cpu - u_dev).max())
+            check(err <= SCORE_TOL, f"streamed scores card vs cpu: max |diff| {err}")
+            res[key]["cpu_envs_compared"] = int(u_cpu.shape[0])
+            res[key]["score_max_abs_err"] = err
+        if n == N:
+            if images_n is None:
+                images_n = engine.image_raw(state.inner.perception, params).clone()
+            scores[key] = engine.uniqueness(images_n, params).cpu().numpy()
+        if (backend, n) == ("chunked", N):  # one chunk of K3 by index against its plain form
+            cand = engine.candidate_grid(params)[0][:CHUNK].repeat(N, 1)
+            index = torch.arange(N, device=dev).repeat_interleave(CHUNK)
+            got = glimpse(images_n, cand, params.sensor_size, params.sensor_scale, index=index)
+            with matmul_tf32(False):
+                want = extract_glimpse_batch(images_n[index], cand, params.sensor_size,
+                                             params.sensor_scale)
+            err = (got - want).abs().max().item()
+            check(err <= GLIMPSE_TOL, f"chunked K3 by index vs plain: max |diff| {err}")
+            res[key]["k3_chunk_glimpses"] = int(index.shape[0])
+            res[key]["k3_chunk_max_abs_err"] = err
+            del got, want, cand, index
+        del venv, params, draws, state
+        torch.cuda.empty_cache()
+    ref = scores[f"cartesian_n{N}"]
+    for name in ("chunked", "streamed"):
+        u = scores[f"{name}_n{N}"]
+        err = float(np.abs(u - ref).max())
+        check(err <= SCORE_TOL, f"{name} vs cartesian scores at N={N}: max |diff| {err}")
+        top = np.argsort(-u, axis=-1, kind="stable")[:, :TOP_K]
+        top_ref = np.argsort(-ref, axis=-1, kind="stable")[:, :TOP_K]
+        decided = [i for i in range(N) if ranking_gap(ref[i], u[i]) is not None]
+        check(len(decided) > 0, f"{name} vs cartesian: no env's ranking was decided")
+        check(all(np.array_equal(top[i], top_ref[i]) for i in decided),
+              f"{name} vs cartesian: top-k differs where the gaps decide")
+        res[f"{name}_n{N}"]["vs_cartesian"] = {"score_max_abs_err": err,
+                                               "envs_topk_compared": len(decided)}
+    return res
+
+
+STORAGE_STEPS = 20
+
+
+def phase_image_storage(dev) -> dict:
+    """tin_loc (the 100,000-image bank) at N = 4096 under each storage mode
+    and the row window: STORAGE_STEPS masked-merge steps from the same draws
+    as the "array" run, bitwise equal to it (the row window's glimpses
+    bitwise the plain "off" form and within GLIMPSE_TOL of K3's), K3's
+    launches counted on each path; then the graph ms per step of each
+    against "array"/"off" in one process (``bench.bench_ab``). Then K3 and
+    the row gather over the 1.23 GB bank, larger than L2: K3 reading bank
+    rows through its index, K3 on the gathered rows, and the gather."""
+    from apx_torch.bench import _loop, bench_ab
+    from apx_torch.core.numerics import matmul_tf32
+    from apx_torch.envs.image_perception import ImagePerceptionEngine as engine
+    from apx_torch.ops.glimpse import extract_glimpse_batch
+    from apx_torch.ops.glimpse_cuda import glimpse
+
+    configs = {"packed": {"image_storage": "packed"}, "flat": {"image_storage": "flat"},
+               "gather": {"image_storage": "gather"}, "rows": {"glimpse_window": "rows"}}
+    res: dict = {"paths": {}, "ab": {}}
+    base_lp = _loop("tin_loc", N, dev)
+
+    def run(lp, draws, steps_draws):
+        """The path's reset and steps: (obs, reward, perception state) per
+        step, and K3's launches at the reset and over the steps."""
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        obs, state, _ = lp.venv.reset(lp.params, draws=draws)
+        at_reset = all_launch_counts()["glimpse"]
+        outs = []
+        for act, rd in steps_draws:
+            obs, state, reward, *_ = lp.venv.step(state, act, lp.params, reset_draws=rd)
+            outs.append((obs, reward, state.inner.perception))
+        torch.cuda.synchronize()
+        return outs, at_reset, all_launch_counts()["glimpse"] - at_reset
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    draws = base_lp.venv.env.draw_reset(N, base_lp.params, g)
+    steps_draws = [({"action": torch.rand((N, 2), generator=g, device=dev) * 2 - 1,
+                     "prediction": torch.zeros((N, 2), device=dev)},
+                    base_lp.venv.env.draw_reset(N, base_lp.params, g))
+                   for _ in range(STORAGE_STEPS)]
+    want, want_reset, want_steps = run(base_lp, draws, steps_draws)
+    check((want_reset, want_steps) == (2, 3 * STORAGE_STEPS),
+          f"array path: glimpse launched {want_reset} + {want_steps}")
+    res["paths"]["array"] = {"glimpse_launches": [want_reset, want_steps]}
+    for name, config in configs.items():
+        lp = _loop("tin_loc", N, dev, overrides=config)
+        got, at_reset, over_steps = run(lp, draws, steps_draws)
+        for t, ((o, r, p), (oa, ra, _)) in enumerate(zip(got, want)):
+            for k in o:
+                if name == "rows" and k in ("glimpse", "target_glimpse"):
+                    err = (o[k] - oa[k]).abs().max().item()
+                    check(err <= GLIMPSE_TOL, f"rows {k} vs K3: max |diff| {err}")
+                    if k == "glimpse":
+                        off = extract_glimpse_batch(engine.image_raw(p, lp.params), p.pos,
+                                                    (10, 10))
+                        check(torch.equal(o[k], off), "rows glimpse not bitwise the 'off' form")
+                else:
+                    check(torch.equal(o[k], oa[k]), f"{name} step {t} obs {k} differs from array")
+            check(torch.equal(r, ra), f"{name} step {t} reward differs from array")
+        expect = (0, 0) if name == "rows" else (want_reset, want_steps)
+        check((at_reset, over_steps) == expect,
+              f"{name}: glimpse launched {at_reset} + {over_steps}, expected {expect}")
+        res["paths"][name] = {"steps": STORAGE_STEPS, "glimpse_launches": [at_reset, over_steps]}
+        del got
+        ab = bench_ab("tin_loc", config, N, 170)
+        res["ab"][name] = {k: ab[k] for k in ("default_graph_ms_per_step",
+                                              "variant_graph_ms_per_step",
+                                              "variant_over_default")}
+    # K3 over a bank larger than L2 (the tin_loc bank, 1.23 GB of uint8).
+    bank = base_lp.params.dataset
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randint(0, bank.length, (N,), generator=g, device=dev)
+    pos = torch.rand((N, 2), generator=g, device=dev) * 2 - 1
+    rows = bank.images[idx]
+    got = glimpse(bank.images, pos, (10, 10), index=idx)
+    check(torch.equal(got, glimpse(rows, pos, (10, 10))), "K3 by index != K3 on gathered rows")
+    with matmul_tf32(False):
+        err = (got - extract_glimpse_batch(rows, pos, (10, 10))).abs().max().item()
+    check(err <= GLIMPSE_TOL, f"K3 by index over the bank vs plain: max |diff| {err}")
+    b_ms, b_by = glimpse_bound(rows, pos, (10, 10), 1.0)
+    res["bank_larger_than_l2"] = {
+        "bank_bytes": bank.images.numel(), "shape": f"N={N} of {bank.length} 64x64x3 u8, 10x10",
+        "k3_index_max_abs_err": err,
+        "k3_index_ms": device_ms(lambda: glimpse(bank.images, pos, (10, 10), index=idx), 50),
+        "k3_rows_ms": device_ms(lambda: glimpse(rows, pos, (10, 10)), 50),
+        "row_gather_ms": device_ms(lambda: bank.images[idx], 50),
+        "bound_ms": b_ms, "bound_by": b_by}
+    return res
+
+
+def phase_sharded_bank(dev) -> dict:
+    """The bank sharded over two gloo ranks on cuda:0 (``selftest
+    --shard-bank``, both pairs of ranks at once): LIDARLocRooms-v0 (N =
+    4096, 30 steps) and the episodic CircleSquare-v0 (its image bank; N =
+    4096, 34 steps): each rank's block
+    of the final state bitwise the replicated solo run's, each rank holding
+    only its block of every bank leaf (bitwise the whole bank's rows; the
+    card memory the sharding allocated, ``memory_allocated`` before and
+    after, is the block's), and the bytes per step its fetches moved. Then ``bench --distributed
+    --shard-bank`` over torchrun: the eager ms per step of each rank with
+    the bank replicated and sharded, interleaved in one pair of processes."""
+    res = {}
+    runs = (("LIDARLocRooms-v0", 30, None), ("CircleSquare-v0", 34, 16))
+    stores = [tempfile.mkdtemp(prefix="apx_store_") for _ in runs]
+    try:  # both pairs of ranks at once
+        outs = _spawn([[sys.executable, "-m", "apx_torch.distrib.selftest", "--rank", str(r),
+                        "--world", "2", "--init", f"file://{store}/store", "--backend", "gloo",
+                        "--device", "cuda:0", "--env", env_id, "--num-envs", str(N), "--steps",
+                        str(steps), "--shard-bank",
+                        *(["--episodic-period", str(period)] if period is not None else [])]
+                       for store, (env_id, steps, period) in zip(stores, runs) for r in range(2)],
+                      {})
+    finally:
+        for store in stores:
+            shutil.rmtree(store, ignore_errors=True)
+    for i, (env_id, steps, _) in enumerate(runs):
+        ranks = [_tagged(out, "SELFTEST ") for out in outs[2 * i:2 * i + 2]]
+        solo = ranks[0]["solo"]
+        for r, out in enumerate(ranks):
+            check(out["digest"] == solo["digests"][r],
+                  f"{env_id} sharded bank: rank {r}'s block is not bitwise the solo run's")
+            check(out["bank"]["digest"] == solo["bank_digests"][r],
+                  f"{env_id} sharded bank: rank {r} does not hold its block")
+            m = out["bank"]["num_rows"]
+            check(set(out["bank"]["leaf_rows"].values()) == {m // 2},
+                  f"{env_id} sharded bank: rank {r} holds {out['bank']['leaf_rows']} rows")
+            # What the shard allocated on the card: its block, not the bank
+            # (each allocation rounds up to 512 bytes).
+            b = out["bank"]
+            check(b["storage_bytes"] == b["leaf_bytes"] and 2 * b["leaf_bytes"]
+                  == b["whole_bank_bytes"], f"{env_id} sharded bank: rank {r} storage {b}")
+            added = b["device_bytes_added"]
+            check(added is not None and b["leaf_bytes"] <= added
+                  <= b["leaf_bytes"] + 512 * len(b["leaf_rows"]) < b["whole_bank_bytes"],
+                  f"{env_id} sharded bank: rank {r} allocated {added} bytes on the card for "
+                  f"a block of {b['leaf_bytes']} (whole bank {b['whole_bank_bytes']})")
+        res[env_id] = {"steps": steps, "num_envs": N, "bank_rows": ranks[0]["bank"]["num_rows"],
+                       "ranks": [{"ms_per_step": 1e3 * o["seconds"] / steps,
+                                  "bytes_per_step": o["bank"]["bytes_per_step"],
+                                  "device_bytes_added": o["bank"]["device_bytes_added"],
+                                  "block_bytes": o["bank"]["leaf_bytes"],
+                                  "whole_bank_bytes": o["bank"]["whole_bank_bytes"],
+                                  "launches": o["launches"]} for o in ranks],
+                       "solo_ms_per_step": 1e3 * solo["seconds"] / steps}
+    out = _spawn([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node=2", "-m", "apx_torch.bench", "--distributed", "--shard-bank",
+                   "--env", "lidar_rooms", "--backend", "gloo", "--device", "cuda:0",
+                   "--num-steps", "64"]], {})[0]
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"sharded-bank bench: {len(lines)} result lines")
+    res["bench"] = json.loads(lines[0])
+    return res
+
+
 def phase_parse_trace(dev) -> list[str]:
     """Phase 28: parse_trace on the eager and graph traces of the LIDAR
     loop. Returns the lines to print."""
@@ -1944,6 +2411,24 @@ def main() -> int:
                                                    for k in ("k3[u8]", "k3[f32]")}}
     for line in phase_parse_trace(dev):
         print(line, flush=True)
+
+    backend_kernels = phase_backend_kernels(dev)
+    print(f"kernels on the backends' windows: {json.dumps(backend_kernels)}", flush=True)
+    backends = phase_raycast_backends(dev)
+    print(f"raycast backends: {json.dumps(backends)}", flush=True)
+    for r in rows[:2]:
+        r["backends"] = {name: path["launches"][r["name"]]
+                         for name, path in backends["paths"].items()}
+        r["backend_windows"] = backend_kernels[r["name"]]
+    samplers = phase_samplers(dev)
+    print(f"samplers: {json.dumps(samplers)}", flush=True)
+    k3["chunked"] = {"launches": samplers[f"chunked_n{N}"]["glimpse_launches"],
+                     "path": f"TinyImageNetLoc-v0 explicit reset, N={N}: 27 chunks + obs + target"}
+    storage = phase_image_storage(dev)
+    print(f"image storage: {json.dumps(storage)}", flush=True)
+    k3["storage"] = {name: path["glimpse_launches"] for name, path in storage["paths"].items()}
+    k3["bank_larger_than_l2"] = storage["bank_larger_than_l2"]
+    print(f"sharded bank: {json.dumps(phase_sharded_bank(dev))}", flush=True)
     print("class layer: the gymnasium classes (gym_classes, gym_spaces, ap_gym_alias, the "
           "spaces of perception_module), render() frames (pillow) and the tools create_env_vid, "
           "create_gifs (imageio) and mk_env_doc (gymnasium) need packages absent here; "

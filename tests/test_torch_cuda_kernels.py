@@ -578,3 +578,161 @@ def test_native_bank_and_fetch_halves_on_card(dev, make_bank):
     idx = torch.randint(0, 64, (1000, 3), generator=torch.Generator().manual_seed(0))
     got = bank.fetch_halves(idx.to(dev))
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), cpu.fetch_halves(idx))
+
+
+# ---- K1 and K3 on the paths of apx's A/B surfaces -----------------------------
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("form,radius", [("windowed", 8), ("windowed", 2), ("mxu", None)])
+def test_kernel_on_backend_windows_bitwise_equal_to_plain(dev, form, radius, typed):
+    """K1 on the windows of ``"windowed"`` ((2r + 2)^2: 18x18 for the
+    scans, 6x6 for the moves) and of ``"mxu_window"`` (16x16), cut around
+    the casts of ``_casts`` and of ``chip_smoke.edge_casts`` on rooms maps,
+    in the window frame."""
+    from apx_torch.ops.raycast import extract_window_mxu, windowed_window
+
+    gen = torch.Generator(device=dev).manual_seed(20 + int(typed))
+    occ, origin, targets = _casts(make_rooms_bank(16, device=dev), 1000, gen, dev, typed)
+    rng = np.random.default_rng(21)
+    occ_np = edge_maps("rooms", EDGE_N, rng)
+    e_origin, e_targets = edge_casts(occ_np, 8, rng, typed)
+    cases = [(occ, origin, targets),
+             tuple(torch.from_numpy(x).to(dev) for x in (occ_np, e_origin, e_targets))]
+    for occ, origin, targets in cases:
+        if form == "windowed":
+            if radius == 2:  # the moves: segments of at most one cell per axis
+                targets = origin[:, None] + (targets - origin[:, None]).clamp(-1.0, 1.0)
+            reach = (targets - origin[:, None]).abs().amax((1, 2)) <= radius - 1
+            occ, origin, targets = occ[reach], origin[reach], targets[reach]
+            win, base = windowed_window(occ, origin, radius, 8)
+            assert win.shape[1:] == (2 * radius + 2, 2 * radius + 2)
+        else:
+            reach = (targets - origin[:, None]).abs().amax((1, 2)) <= 6
+            occ, origin, targets = occ[reach], origin[reach], targets[reach]
+            win, base = extract_window_mxu(occ, 8, origin)
+            assert win.shape[1:] == (16, 16)
+        o, t = origin - base, targets - base[:, None]
+        kernel = raycast_cuda.raycast_typed if typed else raycast_cuda.raycast_fast
+        got = kernel(win, o, t)
+        assert torch.equal(_bits(got), _bits(raycast_grid(win, o, t, geos_typing=typed)[0]))
+        assert got.shape[0] > 50
+
+
+@pytest.mark.parametrize("backend", ["bitslab2d", "bitslab", "windowed", "hybrid", "mxu_window",
+                                     "pallas", "xla"])
+def test_backend_env_on_card_matches_cpu(dev, backend):
+    """Each raycast backend's LIDARLocRooms-v0 trajectory on the card
+    bitwise the CPU's, and K1 launched where the backend runs it: under
+    ``"pallas"`` the reset scan too, untyped."""
+    import apx_torch
+    from apx_torch.core.env import tree_map
+
+    n = 64
+    runs = [apx_torch.make_vec("LIDARLocRooms-v0", n, device=d, raycast_backend=backend)
+            for d in ("cpu", dev)]
+    gen = torch.Generator().manual_seed(4)
+    draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
+    raycast_cuda.reset_launch_counts()
+    carry = [v.reset(p, draws={k: x.to(p.device) for k, x in draws.items()})[:2]
+             for v, p in runs]
+    reset = dict(raycast_cuda.LAUNCHES)
+    typed_at_reset = 0 if backend == "pallas" else 1
+    assert reset == {"raycast_fast": 1 - typed_at_reset, "raycast_typed": typed_at_reset}
+    for _ in range(40):
+        act = torch.rand((n, 2), generator=gen) * 2 - 1
+        draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
+        outs = []
+        for i, (v, p) in enumerate(runs):
+            o, s, r, *_ = v.step(carry[i][1], {"action": act.to(p.device),
+                                              "prediction": torch.zeros(n, 2, device=p.device)},
+                                 p, reset_draws={k: x.to(p.device) for k, x in draws.items()})
+            carry[i] = (o, s)
+            leaves = []
+            tree_map(lambda x: leaves.append(x.cpu()), (o, s, r))
+            outs.append(leaves)
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    fast = {"bitslab2d": 0, "bitslab": 0}.get(backend, 3 * 40 + (40 if backend == "pallas" else 0))
+    assert raycast_cuda.LAUNCHES["raycast_fast"] - reset["raycast_fast"] == fast
+
+
+@pytest.mark.parametrize("shape,sensor", [((64, 64, 3), (10, 10)), ((28, 28, 1), (5, 5))])
+def test_glimpse_index_matches_plain(dev, shape, sensor):
+    """K3 with its index: the chunked sampler's inputs (27 glimpses per
+    image) and a gather from a bank, within 1e-6 of the plain form and
+    bitwise K3 on the images copied out."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bank = torch.randint(0, 256, (300, *shape), generator=gen, device=dev, dtype=torch.uint8)
+    for index in (torch.arange(64, device=dev).repeat_interleave(27),
+                  torch.randint(0, 300, (4096,), generator=gen, device=dev)):
+        pos = torch.rand((index.shape[0], 2), generator=gen, device=dev) * 2 - 1
+        pos[:4] = torch.tensor([[1.0, 1.0], [-1.0, -1.0], [1.0, -1.0], [0.0, 0.0]], device=dev)
+        before = glimpse_cuda.LAUNCHES["glimpse"]
+        got = glimpse_cuda.glimpse(bank, pos, sensor, index=index)
+        assert glimpse_cuda.LAUNCHES["glimpse"] == before + 1
+        copied = glimpse_cuda.glimpse(bank[index], pos, sensor)
+        assert torch.equal(_bits(got), _bits(copied))
+        want = extract_glimpse_batch(bank[index], pos, sensor, precision="highest")
+        assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("mode", ["packed", "flat", "gather", "rows"])
+def test_image_storage_on_card_bitwise_array(dev, mode):
+    """TinyImageNetLoc-v0 at N=64 on the card under each storage mode
+    bitwise the "array" run on the card, from the same draws, K3 launched
+    as under "array". Under the row window (plain PyTorch, no K3) the
+    glimpses are bitwise the plain "off" form's and within 1e-6 of K3's,
+    every other leaf bitwise."""
+    import apx_torch
+    from apx_torch.envs.image_perception import ImagePerceptionEngine as engine
+
+    n = 64
+    kw = {"glimpse_window": "rows"} if mode == "rows" else {"image_storage": mode}
+    runs = [apx_torch.make_vec("TinyImageNetLoc-v0", n, device=dev, **k) for k in (kw, {})]
+    g = torch.Generator(device=dev).manual_seed(2)
+    draws = runs[1][0].env.draw_reset(n, runs[1][1], g)
+    launches = []
+    carry = []
+    for v, p in runs:
+        glimpse_cuda.reset_launch_counts()
+        carry.append(v.reset(p, draws=draws)[:2])
+        launches.append(glimpse_cuda.LAUNCHES["glimpse"])
+    for _ in range(20):
+        act = {"action": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
+               "prediction": torch.zeros((n, 2), device=dev)}
+        rd = runs[1][0].env.draw_reset(n, runs[1][1], g)
+        outs = [v.step(c[1], act, p, reset_draws=rd) for c, (v, p) in zip(carry, runs)]
+        carry = [o[:2] for o in outs]
+        for k in outs[0][0]:
+            a, b = outs[0][0][k], outs[1][0][k]
+            if mode == "rows" and k == "glimpse":
+                s = outs[0][1].inner.perception
+                off = extract_glimpse_batch(engine.image_raw(s, runs[0][1]), s.pos, (10, 10))
+                assert torch.equal(a, off) and (a - b).abs().max().item() <= 1e-6
+            elif mode == "rows" and k == "target_glimpse":
+                assert (a - b).abs().max().item() <= 1e-6
+            else:
+                assert torch.equal(a, b), k
+        assert torch.equal(outs[0][2], outs[1][2])
+    assert launches[1] == 2 and launches[0] == (0 if mode == "rows" else 2)
+
+
+def test_samplers_on_card_match_cpu(dev):
+    """The chunked (27 glimpses per K3 launch) and streamed samplers on the
+    card against the CPU's at TinyImageNet's geometry: scores within 3e-6."""
+    from apx_torch.data.huggingface import synthetic_image_bank
+    from apx_torch.envs.image_perception import ImagePerceptionEngine, ImagePerceptionParams
+
+    bank = synthetic_image_bank("zh-plus/tiny-imagenet", num_points=16, device="cpu")
+    card = synthetic_image_bank("zh-plus/tiny-imagenet", num_points=16, device=dev)
+    for backend in ("chunked", "streamed"):
+        p_cpu = ImagePerceptionParams(dataset=bank, sensor_size=(10, 10),
+                                      unique_sampling_backend=backend)
+        p_dev = ImagePerceptionParams(dataset=card, sensor_size=(10, 10),
+                                      unique_sampling_backend=backend)
+        before = glimpse_cuda.LAUNCHES["glimpse"]
+        u_dev = ImagePerceptionEngine.uniqueness(card.images, p_dev)
+        launched = glimpse_cuda.LAUNCHES["glimpse"] - before
+        assert launched == (27 if backend == "chunked" else 0)
+        u_cpu = ImagePerceptionEngine.uniqueness(bank.images, p_cpu)
+        assert (u_dev.cpu() - u_cpu).abs().max().item() <= 3e-6, backend

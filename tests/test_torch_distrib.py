@@ -2,6 +2,7 @@
 the CPU), held to the one-process rollout bitwise and to apx's shardings
 and ``episode_stats_psum``."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -21,8 +22,9 @@ from apx.distrib import make_env_mesh as apx_make_env_mesh
 
 import apx_torch
 from apx_torch.core.env import rollout, rollout_episodic
-from apx_torch.distrib import (EnvSharding, init_distributed, make_env_mesh, shard_env_batch,
-                               shard_params, sharded_rollout, sharded_vector_env_step)
+from apx_torch.distrib import (BankShard, EnvSharding, init_distributed, make_env_mesh,
+                               shard_env_batch, shard_params, sharded_rollout,
+                               sharded_vector_env_step)
 from apx_torch.distrib.selftest import random_policy, state_digest
 
 torch.set_num_threads(1)
@@ -145,6 +147,38 @@ def test_two_gloo_ranks_equal_the_solo_run(tmp_path, env_id, steps, period):
         assert solo["done_count"] == 2 * n  # two LOCKSTEP boundaries in 40 steps
 
 
+@pytest.mark.parametrize("env_id,steps,period", [
+    ("LIDARLocRooms-v0", 13, None),
+    ("CircleSquare-v0", 40, 16),  # an image bank
+])
+def test_two_gloo_ranks_with_a_sharded_bank(tmp_path, env_id, steps, period):
+    """The bank sharded over two gloo ranks (``--shard-bank``): each rank's
+    block of the final state bitwise the replicated solo run's, and each
+    rank holds only its block of every bank leaf, bitwise the whole bank's
+    rows [rM/2, (r+1)M/2) (after apx's test_host_sharded_bank_matches_replicated),
+    in storage of the block's size: the whole bank is never allocated for
+    the shard."""
+    n = 16
+    args = ["--env", env_id, "--num-envs", str(n), "--steps", str(steps), "--seed", "7",
+            "--shard-bank"]
+    if period is not None:
+        args += ["--episodic-period", str(period)]
+    res = _workers(tmp_path, *args)
+    solo = res[0]["solo"]
+    for r, out in enumerate(res):
+        assert out["digest"] == solo["digests"][r]
+        assert out["done_count"] == solo["done_count"]
+        bank = out["bank"]
+        m = bank["num_rows"]
+        assert bank["rows"] == [r * m // 2, (r + 1) * m // 2]
+        assert set(bank["leaf_rows"].values()) == {m // 2}
+        assert bank["digest"] == solo["bank_digests"][r]
+        assert bank["storage_bytes"] == bank["leaf_bytes"]
+        assert 2 * bank["leaf_bytes"] == bank["whole_bank_bytes"]
+        assert bank["device_bytes_added"] is None  # measured on a card only
+        assert bank["bytes_per_step"] > 0
+
+
 # ---- (c) the blocks are apx's P("env") shards ---------------------------------
 
 @pytest.mark.parametrize("world", [2, 4, 8])
@@ -245,9 +279,54 @@ def test_init_distributed_is_idempotent(world1, tmp_path):
 
 
 def test_shard_leading_raises(world1):
-    _, params = apx_torch.make_vec("LIDARLocRooms-v0", 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        shard_params(world1, params, shard_leading=True)
+    """``shard_leading=True`` is accepted, as apx's: on one rank the bank
+    keeps all its rows, fetched through the collective, and the rollout is
+    the replicated one; a bank whose rows do not split over the ranks
+    raises, as apx's ``device_put`` of an uneven leading axis does."""
+    venv, params = apx_torch.make_vec("LIDARLocRooms-v0", 4, device="cpu")
+    sharded = shard_params(world1, params, shard_leading=True)
+    bank = sharded.map_bank
+    assert sharded is not params and bank.shard is not None and params.map_bank.shard is None
+    assert (bank.shard.lo, bank.shard.hi, bank.num_maps) == (0, 256, 256)
+    policy = random_policy(venv, params)
+    runs = [sharded_rollout(venv, world1, p, policy, 13)(torch.Generator().manual_seed(3))
+            for p in (params, sharded)]
+    assert state_digest(runs[0][0]) == state_digest(runs[1][0])
+    with pytest.raises(ValueError, match="split evenly"):
+        BankShard(EnvSharding(0, 3, torch.device("cpu")), 256)
+    with pytest.raises(ValueError, match="split evenly"):
+        shard_params(world1, params, shard_leading=True).map_bank.sharded(
+            BankShard(EnvSharding(1, 3, torch.device("cpu")), 256))
+
+
+def test_shard_leading_places_blocks_not_the_bank(world1, monkeypatch):
+    """``shard_leading=True`` never broadcasts the caller's bank in place:
+    each leaf with a bank axis becomes a copy of its block, sent block by
+    block, the beam tables stay whole, and the bench's sharded loop builds
+    its bank on the host and runs on the rank's device."""
+    from apx_torch.bench import _loop
+    from apx_torch.distrib import mesh
+
+    venv, params = apx_torch.make_vec("LIDARLocRooms-v0", 4, device="cpu")
+    params = dataclasses.replace(params, map_bank=params.map_bank.with_beam_tables())
+    sent = []
+    real = mesh.dist.broadcast
+    monkeypatch.setattr(mesh.dist, "broadcast",
+                        lambda t, **kw: (sent.append(t.data_ptr()), real(t, **kw))[1])
+    bank = params.map_bank
+    sharded = shard_params(world1, params, shard_leading=True).map_bank
+    rows = ("maps", "indices", "free_counts", "row_words", "free_cells")
+    assert not {getattr(bank, f).data_ptr() for f in rows} & set(sent)
+    assert len(sent) == len(rows) + 2  # one block per leaf (world 1), the two tables
+    for f in rows:
+        leaf = getattr(sharded, f)
+        assert leaf.data_ptr() != getattr(bank, f).data_ptr()
+        assert leaf.untyped_storage().nbytes() == leaf.nbytes
+        assert torch.equal(leaf, getattr(bank, f))
+    assert torch.equal(sharded.beam_face, bank.beam_face)
+    lp = _loop("lidar_rooms", 4, torch.device("cpu"), overrides={"shard_bank": True},
+               sharding=world1)
+    assert lp.params.map_bank.shard is not None and lp.params.device == world1.device
 
 
 def test_no_silent_fallback(tmp_path):

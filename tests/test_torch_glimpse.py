@@ -111,10 +111,14 @@ def test_uint8_conversion_is_division_by_255():
 
 
 def test_unported_window_raises():
+    """apx's ``window="rows"`` is accepted: bitwise ``"off"`` (the row band
+    leaves out only rows of hat weight 0); an unknown window raises."""
     images, pos = _inputs((28, 28, 1), "float32", 4, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extract_glimpse_batch(torch.from_numpy(images), torch.from_numpy(pos), (5, 5),
-                              window="rows")
+    args = (torch.from_numpy(images), torch.from_numpy(pos), (5, 5))
+    assert torch.equal(extract_glimpse_batch(*args, window="rows"),
+                       extract_glimpse_batch(*args, window="off"))
+    with pytest.raises(ValueError, match="window"):
+        extract_glimpse_batch(*args, window="cols")
 
 
 def test_wrapper_rejects_bad_input():

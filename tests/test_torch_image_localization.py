@@ -461,9 +461,15 @@ def test_native_draws_in_range():
 
 
 def test_unported_sampler_options_raise():
-    for backend in ("chunked", "streamed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            apx_torch.make_vec("MNISTLoc-v0", 2, device="cpu", unique_sampling_backend=backend)
+    """apx's sampler backends are accepted and keep apx's meaning (the
+    scores are held in test_torch_image_storage.py); an unknown one raises
+    apx's ValueError."""
+    for backend in ("chunked", "streamed", "cartesian", "auto"):
+        venv, p = apx_torch.make_vec("MNISTLoc-v0", 4, device="cpu",
+                                     unique_sampling_backend=backend)
+        assert p.unique_sampling_backend == backend
+        _, s, _ = venv.reset(p, torch.Generator().manual_seed(0))
+        assert (s.inner.target.abs() <= 1).all()
     with pytest.raises(ValueError):
         apx_torch.make_vec("MNISTLoc-v0", 2, device="cpu", unique_sampling_backend="dense")
     for prec in ("default", "high", "highest"):  # a TPU setting: the port computes float32

@@ -169,21 +169,48 @@ def test_native_draws_in_range(env_id):
 
 
 def test_unported_options_raise():
-    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend="pallas_window")
-    assert p.use_pallas_window  # ported: the K2 window backend
-    for backend in ("bitslab2d", "mxu_window", "windowed", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend=backend)
-    with pytest.raises(NotImplementedError):
-        apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", use_beam_tables=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Every apx option the port once refused is accepted and resolves as
+    apx resolves it; an unknown value raises apx's ValueError where apx
+    has one, and the port's where apx takes any string."""
+    for backend in ("bitslab2d", "bitslab", "windowed", "hybrid", "mxu_window", "pallas", "xla",
+                    "pallas_window"):
+        _, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=2, raycast_backend=backend)
+        _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend=backend)
+        for prop in ("use_bitslab2d", "use_bitslab", "use_mxu_window", "use_pallas_window",
+                     "needs_row_halves", "windowed", "ray_pad"):
+            assert getattr(p, prop) == getattr(jp, prop), (backend, prop)
+    # apx's "auto" resolves to bitslab2d; the port's to the dense casts,
+    # which are bitwise the same (test_trajectory_bitwise_equal_to_apx).
+    _, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=2)
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu")
+    assert jp.use_bitslab2d and not p.use_bitslab2d and not p.needs_row_halves
+    with pytest.raises(ValueError, match="raycast_backend"):
+        apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend="dda")
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", use_beam_tables=True)
+    assert not p.beam_tables_active  # apx's rule: only on a bank with tables
+    bank = p.map_bank.with_beam_tables()
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", use_beam_tables=True,
+                              map_bank=bank)
+    assert p.beam_tables_active and bank.beam_face.shape == (256, 8, 2, 32, 32)
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", raycast_backend="bitslab2d",
+                              beam_rects="on")
+    assert p.beam_rects_on is not None and len(p.beam_rects_on) == 8
+    with pytest.raises(ValueError, match="beam_rects"):
+        apx_torch.make_vec("LIDARLocRooms-v0", 2, device="cpu", beam_rects="yes")
+    for storage in ("packed", "flat", "gather", "array", "auto"):
+        _, p = apx_torch.make_vec("MNIST-v0", 2, device="cpu", image_storage=storage)
+        _, jp = apx.make_vec("MNIST-v0", num_envs=2, image_storage=storage)
+        assert apx_torch.envs.image_perception.ImagePerceptionEngine.storage(p) == \
+            apx.envs.image_perception.ImagePerceptionEngine.storage(jp)
+    with pytest.raises(ValueError, match="int32-packed"):  # a float bank, as in apx
         apx_torch.make_vec("CircleSquare-v0", 2, device="cpu", image_storage="packed")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        apx_torch.make_vec("CircleSquare-v0", 2, device="cpu", glimpse_window="rows")
+    with pytest.raises(ValueError, match="image_storage"):
+        apx_torch.make_vec("CircleSquare-v0", 2, device="cpu", image_storage="tiled")
+    _, p = apx_torch.make_vec("CircleSquare-v0", 2, device="cpu", glimpse_window="rows")
+    assert apx_torch.envs.image_perception.ImagePerceptionEngine.resolved_glimpse_window(p) == \
+        "rows"
     for backend in ("chunked", "streamed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            apx_torch.make_vec("CircleSquare-v0", 2, device="cpu",
-                               unique_sampling_backend=backend)
+        apx_torch.make_vec("CircleSquare-v0", 2, device="cpu", unique_sampling_backend=backend)
     for env_id in ("DoubleCircleSquare-v0", "CircleSquareHideAndSeek-v0", "LightDark-v0",
                    "CircleSquare-sparse-v0"):  # ported
         apx_torch.make_vec(env_id, 2, device="cpu")
