@@ -15,6 +15,10 @@ sharding over ``torch.distributed`` (``apx_torch.distrib``), checkpoints
 (``apx_torch.data.native``), and the gymnasium drop-in adapter
 (``apx_torch.compat.make`` / ``make_vec``, numpy in and out, seeded
 episodes equal to apx.compat's) with its renderer (``apx_torch.render``).
+The twins of apx's training recipes and small examples are in
+``apx_torch.examples`` (PPO through the env's differentiable loss, and
+PPO, V-trace and R2D2 on a (data, model) grid of ranks), and those of
+``__graft_entry__.py``'s entry points in ``apx_torch.graft_entry``.
 ROADMAP.md lists what is still to come.
 
     import torch, apx_torch

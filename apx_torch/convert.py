@@ -20,10 +20,16 @@ apx's JAX arrays) and a device.
 * ``light_dark_state_from_numpy`` builds the vector state of a
   ``TimeLimit(LightDarkEnv)`` from apx's state leaves;
 * ``metrics_state_from_numpy`` wraps a converted vector state in the
-  metrics wrappers' state, from apx's ring buffers and counts.
+  metrics wrappers' state, from apx's ring buffers and counts;
+* ``ppo_net_from_numpy`` and ``r2d2_net_from_numpy`` carry the training
+  recipes' weights across: apx's nested dict of ``{"w", "b"}`` arrays
+  (dense (in, out), convolutions HWIO) into the port's modules ((out, in),
+  OIHW), the LSTM cell's ``wx``, ``wh`` and ``b`` as they are.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -42,7 +48,7 @@ from .wrappers.time_limit import TimeLimitState
 __all__ = ["map_bank_from_numpy", "lidar_state_from_numpy", "image_bank_from_numpy",
            "hf_bank_from_numpy", "double_circle_square_from_numpy", "image_state_from_numpy",
            "image_localization_state_from_numpy", "light_dark_state_from_numpy",
-           "metrics_state_from_numpy"]
+           "metrics_state_from_numpy", "ppo_net_from_numpy", "r2d2_net_from_numpy"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -196,3 +202,46 @@ def metrics_state_from_numpy(inner: VectorState, buf, count, prev_done,
         count=_t(np.asarray(count).astype(np.int32), torch.int32, device),
         prev_done=_t(np.asarray(prev_done, dtype=np.bool_), torch.bool, device),
     )
+
+
+def _net_state(net: dict, device) -> dict[str, torch.Tensor]:
+    """The port's state dict of apx's nested weight dict: dense ``w`` (in,
+    out) transposed to (out, in), HWIO kernels to OIHW, the LSTM cell's
+    leaves unchanged."""
+    state = {}
+    for name, leaves in net.items():
+        for k, v in leaves.items():
+            v = np.asarray(v, dtype=np.float32)
+            if name == "lstm":
+                state[f"{name}.{k}"] = _t(v, torch.float32, device)
+            elif k == "w":
+                state[f"{name}.weight"] = _t(v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T,
+                                             torch.float32, device)
+            else:
+                state[f"{name}.bias"] = _t(v, torch.float32, device)
+    return state
+
+
+def _map_hw(net: dict) -> tuple[int, int]:
+    """The (square) map size behind ``map_proj``'s (h/4 * w/4 * 32) rows."""
+    side = 4 * math.isqrt(np.asarray(net["map_proj"]["w"]).shape[0] // 32)
+    return side, side
+
+
+def ppo_net_from_numpy(net: dict, device="cuda"):
+    """``PPONet`` from apx's ``init_net`` dict (``examples/train_ppo_lidar``)."""
+    from .examples.train_ppo_lidar import PPONet
+
+    out = PPONet(_map_hw(net), device)
+    out.load_state_dict(_net_state(net, device))
+    return out
+
+
+def r2d2_net_from_numpy(net: dict, device="cuda"):
+    """``R2D2Net`` from apx's ``init_r2d2_net`` dict
+    (``examples/train_r2d2_mesh``); the hidden size is ``wh``'s."""
+    from .examples.train_r2d2_mesh import R2D2Net
+
+    out = R2D2Net(_map_hw(net), np.asarray(net["lstm"]["wh"]).shape[0], device)
+    out.load_state_dict(_net_state(net, device))
+    return out

@@ -98,13 +98,15 @@ def time_obs(t: torch.Tensor, limit: int) -> torch.Tensor:
 
 @contextlib.contextmanager
 def matmul_tf32(enabled: bool):
-    """float32 products on the card in TF32 (``enabled``) or in full float32,
-    whatever the global setting, which is restored after. The CPU's float32
-    products ignore the setting."""
-    matmul = torch.backends.cuda.matmul
-    prev = matmul.allow_tf32
-    matmul.allow_tf32 = enabled
+    """float32 products and convolutions on the card in TF32 (``enabled``)
+    or in full float32, whatever the global settings (cuBLAS's
+    ``torch.backends.cuda.matmul.allow_tf32`` and cuDNN's
+    ``torch.backends.cudnn.allow_tf32``, which PyTorch turns on by default),
+    which are restored after. The CPU's float32 products ignore them."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = enabled
     try:
         yield
     finally:
-        matmul.allow_tf32 = prev
+        matmul.allow_tf32, cudnn.allow_tf32 = prev

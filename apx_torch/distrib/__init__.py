@@ -5,6 +5,7 @@ from .mesh import (
     BankShard,
     EnvSharding,
     init_distributed,
+    local_venv,
     make_env_mesh,
     shard_env_batch,
     shard_params,
@@ -21,6 +22,7 @@ __all__ = [
     "all_sum",
     "episode_stats_psum",
     "init_distributed",
+    "local_venv",
     "make_env_mesh",
     "shard_env_batch",
     "shard_params",

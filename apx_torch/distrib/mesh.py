@@ -67,6 +67,7 @@ __all__ = [
     "COLLECTIVE_BYTES",
     "EnvSharding",
     "init_distributed",
+    "local_venv",
     "make_env_mesh",
     "shard_env_batch",
     "shard_params",
@@ -337,7 +338,8 @@ def _with_num_envs(venv, n: int):
     raise TypeError(f"cannot set num_envs on {type(venv).__name__}")
 
 
-def _local_venv(venv, sharding: EnvSharding):
+def local_venv(venv, sharding: EnvSharding):
+    """``venv`` stepping only this rank's block of its envs."""
     block = sharding.block(venv.num_envs)
     return _with_num_envs(venv, block.stop - block.start)
 
@@ -348,7 +350,7 @@ def sharded_vector_env_step(venv, sharding: EnvSharding) -> Callable:
     ``venv.step`` draws them, keeps the block's and steps the block. It
     inserts no collective."""
     n, env = venv.num_envs, venv.env
-    local = _local_venv(venv, sharding)
+    local = local_venv(venv, sharding)
     disabled = local.autoreset is AutoResetMode.DISABLED
 
     def step(state, full_action, params, generator: torch.Generator):
@@ -378,7 +380,7 @@ def sharded_rollout(
     one ``all_reduce`` after the last step; no collective runs inside the
     step loop."""
     n, env = venv.num_envs, venv.env
-    local = _local_venv(venv, sharding)
+    local = local_venv(venv, sharding)
     if episodic_period is not None:
         if venv.autoreset is not AutoResetMode.LOCKSTEP:
             raise ValueError("episodic_period needs a LOCKSTEP vector env")

@@ -231,6 +231,35 @@ Phases, one line each; any failure exits non-zero:
     bytes per step of its fetches; ``bench --distributed --shard-bank``
     (eager ms per step replicated and sharded, interleaved).
 
+35. PPO on the card (``apx_torch.examples.train_ppo_lidar``) at its
+    published width: ``LIDARLocRooms-v0``, N = 1024, rollout 32, 2 epochs x
+    4 minibatches, 3 iterations. Losses and rewards finite, every weight
+    finite, the prediction gradient (through the env) nonzero on ``pred``,
+    ``trunk`` and the encoder and zero on ``policy`` and ``value``; K1's
+    launches in each iteration (counts set to 0 just before it) 3
+    ``raycast_fast`` and 1 ``raycast_typed`` per rollout step, and 1
+    ``raycast_typed`` at the reset. Per iteration the rollout ms (with its
+    prediction backward) and the update ms; env-steps/s including the
+    update after the first iteration; peak memory.
+36. one PPO iteration at N = 64, rollout 8 on the card and on the CPU from
+    the same weights and draws (made on the CPU, injected), TF32 off: mean
+    rewards within rtol 1e-5, every weight within TRAIN_NET_TOL.
+37. the learners on a grid: ``apx_torch.examples.grid_selftest`` on four
+    gloo ranks sharing cuda:0 (2 x 2 (data, model)), N = 256, rollout 16,
+    TF32 off: the mesh PPO equal to its one-process run (rewards rtol 1e-5,
+    each rank's trunk rows within TRAIN_NET_TOL, 128 rows per rank), two
+    V-trace iterations (behavior == learner, bitwise) and two R2D2
+    iterations (ptr == filled == 2, target == online); the dry run
+    (``apx_torch.graft_entry.dryrun_multichip``) on two gloo ranks on
+    cuda:0: its sharded rollouts and training loss equal to one process.
+38. the trainer's resume on the card, in a subprocess (``chip_smoke.py
+    --train-resume`` with deterministic algorithms and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``): N = 256, rollout 16, saved after 2
+    iterations; the restored run's net, Adam state, obs, env state and
+    generator after 2 more bitwise the uninterrupted run's.
+Then K3 on ``apx_torch.graft_entry.entry()`` (the flagship CircleSquare,
+16x16, N = 64): 1 launch at the reset and 2 in its step.
+
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
 its own path, the counts set to 0 just before it: K1's on phase 4 (and
@@ -243,7 +272,9 @@ their ``"compat"`` entries are the counts on each phase-24 path; K3's
 ``"glimpse_study"`` entry its launches in phase 27 (set to 0 just before);
 K1's ``"backends"`` its launches on each phase-31 path, K3's ``"chunked"``
 and ``"storage"`` entries its launches on the phase-32 chunked reset and
-on each phase-33 path (each set to 0 just before).
+on each phase-33 path (each set to 0 just before); K1's ``"train"``
+entries its launches in each phase-35 iteration, K3's ``"entry"`` its
+launches on ``entry()``.
 Every process it starts is killed at PHASE_TIMEOUT_S. It needs CUDA and
 the apx_torch package beside it, and exits non-zero without them.
 """
@@ -2252,6 +2283,266 @@ def phase_parse_trace(dev) -> list[str]:
     return [f"parse_trace eager: {json.dumps(eager)}", f"parse_trace graph: {json.dumps(graph)}"]
 
 
+# ---- the training path (phases 35-38) ----------------------------------------
+
+TRAIN_N, TRAIN_T, TRAIN_ITERS = 1024, 32, 3  # train_ppo_lidar's published defaults
+TRAIN_CPU_N, TRAIN_CPU_T = 64, 8
+# The net after one iteration, card against CPU (TF32 off), and a grid
+# rank's trunk rows against the one-process run's: the same iteration whose
+# products and convolutions sum in other orders (cuDNN, cuBLAS, the CPU's).
+# apx holds its own mesh run to this bound (tests/test_distrib.py); on an
+# H100 the card-vs-CPU weights differed by up to 4.4e-6 (map_proj) and the
+# grid's trunk rows by 2.6e-6.
+TRAIN_NET_TOL = 2e-5
+GRID_N, GRID_T = 256, 16  # train_ppo_mesh's defaults
+PRED_PATH = ("pred", "trunk", "map_proj", "prop", "conv1", "conv2")
+
+
+def phase_train_ppo(dev) -> dict:
+    """Phase 35: ``train_ppo_lidar`` at its published width on the card:
+    LIDARLocRooms-v0 at N = 1024, rollout 32, 2 epochs x 4 minibatches,
+    TRAIN_ITERS iterations. Losses and rewards finite, the prediction
+    gradient nonzero on the prediction path and zero on the policy and
+    value heads, every weight finite; K1's launches in each iteration, the
+    counts set to 0 just before it: 3 ``raycast_fast`` per rollout step and
+    1 ``raycast_typed`` per step (the masked merge's reset scan), and 1
+    ``raycast_typed`` at the reset. The rollout and update seconds of each
+    iteration and the env-steps/s including the update after the first."""
+    import apx_torch
+    from apx_torch.examples.train_ppo_lidar import ClipAdam, init_net, make_train_iter
+
+    venv, params = apx_torch.make_vec("LIDARLocRooms-v0", TRAIN_N, device=dev)
+    g = torch.Generator(dev).manual_seed(0)
+    reset_all_launch_counts()
+    obs, state, _ = venv.reset(params, g)
+    torch.cuda.synchronize()
+    reset_launches = {k: v for k, v in all_launch_counts().items() if v}
+    check(reset_launches == {"raycast_typed": 1},
+          f"train reset launched {reset_launches}, expected one raycast_typed")
+    net = init_net(g, params.map_bank.map_hw, dev)
+    opt = ClipAdam(0.5, 3e-4)
+    opt_state = opt.init(net)
+    train_iter = make_train_iter(venv, opt, TRAIN_N, TRAIN_T)
+    want = {"raycast_fast": 3 * TRAIN_T, "raycast_typed": TRAIN_T}
+    iters = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_ITERS):
+        stats = {}
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        state, obs, mean_r = train_iter(net, opt_state, state, obs, g, params, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in all_launch_counts().items() if v}
+        check(launches == want, f"train iteration {i} launched {launches}, expected {want}")
+        mean_r = float(mean_r)
+        losses = [stats["pred_loss"], *stats["ppo_losses"]]
+        check(np.isfinite(mean_r) and np.isfinite(losses).all(),
+              f"train iteration {i}: reward {mean_r}, losses {losses}")
+        sq = stats["pred_grad_sq"]
+        check(all(sq[k] > 0 for k in PRED_PATH) and sq["policy"] == sq["value"] == 0.0,
+              f"train iteration {i}: prediction gradient's squared norms {sq}")
+        check(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
+              f"train iteration {i}: a weight is not finite")
+        iters.append({"mean_reward": mean_r, "pred_loss": stats["pred_loss"],
+                      "ppo_loss_last": stats["ppo_losses"][-1], "wall_s": wall,
+                      "rollout_ms": 1e3 * stats["rollout_s"], "update_ms": 1e3 * stats["update_s"],
+                      "launches": launches, "pred_grad_sq": sq})
+    steady = iters[1:]
+    return {"env": "LIDARLocRooms-v0", "num_envs": TRAIN_N, "rollout_len": TRAIN_T,
+            "epochs": 2, "num_minibatches": 4, "iterations": iters,
+            "reset_launches": reset_launches, "launches_per_iteration": want,
+            "env_steps_per_s_incl_update": TRAIN_N * TRAIN_T * len(steady)
+            / sum(x["wall_s"] for x in steady),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32}}
+
+
+def _to_device(tree, dev):
+    from apx_torch.core.env import tree_map
+
+    return tree_map(lambda x: x.to(dev), tree)
+
+
+def phase_train_card_vs_cpu(dev) -> dict:
+    """Phase 36: one PPO iteration at N = 64, rollout 8 on the card and on
+    the CPU from the same weights and the same draws (made on the CPU and
+    injected), TF32 off: mean rewards within rtol 1e-5, every weight after
+    the iteration within TRAIN_NET_TOL (the largest |difference| printed)."""
+    import apx_torch
+    from apx_torch.core.numerics import matmul_tf32
+    from apx_torch.examples.train_ppo_lidar import ClipAdam, PPONet, init_net, make_train_iter
+
+    n, t = TRAIN_CPU_N, TRAIN_CPU_T
+    cpu = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    env = cpu[0].env
+    reset = env.draw_reset(n, cpu[1], g)
+    draws = {"noise": torch.randn((t, n, 2), generator=g),
+             "reset": [env.draw_reset(n, cpu[1], g) for _ in range(t)],
+             "perm": torch.stack([torch.randperm(t * n, generator=g) for _ in range(2)])
+             .reshape(8, t * n // 4)}
+    start = init_net(g, (32, 32), "cpu").state_dict()
+    out = {}
+    for where, (venv, params) in (("cpu", cpu),
+                                  ("card", apx_torch.make_vec("LIDARLocRooms-v0", n, device=dev))):
+        d = params.device
+        net = PPONet((32, 32), d)
+        net.load_state_dict(start)
+        obs, state, _ = venv.reset(params, draws=_to_device(reset, d))
+        opt = ClipAdam(0.5, 3e-4)
+        train_iter = make_train_iter(venv, opt, n, t)
+        with matmul_tf32(False):
+            _, _, r = train_iter(net, opt.init(net), state, obs, None, params,
+                                 draws=_to_device(draws, d))
+        out[where] = (float(r), {k: v.cpu() for k, v in net.state_dict().items()})
+    (r_cpu, w_cpu), (r_card, w_card) = out["cpu"], out["card"]
+    rel = abs(r_card - r_cpu) / abs(r_cpu)
+    check(rel <= 1e-5, f"train card vs cpu: mean reward {r_card} vs {r_cpu} (rel {rel})")
+    diffs = {k: float((w_card[k] - w_cpu[k]).abs().max()) for k in w_cpu}
+    worst = max(diffs.values())
+    check(worst <= TRAIN_NET_TOL, f"train card vs cpu: weights differ by {diffs}")
+    moved = min(float((w_cpu[k] - start[k]).abs().max()) for k in start)
+    return {"num_envs": n, "rollout_len": t, "mean_reward_cpu": r_cpu, "mean_reward_card": r_card,
+            "reward_rel_diff": rel, "weights_max_abs_diff": worst, "tolerance": TRAIN_NET_TOL,
+            "weights_max_abs_diff_by_leaf": diffs, "smallest_leaf_move": moved}
+
+
+def phase_train_grid(dev) -> dict:
+    """Phase 37: ``grid_selftest`` on four gloo ranks sharing cuda:0 (a 2 x 2
+    (data, model) grid), N = 256, rollout 16, TF32 off: the mesh PPO equal to
+    its one-process run (mean reward rtol 1e-5, each rank's trunk rows within
+    TRAIN_NET_TOL), each rank holding its 128 trunk rows; two V-trace
+    iterations (sync every 2: behavior == learner, bitwise) and two R2D2
+    iterations (ptr == filled == 2, target == online); then the dry run
+    (``graft_entry.dryrun_multichip``) on two gloo ranks on cuda:0: the
+    sharded rollouts and the training step's loss equal to one process."""
+    from apx_torch.examples.train_ppo_mesh import spawn_grid
+    from apx_torch.graft_entry import dryrun_multichip
+
+    del dev
+    t0 = time.perf_counter()
+    outs = spawn_grid("apx_torch.examples.grid_selftest", 4, "cuda:0", "gloo",
+                      ["--num-envs", str(GRID_N), "--rollout-len", str(GRID_T),
+                       "--num-minibatches", "4"], timeout=PHASE_TIMEOUT_S)
+    grid_s = time.perf_counter() - t0
+    ranks = [_tagged(out, "GRIDTEST ") for out in outs]
+    for r, out in enumerate(ranks):
+        what = f"grid rank {r}"
+        check(out["grid"] == [2, 2] and out["device"] == "cuda:0", f"{what}: {out['grid']}")
+        ppo, vt, rd = out["ppo"], out["vtrace"], out["r2d2"]
+        rel = abs(ppo["mean_reward"] - ppo["solo_mean_reward"]) / abs(ppo["solo_mean_reward"])
+        check(rel <= 1e-5, f"{what}: mesh PPO reward {ppo}")
+        check(ppo["trunk_max_abs_diff"] <= TRAIN_NET_TOL, f"{what}: mesh PPO trunk {ppo}")
+        check(ppo["trunk_shape"] == [256, 128], f"{what}: trunk shard {ppo['trunk_shape']}")
+        check(vt["behavior_equals_learner"] and np.isfinite(vt["rewards"]).all(),
+              f"{what}: V-trace {vt}")
+        check(rd["ptr"] == rd["filled"] == 2 and rd["target_equals_online"]
+              and np.isfinite(rd["rewards"]).all(), f"{what}: R2D2 {rd}")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, "cuda:0", "gloo")  # raises if a rank's check fails
+    dry_s = time.perf_counter() - t0
+    for r in dry:
+        ts = r["train_step"]
+        rel = abs(ts["loss"] - ts["solo_loss"]) / abs(ts["solo_loss"])
+        check(rel <= 1e-5 and np.isfinite(ts["loss"]), f"dry run rank {r['rank']}: {ts}")
+    return {"grid": {"world": 4, "backend": "gloo", "device": "cuda:0", "num_envs": GRID_N,
+                     "rollout_len": GRID_T, "seconds": grid_s,
+                     "ranks": [{"place": o["place"], **{k: o[k] for k in ("ppo", "vtrace", "r2d2")}}
+                               for o in ranks]},
+            "dryrun": {"world": 2, "seconds": dry_s, "ranks": dry}}
+
+
+RESUME_N, RESUME_T = 256, 16
+
+
+def train_resume_worker() -> dict:
+    """Phase 38's subprocess (``chip_smoke.py --train-resume``, with
+    CUBLAS_WORKSPACE_CONFIG set before CUDA starts): deterministic
+    algorithms on; two PPO iterations, the trainer saved
+    (``trainer_state``), two more; a fresh trainer restored from the file and
+    run two iterations: net, Adam state, obs, env state and generator
+    bitwise the uninterrupted run's. Warnings about ops without a
+    deterministic form are returned."""
+    import warnings
+
+    import apx_torch
+    from apx_torch.examples.train_ppo_lidar import (ClipAdam, init_net, load_trainer_state,
+                                                    make_train_iter, trainer_state)
+    from apx_torch.utils.checkpoint import restore_state, save_state
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda")
+    n, t = RESUME_N, RESUME_T
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device=dev)
+    opt = ClipAdam()
+    train_iter = make_train_iter(venv, opt, n, t)
+
+    def fresh(seed):
+        g = torch.Generator(dev).manual_seed(seed)
+        obs, state, _ = venv.reset(p, g)
+        net = init_net(g, p.map_bank.map_hw, dev)
+        return net, opt.init(net), state, obs, g
+
+    def run(iters, net, opt_state, state, obs, g):
+        for _ in range(iters):
+            state, obs, _ = train_iter(net, opt_state, state, obs, g, p)
+        return state, obs
+
+    with warnings.catch_warnings(record=True) as caught, tempfile.TemporaryDirectory() as tmp:
+        warnings.simplefilter("always")
+        net, opt_state, state, obs, g = fresh(11)
+        state, obs = run(2, net, opt_state, state, obs, g)
+        path = os.path.join(tmp, "trainer.pt")
+        save_state(path, trainer_state(net, opt_state, state, obs, g))
+        want = trainer_state(net, opt_state, *run(2, net, opt_state, state, obs, g), g)
+        net_b, opt_b, like_state, like_obs, g_b = fresh(12)
+        state_b, obs_b = load_trainer_state(
+            restore_state(path, trainer_state(net_b, opt_b, like_state, like_obs, g_b)),
+            net_b, opt_b, g_b)
+        got = trainer_state(net_b, opt_b, *run(2, net_b, opt_b, state_b, obs_b, g_b), g_b)
+        bitwise = all(torch.equal(x, y) for x, y in zip(_bytes(want), _bytes(got)))
+    return {"num_envs": n, "rollout_len": t, "iterations": "2 + 2", "bitwise": bitwise,
+            "leaves": len(_bytes(want)),
+            "nondeterministic_warnings": sorted({str(w.message)[:200] for w in caught
+                                                 if "determinis" in str(w.message)})}
+
+
+def phase_train_resume() -> dict:
+    """Phase 38: ``train_resume_worker`` in a subprocess (deterministic
+    algorithms and the cuBLAS workspace setting stay out of this process's
+    timings): the resumed trainer bitwise the uninterrupted one."""
+    t0 = time.perf_counter()
+    out = _spawn([[sys.executable, str(ROOT / "chip_smoke.py"), "--train-resume"]],
+                 {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    res = _tagged(out[0], "RESUME ")
+    check(res["bitwise"], f"trainer resume on the card is not bitwise: {res}")
+    return res | {"seconds": time.perf_counter() - t0}
+
+
+def phase_entry(dev) -> dict:
+    """K3 on ``graft_entry.entry()``: the flagship CircleSquare (16x16, N =
+    64) reset and one LOCKSTEP step at zero actions and logits, its counts
+    set to 0 just before: ``glimpse`` 1 at the reset and 2 in the
+    masked-merge step; glimpse in [0, 1], rewards -1 within 1e-6."""
+    from apx_torch.graft_entry import entry
+
+    reset_all_launch_counts()
+    fn, args = entry(dev)
+    obs, _, reward, term, trunc = fn(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launch_counts().items() if v}
+    check(launches == {"glimpse": 3}, f"entry() launched {launches}, expected 3 glimpse")
+    gl = obs["glimpse"]
+    check(bool(torch.isfinite(gl).all()) and float(gl.min()) >= 0 and float(gl.max()) <= 1,
+          "entry(): glimpse outside [0, 1]")
+    err = float((reward + 1.0).abs().max())
+    check(err <= 1e-6 and not bool((term | trunc).any()), f"entry(): reward -1 off by {err}")
+    return {"launches": launches["glimpse"], "glimpse_shape": list(gl.shape),
+            "reward_max_abs_err_vs_minus_one": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
@@ -2435,6 +2726,21 @@ def main() -> int:
           "tests/test_torch_class_layer.py, test_torch_perception_module.py and "
           "test_torch_tools.py cover them on the CPU", flush=True)
 
+    train = phase_train_ppo(dev)
+    print(f"train ppo: {json.dumps(train)}", flush=True)
+    for r in rows[:2]:
+        r["train"] = {"launches_per_iteration": train["launches_per_iteration"][r["name"]],
+                      "launches": [x["launches"][r["name"]] for x in train["iterations"]],
+                      "path": f"train_ppo_lidar iteration, LIDARLocRooms-v0, N={TRAIN_N}, "
+                              f"rollout {TRAIN_T}"}
+    print(f"train card vs cpu: {json.dumps(phase_train_card_vs_cpu(dev))}", flush=True)
+    print(f"train grid: {json.dumps(phase_train_grid(dev))}", flush=True)
+    print(f"train resume: {json.dumps(phase_train_resume())}", flush=True)
+    flagship = phase_entry(dev)
+    print(f"entry: {json.dumps(flagship)}", flush=True)
+    k3["entry"] = {"launches": flagship["launches"],
+                   "path": "graft_entry.entry(): CircleSquare 16x16, N=64, reset + one step"}
+
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2443,4 +2749,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--train-resume"]:
+        print("RESUME " + json.dumps(train_resume_worker()), flush=True)
+        sys.exit(0)
     sys.exit(main())

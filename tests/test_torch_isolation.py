@@ -62,6 +62,11 @@ assert "datasets" not in sys.modules, "a port module imported datasets"
 import apx_torch.compat.stats, apx_torch.render
 import apx_torch.compat.perception_module, apx_torch.compat.dataset_classes
 import apx_torch.tools.parse_trace, apx_torch.ops.glimpse_study
+import apx_torch.examples.train_ppo_lidar, apx_torch.examples.train_ppo_mesh
+import apx_torch.examples.train_vtrace_mesh, apx_torch.examples.train_r2d2_mesh
+import apx_torch.examples.rollout_functional, apx_torch.examples.gym_compat
+import apx_torch.examples.grid_selftest, apx_torch.graft_entry
+assert "examples" not in sys.modules, "a port module imported apx's examples"
 assert "gymnasium" not in sys.modules and "PIL" not in sys.modules
 assert "imageio" not in sys.modules
 bad = sorted(m for m in sys.modules
@@ -79,13 +84,22 @@ def test_port_runs_without_jax_or_apx():
     assert "BAD []" in out.stdout
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|apx)(\.|\s|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|apx|examples)(\.|\s|$)", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()
                                         for p in PKG.rglob("*.py")))
 def test_source_imports_no_jax_or_apx(path):
+    """No module of the port imports JAX, apx or apx's ``examples`` (whose
+    scripts import JAX)."""
     assert not _FORBIDDEN.findall((ROOT / path).read_text()), path
+
+
+def test_forbidden_pattern_catches_apx_examples():
+    assert _FORBIDDEN.findall("from examples.train_ppo_lidar import init_net\n")
+    assert _FORBIDDEN.findall("import examples\n")
+    assert not _FORBIDDEN.findall("from .examples.train_ppo_lidar import init_net\n")
+    assert not _FORBIDDEN.findall("from apx_torch.examples import train_ppo_lidar\n")
 
 
 def test_chip_smoke_imports_no_jax_or_apx():
@@ -113,6 +127,25 @@ def test_make_vec_defaults_to_cuda():
                 apx_torch.make_vec(env_id, 2)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             apx_torch.make("CircleSquareHideAndSeek-v0")
+
+
+def test_training_entry_points_default_to_cuda():
+    """The recipes, the dry run and the examples run on the card unless
+    given ``device="cpu"``; without one they raise, with no CPU fallback."""
+    from apx_torch.examples import rollout_functional, train_ppo_lidar, train_r2d2_mesh
+    from apx_torch import graft_entry
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    calls = [lambda: train_ppo_lidar.init_net(torch.Generator()),
+             lambda: train_ppo_lidar.PPONet(),
+             lambda: train_r2d2_mesh.init_r2d2_net(torch.Generator()),
+             lambda: train_ppo_lidar.main(num_envs=4, iters=1, quiet=True),
+             lambda: rollout_functional.run(num_envs=4, steps=1),
+             graft_entry.entry, graft_entry.dryrun_multichip]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 _NO_GYM_SCRIPT = """
