@@ -15,7 +15,10 @@ Every rank runs, in order, the recipes named:
   learner bitwise after them;
 * ``r2d2``: ``train_r2d2_mesh.r2d2_check``, two iterations (hidden 32,
   seq_len 6, burn-in 2, capacity 4, target sync every 2): the ring's
-  ``ptr`` and ``filled``, whether the target net equals the online one.
+  ``ptr`` and ``filled``, whether the target net equals the online one;
+
+each of the two also in one process: its rewards and the largest
+|difference| of this rank's ``trunk.w`` rows from the one-process net's.
 
 and prints one line, ``GRIDTEST {json}``, with its rank, its place in the
 grid and each recipe's result. The caller holds them to their bounds.
@@ -62,9 +65,9 @@ def _run_recipes(grid, args, out: dict) -> None:
         if recipe == "ppo":
             out["ppo"] = ppo_check(grid, args.num_envs, args.rollout_len, args.num_minibatches)
         elif recipe == "vtrace":
-            out["vtrace"] = vtrace_check(grid, args.num_envs, args.rollout_len)
+            out["vtrace"] = vtrace_check(grid, args.num_envs, args.rollout_len, solo=True)
         elif recipe == "r2d2":
-            out["r2d2"] = r2d2_check(grid, args.num_envs)
+            out["r2d2"] = r2d2_check(grid, args.num_envs, solo=True)
         else:
             raise ValueError(f"unknown recipe {recipe!r}")
 

@@ -44,7 +44,8 @@ from ..registry import _device as resolve_device
 from ..registry import make_vec
 
 __all__ = ["PPONet", "init_net", "encode", "policy_dist", "logp_gauss",
-           "ClipAdam", "gae", "ppo_loss", "make_train_iter", "trainer_state", "load_trainer_state", "main"]
+           "ClipAdam", "gae", "ppo_loss", "make_train_iter", "trainer_state", "load_trainer_state",
+           "resume_check", "main"]
 
 # jnp.log(2 * jnp.pi) and jnp.log(2 * jnp.pi * jnp.e): float32 constants.
 LOG_2PI = float(np.log(np.float32(2 * np.pi)))
@@ -418,6 +419,53 @@ def load_trainer_state(tree: dict, net: nn.Module, opt_state: torch.optim.Adam,
             opt_state.state[p][k] = tree["adam"][k][i]
     generator.set_state(tree["generator"])
     return tree["env_state"], tree["obs"]
+
+
+def resume_check(venv, params, num_envs: int, rollout_len: int, path: str,
+                 num_minibatches: int = 4, seeds: tuple[int, int] = (11, 12)) -> dict:
+    """A trainer checkpointed and resumed against the uninterrupted run
+    (apx's ``test_learner_checkpoint_resume_bit_identical``): two
+    iterations, ``trainer_state`` saved to ``path``, two more; a trainer
+    made from another seed restored from ``path`` and run two iterations.
+    Returns whether every leaf of the two trainers' states (net, Adam's
+    step and moments, env state, obs, generator) is bitwise equal, the
+    number of leaves and the indices of those that differ."""
+    from ..utils.checkpoint import restore_state, save_state
+
+    opt = ClipAdam()
+    train_iter = make_train_iter(venv, opt, num_envs, rollout_len,
+                                 num_minibatches=num_minibatches)
+    dev = params.device
+
+    def fresh(seed):
+        g = torch.Generator(dev).manual_seed(seed)
+        obs, state, _ = venv.reset(params, g)
+        net = init_net(g, params.map_bank.map_hw, dev)
+        return net, opt.init(net), state, obs, g
+
+    def run(iters, net, opt_state, state, obs, g):
+        for _ in range(iters):
+            state, obs, _ = train_iter(net, opt_state, state, obs, g, params)
+        return state, obs
+
+    def leaves(net, opt_state, state, obs, g):
+        out = []
+        tree_map(lambda x: out.append(x.detach().cpu().reshape(-1).view(torch.uint8)),
+                 trainer_state(net, opt_state, state, obs, g))
+        return out
+
+    net, opt_state, state, obs, g = fresh(seeds[0])
+    state, obs = run(2, net, opt_state, state, obs, g)
+    save_state(path, trainer_state(net, opt_state, state, obs, g))
+    want = leaves(net, opt_state, *run(2, net, opt_state, state, obs, g), g)
+    net_b, opt_b, like_state, like_obs, g_b = fresh(seeds[1])
+    state_b, obs_b = load_trainer_state(
+        restore_state(path, trainer_state(net_b, opt_b, like_state, like_obs, g_b)),
+        net_b, opt_b, g_b)
+    got = leaves(net_b, opt_b, *run(2, net_b, opt_b, state_b, obs_b, g_b), g_b)
+    differing = [i for i, (a, b) in enumerate(zip(want, got)) if not torch.equal(a, b)]
+    return {"bitwise": len(want) == len(got) and not differing, "leaves": len(want),
+            "differing": differing}
 
 
 def main(num_envs=None, iters=None, quiet=False, device="cuda", seed=0):

@@ -60,8 +60,9 @@ from ..registry import _device as resolve_device
 from ..registry import make_vec
 from .train_ppo_lidar import ClipAdam, init_net, make_train_iter
 
-__all__ = ["Grid", "make_dp_tp_grid", "shard_net", "trunk_rows", "spawn_grid", "rank_args",
-           "init_rank", "launch", "report", "ppo_check", "main"]
+__all__ = ["Grid", "make_dp_tp_grid", "shard_net", "trunk_rows", "trunk_diff", "trunk_grad_diff",
+           "trunk_worst_grad", "spawn_grid", "rank_args", "init_rank", "launch", "report",
+           "ppo_check", "main"]
 
 ROOT = Path(__file__).resolve().parents[2]
 SPAWN_TIMEOUT_S = 600
@@ -338,12 +339,38 @@ def ppo_check(grid: Grid, num_envs: int, rollout_len: int, num_minibatches: int,
     solo = init_net(solo_g, params.map_bank.map_hw, grid.device)
     solo_iter = make_train_iter(venv, opt, num_envs, rollout_len, num_minibatches=num_minibatches)
     _, _, solo_r = solo_iter(solo, opt.init(solo), solo_state, solo_obs, solo_g, params)
-    rows = trunk_rows(grid).to(grid.device)
     return {"mean_reward": float(mean_r), "solo_mean_reward": float(solo_r),
             "trunk_shape": list(net.trunk.weight.shape),
-            "trunk_max_abs_diff": float((net.trunk.weight - solo.trunk.weight[:, rows])
-                                        .abs().max()),
-            "seconds": seconds}
+            "trunk_max_abs_diff": trunk_diff(net, solo, grid), "seconds": seconds}
+
+
+def trunk_diff(shard: nn.Module, whole: nn.Module, grid: Grid) -> float:
+    """The largest |difference| of a shard's ``trunk.w`` rows from the same
+    rows of the one-process net."""
+    rows = trunk_rows(grid).to(grid.device)
+    return float((shard.trunk.weight - whole.trunk.weight[:, rows]).abs().max())
+
+
+def trunk_worst_grad(shard: nn.Module, whole: nn.Module, whole_grad: torch.Tensor,
+                     grid: Grid) -> float:
+    """|``whole_grad``| at the ``trunk.w`` entry where the shard's weight
+    differs most from the one-process net's (``trunk_grad_diff``: near
+    Adam's eps, 1e-8, rounding moves the step)."""
+    rows = trunk_rows(grid).to(grid.device)
+    d = (shard.trunk.weight - whole.trunk.weight[:, rows]).abs()
+    return float(whole_grad[:, rows].reshape(-1)[d.argmax()].abs())
+
+
+def trunk_grad_diff(shard_grad: torch.Tensor, whole_grad: torch.Tensor, grid: Grid) -> float:
+    """The largest |difference| of a shard's ``trunk.w`` gradient (summed
+    over the data ranks, clipped) from the one-process gradient's same
+    rows, relative to the latter's largest entry. Taken on equal nets it
+    differs by the order of summation only, unlike the weights after Adam's
+    steps: Adam divides each step by sqrt(v) + 1e-8, so an entry whose
+    gradient sums to ~1e-9 moves by up to ~lr / 10 on a rounding error of
+    that size."""
+    ref = whole_grad[:, trunk_rows(grid).to(whole_grad.device)]
+    return float((shard_grad - ref).abs().max() / ref.abs().max())
 
 
 def launch(module: str, args, rank_fn, extra: list[str]) -> dict:

@@ -44,7 +44,8 @@ from ..core.env import tree_map
 from ..distrib.mesh import local_venv, shard_env_batch
 from ..registry import _device as resolve_device
 from .train_ppo_lidar import ClipAdam, PPONet, _grads_to_zero, _linear, init_net
-from .train_ppo_mesh import _sync, launch, rank_args, report, setup_rank, shard_net
+from .train_ppo_mesh import (_sync, launch, rank_args, report, setup_rank, shard_net, trunk_diff,
+                             trunk_grad_diff, trunk_worst_grad)
 from .train_vtrace_mesh import clone_net
 
 __all__ = ["N_ACTIONS", "ACTION_CODEBOOK", "value_rescale", "value_rescale_inv", "LSTMCell",
@@ -181,9 +182,14 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, seq_len=16, burn_in=4, capaci
     Returns ``(train_iter, empty_ring)``: ``empty_ring(obs)`` makes the ring
     of (capacity, seq_len, ...) zeros for this rank's obs; ``train_iter(net,
     target_net, opt_state, ring, env_state, obs, carry, it, generator,
-    params) -> (ring, env_state, obs, carry, it + 1, mean_reward)`` updates
-    ``net``, ``opt_state`` and (every ``target_sync_every`` iterations)
-    ``target_net`` in place."""
+    params, draws=None) -> (ring, env_state, obs, carry, it + 1,
+    mean_reward)`` updates ``net``, ``opt_state`` and (every
+    ``target_sync_every`` iterations) ``target_net`` in place. ``draws``
+    injects what the iteration would take from ``generator``: per step of
+    the segment ``rand`` (T, N) the random action ids, ``explore`` (T, N)
+    the uniforms compared with ``eps_greedy`` and ``reset`` a list of T
+    reset-draw dicts of all N envs; ``idx`` (batch_seqs,) the sampled ring
+    rows."""
     batch_seqs = batch_seqs or max(2, capacity // 8)
     env = venv.env
     local = venv if grid is None else local_venv(venv, grid.env)
@@ -225,7 +231,7 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, seq_len=16, burn_in=4, capaci
         return carry, torch.stack(qs)
 
     def train_iter(net, target_net, opt_state, ring, env_state, obs, carry, it, generator,
-                   params):
+                   params, draws=None):
         dev = params.device
         h0, c0 = carry
         codebook = torch.from_numpy(ACTION_CODEBOOK).to(dev)
@@ -233,13 +239,17 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, seq_len=16, burn_in=4, capaci
         # codebook; the prediction head trains through the reward) -------
         obs_t, act_t, r_t, done_t = [], [], [], []
         st = env_state
-        for _ in range(seq_len):
+        for t in range(seq_len):
             carry, q, pred = agent_apply(net, obs, carry)
-            rand = block(torch.randint(0, N_ACTIONS, (num_envs,), generator=generator, device=dev))
-            explore = block(torch.rand((num_envs,), generator=generator, device=dev)) < eps_greedy
-            act_id = torch.where(explore, rand, torch.argmax(q, dim=-1))
+            if draws is not None:
+                rand, u = draws["rand"][t], draws["explore"][t]
+            else:
+                rand = torch.randint(0, N_ACTIONS, (num_envs,), generator=generator, device=dev)
+                u = torch.rand((num_envs,), generator=generator, device=dev)
+            act_id = torch.where(block(u) < eps_greedy, block(rand), torch.argmax(q, dim=-1))
             step_draws = block(env.draw_step(num_envs, params, generator))
-            reset = block(env.draw_reset(num_envs, params, generator))
+            reset = block(draws["reset"][t] if draws is not None
+                          else env.draw_reset(num_envs, params, generator))
             obs2, st, r, te, tr, _ = local.step(
                 st, {"action": codebook[act_id], "prediction": pred}, params,
                 reset_draws=reset, step_draws=step_draws)
@@ -269,8 +279,11 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, seq_len=16, burn_in=4, capaci
             ring["filled"] = torch.clamp(ring["filled"] + 1, max=capacity)
 
             # ---- sample sequences ---------------------------------------
-            u = torch.rand((batch_seqs,), generator=generator, device=dev)
-            idx = (u * torch.clamp(ring["filled"], min=1)).to(torch.int64)
+            if draws is not None:
+                idx = draws["idx"]
+            else:
+                u = torch.rand((batch_seqs,), generator=generator, device=dev)
+                idx = (u * torch.clamp(ring["filled"], min=1)).to(torch.int64)
             seq = {k: tree_map(lambda x: x.index_select(0, idx), ring[k])
                    for k in ("obs", "act", "rew", "done", "h0", "c0")}
             burn = tree_map(lambda x: x[:, :burn_in], seq["obs"])
@@ -311,36 +324,55 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, seq_len=16, burn_in=4, capaci
 
 def r2d2_check(grid, num_envs: int, iters: int = 2, hidden: int = 32, seq_len: int = 6,
                burn_in: int = 2, capacity: int = 4, batch_seqs: int | None = 2,
-               target_sync_every: int = 2, seed: int = 31) -> dict:
+               target_sync_every: int = 2, seed: int = 31, solo: bool = False) -> dict:
     """``iters`` R2D2 iterations on the grid: the rewards, the ring's
     ``ptr`` and ``filled``, whether the target net equals the online one,
-    the ring's local env axis."""
+    the ring's local env axis. With ``solo`` also the same iterations in
+    one process (this rank, the whole batch, a generator seeded alike): its
+    rewards, the largest |difference| of this rank's ``trunk.w`` rows from
+    its net's same rows, and of their first iteration's gradients
+    (``trunk_grad_diff``)."""
     opt = ClipAdam(1.0, 1e-3)
-    venv, params, obs, state, g, net = setup_rank(
-        grid, num_envs, seed, init=lambda gen, hw, dev: init_r2d2_net(gen, hw, hidden, dev))
+    init = lambda gen, hw, dev: init_r2d2_net(gen, hw, hidden, dev)  # noqa: E731
+    venv, params, obs, state, g, net = setup_rank(grid, num_envs, seed, init=init)
     shard_net(net, grid)
-    target = clone_net(net)
-    opt_state = opt.init(net)
-    train_iter, empty_ring = make_train_iter(
-        venv, opt, num_envs, seq_len=seq_len, burn_in=burn_in, capacity=capacity,
-        batch_seqs=batch_seqs, target_sync_every=target_sync_every, hidden=hidden, grid=grid)
-    ring = empty_ring(obs)
-    n_local = grid.env.block(num_envs).stop - grid.env.block(num_envs).start
-    carry = (torch.zeros((n_local, hidden), device=grid.device),
-             torch.zeros((n_local, hidden), device=grid.device))
-    it, rewards = 0, []
+    kw = dict(seq_len=seq_len, burn_in=burn_in, capacity=capacity, batch_seqs=batch_seqs,
+              target_sync_every=target_sync_every, hidden=hidden)
+
+    def run(net, obs, state, g, grid=None):
+        target, opt_state = clone_net(net), opt.init(net)
+        train_iter, empty_ring = make_train_iter(venv, opt, num_envs, grid=grid, **kw)
+        ring = empty_ring(obs)
+        n = next(iter(obs.values())).shape[0]
+        carry = (torch.zeros((n, hidden), device=params.device),
+                 torch.zeros((n, hidden), device=params.device))
+        it, rewards = 0, []
+        for i in range(iters):
+            ring, state, obs, carry, it, mean_r = train_iter(net, target, opt_state, ring, state,
+                                                             obs, carry, it, g, params)
+            rewards.append(float(mean_r))
+            if i == 0:
+                first_grad = net.trunk.weight.grad.clone()
+        return rewards, ring, target, first_grad
+
     _sync(grid.device)
     t0 = time.perf_counter()
-    for _ in range(iters):
-        ring, state, obs, carry, it, mean_r = train_iter(net, target, opt_state, ring, state,
-                                                         obs, carry, it, g, params)
-        rewards.append(float(mean_r))
+    rewards, ring, target, first_grad = run(net, obs, state, g, grid)
     _sync(grid.device)
-    return {"rewards": rewards, "ptr": int(ring["ptr"]), "filled": int(ring["filled"]),
-            "target_equals_online": all(torch.equal(a, b) for a, b in
-                                        zip(net.parameters(), target.parameters())),
-            "ring_envs": int(ring["act"].shape[2]), "trunk_shape": list(net.trunk.weight.shape),
-            "seconds": time.perf_counter() - t0}
+    out = {"rewards": rewards, "ptr": int(ring["ptr"]), "filled": int(ring["filled"]),
+           "target_equals_online": all(torch.equal(a, b) for a, b in
+                                       zip(net.parameters(), target.parameters())),
+           "ring_envs": int(ring["act"].shape[2]), "trunk_shape": list(net.trunk.weight.shape),
+           "seconds": time.perf_counter() - t0}
+    if solo:
+        solo_g = torch.Generator(grid.device).manual_seed(seed)
+        obs, state, _ = venv.reset(params, solo_g)
+        one = init(solo_g, params.map_bank.map_hw, grid.device)
+        out["solo_rewards"], _, _, solo_first_grad = run(one, obs, state, solo_g)
+        out["trunk_max_abs_diff"] = trunk_diff(net, one, grid)
+        out["trunk_grad_rel_diff"] = trunk_grad_diff(first_grad, solo_first_grad, grid)
+        out["trunk_worst_entry_first_grad"] = trunk_worst_grad(net, one, solo_first_grad, grid)
+    return out
 
 
 def main(num_envs=None, iters=None, quiet=False):

@@ -33,8 +33,9 @@ import torch
 
 from ..core.env import tree_map
 from ..distrib.mesh import local_venv, shard_env_batch
-from .train_ppo_lidar import LOG_2PIE, ClipAdam, _grads_to_zero, logp_gauss, policy_dist
-from .train_ppo_mesh import _sync, launch, rank_args, report, setup_rank, shard_net
+from .train_ppo_lidar import LOG_2PIE, ClipAdam, _grads_to_zero, init_net, logp_gauss, policy_dist
+from .train_ppo_mesh import (_sync, launch, rank_args, report, setup_rank, shard_net, trunk_diff,
+                             trunk_grad_diff, trunk_worst_grad)
 
 __all__ = ["vtrace", "make_train_iter", "clone_net", "vtrace_check", "main"]
 
@@ -76,10 +77,13 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, rollout_len=16, gamma=0.99, e
                     vf_coef=0.5, pred_coef=1.0, sync_every=4, grid=None):
     """One V-trace iteration, apx's ``make_train_iter``: returns
     ``train_iter(net, beh_net, opt_state, env_state, obs, it, generator,
-    params) -> (env_state, obs, it + 1, mean_reward)``, updating ``net``,
-    ``opt_state`` and (every ``sync_every`` iterations) ``beh_net`` in place.
-    With a ``grid`` it is one rank of the dp x tp program (see
-    ``train_ppo_lidar.make_train_iter``)."""
+    params, draws=None) -> (env_state, obs, it + 1, mean_reward)``, updating
+    ``net``, ``opt_state`` and (every ``sync_every`` iterations) ``beh_net``
+    in place. ``draws`` injects what the iteration would take from
+    ``generator``: ``noise`` (T, N, 2) the behavior policy's action noise and
+    ``reset`` a list of T reset-draw dicts of all N envs, as
+    ``train_ppo_lidar.make_train_iter`` takes them. With a ``grid`` it is
+    one rank of the dp x tp program (see ``train_ppo_lidar.make_train_iter``)."""
     env = venv.env
     n = rollout_len * num_envs
     local = venv if grid is None else local_venv(venv, grid.env)
@@ -90,21 +94,23 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, rollout_len=16, gamma=0.99, e
     def data_sum(x):
         return x if grid is None else grid.data_sum(x)
 
-    def train_iter(net, beh_net, opt_state, env_state, obs, it, generator, params):
+    def train_iter(net, beh_net, opt_state, env_state, obs, it, generator, params, draws=None):
         dev = params.device
         # ---- collect with the BEHAVIOR policy (the learner's prediction
         # head trains through the differentiable -loss term) --------------
         obs_t, araw_t, r_t, done_t, logp_b_t = [], [], [], [], []
         st = env_state
-        for _ in range(rollout_len):
+        for t in range(rollout_len):
             with torch.no_grad():
                 mean_b, logstd_b = policy_dist(beh_net, beh_net.encode(obs))
-                noise = block(torch.randn((num_envs, 2), generator=generator, device=dev))
-                a_raw = mean_b + torch.exp(logstd_b) * noise
+                noise = (draws["noise"][t] if draws is not None
+                         else torch.randn((num_envs, 2), generator=generator, device=dev))
+                a_raw = mean_b + torch.exp(logstd_b) * block(noise)
             # The prediction comes from the LEARNER net.
             pred = torch.tanh(net.pred(net.encode(obs)))
             step_draws = block(env.draw_step(num_envs, params, generator))
-            reset = block(env.draw_reset(num_envs, params, generator))
+            reset = block(draws["reset"][t] if draws is not None
+                          else env.draw_reset(num_envs, params, generator))
             obs2, st, r, te, tr, _ = local.step(
                 st, {"action": torch.tanh(a_raw), "prediction": pred}, params,
                 reset_draws=reset, step_draws=step_draws)
@@ -150,10 +156,14 @@ def make_train_iter(venv, opt: ClipAdam, num_envs, rollout_len=16, gamma=0.99, e
 
 
 def vtrace_check(grid, num_envs: int, rollout_len: int, iters: int = 2, sync_every: int = 2,
-                 seed: int = 5) -> dict:
+                 seed: int = 5, solo: bool = False) -> dict:
     """``iters`` V-trace iterations on the grid with ``sync_every``: the mean
     rewards (finite), and whether the behavior net equals the learner
-    bitwise after them."""
+    bitwise after them. With ``solo`` also the same iterations in one
+    process (this rank, the whole batch, a generator seeded alike): its
+    rewards, the largest |difference| of this rank's ``trunk.w`` rows from
+    its net's same rows, and of their first iteration's gradients
+    (``trunk_grad_diff``)."""
     opt = ClipAdam(0.5, 3e-4)
     venv, params, obs, state, g, net = setup_rank(grid, num_envs, seed)
     shard_net(net, grid)
@@ -164,15 +174,33 @@ def vtrace_check(grid, num_envs: int, rollout_len: int, iters: int = 2, sync_eve
     it, rewards = 0, []
     _sync(grid.device)
     t0 = time.perf_counter()
-    for _ in range(iters):
+    for i in range(iters):
         state, obs, it, mean_r = train_iter(net, beh, opt_state, state, obs, it, g, params)
         rewards.append(float(mean_r))
+        if i == 0:
+            first_grad = net.trunk.weight.grad.clone()
     _sync(grid.device)
-    return {"rewards": rewards, "iters": it, "sync_every": sync_every,
-            "behavior_equals_learner": all(torch.equal(a, b) for a, b in
-                                           zip(net.parameters(), beh.parameters())),
-            "trunk_shape": list(net.trunk.weight.shape),
-            "seconds": time.perf_counter() - t0}
+    out = {"rewards": rewards, "iters": it, "sync_every": sync_every,
+           "behavior_equals_learner": all(torch.equal(a, b) for a, b in
+                                          zip(net.parameters(), beh.parameters())),
+           "trunk_shape": list(net.trunk.weight.shape),
+           "seconds": time.perf_counter() - t0}
+    if solo:
+        solo_g = torch.Generator(grid.device).manual_seed(seed)
+        obs, state, _ = venv.reset(params, solo_g)
+        one = init_net(solo_g, params.map_bank.map_hw, grid.device)
+        beh, opt_state = clone_net(one), opt.init(one)
+        solo_iter = make_train_iter(venv, opt, num_envs, rollout_len, sync_every=sync_every)
+        it, out["solo_rewards"] = 0, []
+        for i in range(iters):
+            state, obs, it, mean_r = solo_iter(one, beh, opt_state, state, obs, it, solo_g, params)
+            out["solo_rewards"].append(float(mean_r))
+            if i == 0:
+                solo_first_grad = one.trunk.weight.grad.clone()
+        out["trunk_max_abs_diff"] = trunk_diff(net, one, grid)
+        out["trunk_grad_rel_diff"] = trunk_grad_diff(first_grad, solo_first_grad, grid)
+        out["trunk_worst_entry_first_grad"] = trunk_worst_grad(net, one, solo_first_grad, grid)
+    return out
 
 
 def main(num_envs=None, iters=None, quiet=False, rollout_len=16):

@@ -15,12 +15,16 @@ the paths the headline numbers use:
 3. one training step: a 3-step rollout of the data-sharded env feeding an
    MLP tensor-parallel over the model ranks (hidden 8 x model), REINFORCE
    plus the prediction MSE, and an SGD step at lr 1e-3; the sharded loss
-   equals the one-process loss (rtol 1e-5) and is finite.
+   equals the one-process loss (rtol 1e-5) and is finite, and the sharded
+   step the one-process step (within 1e-5 of its largest entry).
 
-apx differentiates check 3's loss through the env's dynamics too (its
-prediction target, the agent's position, moves with the action). The
-port steps the env with the action detached: its raycast kernels have no
-backward. The loss, which is what the check compares, is the same.
+apx differentiates check 3's loss through the env's dynamics too: its
+prediction target (the agent's position) moves with the action, and the
+move is clipped by a raycast. The port steps the env with the
+action detached, as the recipes do (its raycast kernels have no
+backward), so its SGD step is not apx's, though its loss is the same
+function. The check holds the sharded loss and step to the one-process
+run's (``step_rel_diff``), not to apx's.
 
     python -m apx_torch.graft_entry [--world W] [--device cuda:0] [--backend gloo]
 """
@@ -123,7 +127,9 @@ def _shard_mlp(w: dict, grid) -> dict:
 def train_step_check(grid, seed: int = 0) -> dict:
     """Check 3 on this rank: the data-sharded rollout into the
     tensor-parallel MLP, its loss and SGD step, and the same step in one
-    process (this rank, the whole batch). Returns both losses."""
+    process (this rank, the whole batch). Returns both losses and the
+    largest |difference| of the sharded step from the one-process step's
+    same columns, relative to that step's largest entry."""
     num_envs = 4 * grid.data
     venv, params = _make_headline(num_envs, grid.device)
     env = venv.env
@@ -162,13 +168,18 @@ def train_step_check(grid, seed: int = 0) -> dict:
             grid.reduce_grads(list(weights.values()))
             value = grid.data_sum(value)
         with torch.no_grad():
-            new_w = {k: w - LR * w.grad for k, w in weights.items()}
-        return float(value), new_w
+            step = {k: -LR * w.grad for k, w in weights.items()}
+            new_w = {k: w + step[k] for k, w in weights.items()}
+        return float(value), new_w, step
 
-    loss, new_w = run(True)
-    solo_loss, _ = run(False)
+    loss, new_w, step = run(True)
+    solo_loss, _, solo_step = run(False)
+    solo_step = _shard_mlp(solo_step, grid)
+    scale = max(float(v.abs().max()) for v in solo_step.values())
+    diff = max(float((step[k] - solo_step[k]).abs().max()) for k in step)
     return {"loss": loss, "solo_loss": solo_loss, "num_envs": num_envs,
             "hidden": 8 * grid.model, "w1_shape": list(new_w["w1"].shape),
+            "step_rel_diff": diff / scale,
             "finite": all(bool(torch.isfinite(w).all()) for w in new_w.values())}
 
 
@@ -224,6 +235,8 @@ def _rank(args) -> dict:
     if not math.isclose(ts["loss"], ts["solo_loss"], rel_tol=1e-5):
         raise AssertionError(f"sharded training loss {ts['loss']} != one-process "
                              f"{ts['solo_loss']}")
+    if not ts["step_rel_diff"] <= 1e-5:
+        raise AssertionError(f"sharded SGD step differs from the one-process step: {ts}")
     return out
 
 

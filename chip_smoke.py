@@ -249,7 +249,9 @@ Phases, one line each; any failure exits non-zero:
     TF32 off: the mesh PPO equal to its one-process run (rewards rtol 1e-5,
     each rank's trunk rows within TRAIN_NET_TOL, 128 rows per rank), two
     V-trace iterations (behavior == learner, bitwise) and two R2D2
-    iterations (ptr == filled == 2, target == online); the dry run
+    iterations (ptr == filled == 2, target == online), each equal to its
+    one-process run (rewards rtol 1e-5, the trunk's first-iteration
+    gradient within 1e-5 of its largest entry); the dry run
     (``apx_torch.graft_entry.dryrun_multichip``) on two gloo ranks on
     cuda:0: its sharded rollouts and training loss equal to one process.
 38. the trainer's resume on the card, in a subprocess (``chip_smoke.py
@@ -258,7 +260,8 @@ Phases, one line each; any failure exits non-zero:
     iterations; the restored run's net, Adam state, obs, env state and
     generator after 2 more bitwise the uninterrupted run's.
 Then K3 on ``apx_torch.graft_entry.entry()`` (the flagship CircleSquare,
-16x16, N = 64): 1 launch at the reset and 2 in its step.
+16x16, N = 64): 1 launch at the reset and 2 in its step; its glimpses at
+the reset's and the step's images and positions against the plain form.
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
@@ -2415,7 +2418,10 @@ def phase_train_grid(dev) -> dict:
     its one-process run (mean reward rtol 1e-5, each rank's trunk rows within
     TRAIN_NET_TOL), each rank holding its 128 trunk rows; two V-trace
     iterations (sync every 2: behavior == learner, bitwise) and two R2D2
-    iterations (ptr == filled == 2, target == online); then the dry run
+    iterations (ptr == filled == 2, target == online), each equal to its
+    one-process run (rewards rtol 1e-5, the trunk rows' first-iteration
+    gradient within 1e-5 of its largest entry; the weights after Adam's
+    steps are reported, ``train_ppo_mesh.trunk_grad_diff``); then the dry run
     (``graft_entry.dryrun_multichip``) on two gloo ranks on cuda:0: the
     sharded rollouts and the training step's loss equal to one process."""
     from apx_torch.examples.train_ppo_mesh import spawn_grid
@@ -2440,13 +2446,19 @@ def phase_train_grid(dev) -> dict:
               f"{what}: V-trace {vt}")
         check(rd["ptr"] == rd["filled"] == 2 and rd["target_equals_online"]
               and np.isfinite(rd["rewards"]).all(), f"{what}: R2D2 {rd}")
+        for name, res in (("V-trace", vt), ("R2D2", rd)):
+            rel = np.abs(np.subtract(res["rewards"], res["solo_rewards"])) / np.abs(
+                res["solo_rewards"])
+            check(rel.max() <= 1e-5 and res["trunk_grad_rel_diff"] <= 1e-5,
+                  f"{what}: {name} against its one-process run {res}")
     t0 = time.perf_counter()
     dry = dryrun_multichip(2, "cuda:0", "gloo")  # raises if a rank's check fails
     dry_s = time.perf_counter() - t0
     for r in dry:
         ts = r["train_step"]
         rel = abs(ts["loss"] - ts["solo_loss"]) / abs(ts["solo_loss"])
-        check(rel <= 1e-5 and np.isfinite(ts["loss"]), f"dry run rank {r['rank']}: {ts}")
+        check(rel <= 1e-5 and np.isfinite(ts["loss"]) and ts["step_rel_diff"] <= 1e-5,
+              f"dry run rank {r['rank']}: {ts}")
     return {"grid": {"world": 4, "backend": "gloo", "device": "cuda:0", "num_envs": GRID_N,
                      "rollout_len": GRID_T, "seconds": grid_s,
                      "ranks": [{"place": o["place"], **{k: o[k] for k in ("ppo", "vtrace", "r2d2")}}
@@ -2460,51 +2472,25 @@ RESUME_N, RESUME_T = 256, 16
 def train_resume_worker() -> dict:
     """Phase 38's subprocess (``chip_smoke.py --train-resume``, with
     CUBLAS_WORKSPACE_CONFIG set before CUDA starts): deterministic
-    algorithms on; two PPO iterations, the trainer saved
-    (``trainer_state``), two more; a fresh trainer restored from the file and
+    algorithms on, ``train_ppo_lidar.resume_check`` on the card (the check
+    ``tests/test_torch_train_ppo.py`` runs on the CPU): two PPO iterations,
+    the trainer saved, two more; a fresh trainer restored from the file and
     run two iterations: net, Adam state, obs, env state and generator
     bitwise the uninterrupted run's. Warnings about ops without a
     deterministic form are returned."""
     import warnings
 
     import apx_torch
-    from apx_torch.examples.train_ppo_lidar import (ClipAdam, init_net, load_trainer_state,
-                                                    make_train_iter, trainer_state)
-    from apx_torch.utils.checkpoint import restore_state, save_state
+    from apx_torch.examples.train_ppo_lidar import resume_check
 
     torch.use_deterministic_algorithms(True, warn_only=True)
     dev = torch.device("cuda")
     n, t = RESUME_N, RESUME_T
     venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device=dev)
-    opt = ClipAdam()
-    train_iter = make_train_iter(venv, opt, n, t)
-
-    def fresh(seed):
-        g = torch.Generator(dev).manual_seed(seed)
-        obs, state, _ = venv.reset(p, g)
-        net = init_net(g, p.map_bank.map_hw, dev)
-        return net, opt.init(net), state, obs, g
-
-    def run(iters, net, opt_state, state, obs, g):
-        for _ in range(iters):
-            state, obs, _ = train_iter(net, opt_state, state, obs, g, p)
-        return state, obs
-
     with warnings.catch_warnings(record=True) as caught, tempfile.TemporaryDirectory() as tmp:
         warnings.simplefilter("always")
-        net, opt_state, state, obs, g = fresh(11)
-        state, obs = run(2, net, opt_state, state, obs, g)
-        path = os.path.join(tmp, "trainer.pt")
-        save_state(path, trainer_state(net, opt_state, state, obs, g))
-        want = trainer_state(net, opt_state, *run(2, net, opt_state, state, obs, g), g)
-        net_b, opt_b, like_state, like_obs, g_b = fresh(12)
-        state_b, obs_b = load_trainer_state(
-            restore_state(path, trainer_state(net_b, opt_b, like_state, like_obs, g_b)),
-            net_b, opt_b, g_b)
-        got = trainer_state(net_b, opt_b, *run(2, net_b, opt_b, state_b, obs_b, g_b), g_b)
-        bitwise = all(torch.equal(x, y) for x, y in zip(_bytes(want), _bytes(got)))
-    return {"num_envs": n, "rollout_len": t, "iterations": "2 + 2", "bitwise": bitwise,
-            "leaves": len(_bytes(want)),
+        res = resume_check(venv, p, n, t, os.path.join(tmp, "trainer.pt"))
+    return {"num_envs": n, "rollout_len": t, "iterations": "2 + 2", **res,
             "nondeterministic_warnings": sorted({str(w.message)[:200] for w in caught
                                                  if "determinis" in str(w.message)})}
 
@@ -2525,12 +2511,18 @@ def phase_entry(dev) -> dict:
     """K3 on ``graft_entry.entry()``: the flagship CircleSquare (16x16, N =
     64) reset and one LOCKSTEP step at zero actions and logits, its counts
     set to 0 just before: ``glimpse`` 1 at the reset and 2 in the
-    masked-merge step; glimpse in [0, 1], rewards -1 within 1e-6."""
+    masked-merge step; glimpse in [0, 1], rewards -1 within 1e-6. Then K3
+    held against its plain form (``extract_glimpse_batch``) at this path's
+    inputs, within GLIMPSE_TOL: the step's observed glimpses against the
+    plain glimpses of the stepped state's images and positions, and K3 at
+    the reset state's images and positions against the plain form there."""
+    from apx_torch.envs.image_perception import ImagePerceptionEngine
     from apx_torch.graft_entry import entry
+    from apx_torch.ops.glimpse import extract_glimpse_batch
 
     reset_all_launch_counts()
     fn, args = entry(dev)
-    obs, _, reward, term, trunc = fn(*args)
+    obs, state1, reward, term, trunc = fn(*args)
     torch.cuda.synchronize()
     launches = {k: v for k, v in all_launch_counts().items() if v}
     check(launches == {"glimpse": 3}, f"entry() launched {launches}, expected 3 glimpse")
@@ -2539,8 +2531,24 @@ def phase_entry(dev) -> dict:
           "entry(): glimpse outside [0, 1]")
     err = float((reward + 1.0).abs().max())
     check(err <= 1e-6 and not bool((term | trunc).any()), f"entry(): reward -1 off by {err}")
+
+    params = args[3]
+    errs = {}
+    for when, st in (("step", state1.inner), ("reset", args[1].inner)):
+        images, index = ImagePerceptionEngine.glimpse_source(st, params)
+        if index is not None:
+            images = images[index]
+        want = extract_glimpse_batch(images, st.pos, params.sensor_size, params.sensor_scale)
+        got = gl if when == "step" else ImagePerceptionEngine.get_glimpse(st, st.pos, params)
+        check(got.shape == want.shape, f"entry() {when}: glimpse {tuple(got.shape)} against "
+                                       f"the plain form's {tuple(want.shape)}")
+        errs[when] = float((got - want).abs().max())
+        check(errs[when] <= GLIMPSE_TOL,
+              f"entry() {when}: K3 against its plain form, max |diff| {errs[when]}")
     return {"launches": launches["glimpse"], "glimpse_shape": list(gl.shape),
-            "reward_max_abs_err_vs_minus_one": err}
+            "image_shape": list(images.shape[1:]), "image_dtype": str(images.dtype),
+            "max_abs_err": max(errs.values()), "max_abs_err_by_call": errs,
+            "tolerance": GLIMPSE_TOL, "reward_max_abs_err_vs_minus_one": err}
 
 
 def main() -> int:
@@ -2738,7 +2746,8 @@ def main() -> int:
     print(f"train resume: {json.dumps(phase_train_resume())}", flush=True)
     flagship = phase_entry(dev)
     print(f"entry: {json.dumps(flagship)}", flush=True)
-    k3["entry"] = {"launches": flagship["launches"],
+    k3["max_abs_err"] = max(k3["max_abs_err"], flagship["max_abs_err"])
+    k3["entry"] = {"launches": flagship["launches"], "max_abs_err": flagship["max_abs_err"],
                    "path": "graft_entry.entry(): CircleSquare 16x16, N=64, reset + one step"}
 
     print(json.dumps({"kernels": rows}))

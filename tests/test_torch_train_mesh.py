@@ -60,6 +60,21 @@ def test_mesh_vtrace_syncs_its_behavior_net(grid_runs):
     assert len({tuple(out["vtrace"]["rewards"]) for out in grid_runs}) == 1
 
 
+@pytest.mark.parametrize("recipe", ["vtrace", "r2d2"])
+def test_mesh_offpolicy_equals_the_one_process_run(grid_runs, recipe):
+    """Two iterations of each off-policy learner on the grid against the
+    same two in one process (itself held against apx's iterations in
+    ``test_torch_train_offpolicy.py``): every mean reward within rtol 1e-5,
+    the trunk rows' gradient of the first iteration (equal nets) within
+    1e-5 of its largest entry (the weights after Adam's steps are reported,
+    not held: Adam amplifies the rounding of gradients near its eps,
+    ``trunk_grad_diff``)."""
+    for out in grid_runs:
+        res = out[recipe]
+        np.testing.assert_allclose(res["rewards"], res["solo_rewards"], rtol=1e-5)
+        assert res["trunk_grad_rel_diff"] <= 1e-5, res
+
+
 def test_mesh_r2d2_ring_and_target_sync(grid_runs):
     for out in grid_runs:
         rd = out["r2d2"]
@@ -87,12 +102,14 @@ def test_trunk_rows_meet_the_local_activations():
 def test_dryrun_multichip(world):
     """The dry run's three checks on 1 x 2 and 2 x 2 grids: the sharded
     rollouts equal the one-process ones (done counts, mean rewards rtol
-    1e-5) and the sharded training step's loss the one-process loss."""
+    1e-5) and the sharded training step's loss and SGD step the
+    one-process ones (the step within 1e-5 of its largest entry)."""
     ranks = dryrun_multichip(world, "cpu", "gloo")
     assert [r["rank"] for r in ranks] == list(range(world))
     for r in ranks:
         ts = r["train_step"]
         np.testing.assert_allclose(ts["loss"], ts["solo_loss"], rtol=1e-5)
+        assert ts["step_rel_diff"] <= 1e-5, ts
         assert math.isfinite(ts["loss"]) and ts["finite"]
         assert ts["hidden"] == 16 and ts["w1_shape"] == [267, 8]
         for name in ("lidar", "episodic"):

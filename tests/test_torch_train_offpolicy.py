@@ -1,22 +1,29 @@
-"""The off-policy recipes' pieces against apx's examples on equal inputs:
-V-trace (``train_vtrace_mesh.vtrace``) against the numpy oracle of IMPALA
-eq. 1 and against apx's; R2D2's value rescaling, LSTM cell, n-step
-double-Q targets and ring layout against apx's; and both learners'
-one-process iterations."""
+"""The off-policy recipes against apx's examples on equal inputs: V-trace
+(``train_vtrace_mesh.vtrace``) against the numpy oracle of IMPALA eq. 1
+and against apx's; R2D2's value rescaling, LSTM cell, n-step double-Q
+targets and ring layout against apx's; both learners' whole iterations,
+with the draws apx made from its keys injected, against apx's jitted
+iterations; and their one-process invariants."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
+import apx
 import apx_torch
+from examples.train_ppo_lidar import init_net as j_init_net
 from examples.train_r2d2_mesh import (init_r2d2_net as j_init_r2d2_net, lstm_step as j_lstm_step,
                                       value_rescale as j_value_rescale,
                                       value_rescale_inv as j_value_rescale_inv)
+from examples.train_r2d2_mesh import make_train_iter as j_r2d2_train_iter
+from examples.train_vtrace_mesh import make_train_iter as j_vtrace_train_iter
 from examples.train_vtrace_mesh import vtrace as j_vtrace
+from test_torch_train_ppo import _reset_draws, iteration_draws
 
-from apx_torch.convert import r2d2_net_from_numpy
+from apx_torch.convert import ppo_net_from_numpy, r2d2_net_from_numpy
 from apx_torch.distrib.mesh import EnvSharding
 from apx_torch.examples.train_ppo_lidar import ClipAdam, init_net
 from apx_torch.examples.train_r2d2_mesh import (ACTION_CODEBOOK, N_ACTIONS, RING_ENV_AXIS,
@@ -225,3 +232,144 @@ def test_r2d2_one_process_iterations():
     assert not all(torch.equal(a, b) for a, b in zip(net.parameters(), target.parameters()))
     moved = [k for k, v in net.state_dict().items() if (v - start[k]).abs().max() > 0]
     assert {"lstm.wx", "q.weight", "pred.weight", "trunk.weight", "conv1.weight"} <= set(moved)
+
+
+def _nets_close(jnet, net, convert, atol, what):
+    """Every weight of the port's ``net`` within ``atol`` of apx's ``jnet``."""
+    ref = convert(jax.tree_util.tree_map(np.asarray, jnet), "cpu").state_dict()
+    for k, v in net.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=0, atol=atol,
+                                   err_msg=f"{what} {k}")
+
+
+ITER_KEYS = (10, 11)  # the keys of the two iterations compared
+
+
+@pytest.fixture(scope="module")
+def vtrace_iterations():
+    """Two V-trace iterations (``sync_every=2``: the second collects with
+    the lagged behavior net, so the importance weights are not 1) of apx
+    (jitted) and of the port with apx's draws: per step ``ka, ks =
+    split(k)`` of ``split(key, T)``, the noise ``normal(ka, (N, 2))`` and
+    the reset draws of the vector step's ``ks``, as in the PPO iteration."""
+    n, t = 16, 4
+    jvenv, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=n)
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
+    jnet = j_init_net(jax.random.PRNGKey(6), jp.map_bank.map_hw)
+    key = jax.random.PRNGKey(2)
+    jobs, jstate, _ = jax.jit(jvenv.reset)(key, jp)
+    jopt = optax.chain(optax.clip_by_global_norm(0.5), optax.adam(3e-4))
+    jiter = jax.jit(j_vtrace_train_iter(jvenv, jopt, n, t, sync_every=2))
+    jcarry = (jnet, jnet, jopt.init(jnet), jstate, jobs, jnp.int32(0))
+    jr = []
+    for k in ITER_KEYS:
+        *jcarry, r = jiter(*jcarry, jax.random.PRNGKey(k), jp)
+        jr.append(float(r))
+
+    obs, state, _ = venv.reset(p, draws=_reset_draws(jp)(jax.random.split(key, n)))
+    net = ppo_net_from_numpy(jax.tree_util.tree_map(np.asarray, jnet), "cpu")
+    beh = clone_net(net)
+    opt = ClipAdam(0.5, 3e-4)
+    opt_state = opt.init(net)
+    train_iter = vtrace_train_iter(venv, opt, n, t, sync_every=2)
+    it, rs = 0, []
+    for k in ITER_KEYS:
+        draws = iteration_draws(jax.random.PRNGKey(k), jp, n, t)
+        state, obs, it, r = train_iter(net, beh, opt_state, state, obs, it, None, p, draws=draws)
+        rs.append(float(r))
+    return jcarry, jr, net, beh, rs, it
+
+
+def test_vtrace_whole_iterations_match_apx(vtrace_iterations):
+    """The mean rewards within rtol 1e-5 and the learner and behavior nets
+    after both iterations within 2e-5 (apx's mesh bound, as for PPO)."""
+    (jnet, jbeh, *_), jr, net, beh, rs, it = vtrace_iterations
+    np.testing.assert_allclose(rs, jr, rtol=1e-5)
+    _nets_close(jnet, net, ppo_net_from_numpy, 2e-5, "learner after two iterations")
+    _nets_close(jbeh, beh, ppo_net_from_numpy, 2e-5, "behavior after two iterations")
+    assert it == 2
+
+
+def _r2d2_draws(key, params, n, seq_len, batch_seqs, filled):
+    """What apx's R2D2 ``train_iter(key)`` draws: ``kc, ks = split(key)``;
+    per step ``ka, kexp, kstep = split(k, 3)`` of ``split(kc, seq_len)``,
+    the random ids ``randint(ka, (N,), 0, 9)``, the uniforms
+    ``uniform(kexp, (N,))`` and the reset draws of the vector step's
+    ``kstep``; the sampled rows ``randint(ks, (B,), 0, filled)``."""
+    reset = _reset_draws(params)
+    kc, ks = jax.random.split(key)
+    rand, explore, resets = [], [], []
+    for k in jax.random.split(kc, seq_len):
+        ka, kexp, kstep = jax.random.split(k, 3)
+        rand.append(np.asarray(jax.random.randint(ka, (n,), 0, N_ACTIONS)))
+        explore.append(np.asarray(jax.random.uniform(kexp, (n,))))
+        resets.append(reset(jax.random.split(jax.random.split(kstep)[1], n)))
+    idx = np.asarray(jax.random.randint(ks, (batch_seqs,), 0, max(filled, 1)))
+    return {"rand": torch.from_numpy(np.stack(rand).astype(np.int64)),
+            "explore": torch.from_numpy(np.stack(explore)), "reset": resets,
+            "idx": torch.from_numpy(idx.astype(np.int64))}
+
+
+@pytest.fixture(scope="module")
+def r2d2_iterations(r2d2_nets):
+    """Two R2D2 iterations (hidden 32, seq_len 8, burn-in 2, capacity 4, 2
+    sequences, target sync every 2) of apx (jitted) and of the port with
+    apx's draws: the second samples from a ring of two segments and
+    collects from the carry the first ended on. Of the 6 positions after
+    the burn-in the loss keeps 3 (n = 3), so its divisor is not 1."""
+    jnet, _ = r2d2_nets
+    n, hidden, seq_len, batch_seqs = 8, 32, 8, 2
+    kw = dict(seq_len=seq_len, burn_in=2, capacity=4, batch_seqs=batch_seqs,
+              target_sync_every=2, hidden=hidden)
+    jvenv, jp = apx.make_vec("LIDARLocRooms-v0", num_envs=n)
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
+    key = jax.random.PRNGKey(4)
+    jobs, jstate, _ = jax.jit(jvenv.reset)(key, jp)
+    jopt = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(1e-3))
+    jiter, j_empty_ring = j_r2d2_train_iter(jvenv, jopt, n, **kw)
+    jiter = jax.jit(jiter)
+    zeros = jnp.zeros((n, hidden))
+    jcarry = (jnet, jnet, jopt.init(jnet), j_empty_ring(jobs), jstate, jobs, (zeros, zeros),
+              jnp.int32(0))
+    jr = []
+    for k in ITER_KEYS:
+        *jcarry, r = jiter(*jcarry, jax.random.PRNGKey(k), jp)
+        jr.append(float(r))
+
+    obs, state, _ = venv.reset(p, draws=_reset_draws(jp)(jax.random.split(key, n)))
+    net = r2d2_net_from_numpy(jax.tree_util.tree_map(np.asarray, jnet), "cpu")
+    target = clone_net(net)
+    opt = ClipAdam(1.0, 1e-3)
+    opt_state = opt.init(net)
+    train_iter, empty_ring = r2d2_train_iter(venv, opt, n, **kw)
+    ring = empty_ring(obs)
+    carry = (torch.zeros(n, hidden), torch.zeros(n, hidden))
+    it, rs = 0, []
+    for i, k in enumerate(ITER_KEYS):
+        draws = _r2d2_draws(jax.random.PRNGKey(k), jp, n, seq_len, batch_seqs, filled=i + 1)
+        ring, state, obs, carry, it, r = train_iter(net, target, opt_state, ring, state, obs,
+                                                    carry, it, None, p, draws=draws)
+        rs.append(float(r))
+    return jcarry, jr, net, target, ring, carry, rs
+
+
+def test_r2d2_whole_iterations_match_apx(r2d2_iterations):
+    """The mean rewards within rtol 1e-5; the ring's action ids (eps-greedy
+    on the online Q) and dones equal, its rewards and stored initial states
+    within 1e-5; the online and target nets after both iterations within
+    2e-5, as the PPO iteration is held, and so the carry the second
+    segment (collected by the once-updated net) ends on."""
+    jcarry, jr, net, target, ring, carry, rs = r2d2_iterations
+    jnet, jtarget, _, jring, _, _, jc, _ = jcarry
+    np.testing.assert_allclose(rs, jr, rtol=1e-5)
+    assert int(ring["ptr"]) == int(jring["ptr"]) == 2
+    assert int(ring["filled"]) == int(jring["filled"]) == 2
+    np.testing.assert_array_equal(ring["act"].numpy(), np.asarray(jring["act"]))
+    np.testing.assert_array_equal(ring["done"].numpy(), np.asarray(jring["done"]))
+    for k in ("rew", "h0", "c0"):
+        np.testing.assert_allclose(ring[k].numpy(), np.asarray(jring[k]), rtol=0, atol=1e-5,
+                                   err_msg=f"ring {k}")
+    for ours, theirs in zip(carry, jc):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0, atol=2e-5)
+    _nets_close(jnet, net, r2d2_net_from_numpy, 2e-5, "online after two iterations")
+    _nets_close(jtarget, target, r2d2_net_from_numpy, 2e-5, "target after two iterations")

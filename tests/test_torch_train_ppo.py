@@ -20,10 +20,9 @@ from examples.train_ppo_lidar import (apply_dense as j_apply_dense, encode as j_
 
 import apx_torch
 from apx_torch.convert import ppo_net_from_numpy
-from apx_torch.examples.train_ppo_lidar import (ClipAdam, encode, gae, init_net, load_trainer_state,
-                                                logp_gauss, make_train_iter, policy_dist,
-                                                ppo_loss, trainer_state)
-from apx_torch.utils.checkpoint import restore_state, save_state
+from apx_torch.examples.train_ppo_lidar import (ClipAdam, encode, gae, init_net, logp_gauss,
+                                                make_train_iter, policy_dist, ppo_loss,
+                                                resume_check)
 
 torch.set_num_threads(1)
 N, T, MINIBATCHES, EPOCHS = 16, 4, 2, 2
@@ -363,43 +362,14 @@ def test_trainer_resume_is_bit_identical(tmp_path):
     """Checkpoint the trainer (net, Adam moments and step, env state, obs,
     generator) after two iterations; the resumed run equals the
     uninterrupted one bitwise (after apx's
-    ``test_learner_checkpoint_resume_bit_identical``)."""
+    ``test_learner_checkpoint_resume_bit_identical``). ``chip_smoke.py``
+    runs the same check on the card."""
     n, t = 8, 4
     venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
-    opt = ClipAdam()
-    train_iter = make_train_iter(venv, opt, n, t, num_minibatches=2)
-
-    def fresh(seed):
-        g = torch.Generator().manual_seed(seed)
-        obs, state, _ = venv.reset(p, g)
-        net = init_net(g, p.map_bank.map_hw, "cpu")
-        return net, opt.init(net), state, obs, g
-
-    def run(iters, net, opt_state, state, obs, g):
-        for _ in range(iters):
-            state, obs, _ = train_iter(net, opt_state, state, obs, g, p)
-        return state, obs
-
-    net, opt_state, state, obs, g = fresh(11)
-    state, obs = run(2, net, opt_state, state, obs, g)
-    path = str(tmp_path / "trainer.pt")
-    save_state(path, trainer_state(net, opt_state, state, obs, g))
-    state_a, obs_a = run(2, net, opt_state, state, obs, g)
-
-    net_b, opt_b, like_state, like_obs, g_b = fresh(12)
-    state_b, obs_b = load_trainer_state(
-        restore_state(path, trainer_state(net_b, opt_b, like_state, like_obs, g_b)),
-        net_b, opt_b, g_b)
-    state_b, obs_b = run(2, net_b, opt_b, state_b, obs_b, g_b)
-    for (k, a), b in zip(net.state_dict().items(), net_b.state_dict().values()):
-        assert torch.equal(a, b), k
-    for p_a, p_b in zip(net.parameters(), net_b.parameters()):
-        for k in ("step", "exp_avg", "exp_avg_sq"):
-            assert torch.equal(opt_state.state[p_a][k], opt_b.state[p_b][k]), k
-    for k in obs_a:
-        assert torch.equal(obs_a[k], obs_b[k]), k
-    assert torch.equal(state_a.inner.inner.pos, state_b.inner.inner.pos)
-    assert torch.equal(g.get_state(), g_b.get_state())
+    res = resume_check(venv, p, n, t, str(tmp_path / "trainer.pt"), num_minibatches=2)
+    assert res["bitwise"], res
+    # 16 net leaves, 3 x 16 of Adam's, the env state's, 4 obs, the generator.
+    assert res["leaves"] > 16 + 48 + 4 + 1
 
 
 def test_entry_points_default_to_cuda():
