@@ -18,13 +18,16 @@ the paths the headline numbers use:
    equals the one-process loss (rtol 1e-5) and is finite, and the sharded
    step the one-process step (within 1e-5 of its largest entry).
 
-apx differentiates check 3's loss through the env's dynamics too: its
-prediction target (the agent's position) moves with the action, and the
-move is clipped by a raycast. The port steps the env with the
-action detached, as the recipes do (its raycast kernels have no
-backward), so its SGD step is not apx's, though its loss is the same
-function. The check holds the sharded loss and step to the one-process
-run's (``step_rel_diff``), not to apx's.
+apx's check 3 differentiates its loss through the env with the action
+live: the prediction target (the agent's position) moves with the action,
+and the move is clipped by a raycast. At the dry run's sizes that gradient
+is NaN in every entry of ``w1``, ``b1`` and ``w_act`` (apx asserts only
+that the loss is finite). The port therefore follows apx's loss with the
+env's action under ``stop_gradient``: it steps the env with the action
+detached, as the recipes do (K1 has no backward), and ``train_step``,
+given apx's draws, equals that loss and SGD step
+(``tests/test_torch_graft_entry.py``). The check holds the sharded loss
+and step to the one-process run's (``step_rel_diff``).
 
     python -m apx_torch.graft_entry [--world W] [--device cuda:0] [--backend gloo]
 """
@@ -44,7 +47,8 @@ from .core.env import AutoResetMode, rollout, rollout_episodic, vector_env
 from .distrib.mesh import local_venv, shard_env_batch, sharded_rollout
 from .registry import _device as resolve_device
 
-__all__ = ["entry", "dryrun_multichip", "train_step_check", "main"]
+__all__ = ["entry", "dryrun_multichip", "step_draws", "train_step", "train_step_check",
+           "main"]
 
 ROLLOUT = 3
 LR = 1e-3
@@ -124,56 +128,73 @@ def _shard_mlp(w: dict, grid) -> dict:
             "w_pred": w["w_pred"][cols]}
 
 
+def step_draws(env, params, num_envs: int, generator) -> dict:
+    """The draws of one dry-run training step for ``num_envs`` envs: the
+    reset's, then per rollout step the action noise (N, 2), the env's step
+    draws and the reset draws of the NEXT_STEP merge."""
+    dev = params.device
+    draws = {"reset": env.draw_reset(num_envs, params, generator),
+             "noise": [], "step": [], "merge_reset": []}
+    for _ in range(ROLLOUT):
+        draws["noise"].append(torch.randn((num_envs, 2), generator=generator, device=dev))
+        draws["step"].append(env.draw_step(num_envs, params, generator))
+        draws["merge_reset"].append(env.draw_reset(num_envs, params, generator))
+    return draws
+
+
+def train_step(venv, params, weights: dict, draws: dict, grid=None) -> tuple[float, dict]:
+    """One training step of check 3 from injected ``draws`` (``step_draws``,
+    for the whole batch): the reset, a ROLLOUT-step rollout of the MLP
+    policy (the env stepped with the action detached), REINFORCE plus the
+    prediction MSE, and the SGD step at LR. ``weights`` are the whole MLP's;
+    on a ``grid`` this rank steps its data block with its model shard and
+    the gradients and loss are summed over the ranks. Returns the loss and
+    this rank's SGD step (``-LR * grad`` per weight)."""
+    n = venv.num_envs
+    local, block = venv, (lambda t: t)
+    if grid is not None:
+        local, block = local_venv(venv, grid.env), (lambda t: shard_env_batch(grid.env, t))
+        weights = _shard_mlp(weights, grid)
+    w = {k: v.clone().requires_grad_() for k, v in weights.items()}
+    obs, state, _ = local.reset(params, draws=block(draws["reset"]))
+    total = torch.zeros((), device=params.device)
+    for t in range(ROLLOUT):
+        act_mean, pred = _mlp_apply(w, _flat_obs(obs), grid)
+        act = act_mean + 0.1 * block(draws["noise"][t])
+        obs, state, reward, _, _, info = local.step(
+            state, {"action": act.detach(), "prediction": pred}, params,
+            reset_draws=block(draws["merge_reset"][t]), step_draws=block(draws["step"][t]))
+        logp = -((act - act_mean) ** 2).sum(dim=-1)
+        target = info["prediction"]["target"]
+        if isinstance(target, dict):
+            target = target["target"]
+        pred_err = ((pred - target) ** 2).sum(dim=-1)
+        total = total + (pred_err + (-reward).detach() * logp).sum() / n
+    loss = total / ROLLOUT
+    loss.backward()
+    value = loss.detach()
+    if grid is not None:
+        grid.reduce_grads(list(w.values()))
+        value = grid.data_sum(value)
+    return float(value), {k: -LR * v.grad for k, v in w.items()}
+
+
 def train_step_check(grid, seed: int = 0) -> dict:
     """Check 3 on this rank: the data-sharded rollout into the
-    tensor-parallel MLP, its loss and SGD step, and the same step in one
-    process (this rank, the whole batch). Returns both losses and the
-    largest |difference| of the sharded step from the one-process step's
-    same columns, relative to that step's largest entry."""
+    tensor-parallel MLP, its loss and SGD step (``train_step``), and the
+    same step in one process (this rank, the whole batch), from the same
+    draws and weights. Returns both losses and the largest |difference| of
+    the sharded step from the one-process step's same columns, relative to
+    that step's largest entry."""
     num_envs = 4 * grid.data
     venv, params = _make_headline(num_envs, grid.device)
-    env = venv.env
-
-    def run(sharded: bool):
-        g = torch.Generator(grid.device).manual_seed(seed)
-        sh = grid if sharded else None
-        local = local_venv(venv, grid.env) if sharded else venv
-        block = (lambda t: shard_env_batch(grid.env, t)) if sharded else (lambda t: t)
-        obs, state, _ = local.reset(params, draws=block(env.draw_reset(num_envs, params, g)))
-        d_in = _flat_obs(obs).shape[-1]
-        weights = _mlp_init(g, d_in, 8 * grid.model, 2, 2, grid.device)
-        if sharded:
-            weights = _shard_mlp(weights, grid)
-        weights = {k: v.clone().requires_grad_() for k, v in weights.items()}
-        total = torch.zeros((), device=grid.device)
-        for _ in range(ROLLOUT):
-            act_mean, pred = _mlp_apply(weights, _flat_obs(obs), sh)
-            act = act_mean + 0.1 * block(torch.randn((num_envs, 2), generator=g,
-                                                     device=grid.device))
-            step_draws = block(env.draw_step(num_envs, params, g))
-            reset = block(env.draw_reset(num_envs, params, g))
-            obs, state, reward, _, _, info = local.step(
-                state, {"action": act.detach(), "prediction": pred}, params,
-                reset_draws=reset, step_draws=step_draws)
-            logp = -((act - act_mean) ** 2).sum(dim=-1)
-            target = info["prediction"]["target"]
-            if isinstance(target, dict):
-                target = target["target"]
-            pred_err = ((pred - target) ** 2).sum(dim=-1)
-            total = total + (pred_err + (-reward).detach() * logp).sum() / num_envs
-        loss = total / ROLLOUT
-        loss.backward()
-        value = loss.detach()
-        if sharded:
-            grid.reduce_grads(list(weights.values()))
-            value = grid.data_sum(value)
-        with torch.no_grad():
-            step = {k: -LR * w.grad for k, w in weights.items()}
-            new_w = {k: w + step[k] for k, w in weights.items()}
-        return float(value), new_w, step
-
-    loss, new_w, step = run(True)
-    solo_loss, _, solo_step = run(False)
+    g = torch.Generator(grid.device).manual_seed(seed)
+    draws = step_draws(venv.env, params, num_envs, g)
+    obs, _, _ = venv.reset(params, draws=draws["reset"])
+    weights = _mlp_init(g, _flat_obs(obs).shape[-1], 8 * grid.model, 2, 2, grid.device)
+    loss, step = train_step(venv, params, weights, draws, grid)
+    solo_loss, solo_step = train_step(venv, params, weights, draws)
+    new_w = {k: w + step[k] for k, w in _shard_mlp(weights, grid).items()}
     solo_step = _shard_mlp(solo_step, grid)
     scale = max(float(v.abs().max()) for v in solo_step.values())
     diff = max(float((step[k] - solo_step[k]).abs().max()) for k in step)

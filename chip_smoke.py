@@ -108,8 +108,20 @@ Phases, one line each; any failure exits non-zero:
     ``CircleSquareHideAndSeekNoPrediction-sparse-v0`` at N = 256 for 51
     steps at CircleSquare's tolerances, ``glimpse`` launched 1 + 2 per
     step on the card.
-17. throughput: ``apx_torch.bench`` at N = 4096 for the seven workloads
-    (eager and CUDA graph; ``tin_loc`` builds its 100,000-image bank).
+17. apx's bench: ``LIDARLocMaze-v0`` and ``LIDARLocRoomsStatic-v0`` card vs
+    CPU (phase 5's check, N = 256, 120 steps, bitwise); ``python -m
+    apx_torch.bench --deep --emit FILE`` in a subprocess: the ten workloads
+    at N = 4096 for 1024 steps (eager and CUDA graph, the banks at apx's
+    default size), ``lidar_rooms``, ``mnist`` and ``tin_loc`` at N = 16384,
+    the compat rows and the calibration number; no record with an error,
+    every value positive, apx's roofline stats on every device record, the
+    fingerprint's platform ``gpu``. Then the bench's loop (``_loop``,
+    ``_steps``) of ``lidar_maze``, ``lidar_rooms_static`` and ``cifar10`` at
+    N = 4096 and of ``lidar_rooms``, ``mnist`` and ``tin_loc`` at N = 16384,
+    one graph chunk from the explicit reset each: K1's and K3's launches
+    equal to the wrappers' calls and to ``expected_workload_launches``, and
+    each kernel held on the first inputs the path gave it (K1 per ray count
+    bitwise, K3 within 1e-6), with its device, plain and bound ms.
 18. sharded LIDAR, world 1 over nccl: ``python -m
     apx_torch.distrib.selftest`` (one process, a FileStore,
     ``NCCL_SOCKET_IFNAME=lo``), ``sharded_rollout`` of
@@ -273,8 +285,10 @@ and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 on phases 18-19, set to 0 in the worker just before its sharded rollout;
 their ``"compat"`` entries are the counts on each phase-24 path; K3's
 ``"glimpse_study"`` entry its launches in phase 27 (set to 0 just before);
-K1's ``"backends"`` its launches on each phase-31 path, K3's ``"chunked"``
-and ``"storage"`` entries its launches on the phase-32 chunked reset and
+K1's and K3's ``"workloads"`` entries their launches on each phase-17
+workload path (set to 0 just before each), with the kernel's time on that
+path's inputs; K1's ``"backends"`` its launches on each phase-31 path,
+K3's ``"chunked"`` and ``"storage"`` entries its launches on the phase-32 chunked reset and
 on each phase-33 path (each set to 0 just before); K1's ``"train"``
 entries its launches in each phase-35 iteration, K3's ``"entry"`` its
 launches on ``entry()``.
@@ -284,6 +298,7 @@ the apx_torch package beside it, and exits non-zero without them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -298,9 +313,9 @@ import numpy as np
 import torch
 
 # Published H100 SXM peaks (dense): HBM bytes/s and float32 operations/s
-# outside the tensor cores (an FMA counts as two operations).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# outside the tensor cores (an FMA counts as two operations); the import
+# fails where chip_smoke.py stands without the repo.
+from apx_torch.core.peaks import FP32_OPS_PER_S, HBM_BYTES_PER_S
 # float32 instructions issued per second: half of FP32_OPS_PER_S, where an
 # FMA is one instruction (132 SMs x 128 lanes x 1.98 GHz). K1, K3 and K4
 # are counted in instructions (min, max, compare and select are one each,
@@ -319,6 +334,7 @@ OPS_PER_GLIMPSE_TAP = 20
 OPS_PER_GLIMPSE = {torch.float32: 11, torch.uint8: 15}
 GLIMPSE_TOL = 1e-6
 N = 4096
+TIN_BANK = 100_000  # TinyImageNet's split: the 1.23 GB bank of phases 21 and 33
 
 
 def check(ok, msg: str) -> None:
@@ -600,10 +616,32 @@ def glimpse_inputs(dev) -> dict:
             "cifar10": (u8(32, 32, 3), positions(), (5, 5), 1.0)}
 
 
-def phase_glimpse_kernel(dev) -> dict:
+def glimpse_library(images, pos, sensor, scale):
+    """The library yardstick of K3 (the port never calls it): one
+    ``grid_sample`` on the float32 NCHW images at the kernel's
+    coordinates, clipped to [0, 1]; returns the call."""
     import torch.nn.functional as F
 
-    from apx_torch.ops.glimpse import extract_glimpse_batch, glimpse_coords
+    from apx_torch.ops.glimpse import glimpse_coords
+
+    n, h, w, c = images.shape
+    img = images.to(torch.float32)
+    if images.dtype == torch.uint8:
+        img = img / 255.0
+    img = img.permute(0, 3, 1, 2).contiguous()
+    rows, cols = glimpse_coords(pos, (h, w), sensor, scale)
+    grid = torch.stack(torch.broadcast_tensors(
+        (cols / (w - 1) * 2 - 1)[:, None, :], (rows / (h - 1) * 2 - 1)[:, :, None]), dim=-1)
+
+    def library():
+        return F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True).clamp(0.0, 1.0)
+
+    return library
+
+
+def phase_glimpse_kernel(dev) -> dict:
+    from apx_torch.ops.glimpse import extract_glimpse_batch
     from apx_torch.ops.glimpse_cuda import glimpse
 
     # The plain form's products run in full float32, not TF32.
@@ -616,20 +654,8 @@ def phase_glimpse_kernel(dev) -> dict:
         err = (got - want).abs().max().item()
         check(err <= GLIMPSE_TOL, f"glimpse at {geom}: max |diff| {err} > {GLIMPSE_TOL}")
         check(bool(((got >= 0) & (got <= 1)).all()), f"glimpse at {geom} outside [0, 1]")
-        # grid_sample on the float32 NCHW image, at the kernel's coordinates.
         n, h, w, c = images.shape
-        img = images.to(torch.float32)
-        if images.dtype == torch.uint8:
-            img = img / 255.0
-        img = img.permute(0, 3, 1, 2).contiguous()
-        rows, cols = glimpse_coords(pos, (h, w), sensor, scale)
-        grid = torch.stack(torch.broadcast_tensors(
-            (cols / (w - 1) * 2 - 1)[:, None, :], (rows / (h - 1) * 2 - 1)[:, :, None]), dim=-1)
-
-        def library():
-            return F.grid_sample(img, grid, mode="bilinear", padding_mode="border",
-                                 align_corners=True).clamp(0.0, 1.0)
-
+        library = glimpse_library(images, pos, sensor, scale)
         lib_err = (library().permute(0, 2, 3, 1) - got).abs().max().item()
         b_ms, b_by = glimpse_bound(images, pos, sensor, scale)
         per_geom[geom] = {
@@ -1470,7 +1496,7 @@ def phase_bank_rotator(dev) -> dict:
 
     slabs = [host_slab(0), host_slab(1)]
     nbytes = slabs[0].nbytes
-    lp = _loop("tin_loc", N, dev)  # the bank the throughput phase built
+    lp = _loop("tin_loc", N, dev, bank_points=TIN_BANK)
     g = torch.Generator(dev).manual_seed(0)
     obs, state, _ = lp.venv.reset(lp.params, g)
     rsum = torch.zeros((), device=dev)
@@ -2088,7 +2114,7 @@ def phase_image_storage(dev) -> dict:
     configs = {"packed": {"image_storage": "packed"}, "flat": {"image_storage": "flat"},
                "gather": {"image_storage": "gather"}, "rows": {"glimpse_window": "rows"}}
     res: dict = {"paths": {}, "ab": {}}
-    base_lp = _loop("tin_loc", N, dev)
+    base_lp = _loop("tin_loc", N, dev, bank_points=TIN_BANK)
 
     def run(lp, draws, steps_draws):
         """The path's reset and steps: (obs, reward, perception state) per
@@ -2115,7 +2141,7 @@ def phase_image_storage(dev) -> dict:
           f"array path: glimpse launched {want_reset} + {want_steps}")
     res["paths"]["array"] = {"glimpse_launches": [want_reset, want_steps]}
     for name, config in configs.items():
-        lp = _loop("tin_loc", N, dev, overrides=config)
+        lp = _loop("tin_loc", N, dev, overrides=config, bank_points=TIN_BANK)
         got, at_reset, over_steps = run(lp, draws, steps_draws)
         for t, ((o, r, p), (oa, ra, _)) in enumerate(zip(got, want)):
             for k in o:
@@ -2134,7 +2160,7 @@ def phase_image_storage(dev) -> dict:
               f"{name}: glimpse launched {at_reset} + {over_steps}, expected {expect}")
         res["paths"][name] = {"steps": STORAGE_STEPS, "glimpse_launches": [at_reset, over_steps]}
         del got
-        ab = bench_ab("tin_loc", config, N, 170)
+        ab = bench_ab("tin_loc", config, N, 170, bank_points=TIN_BANK)
         res["ab"][name] = {k: ab[k] for k in ("default_graph_ms_per_step",
                                               "variant_graph_ms_per_step",
                                               "variant_over_default")}
@@ -2551,13 +2577,201 @@ def phase_entry(dev) -> dict:
             "tolerance": GLIMPSE_TOL, "reward_max_abs_err_vs_minus_one": err}
 
 
+# ---- apx's bench (PR 13) --------------------------------------------------------
+
+# The bench's workload paths that bring K1 and K3 to shapes no phase above
+# gives them: the maze (21x21) and static-rooms LIDAR paths at N = 4096,
+# the rooms path at the scaling rows' N = 16384, CIFAR10's 32x32x3 glimpse
+# at N = 4096 and MNIST's and TinyImageNet's at N = 16384.
+SCALING_N = 16384
+WORKLOAD_PATHS = (("lidar_maze", N), ("lidar_rooms_static", N), ("lidar_rooms", SCALING_N),
+                  ("cifar10", N), ("mnist", SCALING_N), ("tin_loc", SCALING_N))
+# apx's roofline stats, which every device record of the --deep capture carries.
+DEEP_STATS = ("obs_bytes_per_step", "device_busy_us_per_step", "obs_hbm_roofline_us_per_step",
+              "pct_of_obs_hbm_roofline")
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+@contextlib.contextmanager
+def recorded_calls(module, names: tuple[str, ...], calls: dict, counts: dict):
+    """Replace the kernel wrappers ``names`` that ``module`` (an env module)
+    imported by pass-throughs that count their calls in ``counts`` and keep
+    a copy of the inputs of the first call per wrapper and ray count (K1) or
+    per wrapper (K3) in ``calls``."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            key = (name, args[2].shape[1] if name != "glimpse" else None)
+            if key not in calls:
+                calls[key] = ([_clone(a) for a in args], {k: _clone(v) for k, v in kwargs.items()})
+            return fn(*args, **kwargs)
+
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def expected_workload_launches(name: str, steps: int, cycles: int) -> dict:
+    """Kernel launches of a bench workload's reset and ``steps`` steps of
+    its loop: a LIDAR step casts 3 fast and 1 typed (the merge's reset
+    scan), the reset 1 typed; an episodic classification step (DISABLED or
+    boundary) and the reset one glimpse; TinyImageNetLoc adds the target
+    glimpse at the reset and at each cycle's boundary."""
+    if name.startswith("lidar"):
+        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+    if name == "tin_loc":
+        return {"glimpse": 2 + steps + cycles}
+    return {"glimpse": 1 + steps}
+
+
+def _hold_k1(name: str, args) -> dict:
+    from apx_torch.ops import raycast_cuda
+    from apx_torch.ops.raycast import raycast_grid, seg_length
+
+    occ, origin, targets, seg = args
+    wrapper_seg = seg is None
+    if wrapper_seg:  # the wrapper's default, computed here so that only the kernel is timed
+        seg = seg_length(targets - origin[:, None, :])
+    kernel = getattr(raycast_cuda, name)
+    typed = name == "raycast_typed"
+    got = kernel(occ, origin, targets, seg)
+    want = raycast_grid(occ, origin, targets, seg, geos_typing=typed)[0]
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"{name} R={targets.shape[1]} on a workload's inputs not bitwise its plain form "
+          f"(max |diff| {err})")
+    b_ms, b_by = bound(name, occ, origin, targets)
+    return {"ms": device_ms(lambda: kernel(occ, origin, targets, seg), 50),
+            "plain_ms": device_ms(
+                lambda: raycast_grid(occ, origin, targets, seg, geos_typing=typed), 4),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "library_ms": None,
+            "seg_from_wrapper": wrapper_seg,
+            # the call as the path makes it: with no seg the wrapper computes
+            # seg_length (the exact-rounding emulation) before the launch
+            "wrapper_ms": device_ms(
+                lambda: kernel(occ, origin, targets, None if wrapper_seg else seg), 50)}
+
+
+def _hold_k3(args, kwargs) -> dict:
+    from apx_torch.core.numerics import matmul_tf32
+    from apx_torch.ops.glimpse import extract_glimpse_batch
+    from apx_torch.ops.glimpse_cuda import glimpse
+
+    images, pos, sensor, scale = args
+    index = kwargs.get("index")
+    rows = images if index is None else images[index]
+    got = glimpse(images, pos, sensor, scale, index=index)
+    with matmul_tf32(False):
+        want = extract_glimpse_batch(rows, pos, sensor, scale)
+        plain_ms = device_ms(lambda: extract_glimpse_batch(rows, pos, sensor, scale), 4)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(err <= GLIMPSE_TOL, f"glimpse on a workload's inputs: max |diff| {err} > {GLIMPSE_TOL}")
+    n, h, w, c = rows.shape
+    b_ms, b_by = glimpse_bound(rows, pos, sensor, scale)
+    return {"shape": f"N={n} {h}x{w}x{c} {str(images.dtype).split('.')[-1]}, "
+                     f"{sensor[0]}x{sensor[1]} sensor" + ("" if index is None else ", by index"),
+            "ms": device_ms(lambda: glimpse(images, pos, sensor, scale, index=index), 50),
+            "plain_ms": plain_ms,
+            "library_ms": device_ms(glimpse_library(rows, pos, sensor, scale), 50),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
+def phase_workload_kernels(dev) -> dict:
+    """The workload paths of WORKLOAD_PATHS, each driven through the bench's
+    own loop (``apx_torch.bench._loop``, ``_steps`` over ``_draws``) from
+    its explicit reset for one graph chunk (16 steps, or one 17-step
+    LOCKSTEP cycle), eagerly. The launch counts are set to 0 just before
+    each path and read just after: they must equal the wrappers' calls
+    (each call launched) and ``expected_workload_launches``. The inputs of
+    the first call of each kernel (and ray count) are kept and the kernel
+    is held against its plain form on them (K1 bitwise, K3 within
+    GLIMPSE_TOL), with its device, plain and bound ms (and ``grid_sample``'s
+    for K3; for K1 also the wrapper's call as the path makes it, which,
+    where the env passes no segment lengths, computes them first)."""
+    import apx_torch.envs.image_perception as image_mod
+    import apx_torch.envs.lidar_localization as lidar_mod
+    from apx_torch.bench import _draws, _loop, _steps
+
+    out = {}
+    for name, n in WORKLOAD_PATHS:
+        lp = _loop(name, n, dev)
+        g = torch.Generator(dev).manual_seed(11)
+        calls, counts = {}, {}
+        with recorded_calls(lidar_mod, ("raycast_fast", "raycast_typed"), calls, counts), \
+                recorded_calls(image_mod, ("glimpse",), calls, counts):
+            torch.cuda.synchronize()
+            reset_all_launch_counts()
+            obs, state, _ = lp.venv.reset(lp.params, g)
+            _steps(lp, obs, state, _draws(lp, lp.chunk, g),
+                   torch.zeros((), device=dev))
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in all_launch_counts().items() if v}
+        want = expected_workload_launches(name, lp.chunk, 1)
+        check(launched == counts == want,
+              f"{name}: launches {launched}, wrapper calls {counts}, expected {want}")
+        res = {"num_envs": n, "steps": lp.chunk, "launches": launched,
+               "launches_per_step": {k: v / lp.chunk for k, v in launched.items()},
+               "kernels": {}}
+        for (kernel, r), (args, kwargs) in calls.items():
+            if kernel == "glimpse":
+                res["kernels"]["glimpse"] = _hold_k3(args, kwargs)
+            else:
+                occ = args[0]
+                res["kernels"].setdefault(kernel, {"shape": f"N={n} {occ.shape[1]}x{occ.shape[2]}",
+                                                   "by_r": {}})["by_r"][r] = _hold_k1(kernel, args)
+        out[name] = res
+        del lp, calls, obs, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_deep_capture() -> dict:
+    """``python -m apx_torch.bench --deep --emit FILE`` in a subprocess (the
+    bench's one-process capture, every workload at N = 4096 and the scaling
+    and compat rows, with the calibration number): no record carries an
+    error, every value is positive, every device record carries apx's
+    roofline stats (finite, positive), and the fingerprint says gpu."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "deep.json")
+        _spawn([[sys.executable, "-m", "apx_torch.bench", "--deep", "--emit", path]], {})
+        with open(path) as f:
+            doc = json.load(f)
+    check(doc["fingerprint"]["platform"] == "gpu", f"fingerprint {doc['fingerprint']}")
+    check(doc.get("deep") is True and set(doc["omitted"]) == {"prng_ab"}, "not a deep document")
+    for rec in doc["results"]:
+        check("error" not in rec, f"deep record failed: {rec}")
+        check(rec["value"] > 0, f"deep record not positive: {rec}")
+        if rec["segment"] != "compat":
+            for k in DEEP_STATS:
+                check(k in rec and np.isfinite(rec[k]) and rec[k] > 0,
+                      f"deep record {rec['metric']} lacks {k}: {rec}")
+    calibration = doc["calibration_lidar_rooms_4096x200"]
+    check(calibration > 0, f"calibration {calibration}")
+    doc["seconds"] = time.perf_counter() - t0
+    return doc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU", file=sys.stderr)
         return 1
     import apx_torch  # noqa: F401  (fails here when run without the repo)
-    from apx_torch.bench import (bench_compat, bench_light_dark, bench_lidar_rooms,
-                                 bench_lidar_rooms_window, bench_lockstep, nvidia_smi_line)
+    from apx_torch.bench import bench_compat, nvidia_smi_line
     from apx_torch.ops import build
 
     dev = torch.device("cuda")
@@ -2657,13 +2871,28 @@ def main() -> int:
             k3["by_geometry"][geometry]["launches_path"] = f"{env_id}, N=256, 51 steps"
         print(f"new ids card vs cpu: {json.dumps(res)}", flush=True)
 
-    print(f"throughput: {json.dumps(bench_lidar_rooms(N, 1024))}", flush=True)
-    print(f"throughput: {json.dumps(bench_lidar_rooms_window(N, 1024))}", flush=True)
-    print(f"throughput: {json.dumps(bench_lockstep("circle_square", N, 1020))}", flush=True)
-    print(f"throughput: {json.dumps(bench_light_dark(N, 1024))}", flush=True)
-    for env in ("tin_loc", "mnist", "hide_and_seek"):
-        steps = 1020 if env != "hide_and_seek" else 990  # whole 17- and 33-step cycles
-        print(f"throughput: {json.dumps(bench_lockstep(env, N, steps))}", flush=True)
+    for env_id in ("LIDARLocMaze-v0", "LIDARLocRoomsStatic-v0"):
+        print(f"bench paths card vs cpu: "
+              f"{json.dumps(phase_card_vs_cpu(dev, env_id, 256, 120, {}))}", flush=True)
+    deep = phase_deep_capture()
+    for rec in deep["results"]:
+        print(f"throughput: {json.dumps(rec)}", flush=True)
+    print(f"deep capture: calibration_lidar_rooms_4096x200 "
+          f"{deep['calibration_lidar_rooms_4096x200']} env-steps/s, {len(deep['results'])} "
+          f"records, {deep['seconds']:.1f} s, fingerprint {json.dumps(deep['fingerprint'])}",
+          flush=True)
+    workloads = phase_workload_kernels(dev)
+    print(f"workload kernels: {json.dumps(workloads)}", flush=True)
+    for r in rows[:2] + [k3]:
+        r["workloads"] = {
+            name: {"num_envs": path["num_envs"], "steps": path["steps"],
+                   "launches": path["launches"][r["name"]],
+                   "launches_per_step": path["launches_per_step"][r["name"]],
+                   **path["kernels"][r["name"]]}
+            for name, path in workloads.items() if r["name"] in path["launches"]}
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            v["max_abs_err"] for w in r["workloads"].values()
+            for v in (w["by_r"].values() if "by_r" in w else [w])])
 
     sharded = phase_sharded_rollout("LIDARLocRooms-v0", 1, "nccl", SHARDED_STEPS)
     print(f"sharded rollout: {json.dumps(sharded)}", flush=True)

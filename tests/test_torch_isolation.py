@@ -65,7 +65,7 @@ import apx_torch.tools.parse_trace, apx_torch.ops.glimpse_study
 import apx_torch.examples.train_ppo_lidar, apx_torch.examples.train_ppo_mesh
 import apx_torch.examples.train_vtrace_mesh, apx_torch.examples.train_r2d2_mesh
 import apx_torch.examples.rollout_functional, apx_torch.examples.gym_compat
-import apx_torch.examples.grid_selftest, apx_torch.graft_entry
+import apx_torch.examples.grid_selftest, apx_torch.graft_entry, apx_torch.core.peaks
 assert "examples" not in sys.modules, "a port module imported apx's examples"
 assert "gymnasium" not in sys.modules and "PIL" not in sys.modules
 assert "imageio" not in sys.modules
