@@ -252,7 +252,8 @@ WORKLOADS = {
 LOCKSTEP_WORKLOADS = ("circle_square", "tin_loc", "mnist", "cifar10", "hide_and_seek")
 # Device kernels of the port, by a substring of their names in a trace.
 PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel",
-                "window": "window_kernel"}
+                "window": "window_kernel", "fma": "apx_fma_f32",
+                "sum_squares": "apx_sum_squares_f32", "sqrt": "apx_sqrt_f32"}
 # vs_baseline's denominators: the reference's own measured CPU rates
 # (bench.py:323-451). apx divides the LIDAR family by BASELINE.json's
 # 1M-aggregate target on a TPU v5e-8, a TPU figure: those records carry
@@ -947,8 +948,9 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
     total_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     per_step = 1e3 * PROFILE_STEPS
-    # The exact-rounding emulation (core.numerics) is the step's float64
-    # work: its kernels are the ones instantiated for double.
+    # The exact-rounding emulation (core.numerics' plain forms) ran as the
+    # step's float64 work; on the card N1-N3 replace it, so any kernel
+    # instantiated for double here is a site that still emulates.
     f64 = [e for e in kernels if "double" in e.key]
     return {
         "workload": WORKLOADS[env][0],
@@ -962,6 +964,9 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
         "float64_launches_per_step": sum(e.count for e in f64) / PROFILE_STEPS,
         "port_kernels_ms_per_step": {
             name: sum(e.self_device_time_total for e in kernels if key in e.key) / per_step
+            for name, key in PORT_KERNELS.items()},
+        "port_kernels_launches_per_step": {
+            name: sum(e.count for e in kernels if key in e.key) / PROFILE_STEPS
             for name, key in PORT_KERNELS.items()},
         "top": [{"kernel": e.key[:90], "ms_per_step": e.self_device_time_total / per_step,
                  "calls_per_step": e.count / PROFILE_STEPS} for e in kernels[:top]],

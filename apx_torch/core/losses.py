@@ -97,7 +97,7 @@ class AffineLossFn(LossFn):
         diff = prediction - target
         total = inner.sum_of_squares(diff)
         k = float(np.float32(1.0) / np.float32(diff.shape[-1]) * np.float32(self.scale))
-        return fma(total, torch.full_like(total, -k), base_reward)
+        return fma(total, -k, base_reward)
 
     @property
     def lower_bound(self) -> float:

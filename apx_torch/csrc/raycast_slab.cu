@@ -57,7 +57,13 @@
 // plain PyTorch form computes the same single-rounded FMA
 // (apx_torch/core/numerics.py). The segment lengths |d| come from the
 // caller, as K1's `len` input did, since the reference rounds them
-// differently at different call sites. Infinities are IEEE infinities, as
+// differently at different call sites; with no lengths (a null `seg`) the
+// kernel computes the contracted form jnp.linalg.norm takes in apx's jitted
+// casts, |d| = sqrt(fma(dy, dy, dx * dx)) with d = targets - origin (the
+// float32 subtraction, correctly rounded root), as apx feeds it to its
+// Pallas call from the same XLA program (raycast_pallas.py:106, :131). That
+// is a compile-time flag (kOwnLen), not a run-time branch: a run-time
+// branch cost K3 18% (PERF.md). Infinities are IEEE infinities, as
 // in the dense reference (the Pallas kernel's +-3e38 sentinel was a Mosaic
 // workaround).
 
@@ -143,7 +149,7 @@ __device__ __forceinline__ bool wall_bit(const uint32_t* bits, int cell) {
   return (bits[cell >> 5] >> (cell & 31)) & 1u;
 }
 
-template <bool kTyped>
+template <bool kTyped, bool kOwnLen>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 raycast_kernel(const uint8_t* __restrict__ occ, const float* __restrict__ origin,
                const float* __restrict__ targets, const float* __restrict__ seg_len,
@@ -162,7 +168,8 @@ raycast_kernel(const uint8_t* __restrict__ occ, const float* __restrict__ origin
   const size_t ray0 = static_cast<size_t>(env) * r;
   int count = min(kRaysPerPass, r);
   float end = (lane >> 1) < count ? targets[2 * ray0 + lane] : 0.0f;
-  float seg = lane < count ? seg_len[ray0 + lane] : 0.0f;
+  float seg = 0.0f;
+  if (!kOwnLen && lane < count) seg = seg_len[ray0 + lane];
 
   // The env's map as H*W row-major bits: word k holds cells 32k..32k+31.
   const int hw = h * w;
@@ -187,13 +194,18 @@ raycast_kernel(const uint8_t* __restrict__ occ, const float* __restrict__ origin
     if (base > 0) {
       count = min(kRaysPerPass, r - base);
       end = (lane >> 1) < count ? targets[2 * (ray0 + base) + lane] : 0.0f;
-      seg = lane < count ? seg_len[ray0 + base + lane] : 0.0f;
+      if (!kOwnLen) seg = lane < count ? seg_len[ray0 + base + lane] : 0.0f;
     }
     // Lane 2j + a: ray base + j's extent on axis a and its reciprocal.
     float d = 0.0f, inv = 0.0f;
     if ((lane >> 1) < count) {
       d = __fsub_rn(end, (lane & 1) ? oy : ox);
       if (d != 0.0f) inv = __fdiv_rn(1.0f, d);
+    }
+    if (kOwnLen) {  // lane j: ray base + j's |d| = sqrt(fma(dy, dy, dx * dx))
+      const float dx = __shfl_sync(kFull, d, (2 * lane) & 31);
+      const float dy = __shfl_sync(kFull, d, (2 * lane + 1) & 31);
+      seg = __fsqrt_rn(__fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
     }
     float t_mine = CUDART_INF_F;  // lane j: ray base + j's hit parameter
     bool single_mine = false;     // lane j: its typed scan met one isolated graze only
@@ -290,16 +302,28 @@ raycast_kernel(const uint8_t* __restrict__ occ, const float* __restrict__ origin
   }
 }
 
+template <bool kTyped, bool kOwnLen>
+void launch_kernel(unsigned blocks, cudaStream_t stream, const void* occ, const void* origin,
+                   const void* targets, const void* seg, void* out, int n, int r, int h, int w,
+                   float eps) {
+  raycast_kernel<kTyped, kOwnLen><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const uint8_t*>(occ), static_cast<const float*>(origin),
+      static_cast<const float*>(targets), static_cast<const float*>(seg),
+      static_cast<float*>(out), n, r, h, w, eps);
+}
+
 template <bool kTyped>
 int launch(const void* occ, const void* origin, const void* targets, const void* seg,
            void* out, int n, int r, int h, int w, float eps, void* stream) {
   if (n <= 0 || r <= 0) return 0;
   if (h < 1 || h > 32 || w < 1 || w > 32) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  raycast_kernel<kTyped><<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(occ), static_cast<const float*>(origin),
-      static_cast<const float*>(targets), static_cast<const float*>(seg),
-      static_cast<float*>(out), n, r, h, w, eps);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (seg == nullptr) {
+    launch_kernel<kTyped, true>(blocks, st, occ, origin, targets, seg, out, n, r, h, w, eps);
+  } else {
+    launch_kernel<kTyped, false>(blocks, st, occ, origin, targets, seg, out, n, r, h, w, eps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,8 +331,9 @@ int launch(const void* occ, const void* origin, const void* targets, const void*
 
 // Plain C interface, bound with ctypes (apx_torch/ops/raycast_cuda.py).
 // Pointers are device pointers: occ (N, H, W) bool as bytes, origin (N, 2)
-// f32, targets (N, R, 2) f32, seg (N, R) f32 segment lengths, out (N, R)
-// f32; all contiguous. Launches on
+// f32, targets (N, R, 2) f32, seg (N, R) f32 segment lengths or null (the
+// kernel computes the contracted |d|), out (N, R) f32; all contiguous.
+// Launches on
 // `stream` and returns the CUDA error of the launch (0 on success).
 extern "C" int raycast_fast_launch(const void* occ, const void* origin, const void* targets,
                                    const void* seg, void* out, int n, int r, int h, int w,

@@ -114,7 +114,7 @@ def _gradient(nearest: torch.Tensor, max_dist: float) -> torch.Tensor:
     """``1 - nearest / max_dist`` as apx's jitted fetch rounds it:
     ``fma(-nearest, f32(1 / max_dist), 1)``."""
     inv = float(np.float32(1.0) / np.float32(max_dist))
-    return fma(nearest, torch.full_like(nearest, -inv), 1.0)
+    return fma(nearest, -inv, 1.0)
 
 
 class DoubleCircleSquareDataset(ImageDataset):

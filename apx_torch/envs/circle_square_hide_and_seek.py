@@ -86,10 +86,10 @@ class CircleSquareHideAndSeek:
         label = indices % 2
         rem = indices // 2
         lim = sensor_pos_lim_pixels((h, w), params.sensor_size, params.sensor_scale)
-        # x / lim - 1 per axis, each scale a filled tensor: no host copy, so
-        # a CUDA graph can capture the step.
+        # x / lim - 1 per axis, each scale a float32 constant passed to the
+        # FMA by value: no host copy, so a CUDA graph can capture the step.
         pos_norm = torch.stack([
-            fma(p, torch.full_like(p, float(np.float32(1.0) / axis_lim)), -1.0)
+            fma(p, float(np.float32(1.0) / axis_lim), -1.0)
             for p, axis_lim in (((rem % w).to(torch.float32), lim[0]),
                                 ((rem // w).to(torch.float32), lim[1]))
         ], dim=-1)

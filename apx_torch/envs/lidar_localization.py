@@ -441,7 +441,7 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         # The FMA sites below are where XLA's fused reference contracts a
         # multiply into the following add (core.numerics).
         pos = state.pos
-        base_reward = fma(torch.full_like(pos[:, 0], -1e-3), sum_squares(action), 0.1)
+        base_reward = fma(-1e-3, sum_squares(action), 0.1)
 
         a = normalize_into_unit_ball(action)
         total = seg_length(a)

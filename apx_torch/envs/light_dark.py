@@ -97,13 +97,13 @@ def noisy_position(pos, noise, scale: float, params: LightDarkParams) -> torch.T
 
 def base_reward(action: torch.Tensor) -> torch.Tensor:
     """1 - 1e-3 |a|^2 as ``fma(-1e-3, sum_squares(a), 1)``."""
-    return fma(torch.full_like(action[:, 0], -1e-3), sum_squares(action), 1.0)
+    return fma(-1e-3, sum_squares(action), 1.0)
 
 
 def moved_position(pos, action, params: LightDarkParams) -> torch.Tensor:
     """pos + normalize_into_unit_ball(a) * move_scale, the add contracted."""
     move = normalize_into_unit_ball(action)
-    return fma(move, torch.full_like(move, params.move_scale), pos)
+    return fma(move, params.move_scale, pos)
 
 
 class LightDarkEnv(APEnv[LightDarkParams, LightDarkState]):

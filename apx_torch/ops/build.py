@@ -19,10 +19,14 @@ __all__ = ["load", "SOURCES", "NVCC_FLAGS", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu"))
+    "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu", "numerics.cu"))
 BUILD_DIR = _PKG / "_build"
+# These flags are what make the kernels bitwise equal to their plain forms.
 # -fmad=false: no contraction of a*b+c (the kernels write each FMA they
-# want as __fmaf_rn); IEEE division and square root; denormals kept.
+# want as __fmaf_rn, and numerics.cu's x0 * x0 stays a rounded product);
+# -prec-div=true, -prec-sqrt=true: IEEE division and correctly rounded
+# square root (numerics.cu's N3); -ftz=false: subnormals kept, as the
+# plain forms' float64 emulation keeps them.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-O3",
@@ -71,6 +75,14 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     lib.window_launch.restype = ctypes.c_int
     lib.chain_launch.argtypes = [*[ptr] * 6, *[ctypes.c_int] * 4, ptr]
     lib.chain_launch.restype = ctypes.c_int
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.fma_f32_launch.argtypes = [ptr, ptr, ptr, *[ctypes.c_float] * 3, ctypes.c_int, i64p,
+                                   i64p, ptr, ptr]
+    lib.sum_squares_f32_launch.argtypes = [ptr, ctypes.c_int, i64p, i64p, ctypes.c_int,
+                                           ctypes.c_int64, ptr, ptr]
+    lib.sqrt_f32_launch.argtypes = [ptr, ctypes.c_int, i64p, i64p, ptr, ptr]
+    for fn in (lib.fma_f32_launch, lib.sum_squares_f32_launch, lib.sqrt_f32_launch):
+        fn.restype = ctypes.c_int
     _LIB = lib
     return lib
 

@@ -66,8 +66,8 @@ def glimpse_coords(pos_norm: torch.Tensor, image_hw: tuple[int, int],
     h, w = image_hw
     lim = sensor_pos_lim_pixels(image_hw, sensor_size, sensor_scale)
     px, py = pos_norm[:, 0], pos_norm[:, 1]
-    x_pix = fma(px, torch.full_like(px, float(lim[0])), (w - 1) / 2.0)
-    y_pix = fma(py, torch.full_like(py, float(lim[1])), (h - 1) / 2.0)
+    x_pix = fma(px, float(lim[0]), (w - 1) / 2.0)
+    y_pix = fma(py, float(lim[1]), (h - 1) / 2.0)
     rows = y_pix[:, None] + _sensor_offsets(sensor_size[0], sensor_scale, pos_norm.device)
     cols = x_pix[:, None] + _sensor_offsets(sensor_size[1], sensor_scale, pos_norm.device)
     return rows, cols

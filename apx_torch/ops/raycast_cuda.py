@@ -24,7 +24,9 @@ of the map with one warp per ray and one lane per column.
 Like K1 (its ``len`` input), the kernels take the segment lengths from the
 caller: the jitted reference rounds |d| differently at different call
 sites (``apx_torch.envs.lidar_localization``), and the caller knows which
-rounding its site has.
+rounding its site has. A caller that passes none gets the contracted form
+``raycast.seg_length(targets - origin)``: on the card the kernel computes
+it per ray in its own body, on the CPU the plain form computes it first.
 
 On a CUDA tensor each wrapper launches its kernel (building the library
 on first use, ``apx_torch.ops.build``) or raises; it never falls back to
@@ -53,9 +55,11 @@ def reset_launch_counts() -> None:
 
 
 def _seg(occ, origin, targets, seg):
+    """The lengths to cast with: None on the card when the caller gives
+    none (the kernel computes them), ``seg_length`` on the CPU."""
     _check(occ, origin, targets)
     if seg is None:
-        return seg_length(targets - origin[:, None, :])
+        return seg_length(targets - origin[:, None, :]) if occ.device.type == "cpu" else None
     if seg.shape != targets.shape[:2] or seg.dtype != torch.float32 or seg.device != occ.device:
         raise ValueError("seg must be (N, R) float32 on the casts' device")
     return seg
@@ -83,7 +87,7 @@ def _launch(name: str, occ, origin, targets, seg, eps: float) -> torch.Tensor:
     occ = occ.contiguous()
     origin = origin.contiguous()
     targets = targets.contiguous()
-    seg = seg.contiguous()
+    seg = None if seg is None else seg.contiguous()
     n, h, w = occ.shape
     r = targets.shape[1]
     out = torch.empty((n, r), dtype=torch.float32, device=occ.device)
@@ -91,7 +95,8 @@ def _launch(name: str, occ, origin, targets, seg, eps: float) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(occ.device).cuda_stream
     err = getattr(lib, f"{name}_launch")(
-        occ.data_ptr(), origin.data_ptr(), targets.data_ptr(), seg.data_ptr(),
+        occ.data_ptr(), origin.data_ptr(), targets.data_ptr(),
+        None if seg is None else seg.data_ptr(),
         out.data_ptr(), n, r, h, w, ctypes.c_float(eps), stream,
     )
     if err != 0:
@@ -104,7 +109,8 @@ def raycast_fast(occ: torch.Tensor, origin: torch.Tensor, targets: torch.Tensor,
                  seg: torch.Tensor | None = None, eps: float = EPS) -> torch.Tensor:
     """(N, R) distances of the untyped slab cast; occ (N, H, W) bool,
     origin (N, 2) f32, targets (N, R, 2) f32, seg (N, R) f32 the segment
-    lengths (default ``raycast.seg_length(targets - origin)``)."""
+    lengths (default ``raycast.seg_length(targets - origin)``, computed in
+    the kernel on the card)."""
     seg = _seg(occ, origin, targets, seg)
     if occ.device.type == "cpu":
         return raycast_grid(occ, origin, targets, seg, eps=eps, geos_typing=False)[0]

@@ -468,6 +468,108 @@ def edge_casts(occ: np.ndarray, r: int, rng, centres: bool = False):
     return origin.astype(np.float32), (origin[:, None] + d).astype(np.float32)
 
 
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float64).astype(np.float32)
+
+
+def _wide_f32(rng, n: int, lo: int, hi: int) -> np.ndarray:
+    """n float32 values with random signs, 24-bit mantissas and exponents in
+    [lo, hi] (subnormal below -126, rounded there)."""
+    mant = 1.0 + rng.integers(0, 2**23, n) / 2.0**23
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    return _f32(sign * np.ldexp(mant, rng.integers(lo, hi + 1, n)))
+
+
+def numerics_cases(seed: int = 0, n_random: int = 4096) -> dict:
+    """Inputs that probe the exact-rounding kernels (N1-N3) at their edges,
+    float32 numpy arrays: ``"fma"`` (a, b, c), ``"sqrt"`` x and
+    ``"sum_squares"`` {K: (rows, K)} for K = 2, 3, 5. Hand-built cases
+    first: a*b + c on an exact tie between two float32 values (at scales
+    down into the subnormals), sticky bits far below the ulp (a tie of the
+    product moved by c = +-2^-k, where a float64 sum would round onto the
+    tie), subnormal and underflowing results, signed zeros (a*b = +-0 with
+    c = +-0, exact cancellation), results at and past the overflow
+    threshold, inf * 0, inf - inf and NaN; then ``n_random`` triples over
+    wide exponents (c near a*b's magnitude, so that sums cancel). The
+    roots: zeros, subnormals, perfect squares and their neighbours, the
+    largest float, inf, negatives and NaN, and random values over every
+    exponent. The rows: the same kinds of values."""
+    rng = np.random.default_rng(seed)
+    inf, nan, fmax, tiny = np.inf, np.nan, float(np.finfo(np.float32).max), 2.0**-149
+    rows = []  # (a, b, c) in float64, each exactly a float32
+    # Exact ties: a = i 2^-12, b = j 2^-12 (i, j odd), c in [1, 2): the sum's
+    # residue below c's ulp is exactly half an ulp; scaled by 2^s into the
+    # subnormals and up, with random signs.
+    k = 256
+    i, j = rng.integers(0, 2**10, k) * 2 + 1, rng.integers(0, 2**10, k) * 2 + 1
+    c = 1.0 + rng.integers(0, 2**23, k) / 2.0**23
+    s1, s2 = rng.integers(-75, 60, k), rng.integers(-75, 60, k)
+    sg = np.where(rng.random((3, k)) < 0.5, -1.0, 1.0)
+    rows += list(zip(sg[0] * np.ldexp(i / 2.0**12, s1), sg[1] * np.ldexp(j / 2.0**12, s2),
+                     sg[2] * np.ldexp(c, s1 + s2)))
+    # Sticky bits: (1 + 2^-12)^2 = 1 + 2^-11 + 2^-24 is a tie; c = +-2^-q
+    # decides it from far below the ulp (q up to 149, the last subnormal).
+    t = 1.0 + 2.0**-12
+    for q in (30, 48, 53, 60, 80, 100, 126, 149):
+        for sc in (1.0, -1.0):
+            rows += [(t, t, sc * 2.0**-q), (-t, t, sc * 2.0**-q), (t, -t, -sc * 2.0**-q)]
+    rows += [(1.0 + 2.0**-23, 2.0**-24 * (1.0 + 2.0**-23), 1.0), (3 * 2.0**-12, 2.0**-12, 1.0),
+             (1.0 - 2.0**-24, 2.0**-24, 1.0), (1.0 + 2.0**-23, 2.0**-24, 1.0)]
+    # Subnormal and underflowing results.
+    for a_, b_ in ((2.0**-75, 2.0**-75), (2.0**-75 * (1 + 2.0**-23), 2.0**-75),
+                   (2.0**-70, 2.0**-70), (2.0**-100, 2.0**-49), (2.0**-80, 2.0**-80),
+                   (tiny, 0.5), (tiny, 1.5), (2.0**-126, 1.0 - 2.0**-24)):
+        for c_ in (0.0, -0.0, tiny, -tiny, 2.0**-126, -2.0**-127):
+            rows += [(a_, b_, c_), (-a_, b_, c_)]
+    a_ = _wide_f32(rng, 64, -90, -60).astype(np.float64)
+    b_ = _wide_f32(rng, 64, -90, -60).astype(np.float64)
+    rows += list(zip(a_, b_, _wide_f32(rng, 64, -149, -120).astype(np.float64)))
+    # Signed zeros.
+    for za in (0.0, -0.0, 1e-30, -1e-30):
+        for zb in (1.0, -1.0, 0.0, -0.0, 1e-30):
+            for zc in (0.0, -0.0):
+                rows.append((float(np.float32(za)), float(np.float32(zb)), zc))
+    rows += [(1.0, -1.0, 1.0), (-1.0, -1.0, -1.0), (3.0, 0.5, -1.5), (0.1, 3.0, -0.3)]
+    # Overflow: p past the largest float, sums at and past the threshold
+    # (fmax + 2^103 is a tie that rounds to inf).
+    rows += [(2.0**64, 2.0**64, 0.0), (fmax, 1.0, fmax), (fmax, -1.0, -fmax), (fmax, 2.0, -fmax),
+             (2.0**52, 2.0**51, fmax), (2.0**52, -2.0**51, -fmax),
+             (2.0**52 * (1 - 2.0**-24), 2.0**51, fmax), (fmax, fmax, -inf), (fmax, 1.0, 2.0**103)]
+    # inf, NaN.
+    rows += [(inf, 0.0, 1.0), (0.0, -inf, 1.0), (inf, 1.0, -inf), (inf, 2.0, 1.0),
+             (-inf, 2.0, 1.0), (1.0, 1.0, inf), (1.0, 1.0, -inf), (inf, -1.0, -inf),
+             (nan, 1.0, 1.0), (1.0, nan, 0.0), (1.0, 1.0, nan), (inf, 0.0, nan)]
+    # Random triples over wide exponents, c near a*b's magnitude.
+    a_, b_ = _wide_f32(rng, n_random, -60, 60), _wide_f32(rng, n_random, -60, 60)
+    near = _f32(-(a_.astype(np.float64) * b_) * (1 + rng.normal(0, 2.0**-rng.integers(
+        1, 30, n_random))))
+    far = _wide_f32(rng, n_random, -149, 127)
+    c_ = np.where(rng.random(n_random) < 0.7, near, far)
+    rows += list(zip(a_.astype(np.float64), b_.astype(np.float64), c_.astype(np.float64)))
+    abc = _f32(np.array(rows, dtype=np.float64))  # the few inexact ones (0.1) rounded
+
+    squares = _f32(np.arange(1, 4097, dtype=np.float64) ** 2)
+    x = np.concatenate([
+        _f32([0.0, -0.0, tiny, 2 * tiny, 3 * tiny, 2.0**-127, 2.0**-126, 1.0, 2.0, 4.0, fmax,
+              inf, -1.0, -tiny, -inf, nan, 1.0 - 2.0**-24, 1.0 + 2.0**-23]),
+        squares, np.nextafter(squares, np.float32(0)), np.nextafter(squares, np.float32(inf)),
+        np.abs(_wide_f32(rng, n_random, -149, 127)),
+        np.abs(_wide_f32(rng, 256, -149, -120)),
+    ]).astype(np.float32)
+
+    def rows_of(width: int) -> np.ndarray:
+        vals = np.concatenate([_wide_f32(rng, 512 * width, -80, 70),
+                               _wide_f32(rng, 64 * width, -149, -60),
+                               _wide_f32(rng, 64 * width, 60, 127)])
+        special = _f32([0.0, -0.0, tiny, -tiny, inf, -inf, nan, fmax, 1.0])
+        vals[rng.integers(0, len(vals), 8 * width)] = special[rng.integers(0, len(special),
+                                                                          8 * width)]
+        return vals.reshape(-1, width)
+
+    return {"fma": (abc[:, 0].copy(), abc[:, 1].copy(), abc[:, 2].copy()), "sqrt": x,
+            "sum_squares": {width: rows_of(width) for width in (2, 3, 5)}}
+
+
 def phase_edge_casts(dev) -> int:
     """K1 bitwise against its plain form on ``edge_casts`` over every
     ``EDGE_MAPS`` kind, R in ``EDGE_RAYS``, both kernels, N = ``EDGE_N``.
@@ -544,11 +646,16 @@ def phase_kernels(dev) -> list[dict]:
                 grazes = int((got == 0).sum())  # single-point grazes report 0
                 check(grazes > 0, "the typed scan from cell centres met no graze")
             r = targets.shape[1]
+            own = kernel(occ, origin, targets)  # no lengths: the kernel computes |d|
+            torch.cuda.synchronize()
+            check(torch.equal(own.view(torch.int32), got.view(torch.int32)),
+                  f"{name} R={r} with seg=None not bitwise its call with seg_length's lengths")
             ms = device_ms(lambda: kernel(occ, origin, targets, seg), 50)
             plain_ms = device_ms(
                 lambda: raycast_grid(occ, origin, targets, seg, geos_typing=typed), 4)
             b_ms, b_by = bound(name, occ, origin, targets)
-            per_r[r] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            per_r[r] = {"ms": ms, "own_len_ms": device_ms(lambda: kernel(occ, origin, targets), 50),
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "max_abs_err": err}
         main_r = max(per_r)  # the beam scan's R = 8
         rows.append({
@@ -688,12 +795,176 @@ def _launch_modules():
 
 
 def reset_all_launch_counts() -> None:
+    """Sets K1-K4's counts and N1-N3's (``core.numerics``) to 0."""
+    from apx_torch.core import numerics
+
     for m in _launch_modules():
         m.reset_launch_counts()
+    numerics.reset_launch_counts()
 
 
 def all_launch_counts() -> dict:
+    """K1-K4's counts (N1-N3's: ``numerics_launches``)."""
     return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
+
+
+NUMERICS_KERNELS = ("fma", "sum_squares", "sqrt")
+
+
+NUMERICS_BY_PATH: dict[str, dict] = {}  # N1-N3's counts on each path driven, for the kernels line
+
+
+def numerics_launches(path: str, steps: int) -> dict:
+    """N1-N3's counts on ``path`` since the last reset, and per step (the
+    reset's launches included). Checks that the path launched each of them
+    (every main path computes an FMA, a sum of squares and a root on the
+    card: the move's |a|, the rewards) and keeps the counts under the
+    path's name in NUMERICS_BY_PATH."""
+    from apx_torch.core import numerics
+
+    counts = dict(numerics.LAUNCHES)
+    check(all(counts[k] > 0 for k in NUMERICS_KERNELS),
+          f"{path}: N1-N3 launches {counts}, expected each > 0")
+    counts["per_step"] = {k: counts[k] / steps for k in NUMERICS_KERNELS}
+    NUMERICS_BY_PATH[path] = {"steps": steps, **counts}
+    return counts
+
+
+# ---- N1-N3: XLA's contracted float32 arithmetic (core.numerics) --------------
+
+NUMERICS_RANDOM = 2**20  # random inputs held bitwise per kernel
+NUMERICS_REPLACES = {
+    "fma": "apx/envs/lidar_localization.py:560 (pos + direction * d2w, which XLA contracts "
+           "into one FMA in its fusion; no Pallas kernel)",
+    "sum_squares": "apx/envs/lidar_localization.py:540 (jnp.sum(jnp.square(action)), XLA-CPU's "
+                   "fused reduce; no Pallas kernel)",
+    "sqrt": "apx/ops/raycast_pallas.py:106 (jnp.linalg.norm's root, fed to the Pallas call; no "
+            "Pallas kernel)",
+}
+
+
+def _bits_equal(got, want) -> bool:
+    """Bitwise equal, any NaN equal to any NaN."""
+    nan = torch.isnan(want)
+    return got.shape == want.shape and torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def _numel_read(*xs) -> int:
+    """Elements an operand list reads once: each tensor's own elements (a
+    broadcast view's distinct ones), a Python float none."""
+    return sum(int(np.prod([n for n, s in zip(x.shape, x.stride()) if s != 0]))
+               for x in xs if isinstance(x, torch.Tensor))
+
+
+def numerics_bound(name: str, args, out) -> tuple[float, str]:
+    """Least time (ms) of N1-N3 on these operands: each read once, the
+    output written once, at the HBM rate; the float32 operations (an FMA
+    2, a product 1, a root 1) at the peak float32 rate."""
+    nbytes = 4 * (_numel_read(*args) + out.numel())
+    if name == "fma":
+        ops = 2 * out.numel()
+    elif name == "sum_squares":
+        ops = out.numel() * (2 * args[0].shape[-1] - 1)
+    else:
+        ops = out.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def phase_numerics_kernels(dev) -> list[dict]:
+    """N1-N3 (``core.numerics`` on CUDA tensors) against their plain forms
+    (``fma_plain``, ``sum_squares_plain``, ``sqrt_plain``: the float64
+    emulation, on the card), bitwise with NaN as NaN: on
+    ``numerics_cases(0)``, on NUMERICS_RANDOM random inputs each (the call
+    sites' layouts: (n, 2) against (n, 1) against a Python float, stride-2
+    slices), and at the main paths' N = 4096 shapes, where each is timed
+    (CUDA-graph replay) against its plain form and against one PyTorch
+    call (``torch.addcmul``, ``torch.linalg.vecdot``, ``torch.sqrt``;
+    timed only, with whether its bits agree). One launch per call.
+    Returns the three kernels rows."""
+    from apx_torch.core import numerics
+    from apx_torch.core.numerics import fma, fma_plain, sqrt, sqrt_plain, sum_squares
+    from apx_torch.core.numerics import sum_squares_plain
+
+    kernels = {"fma": (fma, fma_plain), "sum_squares": (sum_squares, sum_squares_plain),
+               "sqrt": (sqrt, sqrt_plain)}
+    held = {k: 0 for k in kernels}
+
+    def hold(name, args, what):
+        kernel, plain = kernels[name]
+        before = numerics.LAUNCHES[name]
+        got = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        check(numerics.LAUNCHES[name] == before + 1,
+              f"{name} on {what}: {numerics.LAUNCHES[name] - before} launches, not 1")
+        err = (got - want).abs().nan_to_num(0.0).max().item() if got.numel() else 0.0
+        check(_bits_equal(got, want), f"{name} on {what}: not bitwise its plain form "
+                                      f"(max |diff| {err})")
+        held[name] += got.numel()
+        return got
+
+    def t(xs):
+        return tuple(torch.from_numpy(x).to(dev) for x in xs)
+
+    cases = numerics_cases(0)
+    hold("fma", t(cases["fma"]), "numerics_cases")
+    hold("sqrt", t([cases["sqrt"]]), "numerics_cases")
+    for width, rows in cases["sum_squares"].items():
+        hold("sum_squares", t([rows]), f"numerics_cases rows of {width}")
+
+    rng = np.random.default_rng(16)
+    half = NUMERICS_RANDOM // 2
+    wide = t([_wide_f32(rng, NUMERICS_RANDOM, -60, 60).reshape(half, 2),
+              _wide_f32(rng, half, -60, 60).reshape(half, 1),
+              _wide_f32(rng, NUMERICS_RANDOM, -120, 120).reshape(half, 2)])
+    a, b, c = wide
+    hold("fma", (a, b, 0.1), f"{NUMERICS_RANDOM} random, ({half}, 2) x ({half}, 1) + 0.1")
+    hold("fma", (a[:, 0], a[:, 1], c[:, 0]), f"{half} random, stride-2 slices")
+    hold("fma", (a, b, c), f"{NUMERICS_RANDOM} random, (n, 2) x (n, 1) + (n, 2)")
+    hold("sum_squares", (c,), f"{half} random rows of 2")
+    hold("sum_squares", (a[::2],), "random rows of 2, every other row")
+    hold("sqrt", (c.abs().reshape(-1),), f"{NUMERICS_RANDOM} random")
+    hold("sqrt", (c[:, 1].abs(),), f"{half} random, a stride-2 slice")
+
+    # The main paths' shapes at N = 4096: LIDAR's pos1 = fma(direction,
+    # d2w[:, None], pos), its base reward's sum_squares(action), the
+    # length's root.
+    gen = torch.Generator(device=dev).manual_seed(16)
+    direction = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+    d2w = torch.rand((N, 1), generator=gen, device=dev)
+    pos = torch.rand((N, 2), generator=gen, device=dev) * 32
+    shapes = {
+        "fma": ((direction, d2w, pos), f"N={N}: (N, 2) x (N, 1) + (N, 2)",
+                lambda: torch.addcmul(pos, direction, d2w)),
+        "sum_squares": ((direction,), f"N={N}: (N, 2) rows",
+                        lambda: torch.linalg.vecdot(direction, direction)),
+        "sqrt": ((d2w[:, 0] * 9,), f"N={N}: (N,)", lambda: torch.sqrt(d2w[:, 0] * 9)),
+    }
+    rows = []
+    for name, (args, shape, library) in shapes.items():
+        kernel, plain = kernels[name]
+        got = hold(name, args, shape)
+        lib_out = library()
+        b_ms, b_by = numerics_bound(name, args, got)
+        rows.append({
+            "name": name, "route": "cuda", "source": "apx_torch/csrc/numerics.cu",
+            "replaces": NUMERICS_REPLACES[name], "launches": None, "max_abs_err": 0.0,
+            "ms": device_ms(lambda: kernel(*args), 50),
+            "plain_ms": device_ms(lambda: plain(*args), 10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(library, 50),
+            "library_call": {"fma": "torch.addcmul", "sum_squares": "torch.linalg.vecdot",
+                             "sqrt": "torch.sqrt"}[name],
+            "library_bitwise": _bits_equal(lib_out, got),
+            "library_bits_differ": int((lib_out.view(torch.int32) != got.view(torch.int32)).sum()),
+            "shape": shape, "elements_held_bitwise": None,
+        })
+    for r in rows:
+        r["elements_held_bitwise"] = held[r["name"]]
+    return rows
 
 
 WINDOW_PAD = 16  # LIDARLocRooms-v0's ray_pad under "pallas_window"
@@ -809,9 +1080,14 @@ def phase_window_kernels(dev) -> tuple[dict, dict]:
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                   f"{name} on windows, R={t.shape[1]}: not bitwise equal (max |diff| {err})")
             r = t.shape[1]
+            own = kernel(win, o, t)
+            torch.cuda.synchronize()
+            check(torch.equal(own.view(torch.int32), got.view(torch.int32)),
+                  f"{name} on windows, R={r}, seg=None: not bitwise the explicit lengths' call")
             w_ms, w_by = bound(name, win, o, t)
             per_kernel.setdefault(name, {})[r] = {
                 "ms": device_ms(lambda: kernel(win, o, t, seg), 50),
+                "own_len_ms": device_ms(lambda: kernel(win, o, t), 50),
                 "plain_ms": device_ms(lambda: raycast_grid(win, o, t, seg, geos_typing=typed), 4),
                 "bound_ms": w_ms, "bound_by": w_by, "max_abs_err": err, "shape": "24x16"}
     return k2, per_kernel
@@ -887,6 +1163,8 @@ def phase_main_path(dev, **overrides) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = all_launch_counts()
+    path = "LIDAR main path" + (" (window)" if params.use_pallas_window else "")
+    numerics = numerics_launches(path, steps)
 
     check(bool(finite), "non-finite observation")
     check(bool(lidar_ok), "lidar outside [0, 1]")
@@ -905,7 +1183,7 @@ def phase_main_path(dev, **overrides) -> dict:
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)],
             "episode_ends_min": int(ends.min()), "terminations": int(ends.sum()),
-            "launches": launches}
+            "launches": launches, "numerics_launches": numerics}
 
 
 def phase_circle_square_main_path(dev) -> dict:
@@ -938,6 +1216,7 @@ def phase_circle_square_main_path(dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = all_launch_counts()
+    numerics = numerics_launches("CircleSquare main path", steps)
 
     check(bool(finite), "non-finite observation")
     check(bool(glimpse_ok), "glimpse outside [0, 1]")
@@ -952,7 +1231,7 @@ def phase_circle_square_main_path(dev) -> dict:
           f"per masked-merge step ({1 + 2 * steps})")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)], "resets_min": int(resets.min()),
-            "launches": launches}
+            "launches": launches, "numerics_launches": numerics}
 
 
 STATS_TOL = 1e-6  # float stats: softmax, and sums over the ring
@@ -981,6 +1260,9 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
             apx_torch.make_vec(env_id, num_envs=n, device=d, metrics=metrics, **overrides)
             for d in devices]
     cpu_venv, cpu_params = runs[0]
+    from apx_torch.core import numerics
+
+    numerics.reset_launch_counts()  # only the card's run counts: N1-N3 on this path
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
     space = cpu_venv.env.prediction_space(cpu_params)
@@ -1071,6 +1353,8 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
             stats_like(ic["stats"], ig["stats"], f"{what} stats")
     return {"env": env_id, **overrides, "metrics": metrics, "num_envs": n, "steps": steps,
             "max_abs_err": max_err,
+            "numerics_launches": numerics_launches(
+                f"{env_id}{overrides or ''} card vs cpu, N={n}", steps),
             "bitwise": sorted(set(oc) - set(tol)) + ["state", "dones"]
             + ([] if "reward" in tol else ["reward"])}
 
@@ -1105,6 +1389,7 @@ def phase_light_dark_main_path(dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = all_launch_counts()
+    numerics = numerics_launches("LightDark main path", steps)
 
     check(bool(finite), "non-finite observation")
     check(bool(ranges_ok), "noisy_position outside [-2, 2] or time_step outside [-1, 1]")
@@ -1115,7 +1400,7 @@ def phase_light_dark_main_path(dev) -> dict:
     check(shapes == {"noisy_position": (N, 2), "time_step": (N,)}, f"obs shapes {shapes}")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)], "episode_ends_min": int(ends.min()),
-            "launches": launches}
+            "launches": launches, "numerics_launches": numerics}
 
 
 def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
@@ -1166,6 +1451,7 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = all_launch_counts()
+    numerics = numerics_launches(f"{env_id} metrics path", steps)
 
     for name, flag in ok.items():
         check(bool(flag), f"{env_id} metrics path: check {name!r} failed")
@@ -1179,7 +1465,8 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
     check(got == want_launches, f"{env_id} launches {got}, expected {want_launches}")
     return {"env": env_id, "metrics": True, "steps": steps, "seconds": dt,
             "ms_per_step": 1e3 * dt / steps, "reward_err_max": float(err),
-            "episode_ends_min": int(ends.min()), "launches": launches}
+            "episode_ends_min": int(ends.min()), "launches": launches,
+            "numerics_launches": numerics}
 
 
 SCORE_TOL = 3e-6  # uniqueness scores at TinyImageNet's geometry, card vs CPU
@@ -1231,6 +1518,7 @@ def phase_tin_loc_main_path(dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = all_launch_counts()
+    numerics = numerics_launches("TinyImageNetLoc main path", steps)
 
     check(bool(finite), "non-finite observation")
     check(bool(glimpse_ok), "glimpse or target_glimpse outside [0, 1]")
@@ -1249,7 +1537,7 @@ def phase_tin_loc_main_path(dev) -> dict:
             "reset_ms": reset_ms, "reset_peak_bytes": peak,
             "reset_peak_above_start_bytes": peak - start_bytes,
             "reward_range": [float(r_lo), float(r_hi)], "resets_min": int(resets.min()),
-            "launches": launches}
+            "launches": launches, "numerics_launches": numerics}
 
 
 def ranking_gap(u_ref: np.ndarray, u_got: np.ndarray) -> float | None:
@@ -1681,9 +1969,11 @@ def phase_compat_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: float | 
         prev_done = bool(np.any(outs[1][2] | outs[1][3]))
     torch.cuda.synchronize()
     launches = all_launch_counts()
+    numerics = numerics_launches(f"{env_id}{overrides or ''} compat core, N={n}", steps)
     ends = int(sum(np.asarray(outs[1][2]) | np.asarray(outs[1][3])))
     return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "merge_steps": merges,
             "seconds": time.perf_counter() - t0, "launches": launches,
+            "numerics_launches": numerics,
             "compared": "bitwise" if tol is None else f"ints and bools bitwise, floats {tol}",
             "last_step_ends": ends, **err}
 
@@ -2364,6 +2654,7 @@ def phase_train_ppo(dev) -> dict:
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in all_launch_counts().items() if v}
         check(launches == want, f"train iteration {i} launched {launches}, expected {want}")
+        numerics = numerics_launches(f"train iteration {i}", TRAIN_T)
         mean_r = float(mean_r)
         losses = [stats["pred_loss"], *stats["ppo_losses"]]
         check(np.isfinite(mean_r) and np.isfinite(losses).all(),
@@ -2376,7 +2667,8 @@ def phase_train_ppo(dev) -> dict:
         iters.append({"mean_reward": mean_r, "pred_loss": stats["pred_loss"],
                       "ppo_loss_last": stats["ppo_losses"][-1], "wall_s": wall,
                       "rollout_ms": 1e3 * stats["rollout_s"], "update_ms": 1e3 * stats["update_s"],
-                      "launches": launches, "pred_grad_sq": sq})
+                      "launches": launches, "numerics_launches": numerics,
+                      "pred_grad_sq": sq})
     steady = iters[1:]
     return {"env": "LIDARLocRooms-v0", "num_envs": TRAIN_N, "rollout_len": TRAIN_T,
             "epochs": 2, "num_minibatches": 4, "iterations": iters,
@@ -2640,28 +2932,31 @@ def _hold_k1(name: str, args) -> dict:
     from apx_torch.ops.raycast import raycast_grid, seg_length
 
     occ, origin, targets, seg = args
-    wrapper_seg = seg is None
-    if wrapper_seg:  # the wrapper's default, computed here so that only the kernel is timed
+    own_len = seg is None
+    if own_len:  # the lengths the kernel computes itself, for the plain form and the hold
         seg = seg_length(targets - origin[:, None, :])
     kernel = getattr(raycast_cuda, name)
     typed = name == "raycast_typed"
     got = kernel(occ, origin, targets, seg)
     want = raycast_grid(occ, origin, targets, seg, geos_typing=typed)[0]
+    path_call = kernel(occ, origin, targets, None if own_len else seg)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
           f"{name} R={targets.shape[1]} on a workload's inputs not bitwise its plain form "
           f"(max |diff| {err})")
+    check(torch.equal(path_call.view(torch.int32), got.view(torch.int32)),
+          f"{name} R={targets.shape[1]} on a workload's inputs with seg=None: not bitwise "
+          f"the call with seg_length's lengths")
     b_ms, b_by = bound(name, occ, origin, targets)
     return {"ms": device_ms(lambda: kernel(occ, origin, targets, seg), 50),
             "plain_ms": device_ms(
                 lambda: raycast_grid(occ, origin, targets, seg, geos_typing=typed), 4),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "library_ms": None,
-            "seg_from_wrapper": wrapper_seg,
-            # the call as the path makes it: with no seg the wrapper computes
-            # seg_length (the exact-rounding emulation) before the launch
+            "own_len": own_len,
+            # the call as the path makes it: with no seg the kernel computes |d|
             "wrapper_ms": device_ms(
-                lambda: kernel(occ, origin, targets, None if wrapper_seg else seg), 50)}
+                lambda: kernel(occ, origin, targets, None if own_len else seg), 50)}
 
 
 def _hold_k3(args, kwargs) -> dict:
@@ -2775,68 +3070,82 @@ def main() -> int:
     from apx_torch.ops import build
 
     dev = torch.device("cuda")
+    seconds: dict[str, float] = {}
+    lap = [time.perf_counter()]
+
+    def emit(line: str, **kwargs) -> None:
+        """Print a phase's line and add the seconds since the previous
+        line to its label's (the text before the first colon)."""
+        print(line, **kwargs)
+        now = time.perf_counter()
+        label = line.split(":")[0]
+        seconds[label] = seconds.get(label, 0.0) + now - lap[0]
+        lap[0] = now
+
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"device: {name} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}",
-          flush=True)
+    emit(f"device: {name} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}",
+         flush=True)
 
     t0 = time.perf_counter()
     build.load(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds():.2f} s)",
-          flush=True)
+    emit(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds():.2f} s)",
+         flush=True)
 
     rows = phase_kernels(dev)
-    print("kernels: " + "; ".join(
+    emit("kernels: " + "; ".join(
         f"{r['name']} max|d|={r['max_abs_err']} " + ", ".join(
             f"R={k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms)"
             for k, v in r["by_r"].items()) for r in rows), flush=True)
     edge = phase_edge_casts(dev)
-    print(f"kernels: K1 bitwise on {edge} edge casts ({', '.join(EDGE_MAPS)}; R in {EDGE_RAYS}; "
-          f"N={EDGE_N})", flush=True)
+    emit(f"kernels: K1 bitwise on {edge} edge casts ({', '.join(EDGE_MAPS)}; R in {EDGE_RAYS}; "
+         f"N={EDGE_N})", flush=True)
     for r in rows:
         r["edge_casts_checked"] = edge
     k3 = phase_glimpse_kernel(dev)
-    print(f"kernels: glimpse {json.dumps(k3['by_geometry'])}", flush=True)
+    emit(f"kernels: glimpse {json.dumps(k3['by_geometry'])}", flush=True)
+    numerics_rows = phase_numerics_kernels(dev)
+    emit(f"numerics kernels: {json.dumps(numerics_rows)}", flush=True)
 
     main_path = phase_main_path(dev)
-    print(f"main path: {json.dumps(main_path)}", flush=True)
+    emit(f"main path: {json.dumps(main_path)}", flush=True)
     for r in rows:
         r["launches"] = main_path["launches"][r["name"]]
-    print(f"card vs cpu: {json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}))}",
-          flush=True)
+    emit(f"card vs cpu: {json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}))}",
+         flush=True)
 
     cs_path = phase_circle_square_main_path(dev)
-    print(f"circle square main path: {json.dumps(cs_path)}", flush=True)
+    emit(f"circle square main path: {json.dumps(cs_path)}", flush=True)
     k3["launches"] = cs_path["launches"]["glimpse"]
     rows.append(k3)
     tol = {"glimpse": GLIMPSE_TOL, "reward": 1e-6}
     for env_id in ("CircleSquare-v0", "CircleSquareInverted-v0"):
-        print(f"circle square card vs cpu: {json.dumps(phase_card_vs_cpu(dev, env_id, 256, 51, tol))}",
-              flush=True)
+        emit(f"circle square card vs cpu: {json.dumps(phase_card_vs_cpu(dev, env_id, 256, 51, tol))}",
+             flush=True)
 
     k2, k1_window = phase_window_kernels(dev)
-    print(f"kernels: window {json.dumps(k2)}; raycast on windows {json.dumps(k1_window)}",
-          flush=True)
+    emit(f"kernels: window {json.dumps(k2)}; raycast on windows {json.dumps(k1_window)}",
+         flush=True)
     window = {"raycast_backend": "pallas_window"}
     window_path = phase_main_path(dev, **window)
-    print(f"window main path: {json.dumps(window_path)}", flush=True)
+    emit(f"window main path: {json.dumps(window_path)}", flush=True)
     for r in rows[:2]:
         r["window"] = {"launches": window_path["launches"][r["name"]],
                        "by_r": k1_window[r["name"]]}
     k2["launches"] = window_path["launches"]["window"]
     rows.append(k2)
-    print(f"window card vs cpu: "
-          f"{json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}, **window))}",
-          flush=True)
+    emit(f"window card vs cpu: "
+         f"{json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}, **window))}",
+         flush=True)
 
     rows.append(phase_chain(dev))
 
     ld_path = phase_light_dark_main_path(dev)
-    print(f"light dark main path: {json.dumps(ld_path)}", flush=True)
+    emit(f"light dark main path: {json.dumps(ld_path)}", flush=True)
     lidar_sparse = phase_sparse_metrics_path(dev, "LIDARLocRooms-sparse-v0", 250)
-    print(f"sparse metrics path: {json.dumps(lidar_sparse)}", flush=True)
+    emit(f"sparse metrics path: {json.dumps(lidar_sparse)}", flush=True)
     cs_sparse = phase_sparse_metrics_path(dev, "CircleSquare-sparse-v0", 51)
-    print(f"sparse metrics path: {json.dumps(cs_sparse)}", flush=True)
+    emit(f"sparse metrics path: {json.dumps(cs_sparse)}", flush=True)
     for r in rows:
         for path in (lidar_sparse, cs_sparse):
             if path["launches"].get(r["name"]):
@@ -2846,17 +3155,17 @@ def main() -> int:
             ("LIDARLocRooms-sparse-v0", 256, 120, {}),
             ("CircleSquare-sparse-v0", 256, 51, {"glimpse": GLIMPSE_TOL, "reward": 1e-6})):
         res = phase_card_vs_cpu(dev, env_id, n, steps, tol, metrics=env_id != "LightDark-v0")
-        print(f"step draws / wrappers card vs cpu: {json.dumps(res)}", flush=True)
+        emit(f"step draws / wrappers card vs cpu: {json.dumps(res)}", flush=True)
 
     tin_path = phase_tin_loc_main_path(dev)
-    print(f"tin_loc main path: {json.dumps(tin_path)}", flush=True)
+    emit(f"tin_loc main path: {json.dumps(tin_path)}", flush=True)
     k3["tin_loc"] = {"launches": tin_path["launches"]["glimpse"],
                      "geometry": k3["by_geometry"]["tiny_imagenet"]["shape"]}
-    print(f"sweep card vs cpu: {json.dumps(phase_sweep_card_vs_cpu(dev))}", flush=True)
+    emit(f"sweep card vs cpu: {json.dumps(phase_sweep_card_vs_cpu(dev))}", flush=True)
     res = phase_card_vs_cpu(dev, "TinyImageNetLoc-v0", 64, 51, {
         "glimpse": GLIMPSE_TOL, "target_glimpse": GLIMPSE_TOL, "reward": 1e-6},
         start_from_cpu=True)
-    print(f"tin_loc card vs cpu: {json.dumps(res)}", flush=True)
+    emit(f"tin_loc card vs cpu: {json.dumps(res)}", flush=True)
     tol = {"glimpse": GLIMPSE_TOL, "reward": 1e-6}
     for env_id, geometry in (("DoubleCircleSquare-v0", None), ("MNIST-v0", "mnist"),
                              ("CIFAR10-v0", "cifar10"), ("CircleSquareHideAndSeek-v0", None),
@@ -2869,20 +3178,20 @@ def main() -> int:
         if geometry:
             k3["by_geometry"][geometry]["launches"] = res["glimpse_launches"]
             k3["by_geometry"][geometry]["launches_path"] = f"{env_id}, N=256, 51 steps"
-        print(f"new ids card vs cpu: {json.dumps(res)}", flush=True)
+        emit(f"new ids card vs cpu: {json.dumps(res)}", flush=True)
 
     for env_id in ("LIDARLocMaze-v0", "LIDARLocRoomsStatic-v0"):
-        print(f"bench paths card vs cpu: "
-              f"{json.dumps(phase_card_vs_cpu(dev, env_id, 256, 120, {}))}", flush=True)
+        emit(f"bench paths card vs cpu: "
+             f"{json.dumps(phase_card_vs_cpu(dev, env_id, 256, 120, {}))}", flush=True)
     deep = phase_deep_capture()
+    emit(f"deep capture: calibration_lidar_rooms_4096x200 "
+         f"{deep['calibration_lidar_rooms_4096x200']} env-steps/s, {len(deep['results'])} "
+         f"records, {deep['seconds']:.1f} s, fingerprint {json.dumps(deep['fingerprint'])}",
+         flush=True)
     for rec in deep["results"]:
-        print(f"throughput: {json.dumps(rec)}", flush=True)
-    print(f"deep capture: calibration_lidar_rooms_4096x200 "
-          f"{deep['calibration_lidar_rooms_4096x200']} env-steps/s, {len(deep['results'])} "
-          f"records, {deep['seconds']:.1f} s, fingerprint {json.dumps(deep['fingerprint'])}",
-          flush=True)
+        emit(f"throughput: {json.dumps(rec)}", flush=True)
     workloads = phase_workload_kernels(dev)
-    print(f"workload kernels: {json.dumps(workloads)}", flush=True)
+    emit(f"workload kernels: {json.dumps(workloads)}", flush=True)
     for r in rows[:2] + [k3]:
         r["workloads"] = {
             name: {"num_envs": path["num_envs"], "steps": path["steps"],
@@ -2895,11 +3204,11 @@ def main() -> int:
             for v in (w["by_r"].values() if "by_r" in w else [w])])
 
     sharded = phase_sharded_rollout("LIDARLocRooms-v0", 1, "nccl", SHARDED_STEPS)
-    print(f"sharded rollout: {json.dumps(sharded)}", flush=True)
+    emit(f"sharded rollout: {json.dumps(sharded)}", flush=True)
     gloo_lidar = phase_sharded_rollout("LIDARLocRooms-v0", 2, "gloo", SHARDED_STEPS)
-    print(f"sharded rollout: {json.dumps(gloo_lidar)}", flush=True)
+    emit(f"sharded rollout: {json.dumps(gloo_lidar)}", flush=True)
     gloo_cs = phase_sharded_rollout("CircleSquare-v0", 2, "gloo", EPISODIC_STEPS, period=16)
-    print(f"sharded rollout: {json.dumps(gloo_cs)}", flush=True)
+    emit(f"sharded rollout: {json.dumps(gloo_cs)}", flush=True)
     for r in rows:
         for path in (sharded, gloo_lidar, gloo_cs):
             if r["name"] in path["ranks"][0]["launches"]:
@@ -2907,29 +3216,29 @@ def main() -> int:
                     "env": path["env"], "world_size": path["world_size"],
                     "backend": path["backend"], "steps": path["steps"],
                     "launches_per_rank": [x["launches"][r["name"]] for x in path["ranks"]]})
-    print(f"checkpoint: {json.dumps(phase_checkpoint(dev))}", flush=True)
-    print(f"bank rotator: {json.dumps(phase_bank_rotator(dev))}", flush=True)
-    print(f"native bank: {json.dumps(phase_native_bank(dev))}", flush=True)
+    emit(f"checkpoint: {json.dumps(phase_checkpoint(dev))}", flush=True)
+    emit(f"bank rotator: {json.dumps(phase_bank_rotator(dev))}", flush=True)
+    emit(f"native bank: {json.dumps(phase_native_bank(dev))}", flush=True)
     for nproc, backend in ((1, "nccl"), (2, "gloo")):
         for env in ("lidar_rooms", "circle_square"):
             res = phase_sharded_bench(env, nproc, backend)
-            print(f"sharded throughput: {json.dumps(res)}", flush=True)
+            emit(f"sharded throughput: {json.dumps(res)}", flush=True)
 
     compat, compat_launches = phase_compat(dev)
     for res in compat:
-        print(f"compat card vs cpu: {json.dumps(res)}", flush=True)
+        emit(f"compat card vs cpu: {json.dumps(res)}", flush=True)
     for r in rows:
         if r["name"] in compat_launches:
             r["compat"] = compat_launches[r["name"]]
     for env in ("lidar_rooms", "circle_square"):
-        print(f"compat throughput: {json.dumps(bench_compat(env, N))}", flush=True)
-    print("compat: the gymnasium shells (make / make_vec) and the PIL frames need gymnasium "
-          "and pillow, absent here; tests/test_torch_compat*.py and test_torch_render.py "
-          "cover them on the CPU", flush=True)
+        emit(f"compat throughput: {json.dumps(bench_compat(env, N))}", flush=True)
+    emit("compat: the gymnasium shells (make / make_vec) and the PIL frames need gymnasium "
+         "and pillow, absent here; tests/test_torch_compat*.py and test_torch_render.py "
+         "cover them on the CPU", flush=True)
 
-    print(f"perception module: {json.dumps(phase_perception_module(dev))}", flush=True)
+    emit(f"perception module: {json.dumps(phase_perception_module(dev))}", flush=True)
     study = phase_glimpse_study(dev)
-    print(f"glimpse study: {json.dumps(study)}", flush=True)
+    emit(f"glimpse study: {json.dumps(study)}", flush=True)
     k3["glimpse_study"] = {"launches": study["k3_launches"],
                            "geometry": f"N={study['n']} {'x'.join(map(str, study['image']))} u8 "
                                        f"and f32, 10x10, {study['reps']} chained steps",
@@ -2938,47 +3247,56 @@ def main() -> int:
                            "moving_us_per_batch": {k: study["variants"][k]["moving_us_per_batch"]
                                                    for k in ("k3[u8]", "k3[f32]")}}
     for line in phase_parse_trace(dev):
-        print(line, flush=True)
+        emit(line, flush=True)
 
     backend_kernels = phase_backend_kernels(dev)
-    print(f"kernels on the backends' windows: {json.dumps(backend_kernels)}", flush=True)
+    emit(f"kernels on the backends' windows: {json.dumps(backend_kernels)}", flush=True)
     backends = phase_raycast_backends(dev)
-    print(f"raycast backends: {json.dumps(backends)}", flush=True)
+    emit(f"raycast backends: {json.dumps(backends)}", flush=True)
     for r in rows[:2]:
         r["backends"] = {name: path["launches"][r["name"]]
                          for name, path in backends["paths"].items()}
         r["backend_windows"] = backend_kernels[r["name"]]
     samplers = phase_samplers(dev)
-    print(f"samplers: {json.dumps(samplers)}", flush=True)
+    emit(f"samplers: {json.dumps(samplers)}", flush=True)
     k3["chunked"] = {"launches": samplers[f"chunked_n{N}"]["glimpse_launches"],
                      "path": f"TinyImageNetLoc-v0 explicit reset, N={N}: 27 chunks + obs + target"}
     storage = phase_image_storage(dev)
-    print(f"image storage: {json.dumps(storage)}", flush=True)
+    emit(f"image storage: {json.dumps(storage)}", flush=True)
     k3["storage"] = {name: path["glimpse_launches"] for name, path in storage["paths"].items()}
     k3["bank_larger_than_l2"] = storage["bank_larger_than_l2"]
-    print(f"sharded bank: {json.dumps(phase_sharded_bank(dev))}", flush=True)
-    print("class layer: the gymnasium classes (gym_classes, gym_spaces, ap_gym_alias, the "
-          "spaces of perception_module), render() frames (pillow) and the tools create_env_vid, "
-          "create_gifs (imageio) and mk_env_doc (gymnasium) need packages absent here; "
-          "tests/test_torch_class_layer.py, test_torch_perception_module.py and "
-          "test_torch_tools.py cover them on the CPU", flush=True)
+    emit(f"sharded bank: {json.dumps(phase_sharded_bank(dev))}", flush=True)
+    emit("class layer: the gymnasium classes (gym_classes, gym_spaces, ap_gym_alias, the "
+         "spaces of perception_module), render() frames (pillow) and the tools create_env_vid, "
+         "create_gifs (imageio) and mk_env_doc (gymnasium) need packages absent here; "
+         "tests/test_torch_class_layer.py, test_torch_perception_module.py and "
+         "test_torch_tools.py cover them on the CPU", flush=True)
 
     train = phase_train_ppo(dev)
-    print(f"train ppo: {json.dumps(train)}", flush=True)
+    emit(f"train ppo: {json.dumps(train)}", flush=True)
     for r in rows[:2]:
         r["train"] = {"launches_per_iteration": train["launches_per_iteration"][r["name"]],
                       "launches": [x["launches"][r["name"]] for x in train["iterations"]],
                       "path": f"train_ppo_lidar iteration, LIDARLocRooms-v0, N={TRAIN_N}, "
                               f"rollout {TRAIN_T}"}
-    print(f"train card vs cpu: {json.dumps(phase_train_card_vs_cpu(dev))}", flush=True)
-    print(f"train grid: {json.dumps(phase_train_grid(dev))}", flush=True)
-    print(f"train resume: {json.dumps(phase_train_resume())}", flush=True)
+    emit(f"train card vs cpu: {json.dumps(phase_train_card_vs_cpu(dev))}", flush=True)
+    emit(f"train grid: {json.dumps(phase_train_grid(dev))}", flush=True)
+    emit(f"train resume: {json.dumps(phase_train_resume())}", flush=True)
     flagship = phase_entry(dev)
-    print(f"entry: {json.dumps(flagship)}", flush=True)
+    emit(f"entry: {json.dumps(flagship)}", flush=True)
     k3["max_abs_err"] = max(k3["max_abs_err"], flagship["max_abs_err"])
     k3["entry"] = {"launches": flagship["launches"], "max_abs_err": flagship["max_abs_err"],
                    "path": "graft_entry.entry(): CircleSquare 16x16, N=64, reset + one step"}
 
+    main_numerics = main_path["numerics_launches"]
+    for r in numerics_rows:
+        r["launches"] = main_numerics[r["name"]]
+        r["launches_path"] = f"LIDARLocRooms-v0 main path, N={N}, reset + {main_path['steps']} steps"
+        r["paths"] = {path: {"steps": c["steps"], "launches": c[r["name"]],
+                             "per_step": c["per_step"][r["name"]]}
+                      for path, c in NUMERICS_BY_PATH.items()}
+    rows.extend(numerics_rows)
+    print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

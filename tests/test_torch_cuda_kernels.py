@@ -115,15 +115,124 @@ def test_env_on_card_matches_cpu(dev):
             assert torch.equal(a, b)
 
 
+def _same_bits(got, want):
+    """Bitwise equal on the CPU, any NaN equal to any NaN."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    return got.shape == want.shape and torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
 def test_numerics_on_card(dev):
-    """The exact-rounding helpers give the CPU's bits on the card."""
-    from apx_torch.core.numerics import div, fma, sqrt
+    """The exact-rounding helpers give the CPU's bits on the card: N1-N3
+    (one launch each) on ``chip_smoke.numerics_cases`` and at the call
+    sites' shapes and strides; ``div`` as before."""
+    from apx_torch.core import numerics
+    from apx_torch.core.numerics import div, fma, sqrt, sum_squares
+    from chip_smoke import numerics_cases
 
     gen = torch.Generator().manual_seed(0)
     a, b, c = (torch.randn(100_000, generator=gen) for _ in range(3))
     for f in (lambda x, y, z: fma(x, y, z), lambda x, y, z: div(x, 5.0),
               lambda x, y, z: sqrt(x.abs()), lambda x, y, z: div(x, 255.0)):
         assert torch.equal(f(a, b, c), f(a.to(dev), b.to(dev), c.to(dev)).cpu())
+
+    def held(name, fn, *args):
+        before = numerics.LAUNCHES[name]
+        got = fn(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in args))
+        torch.cuda.synchronize()
+        assert numerics.LAUNCHES[name] == before + 1, name
+        assert _same_bits(got, fn(*args)), name
+
+    cases = numerics_cases(0)
+    held("fma", fma, *map(torch.from_numpy, cases["fma"]))
+    held("sqrt", sqrt, torch.from_numpy(cases["sqrt"]))
+    for rows in cases["sum_squares"].values():
+        held("sum_squares", sum_squares, torch.from_numpy(rows))
+    x = torch.randn((4096, 2), generator=gen) * 3
+    col = torch.randn((4096, 1), generator=gen)
+    wide = torch.randn((512, 8, 2), generator=gen)
+    for args in ((x, col, 0.25), (x[:, 0], x[:, 1], col[:, 0]), (x, 2.0, -1.0),
+                 (-1e-3, x[:, 1], 0.1), (x[::2], col[::2], x[1::2]),
+                 (wide, wide[:, :1], x[:512, None]), (x[:, 0], 1e-3, x[:, 0])):
+        held("fma", fma, *args)
+    for v in (x, x[::2], wide, wide.transpose(0, 1), torch.randn((64, 5), generator=gen)):
+        held("sum_squares", sum_squares, v)
+    for v in (x.abs(), x.abs()[:, 1], wide.abs().transpose(0, 2)):
+        held("sqrt", sqrt, v)
+
+
+def test_numerics_raise_on_card(dev):
+    """float64 operands and operands on two devices raise; nothing is
+    counted."""
+    from apx_torch.core import numerics
+    from apx_torch.core.numerics import fma, sqrt, sum_squares
+
+    before = dict(numerics.LAUNCHES)
+    x = torch.rand((16, 2), device=dev)
+    with pytest.raises(TypeError):
+        fma(x.double(), x.double(), 1.0)
+    with pytest.raises(TypeError):
+        fma(x, x.double(), x)
+    with pytest.raises(ValueError):
+        fma(x, x.cpu(), 1.0)
+    with pytest.raises(TypeError):
+        sum_squares(x.double())
+    with pytest.raises(TypeError):
+        sqrt(x.double())
+    with pytest.raises(ValueError):
+        sum_squares(x[0, 0])
+    assert numerics.LAUNCHES == before
+
+
+def test_numerics_in_cuda_graph(dev):
+    """N1-N3 capture in a CUDA graph and replay on new inputs."""
+    from apx_torch.core.numerics import fma, sqrt, sum_squares
+
+    x = torch.rand((4096, 2), device=dev)
+    col = torch.rand((4096, 1), device=dev)
+    fma(x, col, 0.5), sum_squares(x), sqrt(x)  # the library loaded before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sqrt(fma(x, col, -0.25).abs()) + sum_squares(x)[:, None]
+    for seed in range(3):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x.copy_(torch.rand((4096, 2), generator=gen, device=dev) * 4 - 2)
+        col.copy_(torch.rand((4096, 1), generator=gen, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        xc, cc = x.cpu(), col.cpu()
+        want = sqrt(fma(xc, cc, -0.25).abs()) + sum_squares(xc)[:, None]
+        assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("kind", ["rooms", "maze", "window"])
+def test_kernel_computes_its_own_lengths(dev, kind, typed):
+    """K1 with no lengths (the kernel computes the contracted |d|) equals K1
+    given ``seg_length``'s, bitwise, on ``_casts`` and in the window frame;
+    the wrapper launches K1 alone."""
+    from apx_torch.core import numerics
+    from apx_torch.ops.window_cuda import extract_windows as cut
+
+    bank = (make_maze_bank if kind == "maze" else make_rooms_bank)(16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7 + int(typed))
+    for centres in (False, True):
+        occ, origin, targets = _casts(bank, 1000, gen, dev, centres)
+        if kind == "window":
+            starts, base = window_starts(origin, 16, 16)
+            occ = cut(occ, starts, 16).view(torch.bool)
+            origin, targets = origin - base, targets - base[:, None]
+        kernel = raycast_cuda.raycast_typed if typed else raycast_cuda.raycast_fast
+        seg = seg_length(targets - origin[:, None])
+        before = dict(numerics.LAUNCHES)
+        got = kernel(occ, origin, targets)
+        torch.cuda.synchronize()
+        assert numerics.LAUNCHES == before  # no length computed before the launch
+        assert torch.equal(_bits(got), _bits(kernel(occ, origin, targets, seg)))
+        assert torch.equal(_bits(got), _bits(raycast_grid(occ, origin, targets,
+                                                          geos_typing=typed)[0]))
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])

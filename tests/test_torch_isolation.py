@@ -56,7 +56,7 @@ import apx_torch.bench, apx_torch.convert, apx_torch.compat.builders, apx_torch.
 import apx_torch.ops.glimpse_cuda, apx_torch.ops.window_cuda, apx_torch.ops.issue_rate_study
 import apx_torch.data.huggingface, apx_torch.envs.image_localization
 import apx_torch.data.stream, apx_torch.data.native, apx_torch.utils.checkpoint
-import apx_torch.core.checks, apx_torch.distrib, apx_torch.distrib.selftest
+import apx_torch.core.checks, apx_torch.core.numerics, apx_torch.distrib, apx_torch.distrib.selftest
 assert apx_torch.data.floor_map.make_rooms_bank(4, backend="native", device="cpu").num_maps == 4
 assert "datasets" not in sys.modules, "a port module imported datasets"
 import apx_torch.compat.stats, apx_torch.render
