@@ -72,7 +72,7 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
         else:
             state = LIDARLocalizationState(**leaves)
         obs = {
-            **base._observe(state, params, typed=True),
+            **base._observe(state, params),
             **base.obs_derived_from_state(state, params),
         }
         return obs, state, base._info(state)

@@ -24,6 +24,15 @@ done, so a step never synchronises with the device and can be captured in
 a CUDA graph. LOCKSTEP's mask is ``prev_done.all()``, decided on the
 device. ``rollout_episodic`` hoists the LOCKSTEP boundary out of the step:
 ``period`` DISABLED steps, then one ``boundary_reset_step``.
+
+NEXT_STEP's merge, loss, reward and ``TimeLimit`` counter are
+``ops.merge_cuda.next_step`` (``VectorAPEnv._next_step``): F2, one kernel,
+on the card for an MSE loss (``MSELossFn``, or an ``AffineLossFn`` over
+one, of the widths ``core.losses.mse_terms`` accepts: LIDAR, LightDark);
+its plain form ``ops.merge`` on the CPU and, on the card, for every
+other loss (the ``-sparse`` ids' weighted loss, cross-entropy, zero), with
+N1-N3 at its rounding sites. LOCKSTEP and DISABLED keep the op-by-op
+merge of ``step``.
 """
 
 from __future__ import annotations
@@ -173,6 +182,26 @@ class APEnv(Generic[P, S]):
         the merged state by the vector layer (apx.core.env, same name)."""
         return {}
 
+    def obs_derived_spec(self, params: P) -> dict[str, tuple[str, float]] | None:
+        """``obs_derived_from_state`` as the fused merge computes it in its
+        kernel: obs key -> (bool state field, divisor), the entry being
+        ``state.<field>[..., None]`` as float32 divided by the divisor
+        (``ops.merge``); None (the default): the merge calls
+        ``obs_derived_from_state`` on the merged state instead."""
+        return None
+
+    def split_counter(self, state: S) -> tuple["APEnv", Any, Any]:
+        """(the env whose step and reset the NEXT_STEP merge runs, its
+        state, the step counter the merge keeps for it or None):
+        ``(self, state, None)``; a ``TimeLimit`` gives its inner env and
+        its ``Counter``, and ``join_counter`` wraps the merged result."""
+        return self, state, None
+
+    def join_counter(self, obs, state, t, time_obs):
+        """(obs, state) of this env from the merged inner ones and the
+        merged counter (see ``split_counter``): ``(obs, state)``."""
+        return obs, state
+
     def _merge_derived_obs(self, obs, state: S, params: P):
         d = self.obs_derived_from_state(state, params)
         return {**obs, **d} if d else obs
@@ -243,6 +272,9 @@ class VectorAPEnv:
         (``APEnv.prediction_target_on_reset``)."""
         env = self.env
         loss_fn = env.loss_fn(params)
+        if self.autoreset is AutoResetMode.NEXT_STEP:
+            return self._next_step(state, full_action, params, loss_fn, generator, reset_draws,
+                                   step_draws)
         if step_draws is None:
             step_draws = env.draw_step(self.num_envs, params, generator)
         r = env.step_env(
@@ -261,19 +293,10 @@ class VectorAPEnv:
             vstate = VectorState(inner=r.state, prev_done=r.terminated | r.truncated)
             return obs, vstate, reward, r.terminated, r.truncated, info
 
-        lockstep = self.autoreset is AutoResetMode.LOCKSTEP
         # LOCKSTEP decides "all envs done" as a device tensor: no host sync.
-        mask = state.prev_done.all().expand(self.num_envs) if lockstep else state.prev_done
-        if reset_draws is None:
-            reset_draws = env.draw_reset(self.num_envs, params, _need(generator))
-        reset_obs, reset_state, reset_info = env.autoreset_from_draws(
-            reset_draws, state.inner, params
-        )
-        if set(reset_info) != set(r.info):
-            raise ValueError(
-                "autoreset info keys differ from step info keys: "
-                f"{sorted(reset_info)} vs {sorted(r.info)}"
-            )
+        mask = state.prev_done.all().expand(self.num_envs)
+        reset_obs, reset_state, reset_info = self._autoreset(env, state.inner, params, generator,
+                                                             reset_draws, r.info)
         obs = tree_select(mask, reset_obs, r.obs)
         new_inner = tree_select(mask, reset_state, r.state)
         base_reward = torch.where(mask, 0.0, r.base_reward)
@@ -282,25 +305,59 @@ class VectorAPEnv:
         info = tree_select(mask, reset_info, r.info)
         # Derived entries once, from the merged state (apx/core/env.py:378-380).
         obs = env._merge_derived_obs(obs, new_inner, params)
-
-        if lockstep:
-            pred_target = tree_select(
-                mask, env.prediction_target_on_reset(state.inner, reset_state, params),
-                r.prediction_target,
-            )
-            loss = loss_fn(full_action["prediction"], pred_target)
-            reward = loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target)
-        else:
-            pred_target = r.prediction_target
-            loss = loss_fn(full_action["prediction"], pred_target)
-            loss = torch.where(mask, 0.0, loss)
-            reward = torch.where(
-                mask, 0.0, loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target))
+        pred_target = tree_select(
+            mask, env.prediction_target_on_reset(state.inner, reset_state, params),
+            r.prediction_target,
+        )
+        loss = loss_fn(full_action["prediction"], pred_target)
+        reward = loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target)
         info = env.compose_info(
             info, base_reward, pred_target, loss, full_action["prediction"], params
         )
         vstate = VectorState(inner=new_inner, prev_done=terminated | truncated)
         return obs, vstate, reward, terminated, truncated, info
+
+    def _autoreset(self, env: APEnv, inner, params, generator, reset_draws, step_info):
+        """The reset of all N envs that the merge selects from."""
+        if reset_draws is None:
+            reset_draws = self.env.draw_reset(self.num_envs, params, _need(generator))
+        reset_obs, reset_state, reset_info = env.autoreset_from_draws(reset_draws, inner, params)
+        if set(reset_info) != set(step_info):
+            raise ValueError(
+                "autoreset info keys differ from step info keys: "
+                f"{sorted(reset_info)} vs {sorted(step_info)}"
+            )
+        return reset_obs, reset_state, reset_info
+
+    def _next_step(self, state: VectorState, full_action, params, loss_fn, generator,
+                   reset_draws, step_draws):
+        """``step`` under NEXT_STEP: the step and the reset of the env
+        under a ``TimeLimit`` (``APEnv.split_counter``), then
+        ``ops.merge_cuda.next_step`` merges them, masks the base reward and
+        the dones, computes the loss, the reward and the derived obs, and
+        keeps the ``TimeLimit``'s counter (see the module docstring)."""
+        from ..ops import merge_cuda
+
+        env = self.env
+        inner_env, inner, counter = env.split_counter(state.inner)
+        prediction = full_action["prediction"]
+        if step_draws is None:
+            step_draws = env.draw_step(self.num_envs, params, generator)
+        r = inner_env.step_env(inner, full_action["action"], prediction, params, step_draws)
+        reset = self._autoreset(inner_env, inner, params, generator, reset_draws, r.info)
+        m = merge_cuda.next_step(
+            state.prev_done, (r.obs, r.state, r.info), reset, r.base_reward, r.terminated,
+            r.truncated, prediction, r.prediction_target, loss_fn,
+            inner_env.obs_derived_spec(params), counter)
+        obs, new_inner = env.join_counter(m.obs, m.state, m.t, m.time_obs)
+        if m.derived is None:
+            obs = inner_env._merge_derived_obs(obs, m.state, params)
+        elif m.derived:
+            obs = {**obs, **m.derived}
+        info = env.compose_info(m.info, m.base_reward, r.prediction_target, m.loss, prediction,
+                                params)
+        return (obs, VectorState(inner=new_inner, prev_done=m.done), m.reward, m.terminated,
+                m.truncated, info)
 
     def boundary_reset_step(self, state: VectorState, full_action: dict[str, Any], params,
                             generator: torch.Generator | None = None, reset_draws=None,

@@ -21,7 +21,7 @@ import torch
 from .numerics import div, fma, sum_squares
 
 __all__ = ["LossFn", "AffineLossFn", "MSELossFn", "CrossEntropyLossFn", "WeightedLossFn",
-           "ZeroLossFn", "LambdaLossFn"]
+           "ZeroLossFn", "LambdaLossFn", "MSETerms", "mse_terms", "masked_loss_and_reward"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +206,59 @@ class WeightedLossFn(LossFn):
         if v is None or self.average_weight is None:
             return None
         return self.average_weight * v
+
+
+@dataclasses.dataclass(frozen=True)
+class MSETerms:
+    """An MSE loss over D features (``MSELossFn``, or an ``AffineLossFn``
+    over one) as float32 constants, the form the fused NEXT_STEP merge
+    computes (``ops.merge_cuda``): S = the sum of squares of p - t (one FMA
+    per further element when ``fused_sum``, else rounded squares summed),
+    loss = S / D, then ``loss * scale + offset`` when ``affine``; reward =
+    ``fma(S, -k, base_reward)`` when ``contract``, else ``base_reward -
+    loss``."""
+
+    d: int
+    fused_sum: bool
+    affine: bool
+    scale: float
+    offset: float
+    contract: bool
+    k: float
+
+
+MAX_FUSED_FEATURES = 8  # the kernel's prediction width
+
+
+def mse_terms(loss_fn: LossFn, d: int) -> MSETerms | None:
+    """``loss_fn``'s ``MSETerms`` for predictions of D features, or None
+    when it is another loss, or when D is outside what the fused merge
+    rounds as PyTorch does (1 <= D <= 8; D <= 2 for rounded squares,
+    whose sum PyTorch may reorder beyond two)."""
+    inner, affine = loss_fn, isinstance(loss_fn, AffineLossFn)
+    if affine:
+        inner = loss_fn.inner
+    if type(inner) is not MSELossFn or (affine and type(loss_fn) is not AffineLossFn):
+        return None
+    if not 1 <= d <= (MAX_FUSED_FEATURES if inner.fused_sum else 2):
+        return None
+    scale = float(np.float32(loss_fn.scale)) if affine else 1.0
+    offset = float(np.float32(loss_fn.offset)) if affine else 0.0
+    contract = affine and inner.contract_reward and loss_fn.offset == 0.0
+    k = float(np.float32(1.0) / np.float32(d) * np.float32(loss_fn.scale)) if contract else 0.0
+    return MSETerms(d, inner.fused_sum, affine, scale, offset, contract, k)
+
+
+def masked_loss_and_reward(loss_fn: LossFn, mask: torch.Tensor, base_reward: torch.Tensor,
+                           prediction, target) -> tuple[torch.Tensor, torch.Tensor]:
+    """A NEXT_STEP step's loss and reward as ``VectorAPEnv.step`` composes
+    them, both 0 where ``mask`` (the envs reset this step):
+    ``where(mask, 0, loss)`` and ``where(mask, 0, reward(base_reward,
+    masked loss))``; ``base_reward`` is already masked. The plain form of
+    the fused merge's loss and reward, and its gradient."""
+    loss = torch.where(mask, 0.0, loss_fn(prediction, target))
+    reward = torch.where(mask, 0.0, loss_fn.reward(base_reward, loss, prediction, target))
+    return loss, reward
 
 
 def _first_tensor(tree) -> torch.Tensor | None:

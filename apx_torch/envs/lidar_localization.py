@@ -63,14 +63,14 @@ import torch
 
 from ..core.env import APEnv, APStepResult
 from ..core.losses import LossFn
-from ..core.numerics import div, fma, sqrt, sum_squares
+from ..core.numerics import div, fma
 from ..core.spaces import Box, DictSpace, Image, Space
 from ..data.floor_map import BEAM_SIGNS, MapBank, halves_of_words, unpack_words
-from ..ops.geometry import normalize_into_unit_ball
+from ..ops import lidar_step_cuda
 from ..ops.raycast import (beam_cell_rects, bitslab_window, bitslab_window_2d,
                            extract_window_mxu, lidar_directions_np, lidar_table_scan,
                            raycast_grid_bitslab, raycast_grid_bitslab2d,
-                           raycast_grid_bitslab2d_per_ray, seg_length, windowed_window)
+                           raycast_grid_bitslab2d_per_ray, windowed_window)
 from ..ops.raycast_cuda import raycast_fast, raycast_typed
 from ..ops.window import WIN, window_starts
 from ..ops.window_cuda import extract_windows
@@ -307,39 +307,38 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         return None
 
     @staticmethod
-    def _seg(origin, targets, unfused_len: bool):
-        """Each segment's |d|: ``seg_length``'s contracted form unless
-        ``unfused_len``, as the reference rounds it at the cast's site."""
-        if not unfused_len:
-            return None
-        d = targets - origin[:, None, :]
-        return sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
-
-    @staticmethod
-    def _cast(kernel, state, origin, targets, window, unfused_len: bool = False):
+    def _cast(kernel, state, origin, targets, window, seg=None):
         """K1 on the whole map, or on the window (occ, base) in the window
-        frame (``origin - base``, ``targets - base``)."""
+        frame (``origin - base``, ``targets - base``); ``seg`` the casts'
+        |d| in that frame, or None for the contracted length K1 computes."""
         occ = state.occ
         if window is not None:
             occ, base = window
             origin, targets = origin - base, targets - base[:, None, :]
-        return kernel(occ, origin, targets, LIDARLocalizationEnv._seg(origin, targets,
-                                                                      unfused_len))
+        return kernel(occ, origin, targets, seg)
+
+    @staticmethod
+    def _cast_window(state, origin, radius: int, params):
+        """The window a cast cuts around its own origin (``"windowed"``, and
+        ``"hybrid"``'s moves), else None."""
+        backend = params.raycast_backend
+        if backend == "windowed" or (backend == "hybrid" and radius <= 2):
+            return windowed_window(state.occ, origin, radius, params.ray_pad)
+        return None
 
     def _raycast(self, state, origin, targets, params, radius: int, typed: bool = False,
-                 window=None, rho: int | None = None, ray_rects=None,
-                 unfused_len: bool = False):
+                 window=None, rho: int | None = None, ray_rects=None, seg=None):
         """(N, R) distances of the casts origin (N, 2) -> targets (N, R, 2)
         under the params' backend (apx's ``_raycast``): ``typed`` for the
         reset scan, ``radius`` the window radius of a cut-per-cast window,
         ``rho`` the cast's reach around the window's anchor (the bit
         windows' static slice), ``ray_rects`` the beams' static rectangles
-        in a 2-D bit window."""
+        in a 2-D bit window, ``seg`` the casts' |d| in the cast's frame
+        (None: the contracted length)."""
         kernel = raycast_typed if typed else raycast_fast
         if isinstance(window, BitWindow):
             if typed:  # the GEOS-typed reset scan needs flank cells: dense, on K1
-                return self._cast(kernel, state, origin, targets, None, unfused_len)
-            seg = self._seg(origin, targets, unfused_len)
+                return self._cast(kernel, state, origin, targets, None, seg)
             bx, by = window.base[:, 0], window.base[:, 1]
             if not window.two_d:
                 return raycast_grid_bitslab(window.occ, bx, origin, targets, seg)[0]
@@ -355,37 +354,44 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
                 lo, hi = max(half - rho - 1, 0), min(half + rho + 1, WIN)
                 occ_win, bx, by = occ_win[:, lo:hi, lo:hi], bx + lo, by + lo
             return raycast_grid_bitslab2d(occ_win, bx, by, origin, targets, seg)[0]
-        if window is not None:
-            return self._cast(kernel, state, origin, targets, window, unfused_len)
-        backend = params.raycast_backend
-        if backend == "windowed" or (backend == "hybrid" and radius <= 2):
-            local = windowed_window(state.occ, origin, radius, params.ray_pad)
-            return self._cast(kernel, state, origin, targets, local, unfused_len)
-        if backend == "pallas":  # apx's Pallas backend: untyped, resets included
-            kernel = raycast_fast
-        return self._cast(kernel, state, origin, targets, None, unfused_len)
+        if window is None:
+            window = self._cast_window(state, origin, radius, params)
+        if window is None and params.raycast_backend == "pallas":
+            kernel = raycast_fast  # apx's Pallas backend: untyped, resets included
+        return self._cast(kernel, state, origin, targets, window, seg)
 
     # ---- observation --------------------------------------------------------
-    def _observe(self, state, params, typed: bool = False, window=None) -> dict[str, torch.Tensor]:
-        targets = state.pos[:, None, :] + params.beam_offsets  # (N, B, 2)
+    def _scan(self, state, params, targets, typed: bool = False, window=None) -> torch.Tensor:
+        """(N, B) beam distances from state.pos to ``targets`` (N, B, 2): the
+        face tables' lookups for a step scan with the tables active, else
+        the casts (``typed`` for the reset scan, which cuts its own window
+        from the reset position)."""
         if not typed and params.beam_tables_active:
             bank = params.map_bank
-            dist = lidar_table_scan(bank.beam_face, bank.beam_axis, state.bank_pos, state.pos,
+            return lidar_table_scan(bank.beam_face, bank.beam_axis, state.bank_pos, state.pos,
                                     params.beam_offsets, signs=params.beam_signs)
-        else:
-            if typed and not params.needs_row_halves:
-                # The reset scan cuts its own window from the reset position.
-                window = self._make_window(state, params)
-            rects = None if typed else params.beam_rects_on
-            dist = self._raycast(state, state.pos, targets, params, params.ray_pad, typed,
-                                 window, rho=math.ceil(params.lidar_range) + 1, ray_rects=rects)
-        # XLA compiles the step's division by the range as a multiply by its
-        # float32 reciprocal (the reset scan's stays a division).
-        lidar = div(dist, params.lidar_range) if typed else dist * params.inv_range
+        if typed and not params.needs_row_halves:
+            window = self._make_window(state, params)
+        rects = None if typed else params.beam_rects_on
+        return self._raycast(state, state.pos, targets, params, params.ray_pad, typed, window,
+                             rho=math.ceil(params.lidar_range) + 1, ray_rects=rects)
+
+    def _observe(self, state, params) -> dict[str, torch.Tensor]:
+        """The reset's observation: the GEOS-typed scan, its distances
+        divided by the range (the step's are multiplied by its reciprocal,
+        ``lidar_step.stage_d``)."""
+        targets = state.pos[:, None, :] + params.beam_offsets  # (N, B, 2)
+        dist = self._scan(state, params, targets, typed=True)
         return {
-            "lidar": lidar.clamp(-1.0, 1.0),
+            "lidar": div(dist, params.lidar_range).clamp(-1.0, 1.0),
             "odometry": (state.pos - state.initial_pos) * params.inv_map_size,
         }
+
+    def obs_derived_spec(self, params) -> dict[str, tuple[str, float]]:
+        """``obs_derived_from_state`` as the fused merge computes it
+        (``ops.merge``): the map obs is the bool ``occ`` leaf divided by
+        255."""
+        return {} if params.static_map else {"map": ("occ", 255.0)}
 
     def obs_derived_from_state(self, state, params) -> dict[str, torch.Tensor]:
         """obs["map"] = occ.astype(f32)/255: the reference divides the
@@ -435,74 +441,49 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
             state = LIDARBitslabState(**leaves, row_halves=halves_of_words(words))
         else:
             state = LIDARLocalizationState(**leaves)
-        return self._observe(state, params, typed=True), state, self._info(state)
+        return self._observe(state, params), state, self._info(state)
 
     def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
-        # The FMA sites below are where XLA's fused reference contracts a
-        # multiply into the following add (core.numerics).
-        pos = state.pos
-        base_reward = fma(-1e-3, sum_squares(action), 0.1)
-
-        a = normalize_into_unit_ball(action)
-        total = seg_length(a)
-        direction = a / torch.where(total == 0.0, 1.0, total)[:, None]
-
+        """The step's three casts (the move, the two wall-slide candidates,
+        the beams) with F1's four stages between them
+        (``ops.lidar_step_cuda``: the kernels on the card, where an action
+        that requires grad raises; the plain stages of ``ops.lidar_step``
+        on the CPU). The rounding sites are where XLA's fused reference
+        rounds (``core.numerics``)."""
+        pos = state.pos.contiguous()
         # One window per step, from the pre-move position: every cast of the
-        # step stays within it (None on the whole-map path).
+        # step stays within it (None on the whole-map path). The move cast of
+        # the per-cast window backends cuts its own.
         window = self._make_window(state, params)
-
-        # First leg: move up to the nearest wall. This one-ray cast's |d| is
-        # contracted in the reference only under some backends.
-        move_to = (pos + a)[:, None, :]
-        d2w = self._raycast(state, pos, move_to, params, 2, window=window, rho=2,
-                            unfused_len=not params.move_len_contracted)[:, 0]
-        pos1 = fma(direction, d2w[:, None], pos)
-
-        # Wall slide, reference quirks included: only components > 1e-5
-        # (positive!) survive, and a single survivor v becomes
-        # diag([v, v]) — candidates on BOTH axes.
-        rem = total - d2w
-        rem_vec = direction * rem[:, None]
-        keep = rem_vec > 1e-5
-        n_keep = keep.sum(dim=-1)
-        v_single = torch.where(keep, rem_vec, 0.0).amax(dim=-1)
-        cand_diag = torch.where((n_keep == 2)[:, None], rem_vec, v_single[:, None].expand(-1, 2))
-        eye = torch.eye(2, dtype=torch.float32, device=pos.device)
-        cand = eye * cand_diag[:, None, :]  # (N, 2, 2) candidate moves
-        cand_dist = self._raycast(state, pos1, pos1[:, None, :] + cand, params, 2, window=window,
+        move_window = window if window is not None else self._cast_window(state, pos, 2, params)
+        base = move_window[1].contiguous() if isinstance(move_window, tuple) else None
+        # The move cast's |d| is contracted in the reference only under some
+        # backends; where it is not, stage A rounds it in the cast's frame.
+        a = lidar_step_cuda.stage_a(action.contiguous(), pos, not params.move_len_contracted,
+                                    base)
+        d2w = self._raycast(state, pos, a["move_to"], params, 2, window=move_window, rho=2,
+                            seg=a["seg"])
+        b = lidar_step_cuda.stage_b(pos, a["direction"], a["total"], d2w[:, 0].contiguous())
+        cand_dist = self._raycast(state, b["pos1"], b["cand_targets"], params, 2, window=window,
                                   rho=2)
-        # The surviving candidate, as a binary select (apx's form).
-        use0 = cand_dist[:, 0] > 0.0
-        sel_cand = torch.where(use0[:, None], cand[:, 0], cand[:, 1])
-        sel_diag = torch.where(use0, cand_diag[:, 0], cand_diag[:, 1])
-        sel_dist = torch.where(use0, cand_dist[:, 0], cand_dist[:, 1])
-        unit = sel_cand / torch.where(sel_diag == 0.0, 1.0, sel_diag)[:, None]
-        do_slide = (total > 0.0) & (rem > 1e-5) & (n_keep > 0)
-        pos2 = torch.where(do_slide[:, None], fma(unit, sel_dist[:, None], pos1), pos1)
-        pos2 = torch.where((total > 0.0)[:, None], pos2, pos)
-
-        size = params.map_size
-        terminated = (pos2 < 0.0).any(dim=-1) | (pos2 >= size).any(dim=-1)
-        # The first step after a reset locks the odometry origin to the
-        # pre-clip moved position (see LIDARLocalizationState).
-        new_initial = torch.where(state.odo_pending[:, None], pos2, state.initial_pos)
-        pos2 = torch.minimum(pos2.clamp_min(0.0), size)
-
-        new_state = dataclasses.replace(
-            state,
-            pos=pos2,
-            initial_pos=new_initial,
-            odo_pending=torch.zeros_like(state.odo_pending),
-        )
-        target = fma(pos, 2.0 * params.inv_map_size, -1.0)
+        c = lidar_step_cuda.stage_c(
+            pos, b["pos1"], a["total"], b["rem"], b["n_keep"], b["cand"], b["cand_diag"],
+            cand_dist.contiguous(), state.odo_pending.contiguous(),
+            state.initial_pos.contiguous(), params.map_size, params.inv_map_size,
+            params.beam_offsets)
+        new_state = dataclasses.replace(state, pos=c["pos"], initial_pos=c["initial_pos"],
+                                        odo_pending=c["odo_pending"])
+        dist = self._scan(new_state, params, c["beam_targets"], window=window)
+        d = lidar_step_cuda.stage_d(dist.contiguous(), c["pos"], c["initial_pos"],
+                                    params.inv_range, params.inv_map_size)
         return APStepResult(
-            obs=self._observe(new_state, params, window=window),
+            obs={"lidar": d["lidar"], "odometry": d["odometry"]},
             state=new_state,
-            base_reward=base_reward,
-            terminated=terminated,
-            truncated=torch.zeros_like(terminated),
+            base_reward=a["base_reward"],
+            terminated=c["terminated"],
+            truncated=c["truncated"],
             info=self._info(new_state),
-            prediction_target=target,
+            prediction_target=c["target"],
         )
 
     def prediction_target_on_reset(self, old_state, new_state, params):

@@ -19,7 +19,8 @@ __all__ = ["load", "SOURCES", "NVCC_FLAGS", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu", "numerics.cu"))
+    "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu", "numerics.cu",
+    "lidar_step.cu", "merge.cu"))
 BUILD_DIR = _PKG / "_build"
 # These flags are what make the kernels bitwise equal to their plain forms.
 # -fmad=false: no contraction of a*b+c (the kernels write each FMA they
@@ -82,6 +83,18 @@ def load(verbose: bool = False) -> ctypes.CDLL:
                                            ctypes.c_int64, ptr, ptr]
     lib.sqrt_f32_launch.argtypes = [ptr, ctypes.c_int, i64p, i64p, ptr, ptr]
     for fn in (lib.fma_f32_launch, lib.sum_squares_f32_launch, lib.sqrt_f32_launch):
+        fn.restype = ctypes.c_int
+    i32, f32 = ctypes.c_int, ctypes.c_float
+    lib.lidar_step_a_launch.argtypes = [ptr, ptr, ptr, i32, i32, *[ptr] * 5, ptr]
+    lib.lidar_step_b_launch.argtypes = [*[ptr] * 4, i32, *[ptr] * 6, ptr]
+    lib.lidar_step_c_launch.argtypes = [*[ptr] * 13, i32, i32, *[ptr] * 7, ptr]
+    lib.lidar_step_d_launch.argtypes = [ptr, ptr, ptr, f32, ptr, i32, i32, ptr, ptr, ptr]
+    from . import merge_cuda
+
+    lib.merge_next_step_launch.argtypes = [merge_cuda._Leaves, merge_cuda._Map,
+                                           merge_cuda._Terms, ptr]
+    for fn in (lib.lidar_step_a_launch, lib.lidar_step_b_launch, lib.lidar_step_c_launch,
+               lib.lidar_step_d_launch, lib.merge_next_step_launch):
         fn.restype = ctypes.c_int
     _LIB = lib
     return lib

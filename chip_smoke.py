@@ -19,6 +19,15 @@ Phases, one line each; any failure exits non-zero:
    of each (CUDA graph replay, CUDA events), of its plain form, of
    ``grid_sample`` for K3 (the library yardstick; the port never calls
    it), and the bound.
+3a. lidar step kernels: F1's four stages (``ops.lidar_step_cuda``) and F2
+   (``ops.merge_cuda``) against their plain forms on the card, bitwise
+   with NaN as NaN (``phase_lidar_step_kernels``): F1 on
+   ``lidar_step_cases`` at N = 4096, F2 on a step of LIDARLocRooms-v0,
+   LIDARLocMaze-v0 and LightDark-v0 with half the envs reset, and F2's
+   prediction gradient; device, plain and bound ms of each; one dense
+   LIDAR step launches N1-N3 0 times, F1 4, F2 1, K1 3 + 1 typed. Phases
+   4 and 9 check F1 4 and F2 1 per step, N1 once (the reset's time obs);
+   every LIDAR path without a metrics wrapper launches no N3.
 4. LIDAR main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
    num_envs=4096)``, reset and 250 steps of uniform random actions with
    zero predictions; every obs finite, lidar in [0, 1], rewards in
@@ -279,7 +288,8 @@ Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
 its own path, the counts set to 0 just before it: K1's on phase 4 (and
 under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase 13), K2's on
-phase 9, K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
+phase 9, F1's and F2's on phase 4 (and phase 9), N1-N3's on phase 12,
+K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
 and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 ``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
 on phases 18-19, set to 0 in the worker just before its sharded rollout;
@@ -789,13 +799,15 @@ def phase_glimpse_kernel(dev) -> dict:
 
 
 def _launch_modules():
-    from apx_torch.ops import glimpse_cuda, issue_rate_study, raycast_cuda, window_cuda
+    from apx_torch.ops import (glimpse_cuda, issue_rate_study, lidar_step_cuda, merge_cuda,
+                               raycast_cuda, window_cuda)
 
-    return raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study
+    return raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study, lidar_step_cuda, merge_cuda
 
 
 def reset_all_launch_counts() -> None:
-    """Sets K1-K4's counts and N1-N3's (``core.numerics``) to 0."""
+    """Sets K1-K4's, F1's and F2's counts and N1-N3's (``core.numerics``)
+    to 0."""
     from apx_torch.core import numerics
 
     for m in _launch_modules():
@@ -804,7 +816,8 @@ def reset_all_launch_counts() -> None:
 
 
 def all_launch_counts() -> dict:
-    """K1-K4's counts (N1-N3's: ``numerics_launches``)."""
+    """K1-K4's, F1's (``lidar_step``) and F2's (``merge``) counts (N1-N3's:
+    ``numerics_launches``)."""
     return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
 
 
@@ -814,17 +827,23 @@ NUMERICS_KERNELS = ("fma", "sum_squares", "sqrt")
 NUMERICS_BY_PATH: dict[str, dict] = {}  # N1-N3's counts on each path driven, for the kernels line
 
 
-def numerics_launches(path: str, steps: int) -> dict:
+def numerics_launches(path: str, steps: int, roots: bool | None = True) -> dict:
     """N1-N3's counts on ``path`` since the last reset, and per step (the
     reset's launches included). Checks that the path launched each of them
-    (every main path computes an FMA, a sum of squares and a root on the
-    card: the move's |a|, the rewards) and keeps the counts under the
-    path's name in NUMERICS_BY_PATH."""
+    (an FMA, a sum of squares and a root on the card: the move's |a|, the
+    rewards, a metrics wrapper's distance), or, for a LIDAR path whose
+    roots are all in the step (``roots`` false), that it launched no N3:
+    F1 took them; ``roots`` None checks nothing (the bit windows' plain
+    casts compute their own roots). Keeps the counts under the path's
+    name in NUMERICS_BY_PATH."""
     from apx_torch.core import numerics
 
     counts = dict(numerics.LAUNCHES)
-    check(all(counts[k] > 0 for k in NUMERICS_KERNELS),
-          f"{path}: N1-N3 launches {counts}, expected each > 0")
+    if roots:
+        check(all(counts[k] > 0 for k in NUMERICS_KERNELS),
+              f"{path}: N1-N3 launches {counts}, expected each > 0")
+    elif roots is not None:
+        check(counts["sqrt"] == 0, f"{path}: N3 launched {counts['sqrt']} times beside F1")
     counts["per_step"] = {k: counts[k] / steps for k in NUMERICS_KERNELS}
     NUMERICS_BY_PATH[path] = {"steps": steps, **counts}
     return counts
@@ -965,6 +984,260 @@ def phase_numerics_kernels(dev) -> list[dict]:
     for r in rows:
         r["elements_held_bitwise"] = held[r["name"]]
     return rows
+
+
+# ---- F1, F2: the LIDAR step's arithmetic and the NEXT_STEP merge -------------
+
+LIDAR_STEP_REPLACES = "apx/envs/lidar_localization.py:538-615 (the step's arithmetic around " \
+                      "the casts, which XLA fuses; no Pallas kernel)"
+MERGE_REPLACES = "apx/core/env.py:254-387 (NEXT_STEP's masked merge, loss and reward, which " \
+                 "XLA fuses; no Pallas kernel)"
+# float32 operations per env of each F1 stage, counted from the source
+# (an FMA 2, a root or a division 1, a compare or select 1): (fixed, per
+# beam).
+LIDAR_STEP_OPS = {"a": (34, 0), "b": (22, 0), "c": (30, 2), "d": (4, 3)}
+
+
+def lidar_step_cases(seed: int, n: int) -> dict:
+    """Inputs of F1's four stages (``ops.lidar_step``), float32 numpy, n
+    envs: random actions in [-1.5, 1.5]^2 after the edge actions (zeros,
+    |a| exactly 1, |a| > 1, a tiny |a|, +-inf, NaN, components at the
+    wall-slide's 1e-5); positions over a 32x32 map after its corners and
+    edges; the window bases ``floor(pos) - 7``; for stage B the distances
+    to the wall (0: at an adjacent wall, |a| itself, |a| less 1e-5 and its
+    neighbours, NaN) as fractions of |a|, which the caller scales; for
+    stage C the candidates' distances (0, -0, tiny, positive), the odometry
+    flags and origins; for stage D beam distances with NaN, -0 and values
+    past the range."""
+    rng = np.random.default_rng(seed)
+    edge = _f32([[0, 0], [-0.0, 0.0], [1, 0], [0, 1], [-1, 0], [0.6, 0.8], [3, 4], [-5, 5],
+                 [1e-6, 0], [1e-20, 0], [0, -1e-30], [0.70710677, 0.70710677], [2e-5, 2e-5],
+                 [1e-5, 1e-5], [1.0000001e-5, 0], [1e-38, 1e-38], [np.nan, 0], [np.inf, 1],
+                 [-np.inf, -np.inf], [-1, -1]])
+    action = _f32(rng.uniform(-1.5, 1.5, (n, 2)))
+    action[:len(edge)] = edge
+    pos = _f32(rng.uniform(0, 32, (n, 2)))
+    pos[:8] = _f32([[0.5, 0.5], [31.5, 31.5], [0, 0], [32, 16], [16, 0], [1e-7, 3],
+                    [0.5, 31.9999], [5, 5]])
+    # d2w as a multiple of |a|: 1 (no wall), 0 (a wall at the start), and
+    # |a| - d2w at the slide's 1e-5 threshold (set by the caller).
+    frac = _f32(rng.uniform(0, 1, n))
+    frac[:64:4] = 1.0
+    frac[1:64:4] = 0.0
+    rem = _f32(rng.choice([0.0, 1e-5, 1.0000001e-5, 9.999999e-6, 2e-5, 5e-6], n))
+    cand_dist = _f32(rng.uniform(-0.1, 1, (n, 2)))
+    cand_dist[:40, 0] = _f32(rng.choice([0.0, -0.0, 1e-30, 1.0], 40))
+    cand_dist[40:60] = 0.0
+    dist = _f32(rng.uniform(-1, 7, (n, 8)))
+    dist[0, :4] = _f32([np.nan, -0.0, 5.0, 5.0000005])
+    return {"action": action, "pos": pos, "base": _f32(np.floor(pos) - 7), "frac": frac,
+            "rem": rem, "rem_every": 3, "cand_dist": cand_dist,
+            "odo_pending": rng.uniform(size=n) < 0.3,
+            "initial_pos": _f32(rng.uniform(0, 32, (n, 2))), "dist": dist}
+
+
+def lidar_step_inputs(cases: dict, dev) -> dict:
+    """The stages' operands on ``dev`` from ``lidar_step_cases``: stage A's
+    plain outputs give direction and |a|; d2w = frac |a|, and on every
+    ``rem_every``-th env |a| - rem (the slide at its threshold)."""
+    from apx_torch.ops import lidar_step
+
+    t = {k: torch.from_numpy(v).to(dev) for k, v in cases.items() if isinstance(v, np.ndarray)}
+    a = lidar_step.stage_a(t["action"], t["pos"], True)
+    d2w = a["total"] * t["frac"]
+    every = slice(None, None, cases["rem_every"])
+    d2w[every] = a["total"][every] - t["rem"][every]
+    return {**t, "a": a, "d2w": d2w}
+
+
+def lidar_step_stage_args(x: dict, params) -> dict:
+    """Each stage's positional operands (after the plain stages before it),
+    keyed by stage; ``params`` a LIDARLocRooms-v0 params for the map size,
+    its reciprocals and the beams."""
+    from apx_torch.ops import lidar_step
+
+    a = x["a"]
+    b = lidar_step.stage_b(x["pos"], a["direction"], a["total"], x["d2w"])
+    c_args = (x["pos"], b["pos1"], a["total"], b["rem"], b["n_keep"], b["cand"], b["cand_diag"],
+              x["cand_dist"], x["odo_pending"], x["initial_pos"], params.map_size,
+              params.inv_map_size, params.beam_offsets)
+    c = lidar_step.stage_c(*c_args)
+    return {"a": [(x["action"], x["pos"], True, None), (x["action"], x["pos"], True, x["base"]),
+                  (x["action"], x["pos"], False, None)],
+            "b": [(x["pos"], a["direction"], a["total"], x["d2w"])],
+            "c": [c_args],
+            "d": [(x["dist"], c["pos"], c["initial_pos"], params.inv_range, params.inv_map_size)]}
+
+
+def _tree_bytes(*trees) -> int:
+    total = 0
+    for tree in trees:
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            if isinstance(v, torch.Tensor):
+                total += v.numel() * v.element_size()
+    return total
+
+
+def merge_inputs(dev, env_id: str, n: int, seed: int, grad: bool = False):
+    """One NEXT_STEP step's merge operands from ``env_id`` on ``dev`` (the
+    inner env's step and reset after a reset and a few steps, half the
+    envs masked), as ``VectorAPEnv._merged_step`` passes them to
+    ``ops.merge.next_step``: (args, kwargs)."""
+    import apx_torch
+
+    venv, params = apx_torch.make_vec(env_id, num_envs=n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zero = torch.zeros((n, 2), device=dev)
+    _, state, _ = venv.reset(params, gen)
+    for _ in range(3):
+        act = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
+        _, state, *_ = venv.step(state, {"action": act, "prediction": zero}, params, gen)
+    t = state.inner.t.clone()
+    t[:8] = venv.env.max_episode_steps - 1  # runs out of time this step
+    inner_env, inner, counter = venv.env.split_counter(dataclasses.replace(state.inner, t=t))
+    act = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
+    pred = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
+    pred[:4] = torch.tensor([[np.nan, 0], [0, 0], [1, -1], [np.inf, 0]], device=dev)
+    if grad:
+        pred.requires_grad_()
+    r = inner_env.step_env(inner, act, pred, params, venv.env.draw_step(n, params, gen))
+    reset = inner_env.autoreset_from_draws(venv.env.draw_reset(n, params, gen), inner, params)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.5
+    return ((mask, (r.obs, r.state, r.info), reset, r.base_reward, r.terminated, r.truncated,
+             pred, r.prediction_target, venv.env.loss_fn(params)),
+            {"derived": inner_env.obs_derived_spec(params), "counter": counter})
+
+
+def merged_leaves(m) -> list:
+    """Every tensor of a ``Merged``, in a fixed order (None kept)."""
+    from apx_torch.core.env import tree_map
+
+    out = []
+    tree_map(out.append, (m.obs, m.state, m.info))
+    out += [m.derived.get(k) if m.derived else None for k in sorted(m.derived or {})]
+    return out + [m.base_reward, m.terminated, m.truncated, m.done, m.loss, m.reward, m.t,
+                  m.time_obs]
+
+
+def _bits_equal_any(got, want) -> bool:
+    if got is None or want is None:
+        return got is None and want is None
+    if got.dtype.is_floating_point:
+        return _bits_equal(got.detach(), want.detach())
+    return got.shape == want.shape and torch.equal(got, want)
+
+
+def phase_lidar_step_kernels(dev) -> list[dict]:
+    """F1 (``ops.lidar_step_cuda``, four stages) and F2
+    (``ops.merge_cuda``) against their plain forms (``ops.lidar_step``,
+    ``ops.merge``: the op-by-op PyTorch, N1-N3 at its rounding sites) on
+    the card, bitwise with NaN as NaN: F1's stages on ``lidar_step_cases``
+    at N = 4096 (stage A with and without the unfused length, in the map
+    and in a window frame); F2 on a step of LIDARLocRooms-v0 (the map obs
+    four cells a thread), LIDARLocMaze-v0 (21x21: a cell a thread) and
+    LightDark-v0 (rounded squares, no derived obs) at N = 4096, half the
+    envs reset, eight running out of time, and its gradient in the
+    prediction against the plain form's. Each is timed (CUDA-graph replay)
+    against its plain form and its bound (bytes at 3.35 TB/s, the operations
+    at the float32 rate). Then one dense LIDARLocRooms-v0 step, counted
+    from 0: N1-N3 0, F1 4, F2 1, K1 3 + 1 typed. Returns the kernels rows
+    of F1 and F2."""
+    import apx_torch
+    from apx_torch.core import numerics
+    from apx_torch.ops import lidar_step, lidar_step_cuda, merge, merge_cuda
+
+    _, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=N, device=dev)
+    cases = lidar_step_cases(17, N)
+    x = lidar_step_inputs(cases, dev)
+    stage_args = lidar_step_stage_args(x, params)
+    by_stage, held = {}, 0
+    for stage, calls in stage_args.items():
+        kernel = getattr(lidar_step_cuda, f"stage_{stage}")
+        plain = getattr(lidar_step, f"stage_{stage}")
+        for args in calls:
+            before = lidar_step_cuda.LAUNCHES["lidar_step"]
+            got = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            check(lidar_step_cuda.LAUNCHES["lidar_step"] == before + 1,
+                  f"F1 stage {stage}: {lidar_step_cuda.LAUNCHES['lidar_step'] - before} launches")
+            check(set(got) == set(want), f"F1 stage {stage}: outputs {sorted(got)}")
+            for k in want:
+                check(_bits_equal_any(got[k], want[k]),
+                      f"F1 stage {stage} output {k} is not bitwise its plain form")
+                held += 0 if want[k] is None else want[k].numel()
+        args = calls[0]
+        out = kernel(*args)
+        nbytes = _tree_bytes(args, out)
+        b_ms = max(nbytes / HBM_BYTES_PER_S * 1e3,
+                   N * (LIDAR_STEP_OPS[stage][0] + LIDAR_STEP_OPS[stage][1]
+                        * params.lidar_beam_count) / FP32_OPS_PER_S * 1e3)
+        by_stage[stage] = {
+            "ms": device_ms(lambda: kernel(*args), 50),
+            "plain_ms": device_ms(lambda: plain(*args), 10),
+            "bound_ms": b_ms, "bytes": nbytes,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S * 1e3 >= b_ms else "operations"}
+    f1 = {"name": "lidar_step", "route": "cuda", "source": "apx_torch/csrc/lidar_step.cu",
+          "replaces": LIDAR_STEP_REPLACES, "launches": None, "max_abs_err": 0.0,
+          **{k: sum(s[k] for s in by_stage.values()) for k in ("ms", "plain_ms", "bound_ms")},
+          "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in by_stage.values())
+          else "operations",
+          "library_ms": None, "shape": f"N={N}, 8 beams; ms = the four stages of one step",
+          "by_stage": by_stage, "elements_held_bitwise": held}
+
+    merge_rows, m_held = {}, 0
+    for env_id in ("LIDARLocRooms-v0", "LIDARLocMaze-v0", "LightDark-v0"):
+        args, kw = merge_inputs(dev, env_id, N, 18)
+        before = merge_cuda.LAUNCHES["merge"]
+        got = merge_cuda.next_step(*args, **kw)
+        want = merge.next_step(*args, **kw)
+        torch.cuda.synchronize()
+        check(merge_cuda.LAUNCHES["merge"] == before + 1, f"F2 on {env_id}: not one launch")
+        for i, (g, w) in enumerate(zip(merged_leaves(got), merged_leaves(want), strict=True)):
+            check(_bits_equal_any(g, w), f"F2 on {env_id}: output {i} not bitwise its plain form")
+            m_held += 0 if w is None else w.numel()
+        # The gradient in the prediction, through the loss and the reward.
+        gargs, gkw = merge_inputs(dev, env_id, N, 19, grad=True)
+        weights = torch.rand(N, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+        grads = []
+        for fn in (merge_cuda.next_step, merge.next_step):
+            m = fn(*gargs, **gkw)
+            (g,) = torch.autograd.grad((m.reward * weights).sum() + 0.5 * m.loss.sum(), gargs[6])
+            grads.append(g)
+        check(_bits_equal(grads[0], grads[1]), f"F2 on {env_id}: prediction gradient differs")
+        # Each leaf is read from one side per env (the step's or the
+        # reset's, of equal sizes), the merged leaves and the derived obs
+        # written, the per-env vectors read and written once.
+        nbytes = _tree_bytes(merged_leaves(want)) + _tree_bytes(_leaves_of(args[1])) + _tree_bytes(
+            [args[0], args[3], args[4], args[5], args[6], args[7], kw["counter"].t])
+        merge_rows[env_id] = {
+            "ms": device_ms(lambda: merge_cuda.next_step(*args, **kw), 20),
+            "plain_ms": device_ms(lambda: merge.next_step(*args, **kw), 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes}
+    main = merge_rows["LIDARLocRooms-v0"]
+    f2 = {"name": "merge", "route": "cuda", "source": "apx_torch/csrc/merge.cu",
+          "replaces": MERGE_REPLACES, "launches": None, "max_abs_err": 0.0,
+          **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+          "library_ms": None, "shape": f"LIDARLocRooms-v0 N={N}: 8 leaves + 32x32 map obs",
+          "by_env": merge_rows, "elements_held_bitwise": m_held, "gradient_bitwise": True}
+
+    # One dense step, counted from 0.
+    venv, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    _, state, _ = venv.reset(params, gen)
+    act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    venv.step(state, {"action": act, "prediction": torch.zeros((N, 2), device=dev)}, params, gen)
+    torch.cuda.synchronize()
+    step = {**all_launch_counts(), **numerics.LAUNCHES}
+    want = {"fma": 0, "sum_squares": 0, "sqrt": 0, "lidar_step": 4, "merge": 1,
+            "raycast_fast": 3, "raycast_typed": 1}
+    got = {k: step[k] for k in want}
+    check(got == want, f"a dense LIDAR step launched {got}, expected {want}")
+    f1["launches_one_step"] = got["lidar_step"]
+    f2["launches_one_step"] = got["merge"]
+    return [f1, f2]
 
 
 WINDOW_PAD = 16  # LIDARLocRooms-v0's ray_pad under "pallas_window"
@@ -1164,7 +1437,12 @@ def phase_main_path(dev, **overrides) -> dict:
     dt = time.perf_counter() - t0
     launches = all_launch_counts()
     path = "LIDAR main path" + (" (window)" if params.use_pallas_window else "")
-    numerics = numerics_launches(path, steps)
+    numerics = numerics_launches(path, steps, roots=False)
+    fused = {"lidar_step": 4 * steps, "merge": steps, "fma": numerics["fma"],
+             "sum_squares": numerics["sum_squares"]}
+    check(fused == {"lidar_step": 4 * steps, "merge": steps, "fma": 1, "sum_squares": 0},
+          f"{path}: F1, F2, N1, N2 launched {fused}, expected F1 4 and F2 1 per step, N1 "
+          "once (the reset's time obs), N2 never")
 
     check(bool(finite), "non-finite observation")
     check(bool(lidar_ok), "lidar outside [0, 1]")
@@ -1354,7 +1632,8 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
     return {"env": env_id, **overrides, "metrics": metrics, "num_envs": n, "steps": steps,
             "max_abs_err": max_err,
             "numerics_launches": numerics_launches(
-                f"{env_id}{overrides or ''} card vs cpu, N={n}", steps),
+                f"{env_id}{overrides or ''} card vs cpu, N={n}", steps,
+                roots=None if build else metrics or not env_id.startswith("LIDAR")),
             "bitwise": sorted(set(oc) - set(tol)) + ["state", "dones"]
             + ([] if "reward" in tol else ["reward"])}
 
@@ -1633,7 +1912,8 @@ def path_launches(env_id: str, steps: int) -> dict:
     for every env every step), the reset 1 typed; an episodic CircleSquare
     step (DISABLED or boundary) and the reset one glimpse each."""
     if env_id.startswith("LIDAR"):
-        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps,
+                "lidar_step": 4 * steps, "merge": steps}
     return {"glimpse": 1 + steps}
 
 
@@ -1969,7 +2249,8 @@ def phase_compat_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: float | 
         prev_done = bool(np.any(outs[1][2] | outs[1][3]))
     torch.cuda.synchronize()
     launches = all_launch_counts()
-    numerics = numerics_launches(f"{env_id}{overrides or ''} compat core, N={n}", steps)
+    numerics = numerics_launches(f"{env_id}{overrides or ''} compat core, N={n}", steps,
+                                 roots=not env_id.startswith("LIDAR"))
     ends = int(sum(np.asarray(outs[1][2]) | np.asarray(outs[1][3])))
     return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "merge_steps": merges,
             "seconds": time.perf_counter() - t0, "launches": launches,
@@ -2144,13 +2425,14 @@ def backend_launches(name: str, steps: int) -> dict:
     fast casts per step; none under the bit windows (plain PyTorch), 2 under
     the beam tables (the scan is a lookup); under "pallas" every reset scan
     is fast too."""
+    fused = {"lidar_step": 4 * steps, "merge": steps}  # F1 and F2 under every backend
     if name in ("bitslab2d", "bitslab", "beam_rects"):
-        return {"raycast_fast": 0, "raycast_typed": 1 + steps}
+        return {"raycast_fast": 0, "raycast_typed": 1 + steps, **fused}
     if name == "beam_tables":
-        return {"raycast_fast": 2 * steps, "raycast_typed": 1 + steps}
+        return {"raycast_fast": 2 * steps, "raycast_typed": 1 + steps, **fused}
     if name == "pallas":
-        return {"raycast_fast": 3 * steps + 1 + steps, "raycast_typed": 0}
-    return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+        return {"raycast_fast": 3 * steps + 1 + steps, "raycast_typed": 0, **fused}
+    return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps, **fused}
 
 
 def _lidar_build(config: dict):
@@ -2642,7 +2924,8 @@ def phase_train_ppo(dev) -> dict:
     opt = ClipAdam(0.5, 3e-4)
     opt_state = opt.init(net)
     train_iter = make_train_iter(venv, opt, TRAIN_N, TRAIN_T)
-    want = {"raycast_fast": 3 * TRAIN_T, "raycast_typed": TRAIN_T}
+    want = {"raycast_fast": 3 * TRAIN_T, "raycast_typed": TRAIN_T, "lidar_step": 4 * TRAIN_T,
+            "merge": TRAIN_T}
     iters = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_ITERS):
@@ -2654,7 +2937,7 @@ def phase_train_ppo(dev) -> dict:
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in all_launch_counts().items() if v}
         check(launches == want, f"train iteration {i} launched {launches}, expected {want}")
-        numerics = numerics_launches(f"train iteration {i}", TRAIN_T)
+        numerics = numerics_launches(f"train iteration {i}", TRAIN_T, roots=False)
         mean_r = float(mean_r)
         losses = [stats["pred_loss"], *stats["ppo_losses"]]
         check(np.isfinite(mean_r) and np.isfinite(losses).all(),
@@ -2920,8 +3203,9 @@ def expected_workload_launches(name: str, steps: int, cycles: int) -> dict:
     scan), the reset 1 typed; an episodic classification step (DISABLED or
     boundary) and the reset one glimpse; TinyImageNetLoc adds the target
     glimpse at the reset and at each cycle's boundary."""
-    if name.startswith("lidar"):
-        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+    if name.startswith("lidar"):  # and F1's four stages, F2's merge per step
+        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps, "lidar_step": 4 * steps,
+                "merge": steps}
     if name == "tin_loc":
         return {"glimpse": 2 + steps + cycles}
     return {"glimpse": 1 + steps}
@@ -3015,7 +3299,7 @@ def phase_workload_kernels(dev) -> dict:
             torch.cuda.synchronize()
             launched = {k: v for k, v in all_launch_counts().items() if v}
         want = expected_workload_launches(name, lp.chunk, 1)
-        check(launched == counts == want,
+        check(launched == want and {k: launched.get(k, 0) for k in counts} == counts,
               f"{name}: launches {launched}, wrapper calls {counts}, expected {want}")
         res = {"num_envs": n, "steps": lp.chunk, "launches": launched,
                "launches_per_step": {k: v / lp.chunk for k, v in launched.items()},
@@ -3106,10 +3390,12 @@ def main() -> int:
     emit(f"kernels: glimpse {json.dumps(k3['by_geometry'])}", flush=True)
     numerics_rows = phase_numerics_kernels(dev)
     emit(f"numerics kernels: {json.dumps(numerics_rows)}", flush=True)
+    fused_rows = phase_lidar_step_kernels(dev)
+    emit(f"lidar step kernels: {json.dumps(fused_rows)}", flush=True)
 
     main_path = phase_main_path(dev)
     emit(f"main path: {json.dumps(main_path)}", flush=True)
-    for r in rows:
+    for r in rows + fused_rows:
         r["launches"] = main_path["launches"][r["name"]]
     emit(f"card vs cpu: {json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}))}",
          flush=True)
@@ -3132,6 +3418,8 @@ def main() -> int:
     for r in rows[:2]:
         r["window"] = {"launches": window_path["launches"][r["name"]],
                        "by_r": k1_window[r["name"]]}
+    for r in fused_rows:
+        r["window"] = {"launches": window_path["launches"][r["name"]]}
     k2["launches"] = window_path["launches"]["window"]
     rows.append(k2)
     emit(f"window card vs cpu: "
@@ -3274,7 +3562,7 @@ def main() -> int:
 
     train = phase_train_ppo(dev)
     emit(f"train ppo: {json.dumps(train)}", flush=True)
-    for r in rows[:2]:
+    for r in rows[:2] + fused_rows:
         r["train"] = {"launches_per_iteration": train["launches_per_iteration"][r["name"]],
                       "launches": [x["launches"][r["name"]] for x in train["iterations"]],
                       "path": f"train_ppo_lidar iteration, LIDARLocRooms-v0, N={TRAIN_N}, "
@@ -3288,14 +3576,16 @@ def main() -> int:
     k3["entry"] = {"launches": flagship["launches"], "max_abs_err": flagship["max_abs_err"],
                    "path": "graft_entry.entry(): CircleSquare 16x16, N=64, reset + one step"}
 
-    main_numerics = main_path["numerics_launches"]
+    # N1-N3 left the LIDAR step (F1, F2): their launches are LightDark's.
+    ld_numerics = ld_path["numerics_launches"]
     for r in numerics_rows:
-        r["launches"] = main_numerics[r["name"]]
-        r["launches_path"] = f"LIDARLocRooms-v0 main path, N={N}, reset + {main_path['steps']} steps"
+        r["launches"] = ld_numerics[r["name"]]
+        r["launches_path"] = f"LightDark-v0 main path, N={N}, reset + {ld_path['steps']} steps"
         r["paths"] = {path: {"steps": c["steps"], "launches": c[r["name"]],
                              "per_step": c["per_step"][r["name"]]}
                       for path, c in NUMERICS_BY_PATH.items()}
     rows.extend(numerics_rows)
+    rows.extend(fused_rows)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -845,3 +845,151 @@ def test_samplers_on_card_match_cpu(dev):
         assert launched == (27 if backend == "chunked" else 0)
         u_cpu = ImagePerceptionEngine.uniqueness(bank.images, p_cpu)
         assert (u_dev.cpu() - u_cpu).abs().max().item() <= 3e-6, backend
+
+
+# ---- F1 (ops.lidar_step_cuda) and F2 (ops.merge_cuda) ----------------------
+
+
+@pytest.mark.parametrize("stage", ["a", "b", "c", "d"])
+def test_lidar_step_stage_bitwise_on_card(dev, stage):
+    """Each F1 stage against its plain stage on the card, bitwise with NaN
+    as NaN, on ``chip_smoke.lidar_step_cases`` at N = 4096 (stage A with
+    and without the unfused length, in the map and in a window frame); one
+    launch per call."""
+    import apx_torch
+    from apx_torch.ops import lidar_step, lidar_step_cuda
+    from chip_smoke import _bits_equal_any, lidar_step_cases, lidar_step_inputs
+    from chip_smoke import lidar_step_stage_args
+
+    _, params = apx_torch.make_vec("LIDARLocRooms-v0", 8, device=dev)
+    x = lidar_step_inputs(lidar_step_cases(17, 4096), dev)
+    kernel = getattr(lidar_step_cuda, f"stage_{stage}")
+    for args in lidar_step_stage_args(x, params)[stage]:
+        before = lidar_step_cuda.LAUNCHES["lidar_step"]
+        got = kernel(*args)
+        want = getattr(lidar_step, f"stage_{stage}")(*args)
+        torch.cuda.synchronize()
+        assert lidar_step_cuda.LAUNCHES["lidar_step"] == before + 1
+        assert set(got) == set(want)
+        for k in want:
+            assert _bits_equal_any(got[k], want[k]), k
+
+
+def test_lidar_step_raises_on_card(dev):
+    """A wrong dtype, shape, layout or device raises, and so does an action
+    that requires grad (F1 has no backward); nothing is launched."""
+    from apx_torch.ops import lidar_step_cuda
+
+    a = torch.rand((64, 2), device=dev)
+    before = dict(lidar_step_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="detach"):
+        lidar_step_cuda.stage_a(a.clone().requires_grad_(), a, True)
+    with torch.no_grad():
+        lidar_step_cuda.stage_a(a.clone().requires_grad_(), a, True)
+    assert lidar_step_cuda.LAUNCHES["lidar_step"] == before["lidar_step"] + 1
+    before = dict(lidar_step_cuda.LAUNCHES)
+    with pytest.raises(ValueError):
+        lidar_step_cuda.stage_a(a.double(), a, True)
+    with pytest.raises(ValueError):
+        lidar_step_cuda.stage_a(a, a[:32], True)
+    with pytest.raises(ValueError):
+        lidar_step_cuda.stage_a(a.t().contiguous().t(), a, True)
+    with pytest.raises(ValueError):
+        lidar_step_cuda.stage_a(a, a.cpu(), True)
+    assert lidar_step_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocMaze-v0", "LightDark-v0"])
+def test_merge_bitwise_on_card(dev, env_id):
+    """F2 against the plain merge (``ops.merge``) on one step's operands,
+    half the envs reset: every output bitwise (NaN as NaN), one launch;
+    and the prediction gradient through the loss and the reward."""
+    from apx_torch.ops import merge, merge_cuda
+    from chip_smoke import _bits_equal_any, merge_inputs, merged_leaves
+
+    args, kw = merge_inputs(dev, env_id, 4096, 18)
+    before = merge_cuda.LAUNCHES["merge"]
+    got = merge_cuda.next_step(*args, **kw)
+    want = merge.next_step(*args, **kw)
+    torch.cuda.synchronize()
+    assert merge_cuda.LAUNCHES["merge"] == before + 1
+    for i, (g, w) in enumerate(zip(merged_leaves(got), merged_leaves(want), strict=True)):
+        assert _bits_equal_any(g, w), i
+    args, kw = merge_inputs(dev, env_id, 4096, 19, grad=True)
+    weights = torch.rand(4096, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    grads = []
+    for fn in (merge_cuda.next_step, merge.next_step):
+        m = fn(*args, **kw)
+        grads.append(torch.autograd.grad((m.reward * weights).sum() + 0.5 * m.loss.sum(),
+                                         args[6])[0])
+    assert _same_bits(grads[0], grads[1])
+
+
+def test_merge_dispatch_on_card(dev):
+    """On the card F2 launches for an MSE loss only: a base reward that
+    requires grad raises (detach the action); the ``-sparse`` weighted
+    loss goes to the plain merge, with no F2 launch, and equals it."""
+    import apx_torch
+    from apx_torch.ops import merge, merge_cuda
+    from chip_smoke import _bits_equal_any, merge_inputs, merged_leaves
+
+    args, kw = merge_inputs(dev, "LightDark-v0", 256, 4)
+    before = merge_cuda.LAUNCHES["merge"]
+    with pytest.raises(ValueError, match="detach"):
+        merge_cuda.next_step(args[0], *args[1:3], args[3].clone().requires_grad_(), *args[4:],
+                             **kw)
+    venv, p = apx_torch.make_vec("LightDark-sparse-v0", 256, device=dev)
+    sparse = venv.env.loss_fn(p)
+    target = {"target": args[7], "weight": args[4].to(torch.float32)}  # weight: terminated
+    got = merge_cuda.next_step(*args[:7], target, sparse, **kw)
+    want = merge.next_step(*args[:7], target, sparse, **kw)
+    assert merge_cuda.LAUNCHES["merge"] == before
+    for i, (g, w) in enumerate(zip(merged_leaves(got), merged_leaves(want), strict=True)):
+        assert _bits_equal_any(g, w), i
+
+
+def test_dense_lidar_step_launches(dev):
+    """One dense LIDAR step: no N1-N3 launch, F1 4, F2 1, K1 3 + 1 typed."""
+    import apx_torch
+    from chip_smoke import all_launch_counts, reset_all_launch_counts
+    from apx_torch.core import numerics
+
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", 256, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, state, _ = venv.reset(p, gen)
+    act = torch.rand((256, 2), generator=gen, device=dev) * 2 - 1
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    venv.step(state, {"action": act, "prediction": torch.zeros((256, 2), device=dev)}, p, gen)
+    got = {**all_launch_counts(), **numerics.LAUNCHES}
+    want = {"fma": 0, "sum_squares": 0, "sqrt": 0, "lidar_step": 4, "merge": 1,
+            "raycast_fast": 3, "raycast_typed": 1}
+    assert {k: got[k] for k in want} == want
+
+
+def test_fused_step_in_cuda_graph(dev):
+    """A dense LIDAR step through F1 and F2 captured in a CUDA graph and
+    replayed equals the eager steps bitwise."""
+    import apx_torch
+    from apx_torch.core.env import tree_map
+
+    n = 256
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    obs, state, _ = venv.reset(p, gen)
+    act = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
+    pred = torch.zeros((n, 2), device=dev)
+    draws = venv.env.draw_reset(n, p, gen)
+    venv.step(state, {"action": act, "prediction": pred}, p, reset_draws=draws)  # warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = venv.step(state, {"action": act, "prediction": pred}, p, reset_draws=draws)
+    graph.replay()
+    want = venv.step(state, {"action": act, "prediction": pred}, p, reset_draws=draws)
+    torch.cuda.synchronize()
+    a, b = [], []
+    tree_map(a.append, out)
+    tree_map(b.append, want)
+    for x, y in zip(a, b, strict=True):
+        assert torch.equal(x, y)

@@ -32,7 +32,8 @@ from apx_torch.compat.builders import reset_from_draws
 from apx_torch.convert import lidar_state_from_numpy
 from apx_torch.core.numerics import div, sqrt
 from apx_torch.envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
-from apx_torch.ops import raycast_cuda, window_cuda
+from apx_torch.ops import lidar_step, lidar_step_cuda, raycast_cuda, window_cuda
+from apx_torch.ops.lidar_step import unfused_length
 from apx_torch.ops.raycast import pad_occupancy
 from apx_torch.ops.window import WIN_ROWS, clamp_starts, extract_windows, window_starts
 
@@ -263,27 +264,34 @@ def _steps_differing(n, steps):
 _cast = LIDARLocalizationEnv._cast
 
 
-def _dense_casts(kernel, state, origin, targets, window, unfused_len=False):
-    return _cast(kernel, state, origin, targets, None, unfused_len)
+def _window_frame_length(origin, targets, window):
+    """The casts' |d| rounded unfused in the window frame."""
+    return unfused_length(origin, targets, window[1])
 
 
-def _targets_from_origin(kernel, state, origin, targets, window, unfused_len=False):
+def _dense_casts(kernel, state, origin, targets, window, seg=None):
+    if seg is not None:  # the move's unfused |d|, in the map frame the cast now has
+        seg = unfused_length(origin, targets)
+    return _cast(kernel, state, origin, targets, None, seg)
+
+
+def _targets_from_origin(kernel, state, origin, targets, window, seg=None):
     occ_win, base = window
     o = origin - base
     t = o[:, None, :] + (targets - origin[:, None, :])
-    seg = None
-    if unfused_len:
+    if seg is not None:
         d = t - o[:, None, :]
         seg = sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
     return kernel(occ_win, o, t, seg)
 
 
-def _unfused_lengths(kernel, state, origin, targets, window, unfused_len=False):
-    return _cast(kernel, state, origin, targets, window, True)
+def _unfused_lengths(kernel, state, origin, targets, window, seg=None):
+    return _cast(kernel, state, origin, targets, window,
+                 _window_frame_length(origin, targets, window))
 
 
-def _fused_move_length(kernel, state, origin, targets, window, unfused_len=False):
-    return _cast(kernel, state, origin, targets, window, False)
+def _fused_move_length(kernel, state, origin, targets, window, seg=None):
+    return _cast(kernel, state, origin, targets, window, None)
 
 
 _SITES = {
@@ -318,17 +326,13 @@ def test_window_rounding_sites(apx_window_steps, monkeypatch, site):
 
         monkeypatch.setattr(raycast_cuda, "raycast_grid", unfused)
     else:
-        observe = LIDARLocalizationEnv._observe
+        def divided(dist, pos, initial_pos, inv_range, inv_map_size):
+            out = lidar_step.stage_d(dist, pos, initial_pos, inv_range, inv_map_size)
+            lidar_range = float(np.float32(1.0) / np.float32(inv_range))  # 5.0
+            out["lidar"] = div(dist, lidar_range).clamp(-1.0, 1.0)
+            return out
 
-        def divided(self, state, params, typed=False, window=None):
-            obs = observe(self, state, params, typed, window)
-            if not typed:
-                targets = state.pos[:, None, :] + params.beam_offsets
-                dist = self._cast(raycast_cuda.raycast_fast, state, state.pos, targets, window)
-                obs["lidar"] = div(dist, params.lidar_range).clamp(-1.0, 1.0)
-            return obs
-
-        monkeypatch.setattr(LIDARLocalizationEnv, "_observe", divided)
+        monkeypatch.setattr(lidar_step_cuda, "stage_d", divided)
     assert _steps_differing(n, steps) > 0
 
 
