@@ -254,7 +254,8 @@ LOCKSTEP_WORKLOADS = ("circle_square", "tin_loc", "mnist", "cifar10", "hide_and_
 PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel",
                 "window": "window_kernel", "fma": "apx_fma_f32",
                 "sum_squares": "apx_sum_squares_f32", "sqrt": "apx_sqrt_f32",
-                "lidar_step": "apx_lidar_step", "merge": "apx_merge_next_step"}
+                "lidar_step": "apx_lidar_step", "merge": "apx_merge_next_step",
+                "fused_step": "apx_lidar_fused_step", "fused_reset": "apx_lidar_fused_reset"}
 # vs_baseline's denominators: the reference's own measured CPU rates
 # (bench.py:323-451). apx divides the LIDAR family by BASELINE.json's
 # 1M-aggregate target on a TPU v5e-8, a TPU figure: those records carry

@@ -15,14 +15,13 @@
 //                        prediction target and beam targets;
 //   lidar_step_d_launch: the lidar and odometry observations.
 //
-// One thread per env holds its operands in registers; every rounding site
-// of the plain stage is an instruction here: __fmaf_rn where the plain code
-// calls fma, __fsqrt_rn for roots, __fdiv_rn for true divisions, __fmul_rn /
-// __fadd_rn / __fsub_rn for each rounded operator (the library is built
-// with -fmad=false, so nvcc contracts nothing on its own). PyTorch's CUDA
-// clamp, clamp_min and minimum are copied with their NaN tests before
-// fminf / fmaxf, so signed zeros and NaNs come out as PyTorch's. Each
-// stage equals its plain form bitwise.
+// One thread per env holds its operands in registers. The stages' bodies
+// are lidar_stages.cuh's device functions, which S (lidar_fused.cu, the
+// whole step in one launch on the whole-map backends) calls too; every
+// rounding site of the plain stage is an instruction there. Each stage
+// equals its plain form bitwise. Since S, F1 runs on the backends whose
+// casts use a window (the bit windows, K2's, the per-cast windows, the
+// one-hot window) and under the beam tables.
 //
 // What bounds it: the launch. A stage moves 20-100 bytes per env (about
 // 0.1 MB at N = 4096, ~0.03 us at 3.35 TB/s) and does a few dozen float32
@@ -31,22 +30,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lidar_stages.cuh"
+
 namespace {
 
 constexpr int kThreads = 32;
-constexpr float kSlideEps = 1e-5f;  // float(1e-5), as PyTorch compares
-
-__device__ __forceinline__ float torch_clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-
-__device__ __forceinline__ float torch_minimum(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
-}
-
-__device__ __forceinline__ float torch_clamp(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
 
 __global__ void __launch_bounds__(kThreads)
 apx_lidar_step_a(const float* __restrict__ action, const float* __restrict__ pos,
@@ -56,38 +44,17 @@ apx_lidar_step_a(const float* __restrict__ action, const float* __restrict__ pos
                  float* __restrict__ seg) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const float x0 = action[2 * i], x1 = action[2 * i + 1];
-  // sum_squares(action): x0 * x0, then fma(x1, x1, acc).
-  const float ss = __fmaf_rn(x1, x1, __fmul_rn(x0, x0));
-  base_reward[i] = __fmaf_rn(-1e-3f, ss, 0.1f);
-  // normalize_into_unit_ball: |x| = sqrt(ss), a true division where |x| > 1.
-  const float mag = __fsqrt_rn(ss);
-  const float den = mag == 0.0f ? 1.0f : mag;
-  const bool scale = mag > 1.0f;
-  const float a0 = scale ? __fdiv_rn(x0, den) : x0;
-  const float a1 = scale ? __fdiv_rn(x1, den) : x1;
-  // seg_length(a) = sqrt(fma(dy, dy, dx * dx)).
-  const float total = __fsqrt_rn(__fmaf_rn(a1, a1, __fmul_rn(a0, a0)));
-  total_out[i] = total;
-  const float t = total == 0.0f ? 1.0f : total;
-  direction[2 * i] = __fdiv_rn(a0, t);
-  direction[2 * i + 1] = __fdiv_rn(a1, t);
-  const float p0 = pos[2 * i], p1 = pos[2 * i + 1];
-  const float m0 = __fadd_rn(p0, a0), m1 = __fadd_rn(p1, a1);
-  move_to[2 * i] = m0;
-  move_to[2 * i + 1] = m1;
-  if (unfused) {
-    float o0 = p0, o1 = p1, q0 = m0, q1 = m1;
-    if (base != nullptr) {
-      const float b0 = base[2 * i], b1 = base[2 * i + 1];
-      o0 = __fsub_rn(p0, b0);
-      o1 = __fsub_rn(p1, b1);
-      q0 = __fsub_rn(m0, b0);
-      q1 = __fsub_rn(m1, b1);
-    }
-    const float d0 = __fsub_rn(q0, o0), d1 = __fsub_rn(q1, o1);
-    seg[i] = __fsqrt_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)));
-  }
+  const bool framed = base != nullptr;
+  const StageA a = lidar_stage_a(action[2 * i], action[2 * i + 1], pos[2 * i], pos[2 * i + 1],
+                                 unfused != 0, framed, framed ? base[2 * i] : 0.0f,
+                                 framed ? base[2 * i + 1] : 0.0f);
+  base_reward[i] = a.base_reward;
+  total_out[i] = a.total;
+  direction[2 * i] = a.dir0;
+  direction[2 * i + 1] = a.dir1;
+  move_to[2 * i] = a.move0;
+  move_to[2 * i + 1] = a.move1;
+  if (unfused) seg[i] = a.seg;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -98,38 +65,18 @@ apx_lidar_step_b(const float* __restrict__ pos, const float* __restrict__ direct
                  float* __restrict__ cand, float* __restrict__ cand_targets) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const float dir0 = direction[2 * i], dir1 = direction[2 * i + 1];
-  const float d = d2w[i];
-  const float p0 = __fmaf_rn(dir0, d, pos[2 * i]);
-  const float p1 = __fmaf_rn(dir1, d, pos[2 * i + 1]);
-  pos1_out[2 * i] = p0;
-  pos1_out[2 * i + 1] = p1;
-  const float rem = __fsub_rn(total[i], d);
-  rem_out[i] = rem;
-  const float r0 = __fmul_rn(dir0, rem), r1 = __fmul_rn(dir1, rem);
-  const bool k0 = r0 > kSlideEps, k1 = r1 > kSlideEps;
-  const int64_t n_keep = static_cast<int64_t>(k0) + static_cast<int64_t>(k1);
-  n_keep_out[i] = n_keep;
-  // amax over where(keep, rem_vec, +0): the kept values are > 0 and never
-  // NaN, so the order of the reduction cannot show.
-  const float v0 = k0 ? r0 : 0.0f, v1 = k1 ? r1 : 0.0f;
-  const float v = v0 > v1 ? v0 : v1;
-  const float c0 = n_keep == 2 ? r0 : v, c1 = n_keep == 2 ? r1 : v;
-  cand_diag[2 * i] = c0;
-  cand_diag[2 * i + 1] = c1;
-  // eye(2) * cand_diag: the off-diagonal products are signed zeros.
-  const float e01 = __fmul_rn(0.0f, c1), e10 = __fmul_rn(0.0f, c0);
-  const float e00 = __fmul_rn(1.0f, c0), e11 = __fmul_rn(1.0f, c1);
-  float* c = cand + 4 * i;
-  float* t = cand_targets + 4 * i;
-  c[0] = e00;
-  c[1] = e01;
-  c[2] = e10;
-  c[3] = e11;
-  t[0] = __fadd_rn(p0, e00);
-  t[1] = __fadd_rn(p1, e01);
-  t[2] = __fadd_rn(p0, e10);
-  t[3] = __fadd_rn(p1, e11);
+  const StageB b = lidar_stage_b(pos[2 * i], pos[2 * i + 1], direction[2 * i],
+                                 direction[2 * i + 1], total[i], d2w[i]);
+  pos1_out[2 * i] = b.pos0;
+  pos1_out[2 * i + 1] = b.pos1;
+  rem_out[i] = b.rem;
+  n_keep_out[i] = b.n_keep;
+  cand_diag[2 * i] = b.diag0;
+  cand_diag[2 * i + 1] = b.diag1;
+  for (int k = 0; k < 4; ++k) {
+    cand[4 * i + k] = b.cand[k];
+    cand_targets[4 * i + k] = b.targets[k];
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -146,38 +93,25 @@ apx_lidar_step_c(const float* __restrict__ pos, const float* __restrict__ pos1,
                  float* __restrict__ beam_targets) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const bool use0 = cand_dist[2 * i] > 0.0f;
-  const float* c = cand + 4 * i + (use0 ? 0 : 2);
-  const float sel_diag = cand_diag[2 * i + (use0 ? 0 : 1)];
-  const float sel_dist = cand_dist[2 * i + (use0 ? 0 : 1)];
-  const float den = sel_diag == 0.0f ? 1.0f : sel_diag;
-  const float tot = total[i];
-  const bool moved = tot > 0.0f;
-  const bool slide = moved && rem[i] > kSlideEps && n_keep[i] > 0;
-  const float w = map_size[0], h = map_size[1];
-  const float q0 = pos1[2 * i], q1 = pos1[2 * i + 1];
-  const float p0 = pos[2 * i], p1 = pos[2 * i + 1];
-  float x = slide ? __fmaf_rn(__fdiv_rn(c[0], den), sel_dist, q0) : q0;
-  float y = slide ? __fmaf_rn(__fdiv_rn(c[1], den), sel_dist, q1) : q1;
-  x = moved ? x : p0;
-  y = moved ? y : p1;
-  terminated[i] = (x < 0.0f || y < 0.0f) || (x >= w || y >= h);
+  const float c[4] = {cand[4 * i], cand[4 * i + 1], cand[4 * i + 2], cand[4 * i + 3]};
+  const StageC s = lidar_stage_c(
+      pos[2 * i], pos[2 * i + 1], pos1[2 * i], pos1[2 * i + 1], total[i], rem[i],
+      static_cast<int>(n_keep[i]), c, cand_diag[2 * i], cand_diag[2 * i + 1],
+      cand_dist[2 * i], cand_dist[2 * i + 1], odo_pending[i], initial_pos[2 * i],
+      initial_pos[2 * i + 1], map_size[0], map_size[1], inv_map_size[0], inv_map_size[1]);
+  terminated[i] = s.terminated;
   truncated[i] = false;
-  const bool pending = odo_pending[i];
-  initial_out[2 * i] = pending ? x : initial_pos[2 * i];
-  initial_out[2 * i + 1] = pending ? y : initial_pos[2 * i + 1];
+  initial_out[2 * i] = s.init0;
+  initial_out[2 * i + 1] = s.init1;
   odo_out[i] = false;
-  x = torch_minimum(torch_clamp_min(x, 0.0f), w);
-  y = torch_minimum(torch_clamp_min(y, 0.0f), h);
-  pos_out[2 * i] = x;
-  pos_out[2 * i + 1] = y;
-  // fma(pos, 2.0 * inv_map_size, -1): the doubling is exact.
-  target[2 * i] = __fmaf_rn(p0, __fmul_rn(2.0f, inv_map_size[0]), -1.0f);
-  target[2 * i + 1] = __fmaf_rn(p1, __fmul_rn(2.0f, inv_map_size[1]), -1.0f);
+  pos_out[2 * i] = s.x;
+  pos_out[2 * i + 1] = s.y;
+  target[2 * i] = s.target0;
+  target[2 * i + 1] = s.target1;
   float* bt = beam_targets + static_cast<size_t>(2 * beams) * i;
   for (int b = 0; b < beams; ++b) {
-    bt[2 * b] = __fadd_rn(x, beam_offsets[2 * b]);
-    bt[2 * b + 1] = __fadd_rn(y, beam_offsets[2 * b + 1]);
+    bt[2 * b] = lidar_beam_end(s.x, beam_offsets[2 * b]);
+    bt[2 * b + 1] = lidar_beam_end(s.y, beam_offsets[2 * b + 1]);
   }
 }
 
@@ -189,11 +123,9 @@ apx_lidar_step_d(const float* __restrict__ dist, const float* __restrict__ pos,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const size_t row = static_cast<size_t>(beams) * i;
-  for (int b = 0; b < beams; ++b)
-    lidar[row + b] = torch_clamp(__fmul_rn(dist[row + b], inv_range), -1.0f, 1.0f);
-  odometry[2 * i] = __fmul_rn(__fsub_rn(pos[2 * i], initial_pos[2 * i]), inv_map_size[0]);
-  odometry[2 * i + 1] =
-      __fmul_rn(__fsub_rn(pos[2 * i + 1], initial_pos[2 * i + 1]), inv_map_size[1]);
+  for (int b = 0; b < beams; ++b) lidar[row + b] = lidar_value(dist[row + b], inv_range);
+  odometry[2 * i] = odometry_value(pos[2 * i], initial_pos[2 * i], inv_map_size[0]);
+  odometry[2 * i + 1] = odometry_value(pos[2 * i + 1], initial_pos[2 * i + 1], inv_map_size[1]);
 }
 
 unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }

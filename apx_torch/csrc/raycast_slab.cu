@@ -20,7 +20,9 @@
 // idle on 16-column windows.
 //
 // Design: one warp per env, eight envs per 256-thread block; the warp
-// casts all R rays of the launch.
+// casts all R rays of the launch. The map's packing and the cast of one
+// pass of rays live in raycast_cast.cuh (pack_map_bytes, cast_pass), which
+// the fused LIDAR step and reset (lidar_fused.cu) call too.
 //  * The env's map is read once, coalesced, and packed into H*W bits in
 //    shared memory (__ballot_sync over 32 consecutive cells, row-major);
 //    every ray and the typed variant's flank tests read the bits.
@@ -71,83 +73,11 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "raycast_cast.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
-constexpr int kRaysPerPass = 16;  // two lanes (x, y) per ray
-
-// Per-axis slab parameters of the cell [lo, lo + 1] for a segment starting
-// at o with extent d and inv = 1 / d; d == 0 handled exactly
-// (raycast.py:_slab_axis). torch.minimum/maximum propagate NaN and a NaN
-// bound fails every a <= b test of its row or column; mapping NaN to
-// (near, far) = (+inf, -inf) fails exactly the same tests, so fminf/fmaxf
-// can be used per cell.
-__device__ __forceinline__ void slab_axis(float o, float d, float inv, float lo,
-                                          float& near_t, float& far_t) {
-  const float hi = __fadd_rn(lo, 1.0f);
-  if (d == 0.0f) {
-    const bool inside = (lo <= o) && (o <= hi);
-    near_t = inside ? -CUDART_INF_F : CUDART_INF_F;
-    far_t = inside ? CUDART_INF_F : -CUDART_INF_F;
-    return;
-  }
-  const float t1 = __fmul_rn(__fsub_rn(lo, o), inv);
-  const float t2 = __fmul_rn(__fsub_rn(hi, o), inv);
-  if (isnan(t1) || isnan(t2)) {
-    near_t = CUDART_INF_F;
-    far_t = -CUDART_INF_F;
-    return;
-  }
-  near_t = fminf(t1, t2);
-  far_t = fmaxf(t1, t2);
-}
-
-// Bits of a non-negative float (or +inf) that order as the floats do.
-__device__ __forceinline__ uint32_t order_bits(float t) {
-  return __float_as_uint(__fadd_rn(t, 0.0f));  // -0 -> +0
-}
-
-__device__ __forceinline__ float pulled_back(float t_hit, float seg, float eps) {
-  return fmaxf(__fmaf_rn(t_hit, seg, -eps), 0.0f);
-}
-
-// The cells of the ray's candidate hull, enumerated 32 per pass: lane k of
-// pass i takes cell k + 32 i, row-major over the hull.
-struct Hull {
-  int x0, y0, ncols, total;
-  int qx, qy;    // this lane's cell, relative to (x0, y0)
-  int sx, sy;    // the step of one pass of 32 cells
-};
-
-__device__ __forceinline__ bool make_hull(uint32_t cols, uint32_t rows, int lane, Hull& hl) {
-  if (cols == 0u || rows == 0u) return false;
-  hl.x0 = __ffs(cols) - 1;
-  hl.y0 = __ffs(rows) - 1;
-  hl.ncols = 32 - __clz(cols) - hl.x0;
-  hl.total = hl.ncols * (32 - __clz(rows) - hl.y0);
-  // floor(k / ncols) for k <= 32, ncols <= 32: the quotient is at least
-  // 0.5 / ncols from an integer, far above __fdividef's error.
-  const float nc = static_cast<float>(hl.ncols);
-  hl.qy = static_cast<int>(__fdividef(static_cast<float>(lane) + 0.5f, nc));
-  hl.qx = lane - hl.qy * hl.ncols;
-  hl.sy = static_cast<int>(__fdividef(32.5f, nc));
-  hl.sx = 32 - hl.sy * hl.ncols;
-  return true;
-}
-
-__device__ __forceinline__ void next_pass(Hull& hl) {
-  hl.qx += hl.sx;
-  hl.qy += hl.sy;
-  if (hl.qx >= hl.ncols) {
-    hl.qx -= hl.ncols;
-    hl.qy += 1;
-  }
-}
-
-__device__ __forceinline__ bool wall_bit(const uint32_t* bits, int cell) {
-  return (bits[cell >> 5] >> (cell & 31)) & 1u;
-}
 
 template <bool kTyped, bool kOwnLen>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -172,133 +102,16 @@ raycast_kernel(const uint8_t* __restrict__ occ, const float* __restrict__ origin
   if (!kOwnLen && lane < count) seg = seg_len[ray0 + lane];
 
   // The env's map as H*W row-major bits: word k holds cells 32k..32k+31.
-  const int hw = h * w;
-  const uint8_t* m = occ + static_cast<size_t>(env) * hw;
-  uint8_t cell[32];
-#pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const int i = k * 32 + lane;
-    cell[k] = i < hw ? m[i] : 0;
-  }
-  uint32_t word = 0;
-#pragma unroll
-  for (int k = 0; k < 32; ++k) {
-    const uint32_t b = __ballot_sync(kFull, cell[k] != 0);
-    if (lane == k) word = b;
-  }
-  bits[lane] = word;
-  __syncwarp();
+  pack_map_bytes(occ + static_cast<size_t>(env) * h * w, h * w, lane, bits);
 
-  const float lo = static_cast<float>(lane);
   for (int base = 0; base < r; base += kRaysPerPass) {
     if (base > 0) {
       count = min(kRaysPerPass, r - base);
       end = (lane >> 1) < count ? targets[2 * (ray0 + base) + lane] : 0.0f;
       if (!kOwnLen) seg = lane < count ? seg_len[ray0 + base + lane] : 0.0f;
     }
-    // Lane 2j + a: ray base + j's extent on axis a and its reciprocal.
-    float d = 0.0f, inv = 0.0f;
-    if ((lane >> 1) < count) {
-      d = __fsub_rn(end, (lane & 1) ? oy : ox);
-      if (d != 0.0f) inv = __fdiv_rn(1.0f, d);
-    }
-    if (kOwnLen) {  // lane j: ray base + j's |d| = sqrt(fma(dy, dy, dx * dx))
-      const float dx = __shfl_sync(kFull, d, (2 * lane) & 31);
-      const float dy = __shfl_sync(kFull, d, (2 * lane + 1) & 31);
-      seg = __fsqrt_rn(__fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
-    }
-    float t_mine = CUDART_INF_F;  // lane j: ray base + j's hit parameter
-    bool single_mine = false;     // lane j: its typed scan met one isolated graze only
-    for (int j = 0; j < count; ++j) {
-      const float dx = __shfl_sync(kFull, d, 2 * j), dy = __shfl_sync(kFull, d, 2 * j + 1);
-      const float ix = __shfl_sync(kFull, inv, 2 * j), iy = __shfl_sync(kFull, inv, 2 * j + 1);
-      // Lane x holds column x's slab pair, lane y row y's.
-      float nx, fx, ny, fy;
-      slab_axis(ox, dx, ix, lo, nx, fx);
-      slab_axis(oy, dy, iy, lo, ny, fy);
-      const uint32_t cols = __ballot_sync(kFull, lane < w && nx <= 1.0f && fx >= 0.0f);
-      const uint32_t rows = __ballot_sync(kFull, lane < h && ny <= 1.0f && fy >= 0.0f);
-      Hull hl;
-      const bool any_cell = make_hull(cols, rows, lane, hl);  // uniform
-
-      if (!kTyped) {
-        // Clips hoisted into the separable pairs (raycast.py fast path).
-        const float nx0 = fmaxf(nx, 0.0f), fxc = fminf(fx, 1.0f);
-        const float ny0 = fmaxf(ny, 0.0f), fyc = fminf(fy, 1.0f);
-        float t = CUDART_INF_F;
-        if (any_cell) {
-          for (int k = lane; k - lane < hl.total; k += 32) {
-            const int cx = hl.x0 + hl.qx, cy = hl.y0 + hl.qy;
-            const float a_x = __shfl_sync(kFull, nx0, cx), b_x = __shfl_sync(kFull, fxc, cx);
-            const float a_y = __shfl_sync(kFull, ny0, cy), b_y = __shfl_sync(kFull, fyc, cy);
-            if (k < hl.total && wall_bit(bits, cy * w + cx)) {
-              const float a = fmaxf(a_x, a_y);
-              if (a <= fminf(b_x, b_y)) t = fminf(t, a);
-            }
-            next_pass(hl);
-          }
-        }
-        const uint32_t tb = __reduce_min_sync(kFull, order_bits(t));
-        if (lane == j) t_mine = __uint_as_float(tb);
-        continue;
-      }
-
-      const bool sx_pos = dx >= 0.0f, sy_pos = dy >= 0.0f;
-      bool any_nd = false, any_iso = false;
-      float t_nd = CUDART_INF_F, t_iso_min = CUDART_INF_F;
-      uint32_t iso_max = 0u;  // bits of the largest isolated graze (0 = none or +0)
-      if (any_cell) {
-        for (int k = lane; k - lane < hl.total; k += 32) {
-          const int x = hl.x0 + hl.qx, y = hl.y0 + hl.qy;
-          const float nxc = __shfl_sync(kFull, nx, x), fxc = __shfl_sync(kFull, fx, x);
-          const float nyc = __shfl_sync(kFull, ny, y), fyc = __shfl_sync(kFull, fy, y);
-          next_pass(hl);
-          if (k >= hl.total || !wall_bit(bits, y * w + x)) continue;
-          const float a = fmaxf(fmaxf(nxc, nyc), 0.0f);
-          const float b = fminf(fminf(fxc, fyc), 1.0f);
-          if (!(a <= b)) continue;
-          if (a < b) {  // a real crossing interval
-            any_nd = true;
-            t_nd = fminf(t_nd, a);
-            continue;
-          }
-          // A zero-width graze. It is isolated unless a cell flanking the
-          // grazed corner is a wall (outside the map counts as free). Case
-          // A (entry from x == exit from y) passes from (x - sx, y) into
-          // (x, y + sy); case B mirrors it.
-          auto wall = [&](int cx, int cy) {
-            return cx >= 0 && cx < w && cy >= 0 && cy < h && wall_bit(bits, cy * w + cx);
-          };
-          const bool flank = (nxc >= nyc)
-              ? (wall(x, sy_pos ? y + 1 : y - 1) || wall(sx_pos ? x - 1 : x + 1, y))
-              : (wall(sx_pos ? x + 1 : x - 1, y) || wall(x, sy_pos ? y - 1 : y + 1));
-          if (!flank) {
-            any_iso = true;
-            t_iso_min = fminf(t_iso_min, a);
-            iso_max = max(iso_max, order_bits(a));
-          }
-        }
-      }
-      any_nd = __any_sync(kFull, any_nd);
-      any_iso = __any_sync(kFull, any_iso);
-      const uint32_t nd_bits = __reduce_min_sync(kFull, order_bits(t_nd));
-      const uint32_t iso_min = __reduce_min_sync(kFull, order_bits(t_iso_min));
-      iso_max = __reduce_max_sync(kFull, iso_max);
-      // GEOS result typing: line-only -> nearest entry; points-only ->
-      // Point (distance 0) or MultiPoint (nearest graze); mixed -> a
-      // GeometryCollection, which the reference reports as a miss.
-      const bool hit_line = any_nd && !any_iso;
-      const bool points = !any_nd && any_iso;
-      if (lane == j) {
-        t_mine = hit_line ? __uint_as_float(nd_bits)
-                          : (points ? __uint_as_float(iso_min) : CUDART_INF_F);
-        single_mine = points && iso_min == iso_max;
-      }
-    }
-    if (lane < count) {
-      out[ray0 + base + lane] =
-          single_mine ? 0.0f : (t_mine < CUDART_INF_F ? pulled_back(t_mine, seg, eps) : seg);
-    }
+    const float dist = cast_pass<kTyped, kOwnLen>(bits, h, w, ox, oy, lane, count, end, seg, eps);
+    if (lane < count) out[ray0 + base + lane] = dist;
   }
 }
 

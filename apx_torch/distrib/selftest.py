@@ -45,8 +45,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.env import AutoResetMode, rollout, rollout_episodic, tree_map
-from ..ops import (glimpse_cuda, issue_rate_study, lidar_step_cuda, merge_cuda, raycast_cuda,
-                   window_cuda)
+from ..ops import (glimpse_cuda, issue_rate_study, lidar_fused_cuda, lidar_step_cuda, merge_cuda,
+                   raycast_cuda, window_cuda)
 from ..registry import make_vec
 from .mesh import (COLLECTIVE_BYTES, EnvSharding, init_distributed, make_env_mesh,
                    shard_env_batch, shard_params, sharded_rollout)
@@ -54,7 +54,7 @@ from .mesh import (COLLECTIVE_BYTES, EnvSharding, init_distributed, make_env_mes
 __all__ = ["random_policy", "state_digest", "main"]
 
 _LAUNCH_MODULES = (raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study, lidar_step_cuda,
-                   merge_cuda)
+                   merge_cuda, lidar_fused_cuda)
 
 
 def _reset_launches() -> None:

@@ -14,9 +14,11 @@ meaning, and the env carries the same state leaves as apx's but for the
 ray-padded map (below):
 
 * ``"auto"`` (the default) and its alias ``"xla"``: every cast on the
-  whole map through K1 (``apx_torch.ops.raycast_cuda``): the step's
-  movement cast (1 ray), wall-slide cast (2 rays) and beam scan
-  (``raycast_fast``), and the GEOS-typed reset scan (``raycast_typed``).
+  whole map: the step's movement cast (1 ray), wall-slide cast (2 rays)
+  and beam scan with the step's arithmetic as one launch of kernel S, and
+  the reset (the map unpacked from the bank's row words, the spawn
+  position, the GEOS-typed scan and the observation) as one launch of
+  kernel R (``apx_torch.ops.lidar_fused_cuda``; both cast with K1's code).
   apx's ``"auto"`` resolves to ``"bitslab2d"``, whose casts are bitwise
   these (pinned in apx's tests/test_lidar.py), so the port's ``"auto"``
   env equals apx's. Whether the card should resolve it otherwise is left
@@ -27,7 +29,7 @@ ray-padded map (below):
   coordinates: bitwise the dense casts. The casts of a 2-D window take
   apx's static rho slice, and with ``beam_rects="on"`` the beams take
   their static per-ray rectangles. These are apx's XLA forms, plain
-  PyTorch on the card; the GEOS-typed reset scan stays dense, on K1.
+  PyTorch on the card; the GEOS-typed reset scan stays dense, in R.
 * ``"windowed"``: each cast runs K1 on the (2 radius + 2)^2 window around
   its own origin, in the window frame (radius 2 for the moves, ``ray_pad``
   for the scans); ``"hybrid"``: the moves so, the scans on the whole map.
@@ -37,8 +39,14 @@ ray-padded map (below):
   window per env around the step's pre-move position, and the step's three
   casts run K1 on it; the reset cuts its own window for the typed scan.
 * ``"pallas"``: every cast, the reset scan included, is K1's untyped
-  ``raycast_fast`` on the whole map: apx's Pallas backend skips the GEOS
-  typing at reset.
+  cast on the whole map (S, and R's untyped form): apx's Pallas backend
+  skips the GEOS typing at reset.
+
+The reset is R wherever its scan runs on the whole map (every backend but
+the window-frame ones: ``"windowed"``, ``"mxu_window"``, ``"pallas_window"``
+where their windows fit), the step S wherever all three casts do (the
+dense backends without the beam tables); elsewhere K1 casts, with F1's
+four stages (``apx_torch.ops.lidar_step_cuda``) around the step's casts.
 
 The window-frame backends round at other sites than the dense path, so
 each equals apx's env under the same backend (bitwise), and the dense one
@@ -65,8 +73,9 @@ from ..core.env import APEnv, APStepResult
 from ..core.losses import LossFn
 from ..core.numerics import div, fma
 from ..core.spaces import Box, DictSpace, Image, Space
-from ..data.floor_map import BEAM_SIGNS, MapBank, halves_of_words, unpack_words
-from ..ops import lidar_step_cuda
+from ..data.floor_map import BEAM_SIGNS, MapBank, halves_of_words
+from ..ops import lidar_fused_cuda, lidar_step, lidar_step_cuda
+from ..ops.lidar_fused import reset_observation, spawn_leaves
 from ..ops.raycast import (beam_cell_rects, bitslab_window, bitslab_window_2d,
                            extract_window_mxu, lidar_directions_np, lidar_table_scan,
                            raycast_grid_bitslab, raycast_grid_bitslab2d,
@@ -81,6 +90,9 @@ __all__ = ["LIDARLocalizationEnv", "LIDARLocalizationParams", "LIDARLocalization
 
 RAYCAST_BACKENDS = ("auto", "xla", "bitslab2d", "bitslab", "windowed", "hybrid", "mxu_window",
                     "pallas_window", "pallas")
+# The window radius (and the bit windows' reach) of the step's move and
+# wall-slide candidate casts: their segments are at most 1 long.
+MOVE_RADIUS = 2
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -161,6 +173,44 @@ class LIDARLocalizationParams:
         per-cast slice or by one-hot products it does; on the whole map,
         the bit windows and K2's windows it rounds the square unfused."""
         return self.raycast_backend in ("windowed", "hybrid") or self.use_mxu_window
+
+    @property
+    def shared_window(self) -> str | None:
+        """The window the casts of a step share, cut once from the pre-move
+        position (``_make_window``): ``"bits"`` (from the row halves),
+        ``"pallas_window"`` (K2) or ``"mxu_window"``; None where each cast
+        runs on the whole map or cuts its own window."""
+        if self.needs_row_halves:
+            return "bits"
+        if self.use_pallas_window:
+            return "pallas_window"
+        if self.use_mxu_window:
+            return "mxu_window"
+        return None
+
+    def cuts_own_window(self, radius: int) -> bool:
+        """A cast of this window radius without a shared window cuts its own
+        around its origin (``_cast_window``): ``"windowed"``, and
+        ``"hybrid"``'s short casts."""
+        return self.windowed or (self.raycast_backend == "hybrid" and radius <= 2)
+
+    @property
+    def step_on_whole_map(self) -> bool:
+        """Every cast of the step runs on the whole map (no shared window,
+        no per-cast window for the move and candidates or for the beams, no
+        beam tables), so the step is kernel S, one launch
+        (``ops.lidar_fused_cuda.step``); elsewhere it is F1's stages around
+        the casts."""
+        return (self.shared_window is None and not self.beam_tables_active
+                and not any(self.cuts_own_window(r) for r in (MOVE_RADIUS, self.ray_pad)))
+
+    @property
+    def reset_on_whole_map(self) -> bool:
+        """The typed reset scan runs on the whole map (the bit windows' does
+        too: it needs flank cells), so the reset is kernel R, one launch
+        (``ops.lidar_fused_cuda.reset``); the window-frame backends cut a
+        window for it."""
+        return self.shared_window in (None, "bits") and not self.cuts_own_window(self.ray_pad)
 
     @property
     def needs_row_halves(self) -> bool:
@@ -292,17 +342,18 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         backends, or None when each cast runs on the whole map or cuts its
         own window."""
         half = WIN // 2 - 1
-        if params.needs_row_halves:
+        kind = params.shared_window
+        if kind == "bits":
             _, w = params.map_bank.map_hw
             base = torch.floor(state.pos) - half
             if params.use_bitslab2d:
                 return BitWindow(bitslab_window_2d(state.row_halves, base[:, 0], base[:, 1], w),
                                  base, two_d=True)
             return BitWindow(bitslab_window(state.row_halves, base[:, 0], w), base, two_d=False)
-        if params.use_pallas_window:
+        if kind == "pallas_window":
             starts, base = window_starts(state.pos, WIN, params.ray_pad)
             return extract_windows(state.occ, starts, params.ray_pad, WIN).view(torch.bool), base
-        if params.use_mxu_window:
+        if kind == "mxu_window":
             return extract_window_mxu(state.occ, params.ray_pad, state.pos, WIN)
         return None
 
@@ -321,8 +372,7 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
     def _cast_window(state, origin, radius: int, params):
         """The window a cast cuts around its own origin (``"windowed"``, and
         ``"hybrid"``'s moves), else None."""
-        backend = params.raycast_backend
-        if backend == "windowed" or (backend == "hybrid" and radius <= 2):
+        if params.cuts_own_window(radius):
             return windowed_window(state.occ, origin, radius, params.ray_pad)
         return None
 
@@ -370,22 +420,21 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
             bank = params.map_bank
             return lidar_table_scan(bank.beam_face, bank.beam_axis, state.bank_pos, state.pos,
                                     params.beam_offsets, signs=params.beam_signs)
-        if typed and not params.needs_row_halves:
+        if typed and params.shared_window != "bits":
             window = self._make_window(state, params)
         rects = None if typed else params.beam_rects_on
         return self._raycast(state, state.pos, targets, params, params.ray_pad, typed, window,
                              rho=math.ceil(params.lidar_range) + 1, ray_rects=rects)
 
     def _observe(self, state, params) -> dict[str, torch.Tensor]:
-        """The reset's observation: the GEOS-typed scan, its distances
-        divided by the range (the step's are multiplied by its reciprocal,
-        ``lidar_step.stage_d``)."""
+        """The reset's observation from the GEOS-typed scan under the
+        params' backend (``lidar_fused.reset_observation``): the reset of
+        the window-frame backends, and of states built from host maps
+        (``compat.builders``)."""
         targets = state.pos[:, None, :] + params.beam_offsets  # (N, B, 2)
         dist = self._scan(state, params, targets, typed=True)
-        return {
-            "lidar": div(dist, params.lidar_range).clamp(-1.0, 1.0),
-            "odometry": (state.pos - state.initial_pos) * params.inv_map_size,
-        }
+        return reset_observation(dist, state.pos, state.initial_pos, params.lidar_range,
+                                 params.inv_map_size)
 
     def obs_derived_spec(self, params) -> dict[str, tuple[str, float]]:
         """``obs_derived_from_state`` as the fused merge computes it
@@ -423,67 +472,88 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         return {"bank_pos": bank_pos, "k": wide % bank.free_count(bank_pos)}
 
     def reset_from_draws(self, draws, params):
+        """The bank's fetch (``MapBank.spawn``), then kernel R where the reset
+        scan runs on the whole map (``ops.lidar_fused_cuda.reset``: the map,
+        the position, the scan and the observation in one launch; typed, or
+        untyped under ``"pallas"``), else the map and position unpacked and
+        the scan on the backend's window."""
         bank = params.map_bank
         _, w = bank.map_hw
         bank_pos = draws["bank_pos"].to(torch.int64)
         k = draws["k"].to(torch.int64)
         words, flat_idx, map_idx = bank.spawn(bank_pos, k)  # k-th free cell, row-major
-        pos = torch.stack([flat_idx % w, flat_idx // w], dim=-1).to(torch.float32) + 0.5
-        leaves = dict(
-            occ=unpack_words(words, w),
-            bank_pos=bank_pos,
-            map_idx=map_idx,
-            pos=pos,
-            initial_pos=pos,
-            odo_pending=torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device),
-        )
+        obs = None
+        if params.reset_on_whole_map:
+            r = lidar_fused_cuda.reset(words, flat_idx, w, params.beam_offsets,
+                                       params.lidar_range, params.inv_map_size,
+                                       typed=params.raycast_backend != "pallas")
+            occ, pos, odo_pending = r["occ"], r["pos"], r["odo_pending"]
+            obs = {"lidar": r["lidar"], "odometry": r["odometry"]}
+        else:
+            occ, pos = spawn_leaves(words, flat_idx, w)
+            odo_pending = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+        leaves = dict(occ=occ, bank_pos=bank_pos, map_idx=map_idx, pos=pos, initial_pos=pos,
+                      odo_pending=odo_pending)
         if params.needs_row_halves:
             state = LIDARBitslabState(**leaves, row_halves=halves_of_words(words))
         else:
             state = LIDARLocalizationState(**leaves)
-        return self._observe(state, params), state, self._info(state)
+        if obs is None:
+            obs = self._observe(state, params)
+        return obs, state, self._info(state)
 
     def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
-        """The step's three casts (the move, the two wall-slide candidates,
-        the beams) with F1's four stages between them
-        (``ops.lidar_step_cuda``: the kernels on the card, where an action
-        that requires grad raises; the plain stages of ``ops.lidar_step``
-        on the CPU). The rounding sites are where XLA's fused reference
-        rounds (``core.numerics``)."""
+        """Kernel S where every cast runs on the whole map
+        (``ops.lidar_fused_cuda.step``: the step in one launch); elsewhere
+        the step's three casts (the move, the two wall-slide candidates,
+        the beams) on the backend's windows with F1's four stages between
+        them (``lidar_step.staged_step`` over ``ops.lidar_step_cuda``). On
+        the card an action that requires grad raises; on the CPU both run
+        their plain forms. The rounding sites are where XLA's fused
+        reference rounds (``core.numerics``)."""
         pos = state.pos.contiguous()
-        # One window per step, from the pre-move position: every cast of the
-        # step stays within it (None on the whole-map path). The move cast of
-        # the per-cast window backends cuts its own.
-        window = self._make_window(state, params)
-        move_window = window if window is not None else self._cast_window(state, pos, 2, params)
-        base = move_window[1].contiguous() if isinstance(move_window, tuple) else None
-        # The move cast's |d| is contracted in the reference only under some
-        # backends; where it is not, stage A rounds it in the cast's frame.
-        a = lidar_step_cuda.stage_a(action.contiguous(), pos, not params.move_len_contracted,
-                                    base)
-        d2w = self._raycast(state, pos, a["move_to"], params, 2, window=move_window, rho=2,
-                            seg=a["seg"])
-        b = lidar_step_cuda.stage_b(pos, a["direction"], a["total"], d2w[:, 0].contiguous())
-        cand_dist = self._raycast(state, b["pos1"], b["cand_targets"], params, 2, window=window,
-                                  rho=2)
-        c = lidar_step_cuda.stage_c(
-            pos, b["pos1"], a["total"], b["rem"], b["n_keep"], b["cand"], b["cand_diag"],
-            cand_dist.contiguous(), state.odo_pending.contiguous(),
-            state.initial_pos.contiguous(), params.map_size, params.inv_map_size,
-            params.beam_offsets)
-        new_state = dataclasses.replace(state, pos=c["pos"], initial_pos=c["initial_pos"],
-                                        odo_pending=c["odo_pending"])
-        dist = self._scan(new_state, params, c["beam_targets"], window=window)
-        d = lidar_step_cuda.stage_d(dist.contiguous(), c["pos"], c["initial_pos"],
-                                    params.inv_range, params.inv_map_size)
+        args = (action.contiguous(), pos, state.odo_pending.contiguous(),
+                state.initial_pos.contiguous(), params.map_size, params.inv_map_size,
+                params.beam_offsets, params.inv_range)
+        if params.step_on_whole_map:
+            out = lidar_fused_cuda.step(state.occ.contiguous(), *args)
+        else:
+            # One window per step, from the pre-move position: every cast of
+            # the step stays within it. The move cast of the per-cast window
+            # backends cuts its own.
+            window = self._make_window(state, params)
+            move_window = (window if window is not None
+                           else self._cast_window(state, pos, MOVE_RADIUS, params))
+            base = move_window[1].contiguous() if isinstance(move_window, tuple) else None
+
+            def cast_move(origin, targets, seg):
+                return self._raycast(state, origin, targets, params, MOVE_RADIUS,
+                                     window=move_window, rho=MOVE_RADIUS, seg=seg)
+
+            def cast_candidates(origin, targets):
+                return self._raycast(state, origin, targets, params, MOVE_RADIUS, window=window,
+                                     rho=MOVE_RADIUS)
+
+            def scan(new_pos, targets):
+                return self._scan(dataclasses.replace(state, pos=new_pos), params, targets,
+                                  window=window)
+
+            # The move cast's |d| is contracted in the reference only under
+            # some backends; where it is not, stage A rounds it in the
+            # cast's frame.
+            out = lidar_step.staged_step(lidar_step_cuda, *args, cast_move, cast_candidates,
+                                         scan, unfused_len=not params.move_len_contracted,
+                                         base=base)
+        new_state = dataclasses.replace(state, pos=out["pos"], initial_pos=out["initial_pos"],
+                                        odo_pending=out["odo_pending"])
         return APStepResult(
-            obs={"lidar": d["lidar"], "odometry": d["odometry"]},
+            obs={"lidar": out["lidar"], "odometry": out["odometry"]},
             state=new_state,
-            base_reward=a["base_reward"],
-            terminated=c["terminated"],
-            truncated=c["truncated"],
+            base_reward=out["base_reward"],
+            terminated=out["terminated"],
+            truncated=out["truncated"],
             info=self._info(new_state),
-            prediction_target=c["target"],
+            prediction_target=out["target"],
         )
 
     def prediction_target_on_reset(self, old_state, new_state, params):

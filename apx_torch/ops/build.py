@@ -1,10 +1,11 @@
 """Builds and loads the port's CUDA kernels on first use.
 
-``torch.utils.cpp_extension.load`` compiles ``apx_torch/csrc/*.cu`` with
-nvcc for ``sm_90a`` into ``apx_torch/_build/`` (listed in ``.gitignore``)
-and rebuilds when a source or a flag changes. The sources include no
-PyTorch header and export a plain C interface (``is_python_module=False``),
-so a build takes seconds, and ``ctypes`` binds the functions.
+``torch.utils.cpp_extension.load`` compiles ``apx_torch/csrc/*.cu`` (and
+the device code they share, ``csrc/*.cuh``) with nvcc for ``sm_90a`` into
+``apx_torch/_build/`` (listed in ``.gitignore``) and rebuilds when a source,
+a header or a flag changes. The sources include no PyTorch header and
+export a plain C interface (``is_python_module=False``), so a build takes
+seconds, and ``ctypes`` binds the functions.
 
 Nothing is built at import: the CPU tests import every module.
 """
@@ -12,6 +13,7 @@ Nothing is built at import: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import time
 from pathlib import Path
 
@@ -20,7 +22,8 @@ __all__ = ["load", "SOURCES", "NVCC_FLAGS", "build_seconds"]
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
     "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu", "numerics.cu",
-    "lidar_step.cu", "merge.cu"))
+    "lidar_step.cu", "merge.cu", "lidar_fused.cu"))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 # These flags are what make the kernels bitwise equal to their plain forms.
 # -fmad=false: no contraction of a*b+c (the kernels write each FMA they
@@ -41,6 +44,14 @@ _LIB: ctypes.CDLL | None = None
 _BUILD_SECONDS: float | None = None
 
 
+def _headers_flag() -> str:
+    """A define holding a digest of the shared headers: ``load`` versions a
+    build by its sources and flags only, so a changed header changes a
+    flag."""
+    digest = hashlib.sha1(b"".join(h.read_bytes() for h in HEADERS)).hexdigest()[:16]
+    return f"-DAPX_CSRC_HEADERS=0x{digest}"
+
+
 def load(verbose: bool = False) -> ctypes.CDLL:
     """The kernel library, built on first use. ``verbose`` prints the
     build's output, ptxas' register and spill report included."""
@@ -55,7 +66,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         name="apx_kernels",
         sources=[str(s) for s in SOURCES],
         build_directory=str(BUILD_DIR),
-        extra_cuda_cflags=[*NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else [])],
+        extra_cuda_cflags=[*NVCC_FLAGS, _headers_flag(), *(["-Xptxas=-v"] if verbose else [])],
         is_python_module=False,
         verbose=verbose,
     )
@@ -93,8 +104,13 @@ def load(verbose: bool = False) -> ctypes.CDLL:
 
     lib.merge_next_step_launch.argtypes = [merge_cuda._Leaves, merge_cuda._Map,
                                            merge_cuda._Terms, ptr]
+    lib.lidar_fused_step_launch.argtypes = [*[ptr] * 8, i32, f32, f32, i32, i32, i32,
+                                            *[ptr] * 9, ptr]
+    lib.lidar_fused_reset_launch.argtypes = [ptr, ptr, ptr, i32, f32, ptr, f32, i32, i32, i32,
+                                             i32, *[ptr] * 5, ptr]
     for fn in (lib.lidar_step_a_launch, lib.lidar_step_b_launch, lib.lidar_step_c_launch,
-               lib.lidar_step_d_launch, lib.merge_next_step_launch):
+               lib.lidar_step_d_launch, lib.merge_next_step_launch, lib.lidar_fused_step_launch,
+               lib.lidar_fused_reset_launch):
         fn.restype = ctypes.c_int
     _LIB = lib
     return lib

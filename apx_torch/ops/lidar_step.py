@@ -1,8 +1,8 @@
 """The LIDAR step's arithmetic around its three casts, as four plain stages
 (the plain form of F1, ``apx_torch.ops.lidar_step_cuda``).
 
-``LIDARLocalizationEnv.step_env`` is K1's three casts with these stages
-between them:
+The LIDAR step is K1's three casts with these stages between them
+(``staged_step``):
 
 * ``stage_a`` (before the move cast): the base reward, the action moved
   into the unit ball, its length and direction, the move's target and,
@@ -32,7 +32,8 @@ from ..core.numerics import fma, sqrt, sum_squares
 from .geometry import normalize_into_unit_ball
 from .raycast import seg_length
 
-__all__ = ["stage_a", "stage_b", "stage_c", "stage_d", "unfused_length", "SLIDE_EPS"]
+__all__ = ["stage_a", "stage_b", "stage_c", "stage_d", "staged_step", "unfused_length",
+           "SLIDE_EPS", "STEP_LEAVES"]
 
 SLIDE_EPS = 1e-5  # the reference's wall-slide threshold, compared in float32
 
@@ -122,3 +123,36 @@ def stage_d(dist: torch.Tensor, pos: torch.Tensor, initial_pos: torch.Tensor, in
     ``odometry = (pos - initial_pos) * inv_map_size``."""
     return {"lidar": (dist * inv_range).clamp(-1.0, 1.0),
             "odometry": (pos - initial_pos) * inv_map_size}
+
+
+# What a step returns (``staged_step``, and kernel S's outputs).
+STEP_LEAVES = ("pos", "initial_pos", "odo_pending", "base_reward", "terminated", "truncated",
+               "target", "lidar", "odometry")
+
+
+def staged_step(stages, action: torch.Tensor, pos: torch.Tensor, odo_pending: torch.Tensor,
+                initial_pos: torch.Tensor, map_size: torch.Tensor, inv_map_size: torch.Tensor,
+                beam_offsets: torch.Tensor, inv_range: float, cast_move, cast_candidates, scan,
+                unfused_len: bool = True,
+                base: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """The step as stage A, the move cast, stage B, the candidates' cast,
+    stage C, the beam scan and stage D. ``stages`` holds ``stage_a`` ..
+    ``stage_d`` (this module's plain stages, or F1's kernels,
+    ``lidar_step_cuda``); ``cast_move(origin, targets, seg)``,
+    ``cast_candidates(origin, targets)`` and ``scan(pos, targets)`` give
+    the (N, R) distances; ``unfused_len`` and ``base`` are stage A's.
+    Returns the ``STEP_LEAVES``: the new pos, initial_pos and odo_pending,
+    base_reward, terminated, truncated, the prediction target, lidar and
+    odometry."""
+    a = stages.stage_a(action, pos, unfused_len, base)
+    d2w = cast_move(pos, a["move_to"], a["seg"])
+    b = stages.stage_b(pos, a["direction"], a["total"], d2w[:, 0].contiguous())
+    cand_dist = cast_candidates(b["pos1"], b["cand_targets"])
+    c = stages.stage_c(pos, b["pos1"], a["total"], b["rem"], b["n_keep"], b["cand"],
+                       b["cand_diag"], cand_dist.contiguous(), odo_pending, initial_pos,
+                       map_size, inv_map_size, beam_offsets)
+    dist = scan(c["pos"], c["beam_targets"])
+    d = stages.stage_d(dist.contiguous(), c["pos"], c["initial_pos"], inv_range, inv_map_size)
+    return {**{k: c[k] for k in ("pos", "initial_pos", "odo_pending")},
+            "base_reward": a["base_reward"],
+            **{k: c[k] for k in ("terminated", "truncated", "target")}, **d}

@@ -24,10 +24,12 @@ import ctypes
 import torch
 
 from . import build, lidar_step
+from ._launch import need, one_device, stream
 
 __all__ = ["stage_a", "stage_b", "stage_c", "stage_d", "LAUNCHES", "reset_launch_counts"]
 
-LAUNCHES: dict[str, int] = {"lidar_step": 0}
+KERNEL = "lidar_step"
+LAUNCHES: dict[str, int] = {KERNEL: 0}
 
 
 def reset_launch_counts() -> None:
@@ -35,36 +37,10 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _need(name: str, x: torch.Tensor, shape: tuple, dtype=torch.float32) -> int:
-    """x's data pointer, after checking it is a contiguous tensor of this
-    shape and dtype."""
-    if not isinstance(x, torch.Tensor) or x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        got = (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else type(x).__name__
-        raise ValueError(f"lidar_step: {name} must be {tuple(shape)} {dtype}, got {got}")
-    if not x.is_contiguous():
-        raise ValueError(f"lidar_step: {name} must be contiguous, got strides {x.stride()}")
-    return x.data_ptr()
-
-
-def _device(*xs: torch.Tensor) -> torch.device:
-    dev = xs[0].device
-    if dev.type != "cuda" or any(x.device != dev for x in xs):
-        raise ValueError(f"lidar_step: operands on {sorted({str(x.device) for x in xs})}, "
-                         "expected one CUDA device")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        raise ValueError("lidar_step: an operand requires grad and F1 has no backward: "
-                         "detach the action")
-    return dev
-
-
 def _launched(err: int, stage: str) -> None:
     if err != 0:
         raise RuntimeError(f"lidar_step stage {stage} kernel launch failed: CUDA error {err}")
-    LAUNCHES["lidar_step"] += 1
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES[KERNEL] += 1
 
 
 def stage_a(action, pos, unfused_len: bool, base=None) -> dict:
@@ -72,9 +48,9 @@ def stage_a(action, pos, unfused_len: bool, base=None) -> dict:
     if action.device.type == "cpu":
         return lidar_step.stage_a(action, pos, unfused_len, base)
     n = action.shape[0]
-    dev = _device(action, pos, *([] if base is None else [base]))
-    ptrs = [_need("action", action, (n, 2)), _need("pos", pos, (n, 2)),
-            None if base is None else _need("base", base, (n, 2))]
+    dev = one_device(KERNEL, action, pos, *([] if base is None else [base]))
+    ptrs = [need(KERNEL, "action", action, (n, 2)), need(KERNEL, "pos", pos, (n, 2)),
+            None if base is None else need(KERNEL, "base", base, (n, 2))]
     out = {"base_reward": torch.empty(n, device=dev), "total": torch.empty(n, device=dev),
            "direction": torch.empty((n, 2), device=dev),
            "move_to": torch.empty((n, 1, 2), device=dev),
@@ -82,7 +58,7 @@ def stage_a(action, pos, unfused_len: bool, base=None) -> dict:
     err = build.load().lidar_step_a_launch(
         *ptrs, int(bool(unfused_len)), n,
         *(out[k].data_ptr() for k in ("base_reward", "total", "direction", "move_to")),
-        None if out["seg"] is None else out["seg"].data_ptr(), _stream(dev))
+        None if out["seg"] is None else out["seg"].data_ptr(), stream(dev))
     _launched(err, "a")
     return out
 
@@ -92,16 +68,16 @@ def stage_b(pos, direction, total, d2w) -> dict:
     if pos.device.type == "cpu":
         return lidar_step.stage_b(pos, direction, total, d2w)
     n = pos.shape[0]
-    dev = _device(pos, direction, total, d2w)
-    ptrs = [_need("pos", pos, (n, 2)), _need("direction", direction, (n, 2)),
-            _need("total", total, (n,)), _need("d2w", d2w, (n,))]
+    dev = one_device(KERNEL, pos, direction, total, d2w)
+    ptrs = [need(KERNEL, "pos", pos, (n, 2)), need(KERNEL, "direction", direction, (n, 2)),
+            need(KERNEL, "total", total, (n,)), need(KERNEL, "d2w", d2w, (n,))]
     out = {"pos1": torch.empty((n, 2), device=dev), "rem": torch.empty(n, device=dev),
            "n_keep": torch.empty(n, dtype=torch.int64, device=dev),
            "cand_diag": torch.empty((n, 2), device=dev),
            "cand": torch.empty((n, 2, 2), device=dev),
            "cand_targets": torch.empty((n, 2, 2), device=dev)}
     err = build.load().lidar_step_b_launch(*ptrs, n, *(x.data_ptr() for x in out.values()),
-                                           _stream(dev))
+                                           stream(dev))
     _launched(err, "b")
     return out
 
@@ -113,16 +89,19 @@ def stage_c(pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist, odo_pendi
         return lidar_step.stage_c(pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist,
                                   odo_pending, initial_pos, map_size, inv_map_size, beam_offsets)
     n, beams = pos.shape[0], beam_offsets.shape[0]
-    dev = _device(pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist, odo_pending,
-                  initial_pos, map_size, inv_map_size, beam_offsets)
-    ptrs = [_need("pos", pos, (n, 2)), _need("pos1", pos1, (n, 2)),
-            _need("total", total, (n,)), _need("rem", rem, (n,)),
-            _need("n_keep", n_keep, (n,), torch.int64), _need("cand", cand, (n, 2, 2)),
-            _need("cand_diag", cand_diag, (n, 2)), _need("cand_dist", cand_dist, (n, 2)),
-            _need("odo_pending", odo_pending, (n,), torch.bool),
-            _need("initial_pos", initial_pos, (n, 2)), _need("map_size", map_size, (2,)),
-            _need("inv_map_size", inv_map_size, (2,)),
-            _need("beam_offsets", beam_offsets, (beams, 2))]
+    dev = one_device(KERNEL, pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist,
+                     odo_pending, initial_pos, map_size, inv_map_size, beam_offsets)
+    ptrs = [need(KERNEL, "pos", pos, (n, 2)), need(KERNEL, "pos1", pos1, (n, 2)),
+            need(KERNEL, "total", total, (n,)), need(KERNEL, "rem", rem, (n,)),
+            need(KERNEL, "n_keep", n_keep, (n,), torch.int64),
+            need(KERNEL, "cand", cand, (n, 2, 2)),
+            need(KERNEL, "cand_diag", cand_diag, (n, 2)),
+            need(KERNEL, "cand_dist", cand_dist, (n, 2)),
+            need(KERNEL, "odo_pending", odo_pending, (n,), torch.bool),
+            need(KERNEL, "initial_pos", initial_pos, (n, 2)),
+            need(KERNEL, "map_size", map_size, (2,)),
+            need(KERNEL, "inv_map_size", inv_map_size, (2,)),
+            need(KERNEL, "beam_offsets", beam_offsets, (beams, 2))]
     out = {"pos": torch.empty((n, 2), device=dev), "initial_pos": torch.empty((n, 2), device=dev),
            "odo_pending": torch.empty(n, dtype=torch.bool, device=dev),
            "terminated": torch.empty(n, dtype=torch.bool, device=dev),
@@ -130,7 +109,7 @@ def stage_c(pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist, odo_pendi
            "target": torch.empty((n, 2), device=dev),
            "beam_targets": torch.empty((n, beams, 2), device=dev)}
     err = build.load().lidar_step_c_launch(*ptrs, beams, n, *(x.data_ptr() for x in out.values()),
-                                           _stream(dev))
+                                           stream(dev))
     _launched(err, "c")
     return out
 
@@ -141,13 +120,13 @@ def stage_d(dist, pos, initial_pos, inv_range: float, inv_map_size) -> dict:
     if dist.device.type == "cpu":
         return lidar_step.stage_d(dist, pos, initial_pos, inv_range, inv_map_size)
     n, beams = dist.shape[0], dist.shape[-1] if dist.ndim == 2 else -1
-    dev = _device(dist, pos, initial_pos, inv_map_size)
-    ptrs = [_need("dist", dist, (n, beams)), _need("pos", pos, (n, 2)),
-            _need("initial_pos", initial_pos, (n, 2))]
+    dev = one_device(KERNEL, dist, pos, initial_pos, inv_map_size)
+    ptrs = [need(KERNEL, "dist", dist, (n, beams)), need(KERNEL, "pos", pos, (n, 2)),
+            need(KERNEL, "initial_pos", initial_pos, (n, 2))]
     out = {"lidar": torch.empty((n, beams), device=dev),
            "odometry": torch.empty((n, 2), device=dev)}
     err = build.load().lidar_step_d_launch(
-        *ptrs, ctypes.c_float(inv_range), _need("inv_map_size", inv_map_size, (2,)), beams, n,
-        out["lidar"].data_ptr(), out["odometry"].data_ptr(), _stream(dev))
+        *ptrs, ctypes.c_float(inv_range), need(KERNEL, "inv_map_size", inv_map_size, (2,)),
+        beams, n, out["lidar"].data_ptr(), out["odometry"].data_ptr(), stream(dev))
     _launched(err, "d")
     return out

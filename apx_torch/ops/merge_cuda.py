@@ -39,6 +39,7 @@ import torch
 from ..core.env import tree_map
 from ..core.losses import LossFn, masked_loss_and_reward, mse_terms
 from . import build, merge
+from ._launch import stream
 from .merge import Merged
 
 __all__ = ["next_step", "LAUNCHES", "reset_launch_counts", "MAX_LEAVES"]
@@ -91,10 +92,6 @@ def _width(nbytes: int, *ptrs: int) -> int:
         if nbytes % w == 0 and all(p % w == 0 for p in ptrs):
             return w
     return 1
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _ptr(x: torch.Tensor | None) -> int | None:
@@ -278,7 +275,7 @@ def _launch(mask, step, reset, base_reward, terminated, truncated, prediction, t
             int(counter is not None and counter.issue_termination), int(terms.fused_sum),
             int(terms.affine), int(terms.contract), plan.env_block, inv_limit, terms.scale,
             terms.offset, terms.k)
-        err = build.load().merge_next_step_launch(leaves, pmap, pterms, _stream(dev))
+        err = build.load().merge_next_step_launch(leaves, pmap, pterms, stream(dev))
         if err != 0:
             raise RuntimeError(f"merge kernel launch failed: CUDA error {err}")
         LAUNCHES["merge"] += 1

@@ -4,6 +4,7 @@ in every given checkout in turn (for example parent, change, change,
 parent), one process per measurement, on one card.
 
     python -m apx_torch.tools.host_paths_ab --trees OLD . . OLD [--out FILE]
+        [--bench-envs E[:N] ...] [--profile-envs E ...]
 
 Each process starts in the checkout's root, so it runs that checkout's
 ``apx_torch``. Measured:
@@ -12,8 +13,12 @@ Each process starts in the checkout's root, so it runs that checkout's
   N=1024, rollout 32, 2 epochs x 4 minibatches, ``PPO_ITERS`` iterations;
   the rollout and update ms of each and the env-steps/s including the
   update over all but the first (``chip_smoke.py``'s ``train ppo``);
-* ``bench``: ``python -m apx_torch.bench --env E`` (E in ``BENCH_ENVS``),
-  its eager and graph ms per step;
+* ``bench``: ``python -m apx_torch.bench --env E [--num-envs N]`` (E in
+  ``--bench-envs``, default ``BENCH_ENVS``), its eager and graph ms per
+  step and device busy us per step;
+* ``profile``: ``python -m apx_torch.bench --profile --env E`` (E in
+  ``--profile-envs``, none by default), the eager step's launches and busy ms per step and
+  the port's kernels' share;
 * ``compat``: ``python -m apx_torch.bench --compat --env E`` (E in
   ``COMPAT_ENVS``), its ms per step and host breakdown.
 
@@ -91,13 +96,20 @@ def _run(tree: str, argv: list[str], timeout: int) -> dict:
     return _last_json(p.stdout)
 
 
-def _measure(tree: str, timeout: int) -> list[dict]:
+def _measure(tree: str, timeout: int, bench_envs, profile_envs) -> list[dict]:
     rows = [{"what": "ppo", **_run(tree, ["-c", _PPO], timeout)}]
-    for env in BENCH_ENVS:
-        rec = _run(tree, ["-m", "apx_torch.bench", "--env", env], timeout)
-        rows.append({"what": f"bench {env}", "eager_ms_per_step": rec.get("eager_ms_per_step"),
+    for spec in bench_envs:
+        env, _, n = spec.partition(":")
+        rec = _run(tree, ["-m", "apx_torch.bench", "--env", env,
+                          *(["--num-envs", n] if n else [])], timeout)
+        rows.append({"what": f"bench {spec}", "eager_ms_per_step": rec.get("eager_ms_per_step"),
                      "graph_ms_per_step": rec.get("graph_ms_per_step"),
                      "device_busy_us_per_step": rec.get("device_busy_us_per_step")})
+    for env in profile_envs:
+        rec = _run(tree, ["-m", "apx_torch.bench", "--profile", "--env", env], timeout)
+        rows.append({"what": f"profile {env}", **{k: rec.get(k) for k in (
+            "kernel_launches_per_step", "device_busy_ms_per_step", "device_idle_share",
+            "port_kernels_ms_per_step", "port_kernels_launches_per_step")}})
     for env in COMPAT_ENVS:
         rec = _run(tree, ["-m", "apx_torch.bench", "--compat", "--env", env], timeout)
         rows.append({"what": f"compat {env}", "ms_per_step": rec.get("ms_per_step"),
@@ -111,10 +123,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="checkout roots, in the order they run (labels: their paths)")
     ap.add_argument("--out", default=None, help="a JSON-lines file to append to")
     ap.add_argument("--timeout", type=int, default=600, help="seconds per process")
+    ap.add_argument("--bench-envs", nargs="+", default=list(BENCH_ENVS),
+                    help="bench workloads, each E or E:N (N envs)")
+    ap.add_argument("--profile-envs", nargs="+", default=[], help="workloads to profile")
     args = ap.parse_args(argv)
     smi = _smi()
     for k, tree in enumerate(args.trees):
-        for row in _measure(tree, args.timeout):
+        for row in _measure(tree, args.timeout, args.bench_envs, args.profile_envs):
             line = json.dumps({"run": k, "tree": tree, **row, "nvidia_smi": smi})
             print(line, flush=True)
             if args.out:

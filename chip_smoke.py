@@ -24,15 +24,21 @@ Phases, one line each; any failure exits non-zero:
    with NaN as NaN (``phase_lidar_step_kernels``): F1 on
    ``lidar_step_cases`` at N = 4096, F2 on a step of LIDARLocRooms-v0,
    LIDARLocMaze-v0 and LightDark-v0 with half the envs reset, and F2's
-   prediction gradient; device, plain and bound ms of each; one dense
-   LIDAR step launches N1-N3 0 times, F1 4, F2 1, K1 3 + 1 typed. Phases
-   4 and 9 check F1 4 and F2 1 per step, N1 once (the reset's time obs);
-   every LIDAR path without a metrics wrapper launches no N3.
+   prediction gradient; one dense LIDAR step launches S 1, R 1, F2 1 and
+   no standalone K1, F1 or N1-N3 (``DENSE_STEP_LAUNCHES``); then S and R
+   (``ops.lidar_fused_cuda``) against their plain forms
+   (``ops.lidar_fused``) at N = 4096 on the rooms (32x32) and maze (21x21)
+   banks, R typed and untyped, S from edge actions and positions
+   (``fused_inputs``); device, plain and bound ms of each. Phases 4 and 9
+   check the launches per step (``lidar_path_launches``), N1 once (the
+   reset's time obs); every LIDAR path without a metrics wrapper launches
+   no N3.
 4. LIDAR main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
    num_envs=4096)``, reset and 250 steps of uniform random actions with
    zero predictions; every obs finite, lidar in [0, 1], rewards in
-   [-2.9, 0.1], every env through at least two episode ends, and every K1
-   kernel launched.
+   [-2.9, 0.1], every env through at least two episode ends, and S once
+   per step, R once at the reset and once per step, F2 once per step, no
+   standalone K1 or F1 (``lidar_path_launches``).
 5. LIDAR card vs CPU: one 120-step trajectory at N = 256 with injected
    reset draws on the card (kernels) and on the CPU (plain forms); obs,
    states, rewards and dones bitwise equal.
@@ -62,8 +68,8 @@ Phases, one line each; any failure exits non-zero:
 9. window main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
    num_envs=4096, raycast_backend="pallas_window")``, reset and 250 steps
    as in phase 4, with the same checks; per masked-merge step K2 is
-   launched twice (step and reset) and ``raycast_fast`` three times,
-   ``raycast_typed`` once per reset.
+   launched twice (step and reset), ``raycast_fast`` three times,
+   ``raycast_typed`` once per reset and F1 four times; no S or R.
 10. window card vs CPU: phase 5 with the window backend.
 11. K4 (``chain_cuda``): wide and narrow layouts bitwise equal to the
     plain ``chain_body`` at iters = 1, 5, 7 and 512 (below, at and past
@@ -81,12 +87,13 @@ Phases, one line each; any failure exits non-zero:
 13. wrapped kernel paths: ``make_vec("LIDARLocRooms-sparse-v0",
     num_envs=4096, metrics=True)`` for 250 steps and
     ``make_vec("CircleSquare-sparse-v0", num_envs=4096, metrics=True)`` for
-    51, with zero predictions. K1's launches are phase 4's (3
-    ``raycast_fast`` per step, 1 + steps ``raycast_typed``), K3's phase 6's
-    (1 + 2 steps). The weight equals terminated (on a NEXT_STEP autoreset
-    step it is the masked-out step's, as in apx); the reward equals the base
-    reward, bitwise, wherever the weight is 0 or the env was reset, and
-    base_reward - weight * dense loss within 1e-6 elsewhere; the float
+    51, with zero predictions. S's and R's launches are phase 4's (1 per
+    step, 1 + steps; no F2: the ``-sparse`` loss takes the plain merge),
+    K3's phase 6's (1 + 2 steps). The weight equals terminated (on a
+    NEXT_STEP autoreset step it is the masked-out step's, as in apx); the
+    reward equals the base reward, bitwise, wherever the weight is 0 or the
+    env was reset, and base_reward - weight * dense loss within 1e-6
+    elsewhere; the float
     stats are finite exactly where done; at done ``vector_lengths`` equals
     the episode's steps (the TimeLimit count: 100 for a LIDAR episode that
     ends on time, 16 for CircleSquare); CircleSquare's
@@ -127,17 +134,18 @@ Phases, one line each; any failure exits non-zero:
     fingerprint's platform ``gpu``. Then the bench's loop (``_loop``,
     ``_steps``) of ``lidar_maze``, ``lidar_rooms_static`` and ``cifar10`` at
     N = 4096 and of ``lidar_rooms``, ``mnist`` and ``tin_loc`` at N = 16384,
-    one graph chunk from the explicit reset each: K1's and K3's launches
-    equal to the wrappers' calls and to ``expected_workload_launches``, and
-    each kernel held on the first inputs the path gave it (K1 per ray count
-    bitwise, K3 within 1e-6), with its device, plain and bound ms.
+    one graph chunk from the explicit reset each: S's, R's and K3's
+    launches equal to the wrappers' calls and to
+    ``expected_workload_launches``, and each kernel held on the first
+    inputs the path gave it (S and R bitwise, K3 within 1e-6), with its
+    device, plain and bound ms.
 18. sharded LIDAR, world 1 over nccl: ``python -m
     apx_torch.distrib.selftest`` (one process, a FileStore,
     ``NCCL_SOCKET_IFNAME=lo``), ``sharded_rollout`` of
     ``LIDARLocRooms-v0`` at N = 4096 for 250 steps: the final state
     bitwise the one-process ``rollout`` on the card with the same seed, done
-    counts equal, mean rewards within rtol 1e-6, K1 launched 3 (fast) and 1
-    (typed) per step and 1 (typed) at the reset, in both runs.
+    counts equal, mean rewards within rtol 1e-6, S launched once per step
+    and R once per step and once at the reset, in both runs.
 19. two gloo ranks on cuda:0 (NCCL refuses two ranks on one GPU), N = 4096
     in all: LIDARLocRooms-v0 for 250 steps and the episodic CircleSquare-v0
     (period 16) for 51, each rank's block bitwise the solo run's block,
@@ -171,10 +179,12 @@ Phases, one line each; any failure exits non-zero:
     LOCKSTEP boundaries) and ``TinyImageNetLoc-v0`` at N = 4 (the reset's
     host sweep and 10 steps): ints and bools bitwise, floats within 1e-6.
     The log stats of the gymnasium-free aggregation (``compat.stats``) are
-    compared the same way. K1, K2 and K3 launches on the card's run, the
-    counts set to 0 just before each path: ``raycast_fast`` 3 per step,
-    ``raycast_typed`` 1 at the reset and 1 per NEXT_STEP merge step (a step
-    that follows a done), K2 ``window`` 1 per step plus those, ``glimpse`` 1
+    compared the same way. K1, K2, K3, F1 and S launches on the card's
+    run, the counts set to 0 just before each path: ``raycast_typed`` 1 at
+    the reset and 1 per NEXT_STEP merge step (a step that follows a done;
+    the reference mode builds those states from host maps and scans them
+    with K1, not R), S 1 per step (dense), or ``raycast_fast`` 3 and F1 4
+    per step and K2 ``window`` 1 per step plus those (window), ``glimpse`` 1
     per step plus 1 at the reset (CircleSquare) and 2 at the reset
     (TinyImageNetLoc: obs and target).
 25. compat throughput: ``apx_torch.bench.bench_compat`` for ``lidar_rooms``
@@ -223,10 +233,11 @@ Phases, one line each; any failure exits non-zero:
 31. raycast backends: ``LIDARLocRooms-v0`` at N = 4096 under each of
     ``bitslab2d``, ``bitslab``, ``windowed``, ``hybrid``, ``mxu_window``,
     ``pallas``, ``xla``, ``bitslab2d`` with ``beam_rects="on"`` and the beam
-    tables, reset and 50 steps (lidar in [0, 1], rewards in [-2.9, 0.1], K1
-    launched as ``backend_launches`` says: 3 fast per step and 1 typed at
-    the reset and per step; no fast cast under the bit windows, 2 under the
-    tables, the reset scans fast under ``pallas``); card vs CPU at N = 256
+    tables, reset and 50 steps (lidar in [0, 1], rewards in [-2.9, 0.1], the
+    kernels launched as ``backend_launches`` says: R at the reset and per
+    step wherever the reset scans the whole map, else K1 typed; S per step
+    under ``xla`` and ``pallas``, else F1 4 and K1 3 fast per step, no fast
+    cast under the bit windows, 2 under the tables); card vs CPU at N = 256
     for 30 steps, bitwise; the graph ms per step against the default in one
     process (``bench.bench_ab``, 128 steps, default, variant, variant,
     default); ``bench.profile`` of ``bitslab2d``.
@@ -256,12 +267,12 @@ Phases, one line each; any failure exits non-zero:
     published width: ``LIDARLocRooms-v0``, N = 1024, rollout 32, 2 epochs x
     4 minibatches, 3 iterations. Losses and rewards finite, every weight
     finite, the prediction gradient (through the env) nonzero on ``pred``,
-    ``trunk`` and the encoder and zero on ``policy`` and ``value``; K1's
-    launches in each iteration (counts set to 0 just before it) 3
-    ``raycast_fast`` and 1 ``raycast_typed`` per rollout step, and 1
-    ``raycast_typed`` at the reset. Per iteration the rollout ms (with its
-    prediction backward) and the update ms; env-steps/s including the
-    update after the first iteration; peak memory.
+    ``trunk`` and the encoder and zero on ``policy`` and ``value``; the
+    launches in each iteration (counts set to 0 just before it) S, R and
+    F2 once per rollout step, and R once at the reset. Per iteration the
+    rollout ms (with its prediction backward) and the update ms;
+    env-steps/s including the update after the first iteration; peak
+    memory.
 36. one PPO iteration at N = 64, rollout 8 on the card and on the CPU from
     the same weights and draws (made on the CPU, injected), TF32 off: mean
     rewards within rtol 1e-5, every weight within TRAIN_NET_TOL.
@@ -286,22 +297,23 @@ the reset's and the step's images and positions against the plain form.
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Each kernel's ``launches`` is counted on
-its own path, the counts set to 0 just before it: K1's on phase 4 (and
-under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase 13), K2's on
-phase 9, F1's and F2's on phase 4 (and phase 9), N1-N3's on phase 12,
+its own path, the counts set to 0 just before it: S's, R's and F2's on
+phase 4 (and under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase
+13), K1's and F1's on phase 9 (0 on phase 4: S and R cast there), K2's on
+phase 9, N1-N3's on phase 12,
 K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
 and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 ``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
 on phases 18-19, set to 0 in the worker just before its sharded rollout;
 their ``"compat"`` entries are the counts on each phase-24 path; K3's
 ``"glimpse_study"`` entry its launches in phase 27 (set to 0 just before);
-K1's and K3's ``"workloads"`` entries their launches on each phase-17
+K3's, S's and R's ``"workloads"`` entries their launches on each phase-17
 workload path (set to 0 just before each), with the kernel's time on that
-path's inputs; K1's ``"backends"`` its launches on each phase-31 path,
-K3's ``"chunked"`` and ``"storage"`` entries its launches on the phase-32 chunked reset and
-on each phase-33 path (each set to 0 just before); K1's ``"train"``
-entries its launches in each phase-35 iteration, K3's ``"entry"`` its
-launches on ``entry()``.
+path's inputs; K1's, F1's, F2's, S's and R's ``"backends"`` their launches
+on each phase-31 path, K3's ``"chunked"`` and ``"storage"`` entries its
+launches on the phase-32 chunked reset and on each phase-33 path (each set
+to 0 just before); the ``"train"`` entries of S, R and F2 their launches in
+each phase-35 iteration, K3's ``"entry"`` its launches on ``entry()``.
 Every process it starts is killed at PHASE_TIMEOUT_S. It needs CUDA and
 the apx_torch package beside it, and exits non-zero without them.
 """
@@ -799,15 +811,16 @@ def phase_glimpse_kernel(dev) -> dict:
 
 
 def _launch_modules():
-    from apx_torch.ops import (glimpse_cuda, issue_rate_study, lidar_step_cuda, merge_cuda,
-                               raycast_cuda, window_cuda)
+    from apx_torch.ops import (glimpse_cuda, issue_rate_study, lidar_fused_cuda, lidar_step_cuda,
+                               merge_cuda, raycast_cuda, window_cuda)
 
-    return raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study, lidar_step_cuda, merge_cuda
+    return (raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study, lidar_step_cuda,
+            merge_cuda, lidar_fused_cuda)
 
 
 def reset_all_launch_counts() -> None:
-    """Sets K1-K4's, F1's and F2's counts and N1-N3's (``core.numerics``)
-    to 0."""
+    """Sets K1-K4's, F1's, F2's, S's and R's counts and N1-N3's
+    (``core.numerics``) to 0."""
     from apx_torch.core import numerics
 
     for m in _launch_modules():
@@ -816,7 +829,8 @@ def reset_all_launch_counts() -> None:
 
 
 def all_launch_counts() -> dict:
-    """K1-K4's, F1's (``lidar_step``) and F2's (``merge``) counts (N1-N3's:
+    """K1-K4's, F1's (``lidar_step``), F2's (``merge``), S's
+    (``fused_step``) and R's (``fused_reset``) counts (N1-N3's:
     ``numerics_launches``)."""
     return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
 
@@ -1069,6 +1083,146 @@ def lidar_step_stage_args(x: dict, params) -> dict:
             "d": [(x["dist"], c["pos"], c["initial_pos"], params.inv_range, params.inv_map_size)]}
 
 
+FUSED_STEP_REPLACES = "apx/envs/lidar_localization.py:538-615 (the whole step: three casts, " \
+                      "apx/ops/raycast_pallas.py:40's function on the whole map, and the " \
+                      "arithmetic XLA fuses around them)"
+FUSED_RESET_REPLACES = "apx/envs/lidar_localization.py:493-537 with _observe (the reset: the " \
+                       "map's fetch, the spawn and the GEOS-typed scan; no Pallas kernel)"
+FUSED_BANKS = (("LIDARLocRooms-v0", "rooms 32x32"), ("LIDARLocMaze-v0", "maze 21x21"))
+
+
+def fused_inputs(dev, env_id: str, n: int, seed: int) -> dict:
+    """Kernel S's and R's operands from ``env_id`` on ``dev``: S's from the
+    states after a reset and three steps, with ``lidar_step_cases``' actions
+    (its edge actions first: zeros, |a| exactly 1 and above, tiny, at the
+    slide's threshold, infinite and NaN), its corner, edge and lattice
+    positions (scaled to the map) on the first envs, and its odometry
+    flags; R's from one reset's draws through ``MapBank.spawn``. Returns
+    {"step": args, "reset": args (typed), "reset_untyped": args}."""
+    import apx_torch
+
+    venv, params = apx_torch.make_vec(env_id, num_envs=n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zero = torch.zeros((n, 2), device=dev)
+    _, state, _ = venv.reset(params, gen)
+    for _ in range(3):
+        act = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
+        _, state, *_ = venv.step(state, {"action": act, "prediction": zero}, params, gen)
+    inner = venv.env.split_counter(state.inner)[1]
+    cases = lidar_step_cases(seed, n)
+    w = params.map_bank.map_hw[1]
+    pos = inner.pos.clone()
+    pos[:8] = torch.from_numpy(cases["pos"][:8] * np.float32(w / 32.0)).to(dev)
+    step = (inner.occ.contiguous(), torch.from_numpy(cases["action"]).to(dev), pos,
+            torch.from_numpy(cases["odo_pending"]).to(dev), inner.initial_pos.contiguous(),
+            params.map_size, params.inv_map_size, params.beam_offsets, params.inv_range)
+    draws = venv.env.draw_reset(n, params, gen)
+    words, flat, _ = params.map_bank.spawn(draws["bank_pos"], draws["k"])
+    reset = (words, flat, w, params.beam_offsets, params.lidar_range, params.inv_map_size)
+    return {"step": step, "reset": (*reset, True), "reset_untyped": (*reset, False)}
+
+
+def fused_casts(step_args) -> list:
+    """The (origin, targets) of S's three casts on these operands, as its
+    plain form makes them."""
+    from apx_torch.ops import lidar_fused, lidar_step
+
+    occ = step_args[0]
+    casts = []
+
+    def cast(origin, targets, seg=None):
+        casts.append((origin, targets))
+        return lidar_fused.whole_map_cast(occ, typed=False)(origin, targets, seg)
+
+    lidar_step.staged_step(lidar_step, *step_args[1:], cast, cast, cast)
+    return casts
+
+
+def fused_bound(name: str, args, out) -> tuple[float, str]:
+    """Least time (ms) of S or R on these operands: every operand read once
+    and every output written once at the HBM rate (R reads the row words,
+    not a map); the casts' per-cell instructions over the cells these casts
+    can hit (``candidate_cells``) and the stages' float32 operations
+    (``LIDAR_STEP_OPS``; R: a division and a clamp per beam) at the float32
+    rates."""
+    from apx_torch.ops import lidar_fused
+
+    nbytes = _tree_bytes(args, out)
+    if name == "fused_step":
+        occ, n, beams = args[0], args[0].shape[0], args[7].shape[0]
+        cells = sum(candidate_cells(occ, o, t) for o, t in fused_casts(args))
+        t_ops = (cells * OPS_PER_CELL["raycast_fast"] / FP32_ISSUE_PER_S
+                 + n * sum(a + b * beams for a, b in LIDAR_STEP_OPS.values()) / FP32_OPS_PER_S)
+    else:
+        words, flat, w, offsets, _, _, typed = args
+        occ, pos = lidar_fused.spawn_leaves(words, flat, w)
+        cells = candidate_cells(occ, pos, pos[:, None, :] + offsets)
+        kind = "raycast_typed" if typed else "raycast_fast"
+        t_ops = (cells * OPS_PER_CELL[kind] / FP32_ISSUE_PER_S
+                 + 3 * out["lidar"].numel() / FP32_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * t_ops, "operations") if t_ops >= t_bytes else (1e3 * t_bytes, "bytes")
+
+
+def hold_fused(name: str, args, time_it: bool = True) -> dict:
+    """S (``fused_step``) or R (``fused_reset``) against its plain form
+    (``ops.lidar_fused``) on ``args``, every output bitwise with NaN as
+    NaN, launched exactly once; with ``time_it`` the kernel's and the plain
+    form's device ms (CUDA-graph replay) and the bound. Returns the
+    measurements and the number of outputs held."""
+    from apx_torch.ops import lidar_fused, lidar_fused_cuda
+
+    kernel = lidar_fused_cuda.step if name == "fused_step" else lidar_fused_cuda.reset
+    plain = lidar_fused.step_plain if name == "fused_step" else lidar_fused.reset_plain
+    before = lidar_fused_cuda.LAUNCHES[name]
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    check(lidar_fused_cuda.LAUNCHES[name] == before + 1,
+          f"{name}: {lidar_fused_cuda.LAUNCHES[name] - before} launches, not 1")
+    check(list(got) == list(want), f"{name}: outputs {list(got)}, plain {list(want)}")
+    for k in want:
+        check(_bits_equal_any(got[k], want[k]), f"{name} output {k} is not bitwise its plain form")
+    res = {"held": sum(v.numel() for v in want.values()), "max_abs_err": 0.0}
+    if time_it:
+        b_ms, b_by = fused_bound(name, args, want)
+        res.update(ms=device_ms(lambda: kernel(*args), 50),
+                   plain_ms=device_ms(lambda: plain(*args), 4), bound_ms=b_ms, bound_by=b_by,
+                   bytes=_tree_bytes(args, want))
+    return res
+
+
+def phase_fused_kernels(dev) -> list[dict]:
+    """S and R against their plain forms on the card at N = 4096 on the
+    rooms (32x32) and maze (21x21) banks (``fused_inputs``), bitwise with
+    NaN as NaN, R typed and untyped; each timed (CUDA-graph replay) against
+    its plain form and its bound. Returns the kernels rows of S and R (the
+    rooms bank's times; R typed)."""
+    by_bank = {"fused_step": {}, "fused_reset": {}, "fused_reset_untyped": {}}
+    held = {"fused_step": 0, "fused_reset": 0}
+    for env_id, label in FUSED_BANKS:
+        x = fused_inputs(dev, env_id, N, 29)
+        for key, name, args in (("fused_step", "fused_step", x["step"]),
+                                ("fused_reset", "fused_reset", x["reset"]),
+                                ("fused_reset_untyped", "fused_reset", x["reset_untyped"])):
+            res = hold_fused(name, args)
+            held[name] += res.pop("held")
+            by_bank[key][label] = res
+    rows = []
+    for name, source_rep in (("fused_step", FUSED_STEP_REPLACES),
+                             ("fused_reset", FUSED_RESET_REPLACES)):
+        main = by_bank[name][FUSED_BANKS[0][1]]
+        rows.append({"name": name, "route": "cuda", "source": "apx_torch/csrc/lidar_fused.cu",
+                     "replaces": source_rep, "launches": None, "max_abs_err": 0.0,
+                     **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                     "library_ms": None,  # no PyTorch call computes a LIDAR step or reset
+                     "shape": f"N={N} {FUSED_BANKS[0][1]}, 8 beams"
+                              + ("" if name == "fused_step" else ", typed scan"),
+                     "by_bank": by_bank[name], "elements_held_bitwise": held[name]})
+    rows[1]["untyped_by_bank"] = by_bank["fused_reset_untyped"]
+    return rows
+
+
 def _tree_bytes(*trees) -> int:
     total = 0
     for tree in trees:
@@ -1127,6 +1281,12 @@ def _bits_equal_any(got, want) -> bool:
     return got.shape == want.shape and torch.equal(got, want)
 
 
+# One dense NEXT_STEP LIDAR step on the card: S and R once each, F2 once;
+# no standalone K1 or F1 launch and no N1-N3.
+DENSE_STEP_LAUNCHES = {"fma": 0, "sum_squares": 0, "sqrt": 0, "lidar_step": 0, "merge": 1,
+                       "raycast_fast": 0, "raycast_typed": 0, "fused_step": 1, "fused_reset": 1}
+
+
 def phase_lidar_step_kernels(dev) -> list[dict]:
     """F1 (``ops.lidar_step_cuda``, four stages) and F2
     (``ops.merge_cuda``) against their plain forms (``ops.lidar_step``,
@@ -1140,8 +1300,9 @@ def phase_lidar_step_kernels(dev) -> list[dict]:
     prediction against the plain form's. Each is timed (CUDA-graph replay)
     against its plain form and its bound (bytes at 3.35 TB/s, the operations
     at the float32 rate). Then one dense LIDARLocRooms-v0 step, counted
-    from 0: N1-N3 0, F1 4, F2 1, K1 3 + 1 typed. Returns the kernels rows
-    of F1 and F2."""
+    from 0 (``DENSE_STEP_LAUNCHES``: S 1, R 1, F2 1, no K1, F1 or N1-N3),
+    and S and R against their plain forms (``phase_fused_kernels``).
+    Returns the kernels rows of F1, F2, S and R."""
     import apx_torch
     from apx_torch.core import numerics
     from apx_torch.ops import lidar_step, lidar_step_cuda, merge, merge_cuda
@@ -1231,13 +1392,13 @@ def phase_lidar_step_kernels(dev) -> list[dict]:
     venv.step(state, {"action": act, "prediction": torch.zeros((N, 2), device=dev)}, params, gen)
     torch.cuda.synchronize()
     step = {**all_launch_counts(), **numerics.LAUNCHES}
-    want = {"fma": 0, "sum_squares": 0, "sqrt": 0, "lidar_step": 4, "merge": 1,
-            "raycast_fast": 3, "raycast_typed": 1}
-    got = {k: step[k] for k in want}
-    check(got == want, f"a dense LIDAR step launched {got}, expected {want}")
-    f1["launches_one_step"] = got["lidar_step"]
-    f2["launches_one_step"] = got["merge"]
-    return [f1, f2]
+    got = {k: step[k] for k in DENSE_STEP_LAUNCHES}
+    check(got == DENSE_STEP_LAUNCHES,
+          f"a dense LIDAR step launched {got}, expected {DENSE_STEP_LAUNCHES}")
+    s_row, r_row = phase_fused_kernels(dev)
+    for r in (f1, f2, s_row, r_row):
+        r["launches_one_step"] = got[r["name"]]
+    return [f1, f2, s_row, r_row]
 
 
 WINDOW_PAD = 16  # LIDARLocRooms-v0's ray_pad under "pallas_window"
@@ -1406,6 +1567,20 @@ def phase_chain(dev) -> dict:
     }
 
 
+def lidar_path_launches(steps: int, window: bool = False) -> dict:
+    """Kernel launches of a LIDARLocRooms-v0 path of ``steps`` NEXT_STEP
+    steps from its reset. Dense: S once per step, R once at the reset and
+    once per step (the merge's reset runs for every env), F2 once per
+    step, no standalone K1 or F1. Under ``"pallas_window"``: K2 once per
+    step and per reset, K1 3 fast per step and 1 typed per reset, F1 4 per
+    step, F2 once per step, no S or R."""
+    if window:
+        return {"window": 1 + 2 * steps, "raycast_fast": 3 * steps, "raycast_typed": 1 + steps,
+                "lidar_step": 4 * steps, "merge": steps, "fused_step": 0, "fused_reset": 0}
+    return {"fused_step": steps, "fused_reset": 1 + steps, "merge": steps, "raycast_fast": 0,
+            "raycast_typed": 0, "lidar_step": 0}
+
+
 def phase_main_path(dev, **overrides) -> dict:
     import apx_torch
 
@@ -1438,11 +1613,9 @@ def phase_main_path(dev, **overrides) -> dict:
     launches = all_launch_counts()
     path = "LIDAR main path" + (" (window)" if params.use_pallas_window else "")
     numerics = numerics_launches(path, steps, roots=False)
-    fused = {"lidar_step": 4 * steps, "merge": steps, "fma": numerics["fma"],
-             "sum_squares": numerics["sum_squares"]}
-    check(fused == {"lidar_step": 4 * steps, "merge": steps, "fma": 1, "sum_squares": 0},
-          f"{path}: F1, F2, N1, N2 launched {fused}, expected F1 4 and F2 1 per step, N1 "
-          "once (the reset's time obs), N2 never")
+    n12 = {"fma": numerics["fma"], "sum_squares": numerics["sum_squares"]}
+    check(n12 == {"fma": 1, "sum_squares": 0},
+          f"{path}: N1, N2 launched {n12}, expected N1 once (the reset's time obs), N2 never")
 
     check(bool(finite), "non-finite observation")
     check(bool(lidar_ok), "lidar outside [0, 1]")
@@ -1452,12 +1625,9 @@ def phase_main_path(dev, **overrides) -> dict:
     shapes = {k: tuple(v.shape) for k, v in obs.items()}
     check(shapes == {"lidar": (N, 8), "odometry": (N, 2), "time_step": (N,),
                      "map": (N, 32, 32, 1)}, f"obs shapes {shapes}")
-    for name in ("raycast_fast", "raycast_typed"):
-        check(launches[name] > 0, f"{name} was never launched on the main path")
-    if params.use_pallas_window:
-        want = {"window": 1 + 2 * steps, "raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
-        got = {k: launches[k] for k in want}
-        check(got == want, f"window path launches {got}, expected {want}")
+    want = lidar_path_launches(steps, window=params.use_pallas_window)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{path} launches {got}, expected {want}")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)],
             "episode_ends_min": int(ends.min()), "terminations": int(ends.sum()),
@@ -1739,7 +1909,8 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
     if classification:
         want_launches = {"glimpse": 1 + 2 * steps}
     else:
-        want_launches = {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps}
+        # the -sparse loss takes the plain merge (no F2)
+        want_launches = {**lidar_path_launches(steps), "merge": 0}
     got = {name: launches[name] for name in want_launches}
     check(got == want_launches, f"{env_id} launches {got}, expected {want_launches}")
     return {"env": env_id, "metrics": True, "steps": steps, "seconds": dt,
@@ -1908,12 +2079,10 @@ def _tagged(out: str, tag: str) -> dict:
 
 def path_launches(env_id: str, steps: int) -> dict:
     """Kernel launches of one rollout of ``steps`` steps from its reset: the
-    LIDAR masked-merge step casts 3 fast and 1 typed (the reset scan, run
-    for every env every step), the reset 1 typed; an episodic CircleSquare
-    step (DISABLED or boundary) and the reset one glimpse each."""
+    LIDAR path's ``lidar_path_launches``; an episodic CircleSquare step
+    (DISABLED or boundary) and the reset one glimpse each."""
     if env_id.startswith("LIDAR"):
-        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps,
-                "lidar_step": 4 * steps, "merge": steps}
+        return lidar_path_launches(steps)
     return {"glimpse": 1 + steps}
 
 
@@ -2275,9 +2444,14 @@ def phase_compat(dev) -> tuple[list[dict], dict]:
         res = phase_compat_card_vs_cpu(dev, env_id, n, steps, tol, **kw)
         got, m = res["launches"], res["merge_steps"]
         if env_id.startswith("LIDAR"):
-            want = {"raycast_fast": 3 * steps, "raycast_typed": 1 + m}
+            # Reference-mode resets build the state from host maps and scan
+            # with K1 typed (``compat.builders``); the steps are the env's.
+            want = {"raycast_typed": 1 + m, "fused_reset": 0}
             if kw:
-                want["window"] = steps + 1 + m
+                want.update(raycast_fast=3 * steps, lidar_step=4 * steps, fused_step=0,
+                            window=steps + 1 + m)
+            else:
+                want.update(raycast_fast=0, lidar_step=0, fused_step=steps)
             check(m == 2, f"{env_id}: {m} NEXT_STEP merge steps, expected the two boundaries")
         elif env_id == "CircleSquare-v0":
             want = {"glimpse": 1 + steps}
@@ -2419,20 +2593,21 @@ LIDAR_CONFIGS = {
 
 
 def backend_launches(name: str, steps: int) -> dict:
-    """K1 launches of a LIDAR path of ``steps`` masked-merge steps from its
-    reset, under one of LIDAR_CONFIGS: the typed reset scan once at the
-    reset and once per step (the merge's reset runs for every env), and 3
-    fast casts per step; none under the bit windows (plain PyTorch), 2 under
-    the beam tables (the scan is a lookup); under "pallas" every reset scan
-    is fast too."""
-    fused = {"lidar_step": 4 * steps, "merge": steps}  # F1 and F2 under every backend
-    if name in ("bitslab2d", "bitslab", "beam_rects"):
-        return {"raycast_fast": 0, "raycast_typed": 1 + steps, **fused}
-    if name == "beam_tables":
-        return {"raycast_fast": 2 * steps, "raycast_typed": 1 + steps, **fused}
-    if name == "pallas":
-        return {"raycast_fast": 3 * steps + 1 + steps, "raycast_typed": 0, **fused}
-    return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps, **fused}
+    """Kernel launches of a LIDAR path of ``steps`` masked-merge steps from
+    its reset, under one of LIDAR_CONFIGS. The reset (once, then once per
+    step: the merge's reset runs for every env) is R wherever its scan runs
+    on the whole map, else K1 typed on the window (``"windowed"``,
+    ``"mxu_window"``); the step is S where all its casts do (``"xla"``,
+    ``"pallas"``), else F1's 4 stages around K1's 3 fast casts: none under
+    the bit windows (plain PyTorch), 2 under the beam tables (the scan is a
+    lookup). F2 once per step under every backend."""
+    dense_reset = name not in ("windowed", "mxu_window")
+    out = {"merge": steps, "fused_reset": 1 + steps if dense_reset else 0,
+           "raycast_typed": 0 if dense_reset else 1 + steps}
+    if name in ("xla", "pallas"):
+        return {**out, "fused_step": steps, "lidar_step": 0, "raycast_fast": 0}
+    fast = {"bitslab2d": 0, "bitslab": 0, "beam_rects": 0, "beam_tables": 2}.get(name, 3)
+    return {**out, "fused_step": 0, "lidar_step": 4 * steps, "raycast_fast": fast * steps}
 
 
 def _lidar_build(config: dict):
@@ -2904,10 +3079,9 @@ def phase_train_ppo(dev) -> dict:
     LIDARLocRooms-v0 at N = 1024, rollout 32, 2 epochs x 4 minibatches,
     TRAIN_ITERS iterations. Losses and rewards finite, the prediction
     gradient nonzero on the prediction path and zero on the policy and
-    value heads, every weight finite; K1's launches in each iteration, the
-    counts set to 0 just before it: 3 ``raycast_fast`` per rollout step and
-    1 ``raycast_typed`` per step (the masked merge's reset scan), and 1
-    ``raycast_typed`` at the reset. The rollout and update seconds of each
+    value heads, every weight finite; the launches in each iteration, the
+    counts set to 0 just before it: S, R (the masked merge's reset) and F2
+    once per rollout step, and R once at the reset. The rollout and update seconds of each
     iteration and the env-steps/s including the update after the first."""
     import apx_torch
     from apx_torch.examples.train_ppo_lidar import ClipAdam, init_net, make_train_iter
@@ -2918,14 +3092,13 @@ def phase_train_ppo(dev) -> dict:
     obs, state, _ = venv.reset(params, g)
     torch.cuda.synchronize()
     reset_launches = {k: v for k, v in all_launch_counts().items() if v}
-    check(reset_launches == {"raycast_typed": 1},
-          f"train reset launched {reset_launches}, expected one raycast_typed")
+    check(reset_launches == {"fused_reset": 1},
+          f"train reset launched {reset_launches}, expected one fused_reset")
     net = init_net(g, params.map_bank.map_hw, dev)
     opt = ClipAdam(0.5, 3e-4)
     opt_state = opt.init(net)
     train_iter = make_train_iter(venv, opt, TRAIN_N, TRAIN_T)
-    want = {"raycast_fast": 3 * TRAIN_T, "raycast_typed": TRAIN_T, "lidar_step": 4 * TRAIN_T,
-            "merge": TRAIN_T}
+    want = {"fused_step": TRAIN_T, "fused_reset": TRAIN_T, "merge": TRAIN_T}
     iters = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_ITERS):
@@ -3171,17 +3344,22 @@ def _clone(x):
 
 
 @contextlib.contextmanager
-def recorded_calls(module, names: tuple[str, ...], calls: dict, counts: dict):
-    """Replace the kernel wrappers ``names`` that ``module`` (an env module)
-    imported by pass-throughs that count their calls in ``counts`` and keep
-    a copy of the inputs of the first call per wrapper and ray count (K1) or
-    per wrapper (K3) in ``calls``."""
+def recorded_calls(module, names: tuple[str, ...], calls: dict, counts: dict,
+                   labels: dict | None = None):
+    """Replace the kernel wrappers ``names`` of ``module`` (an env module's
+    imports, or a wrapper module whose functions the env calls through it)
+    by pass-throughs that count their calls in ``counts`` (under
+    ``labels[name]``, its launch count's name, where given) and keep a copy
+    of the inputs of the first call per wrapper and ray count (K1) or per
+    wrapper (K3, S, R) in ``calls``."""
     saved = {name: getattr(module, name) for name in names}
 
     def wrap(name, fn):
+        name = (labels or {}).get(name, name)
+
         def call(*args, **kwargs):
             counts[name] = counts.get(name, 0) + 1
-            key = (name, args[2].shape[1] if name != "glimpse" else None)
+            key = (name, args[2].shape[1] if name.startswith("raycast") else None)
             if key not in calls:
                 calls[key] = ([_clone(a) for a in args], {k: _clone(v) for k, v in kwargs.items()})
             return fn(*args, **kwargs)
@@ -3199,13 +3377,12 @@ def recorded_calls(module, names: tuple[str, ...], calls: dict, counts: dict):
 
 def expected_workload_launches(name: str, steps: int, cycles: int) -> dict:
     """Kernel launches of a bench workload's reset and ``steps`` steps of
-    its loop: a LIDAR step casts 3 fast and 1 typed (the merge's reset
-    scan), the reset 1 typed; an episodic classification step (DISABLED or
+    its loop: a LIDAR step launches S, R (the merge's reset) and F2, the
+    reset R; an episodic classification step (DISABLED or
     boundary) and the reset one glimpse; TinyImageNetLoc adds the target
     glimpse at the reset and at each cycle's boundary."""
-    if name.startswith("lidar"):  # and F1's four stages, F2's merge per step
-        return {"raycast_fast": 3 * steps, "raycast_typed": 1 + steps, "lidar_step": 4 * steps,
-                "merge": steps}
+    if name.startswith("lidar"):  # S, R (the merge's reset) and F2 per step
+        return {"fused_step": steps, "fused_reset": 1 + steps, "merge": steps}
     if name == "tin_loc":
         return {"glimpse": 2 + steps + cycles}
     return {"glimpse": 1 + steps}
@@ -3276,13 +3453,14 @@ def phase_workload_kernels(dev) -> dict:
     each path and read just after: they must equal the wrappers' calls
     (each call launched) and ``expected_workload_launches``. The inputs of
     the first call of each kernel (and ray count) are kept and the kernel
-    is held against its plain form on them (K1 bitwise, K3 within
+    is held against its plain form on them (K1, S and R bitwise, K3 within
     GLIMPSE_TOL), with its device, plain and bound ms (and ``grid_sample``'s
     for K3; for K1 also the wrapper's call as the path makes it, which,
     where the env passes no segment lengths, computes them first)."""
     import apx_torch.envs.image_perception as image_mod
     import apx_torch.envs.lidar_localization as lidar_mod
     from apx_torch.bench import _draws, _loop, _steps
+    from apx_torch.ops import lidar_fused_cuda
 
     out = {}
     for name, n in WORKLOAD_PATHS:
@@ -3290,6 +3468,8 @@ def phase_workload_kernels(dev) -> dict:
         g = torch.Generator(dev).manual_seed(11)
         calls, counts = {}, {}
         with recorded_calls(lidar_mod, ("raycast_fast", "raycast_typed"), calls, counts), \
+                recorded_calls(lidar_fused_cuda, ("step", "reset"), calls, counts,
+                               {"step": "fused_step", "reset": "fused_reset"}), \
                 recorded_calls(image_mod, ("glimpse",), calls, counts):
             torch.cuda.synchronize()
             reset_all_launch_counts()
@@ -3307,6 +3487,10 @@ def phase_workload_kernels(dev) -> dict:
         for (kernel, r), (args, kwargs) in calls.items():
             if kernel == "glimpse":
                 res["kernels"]["glimpse"] = _hold_k3(args, kwargs)
+            elif kernel.startswith("fused"):  # R's typed flag comes by keyword
+                held = hold_fused(kernel, (*args, *kwargs.values()))
+                held.pop("held")
+                res["kernels"][kernel] = {"shape": f"N={n} H={args[0].shape[1]}", **held}
             else:
                 occ = args[0]
                 res["kernels"].setdefault(kernel, {"shape": f"N={n} {occ.shape[1]}x{occ.shape[2]}",
@@ -3395,6 +3579,8 @@ def main() -> int:
 
     main_path = phase_main_path(dev)
     emit(f"main path: {json.dumps(main_path)}", flush=True)
+    # S, R and F2 run on the dense main path; K1 and F1 on the window path
+    # (below) and the other window backends.
     for r in rows + fused_rows:
         r["launches"] = main_path["launches"][r["name"]]
     emit(f"card vs cpu: {json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}))}",
@@ -3420,6 +3606,10 @@ def main() -> int:
                        "by_r": k1_window[r["name"]]}
     for r in fused_rows:
         r["window"] = {"launches": window_path["launches"][r["name"]]}
+    for r in rows[:2] + fused_rows[:1]:  # K1 and F1: their launches are the window path's
+        r["launches"] = window_path["launches"][r["name"]]
+        r["launches_path"] = f"LIDARLocRooms-v0 pallas_window, N={N}, reset + " \
+                             f"{window_path['steps']} steps (0 on the dense path: S and R)"
     k2["launches"] = window_path["launches"]["window"]
     rows.append(k2)
     emit(f"window card vs cpu: "
@@ -3480,13 +3670,13 @@ def main() -> int:
         emit(f"throughput: {json.dumps(rec)}", flush=True)
     workloads = phase_workload_kernels(dev)
     emit(f"workload kernels: {json.dumps(workloads)}", flush=True)
-    for r in rows[:2] + [k3]:
+    for r in rows[:2] + [k3] + fused_rows[2:]:
         r["workloads"] = {
             name: {"num_envs": path["num_envs"], "steps": path["steps"],
                    "launches": path["launches"][r["name"]],
                    "launches_per_step": path["launches_per_step"][r["name"]],
                    **path["kernels"][r["name"]]}
-            for name, path in workloads.items() if r["name"] in path["launches"]}
+            for name, path in workloads.items() if r["name"] in path["kernels"]}
         r["max_abs_err"] = max([r["max_abs_err"]] + [
             v["max_abs_err"] for w in r["workloads"].values()
             for v in (w["by_r"].values() if "by_r" in w else [w])])
@@ -3497,7 +3687,7 @@ def main() -> int:
     emit(f"sharded rollout: {json.dumps(gloo_lidar)}", flush=True)
     gloo_cs = phase_sharded_rollout("CircleSquare-v0", 2, "gloo", EPISODIC_STEPS, period=16)
     emit(f"sharded rollout: {json.dumps(gloo_cs)}", flush=True)
-    for r in rows:
+    for r in rows + fused_rows:
         for path in (sharded, gloo_lidar, gloo_cs):
             if r["name"] in path["ranks"][0]["launches"]:
                 r.setdefault("sharded", []).append({
@@ -3515,7 +3705,7 @@ def main() -> int:
     compat, compat_launches = phase_compat(dev)
     for res in compat:
         emit(f"compat card vs cpu: {json.dumps(res)}", flush=True)
-    for r in rows:
+    for r in rows + fused_rows:
         if r["name"] in compat_launches:
             r["compat"] = compat_launches[r["name"]]
     for env in ("lidar_rooms", "circle_square"):
@@ -3541,9 +3731,10 @@ def main() -> int:
     emit(f"kernels on the backends' windows: {json.dumps(backend_kernels)}", flush=True)
     backends = phase_raycast_backends(dev)
     emit(f"raycast backends: {json.dumps(backends)}", flush=True)
-    for r in rows[:2]:
+    for r in rows[:2] + fused_rows:
         r["backends"] = {name: path["launches"][r["name"]]
                          for name, path in backends["paths"].items()}
+    for r in rows[:2]:
         r["backend_windows"] = backend_kernels[r["name"]]
     samplers = phase_samplers(dev)
     emit(f"samplers: {json.dumps(samplers)}", flush=True)
@@ -3562,7 +3753,7 @@ def main() -> int:
 
     train = phase_train_ppo(dev)
     emit(f"train ppo: {json.dumps(train)}", flush=True)
-    for r in rows[:2] + fused_rows:
+    for r in (r for r in rows + fused_rows if r["name"] in train["launches_per_iteration"]):
         r["train"] = {"launches_per_iteration": train["launches_per_iteration"][r["name"]],
                       "launches": [x["launches"][r["name"]] for x in train["iterations"]],
                       "path": f"train_ppo_lidar iteration, LIDARLocRooms-v0, N={TRAIN_N}, "

@@ -535,8 +535,9 @@ def test_light_dark_on_card_matches_cpu(dev):
 def test_sparse_metrics_lidar_on_card_matches_cpu(dev):
     """LIDARLocMaze-sparse-v0 with metrics: obs, states, rewards, dones and
     the prediction info bitwise; the stats' ints, bools and NaN positions
-    bitwise, their floats within 1e-6; K1 launched 3 times per step."""
+    bitwise, their floats within 1e-6; S launched once per step."""
     from apx_torch.core.env import tree_map
+    from apx_torch.ops import lidar_fused_cuda
 
     def bitwise(out):
         obs, s, *rest, info = out
@@ -545,7 +546,7 @@ def test_sparse_metrics_lidar_on_card_matches_cpu(dev):
     def stats(out):
         return out[1].buf, out[5]["stats"]
 
-    before = raycast_cuda.LAUNCHES["raycast_fast"]
+    before = lidar_fused_cuda.LAUNCHES["fused_step"]
     for cpu, card in _card_and_cpu_steps(dev, "LIDARLocMaze-sparse-v0", 64, 110, 9, metrics=True):
         a, b = [], []
         tree_map(a.append, bitwise(cpu))
@@ -562,7 +563,7 @@ def test_sparse_metrics_lidar_on_card_matches_cpu(dev):
                 assert not ok.any() or (x[ok] - y[ok]).abs().max() <= 1e-6
             else:
                 assert torch.equal(x, y)
-    assert raycast_cuda.LAUNCHES["raycast_fast"] == before + 3 * 110
+    assert lidar_fused_cuda.LAUNCHES["fused_step"] == before + 110
 
 
 def test_space_sample_lands_on_the_generators_card(dev):
@@ -731,22 +732,24 @@ def test_kernel_on_backend_windows_bitwise_equal_to_plain(dev, form, radius, typ
                                      "pallas", "xla"])
 def test_backend_env_on_card_matches_cpu(dev, backend):
     """Each raycast backend's LIDARLocRooms-v0 trajectory on the card
-    bitwise the CPU's, and K1 launched where the backend runs it: under
-    ``"pallas"`` the reset scan too, untyped."""
+    bitwise the CPU's, and K1, F1, S and R launched where the backend runs
+    them (``chip_smoke.backend_launches``): R for every reset scan on the
+    whole map (under ``"pallas"`` untyped), S for every step whose casts
+    all are."""
     import apx_torch
     from apx_torch.core.env import tree_map
+    from chip_smoke import all_launch_counts, backend_launches, reset_all_launch_counts
 
     n = 64
     runs = [apx_torch.make_vec("LIDARLocRooms-v0", n, device=d, raycast_backend=backend)
             for d in ("cpu", dev)]
     gen = torch.Generator().manual_seed(4)
     draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
-    raycast_cuda.reset_launch_counts()
+    reset_all_launch_counts()
     carry = [v.reset(p, draws={k: x.to(p.device) for k, x in draws.items()})[:2]
              for v, p in runs]
-    reset = dict(raycast_cuda.LAUNCHES)
-    typed_at_reset = 0 if backend == "pallas" else 1
-    assert reset == {"raycast_fast": 1 - typed_at_reset, "raycast_typed": typed_at_reset}
+    want = backend_launches(backend, 0)
+    assert {k: all_launch_counts()[k] for k in want} == want
     for _ in range(40):
         act = torch.rand((n, 2), generator=gen) * 2 - 1
         draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
@@ -761,8 +764,8 @@ def test_backend_env_on_card_matches_cpu(dev, backend):
             outs.append(leaves)
         for a, b in zip(*outs):
             assert torch.equal(a, b)
-    fast = {"bitslab2d": 0, "bitslab": 0}.get(backend, 3 * 40 + (40 if backend == "pallas" else 0))
-    assert raycast_cuda.LAUNCHES["raycast_fast"] - reset["raycast_fast"] == fast
+    want = backend_launches(backend, 40)
+    assert {k: all_launch_counts()[k] for k in want} == want
 
 
 @pytest.mark.parametrize("shape,sensor", [((64, 64, 3), (10, 10)), ((28, 28, 1), (5, 5))])
@@ -949,9 +952,10 @@ def test_merge_dispatch_on_card(dev):
 
 
 def test_dense_lidar_step_launches(dev):
-    """One dense LIDAR step: no N1-N3 launch, F1 4, F2 1, K1 3 + 1 typed."""
+    """One dense LIDAR step (``chip_smoke.DENSE_STEP_LAUNCHES``): S 1, R 1,
+    F2 1, no standalone K1 or F1 launch and no N1-N3."""
     import apx_torch
-    from chip_smoke import all_launch_counts, reset_all_launch_counts
+    from chip_smoke import DENSE_STEP_LAUNCHES, all_launch_counts, reset_all_launch_counts
     from apx_torch.core import numerics
 
     venv, p = apx_torch.make_vec("LIDARLocRooms-v0", 256, device=dev)
@@ -962,9 +966,7 @@ def test_dense_lidar_step_launches(dev):
     reset_all_launch_counts()
     venv.step(state, {"action": act, "prediction": torch.zeros((256, 2), device=dev)}, p, gen)
     got = {**all_launch_counts(), **numerics.LAUNCHES}
-    want = {"fma": 0, "sum_squares": 0, "sqrt": 0, "lidar_step": 4, "merge": 1,
-            "raycast_fast": 3, "raycast_typed": 1}
-    assert {k: got[k] for k in want} == want
+    assert {k: got[k] for k in DENSE_STEP_LAUNCHES} == DENSE_STEP_LAUNCHES
 
 
 def test_fused_step_in_cuda_graph(dev):
@@ -993,3 +995,48 @@ def test_fused_step_in_cuda_graph(dev):
     tree_map(b.append, want)
     for x, y in zip(a, b, strict=True):
         assert torch.equal(x, y)
+
+
+# ---- S and R (ops.lidar_fused_cuda) ----------------------------------------
+
+
+@pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocMaze-v0"])
+def test_fused_step_and_reset_bitwise_on_card(dev, env_id):
+    """S and R against their plain forms (``ops.lidar_fused``) at N = 4096
+    on the 32x32 rooms and 21x21 maze banks, every output bitwise with NaN
+    as NaN, one launch each (``chip_smoke.hold_fused`` on
+    ``chip_smoke.fused_inputs``: edge actions and positions; R typed and
+    untyped)."""
+    from chip_smoke import fused_inputs, hold_fused
+
+    x = fused_inputs(dev, env_id, 4096, 29)
+    assert hold_fused("fused_step", x["step"], time_it=False)["held"] > 0
+    for key in ("reset", "reset_untyped"):
+        assert hold_fused("fused_reset", x[key], time_it=False)["held"] > 0
+
+
+def test_fused_raises_on_card(dev):
+    """S raises on an action that requires grad (it has no backward), and
+    S and R on a wrong dtype, shape, layout or device; nothing launched."""
+    from apx_torch.ops import lidar_fused_cuda
+    from chip_smoke import fused_inputs
+
+    x = fused_inputs(dev, "LIDARLocRooms-v0", 64, 3)
+    step, reset = list(x["step"]), list(x["reset"])
+    before = dict(lidar_fused_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="detach"):
+        lidar_fused_cuda.step(step[0], step[1].clone().requires_grad_(), *step[2:])
+    bad = [(1, step[1].double()), (2, step[2][:32]), (2, step[2].t().contiguous().t()),
+           (4, step[4].cpu()), (0, step[0].to(torch.uint8))]
+    for i, v in bad:
+        with pytest.raises(ValueError):
+            lidar_fused_cuda.step(*step[:i], v, *step[i + 1:])
+    for i, v in [(0, reset[0].to(torch.int32)), (1, reset[1][:32]), (3, reset[3].cpu())]:
+        with pytest.raises(ValueError):
+            lidar_fused_cuda.reset(*reset[:i], v, *reset[i + 1:])
+    with pytest.raises(ValueError):
+        lidar_fused_cuda.reset(*reset[:2], 33, *reset[3:])
+    assert lidar_fused_cuda.LAUNCHES == before
+    with torch.no_grad():
+        lidar_fused_cuda.step(step[0], step[1].clone().requires_grad_(), *step[2:])
+    assert lidar_fused_cuda.LAUNCHES["fused_step"] == before["fused_step"] + 1

@@ -1,0 +1,226 @@
+"""The LIDAR step and reset on the whole map as the plain forms of kernels S
+and R (``ops.lidar_fused``), on the CPU: ``step_plain`` against apx's
+jitted ``step_env`` and ``reset_plain`` against apx's jitted reset with
+the same spawns injected (``apx.compat.builders.reset_from_draws``), on
+LIDARLocRooms-v0, LIDARLocMaze-v0 (21x21: a 32-cell word of the map spans
+rows), LIDARLocRoomsStatic-v0 and under ``raycast_backend="pallas"`` (the
+untyped reset scan; apx's Pallas kernel in interpret mode); the edge
+actions and positions of ``chip_smoke.lidar_step_cases``; the wrappers'
+CPU dispatch and the env's choice of S and R by backend.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_lidar_env import _eq
+from test_torch_raycast_backends import pallas_interpret  # noqa: F401
+
+import apx
+from apx.compat.builders import reset_from_draws as jax_reset_from_draws
+
+import apx_torch
+from apx_torch.ops import lidar_fused, lidar_fused_cuda, lidar_step, raycast_cuda
+from apx_torch.ops.lidar_step import STEP_LEAVES
+from chip_smoke import lidar_step_cases
+
+torch.set_num_threads(1)
+
+CONFIGS = [("LIDARLocRooms-v0", {}), ("LIDARLocMaze-v0", {}), ("LIDARLocRoomsStatic-v0", {}),
+           ("LIDARLocRooms-v0", {"raycast_backend": "pallas"})]
+IDS = ["rooms", "maze", "rooms_static", "rooms_pallas"]
+
+
+def _base(env):
+    while hasattr(env, "env"):
+        env = env.env
+    return env
+
+
+def _pair(env_id, n, kw):
+    jvenv, jp = apx.make_vec(env_id, num_envs=n, **kw)
+    _, p = apx_torch.make_vec(env_id, n, device="cpu", **kw)
+    return _base(jvenv.env), jp, p
+
+
+def _nan_eq(a, b: torch.Tensor, what: str):
+    """Bitwise, NaN as NaN."""
+    a = np.asarray(a)
+    if a.dtype == np.float32:
+        np.testing.assert_array_equal(np.isnan(a), torch.isnan(b).numpy(), err_msg=what)
+        ok = ~np.isnan(a)
+        np.testing.assert_array_equal(a.view(np.int32)[ok], b.numpy().view(np.int32)[ok],
+                                      err_msg=what)
+    else:
+        _eq(a, b, what)
+
+
+def _edge_state(jstate, p, n: int):
+    """The first envs moved to ``lidar_step_cases``' corner, edge and
+    lattice positions (on the map's size), the rest where the reset put
+    them; actions: its finite edge actions (zeros, |a| exactly 1 and
+    above, tiny and at the slide's threshold), then uniform in [-1.5,
+    1.5]^2."""
+    cases = lidar_step_cases(23, n)
+    h, w = p.map_bank.map_hw
+    edge_pos = cases["pos"][:8] * np.float32(w / 32.0)
+    pos = np.asarray(jstate.pos).copy()
+    pos[:8] = edge_pos
+    action = cases["action"].copy()
+    action[~np.isfinite(action).all(-1)] = 0.0
+    return jstate.replace(pos=jnp.asarray(pos), initial_pos=jnp.asarray(pos)), action
+
+
+@pytest.mark.parametrize("env_id,kw", CONFIGS, ids=IDS)
+def test_step_plain_bitwise_equal_to_apx(env_id, kw, pallas_interpret):  # noqa: F811
+    """``step_plain`` from apx's states, 40 steps with the same actions:
+    every leaf S returns bitwise apx's jitted ``step_env`` (NaN as NaN),
+    the first step from edge positions and actions; nothing launched."""
+    n = 64
+    jenv, jp, p = _pair(env_id, n, kw)
+    keys = jax.random.split(jax.random.PRNGKey(3), n)
+    _, js, _ = jax.jit(jax.vmap(lambda k: jenv.reset_env(k, jp)))(keys)
+    step = jax.jit(jax.vmap(lambda k, s, a, pr: jenv.step_env(k, s, a, pr, jp)))
+    js, action = _edge_state(js, p, n)
+    rng = np.random.default_rng(7)
+    before = dict(lidar_fused_cuda.LAUNCHES), dict(raycast_cuda.LAUNCHES)
+    ends = 0
+    for t in range(40):
+        if t:
+            action = rng.uniform(-1.5, 1.5, (n, 2)).astype(np.float32)
+        r = step(keys, js, jnp.asarray(action), jnp.zeros((n, 2)))
+        got = lidar_fused.step_plain(
+            *(torch.from_numpy(np.array(x)) for x in (js.occ, action, js.pos, js.odo_pending,
+                                                      js.initial_pos)),
+            p.map_size, p.inv_map_size, p.beam_offsets, p.inv_range)
+        assert tuple(got) == STEP_LEAVES
+        want = {"pos": r.state.pos, "initial_pos": r.state.initial_pos,
+                "odo_pending": r.state.odo_pending, "base_reward": r.base_reward,
+                "terminated": r.terminated, "truncated": r.truncated,
+                "target": r.prediction_target, "lidar": r.obs["lidar"],
+                "odometry": r.obs["odometry"]}
+        for k, v in want.items():
+            _nan_eq(v, got[k], f"{env_id} {kw} step {t} {k}")
+        ends += int(np.asarray(r.terminated).sum())
+        js = r.state
+    assert ends > 0
+    assert (dict(lidar_fused_cuda.LAUNCHES), dict(raycast_cuda.LAUNCHES)) == before
+
+
+def _spawns(p, n: int, rng):
+    """(bank_pos, k) (N,) int64: every map in turn (or the static map) and
+    a uniform free cell of it."""
+    bank = p.map_bank
+    if p.static_map:
+        bank_pos = np.full(n, p.static_map_pos, np.int64)
+    else:
+        bank_pos = np.arange(n, dtype=np.int64) % bank.num_maps
+    free = bank.free_counts.numpy()[bank_pos]
+    return bank_pos, (rng.random(n) * free).astype(np.int64)
+
+
+@pytest.mark.parametrize("env_id,kw", CONFIGS, ids=IDS)
+def test_reset_plain_bitwise_equal_to_apx(env_id, kw, pallas_interpret):  # noqa: F811
+    """``reset_plain`` from ``MapBank.spawn``'s row words and spawn cells
+    against apx's jitted reset with the same map and spawn injected: the
+    map, the position, the odometry flag, lidar (the typed scan, untyped
+    under "pallas") and odometry bitwise; many spawns are cell centres
+    whose beams graze wall corners (on the rooms maps)."""
+    n = 512
+    jenv, jp, p = _pair(env_id, n, kw)
+    bank_pos, k = _spawns(p, n, np.random.default_rng(11))
+    words, flat, index = p.map_bank.spawn(torch.from_numpy(bank_pos), torch.from_numpy(k))
+    h, w = p.map_bank.map_hw
+    got = lidar_fused.reset_plain(words, flat, w, p.beam_offsets, p.lidar_range,
+                                  p.inv_map_size, typed=kw.get("raycast_backend") != "pallas")
+    assert tuple(got) == lidar_fused.RESET_LEAVES
+    occ = p.map_bank.maps.numpy()[bank_pos]
+    flat_np = p.map_bank.free_cells.numpy()[bank_pos, k]
+    pos = (np.stack([flat_np % w, flat_np // w], -1) + 0.5).astype(np.float32)
+    draws = {"occ": occ, "pos": pos, "map_idx": index.numpy().astype(np.uint32)}
+    jobs, js, _ = jax.jit(lambda d: jax_reset_from_draws(jenv, d, jp))(draws)
+    _eq(js.occ, got["occ"], "occ")
+    for k_, v in (("pos", js.pos), ("odo_pending", js.odo_pending), ("lidar", jobs["lidar"]),
+                  ("odometry", jobs["odometry"])):
+        _nan_eq(v, got[k_], f"{env_id} {kw} reset {k_}")
+    if env_id == "LIDARLocMaze-v0":
+        assert (h, w) == (21, 21)
+    if env_id == "LIDARLocRooms-v0" and not kw:
+        assert (got["lidar"] == 0).any()  # single-point grazes report 0 (typed)
+
+
+def test_wrappers_run_the_plain_forms_on_the_cpu():
+    """On CPU tensors ``lidar_fused_cuda.step`` / ``reset`` are the plain
+    forms, bitwise, and launch nothing."""
+    n = 32
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    draws = venv.env.draw_reset(n, p, g)
+    words, flat, _ = p.map_bank.spawn(draws["bank_pos"], draws["k"])
+    before = dict(lidar_fused_cuda.LAUNCHES)
+    args = (words, flat, 32, p.beam_offsets, p.lidar_range, p.inv_map_size)
+    for typed in (True, False):
+        got, want = lidar_fused_cuda.reset(*args, typed), lidar_fused.reset_plain(*args, typed)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    r = want
+    action = torch.rand((n, 2), generator=g) * 3 - 1.5
+    step_args = (r["occ"], action, r["pos"], r["odo_pending"], r["pos"], p.map_size,
+                 p.inv_map_size, p.beam_offsets, p.inv_range)
+    got, want = lidar_fused_cuda.step(*step_args), lidar_fused.step_plain(*step_args)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert dict(lidar_fused_cuda.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("overrides,step_s,reset_r", [
+    ({}, True, True), ({"raycast_backend": "xla"}, True, True),
+    ({"raycast_backend": "pallas"}, True, True), ({"raycast_backend": "bitslab2d"}, False, True),
+    ({"raycast_backend": "bitslab"}, False, True), ({"raycast_backend": "hybrid"}, False, True),
+    ({"raycast_backend": "windowed"}, False, False),
+    ({"raycast_backend": "mxu_window"}, False, False),
+    ({"raycast_backend": "pallas_window"}, False, False),
+    ({"raycast_backend": "pallas_window", "lidar_range": 9.0}, True, True),
+    ({"use_beam_tables": True}, False, True)])
+def test_env_chooses_s_and_r_by_backend(overrides, step_s, reset_r):
+    """S where every cast of the step runs on the whole map, R where the
+    reset scan does: the dense backends, and the window backends whose
+    windows do not fit the range (which cast on the whole map, as apx's
+    do); never with the beam tables' step scan. Where S runs, the move's
+    |d| is the unfused one stage A computes."""
+    bank = None
+    if overrides.get("use_beam_tables"):
+        _, p0 = apx_torch.make_vec("LIDARLocRooms-v0", 4, device="cpu")
+        bank = p0.map_bank.with_beam_tables()
+    kw = {"map_bank": bank} if bank is not None else {}
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", 4, device="cpu", **overrides, **kw)
+    assert (p.step_on_whole_map, p.reset_on_whole_map) == (step_s, reset_r)
+    if p.step_on_whole_map:
+        assert not p.move_len_contracted
+
+
+def test_step_plain_equals_the_staged_k1_path():
+    """``step_plain`` is F1's plain stages around the plain casts
+    (``lidar_step.staged_step``) with the move's unfused |d|: the same
+    leaves, bitwise, as the sequence written out with K1's CPU wrappers."""
+    n = 64
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    _, state, _ = venv.reset(p, g)
+    s = state.inner.inner
+    action = torch.rand((n, 2), generator=g) * 3 - 1.5
+
+    def move(origin, targets, seg):
+        return raycast_cuda.raycast_fast(s.occ, origin, targets, seg)
+
+    def cast(origin, targets):
+        return raycast_cuda.raycast_fast(s.occ, origin, targets)
+
+    want = lidar_step.staged_step(lidar_step, action, s.pos, s.odo_pending, s.initial_pos,
+                                  p.map_size, p.inv_map_size, p.beam_offsets, p.inv_range,
+                                  move, cast, cast)
+    got = lidar_fused.step_plain(s.occ, action, s.pos, s.odo_pending, s.initial_pos,
+                                 p.map_size, p.inv_map_size, p.beam_offsets, p.inv_range)
+    for k in STEP_LEAVES:
+        assert torch.equal(got[k], want[k]), k
