@@ -41,7 +41,6 @@ tables and computes glimpses in float32 for every precision setting.
 
 from __future__ import annotations
 
-import time
 from typing import Any
 
 import numpy as np
@@ -49,6 +48,7 @@ import torch
 
 from ..core.env import tree_select
 from ..core.losses import WeightedLossFn
+from ..core.trace import span, timed
 from ..render import RenderTracker
 from ..wrappers.base import APWrapper
 from .builders import apply_step_draws, reset_from_draws
@@ -57,6 +57,9 @@ from .shims import make_shim
 from .wire import wire_codec_for
 
 __all__ = ["VectorAdapter", "np_random"]
+
+# The host phases of a step, each a span ``gym.<phase>``, in order.
+_PHASES = ("upload", "issue", "transfer", "compose", "decode", "tracker")
 
 # apx's uint32 info leaves, which its adapter widens to int64 on the host.
 _UINT32_INFO_KEYS = frozenset({"map_idx"})
@@ -174,8 +177,9 @@ class VectorAdapter:
         g = torch.Generator(device=self.device)
         self._null_step_draws = {k: torch.zeros_like(v)
                                  for k, v in env.draw_step(num_envs, params, g).items()}
-        # Per-step timings (``record_timings``): host seconds per phase,
-        # device milliseconds from CUDA events, and the transfer's bytes.
+        # Per-step timings (``record_timings``): host seconds per phase (its
+        # span ``gym.<phase>``, ``_PHASES``), device milliseconds from CUDA
+        # events, and the transfer's bytes.
         self.record_timings = False
         self.timings: list[dict] = []
 
@@ -247,10 +251,6 @@ class VectorAdapter:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self._mark[name] = ev
-
-    def _host_mark(self, name):
-        if self.record_timings:
-            self._mark[name] = time.perf_counter()
 
     # ------------------------------------------------------------------
     def reset(self, *, seed: int | None = None, options: dict | None = None):
@@ -337,64 +337,94 @@ class VectorAdapter:
 
     def _fetch_step(self, obs, base_reward, term, trunc, info, target, first):
         self._event("step_done")
-        self._host_mark("issued")
-        obs = _apx_int_dtype(obs)
-        info = _apx_int_dtype(info, _UINT32_INFO_KEYS)
-        target = _apx_int_dtype(target)
-        if self.record_timings:  # the bytes the transfer would take without the codec
-            leaves: list[torch.Tensor] = []
-            _flatten((obs, base_reward, term, trunc, info, target, first), leaves)
-            self._mark["unencoded_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
-        host = self._to_host({
-            "obs": self._wire(obs),
-            "base_reward": base_reward,
-            "term": term,
-            "trunc": trunc,
-            "info": info,
-            "target": target,
-            "first": first,
-        })
-        self._event("copied")
-        self._host_mark("fetched")
+        with span("gym.transfer"):
+            obs = _apx_int_dtype(obs)
+            info = _apx_int_dtype(info, _UINT32_INFO_KEYS)
+            target = _apx_int_dtype(target)
+            if self.record_timings:  # the bytes the transfer would take without the codec
+                leaves: list[torch.Tensor] = []
+                _flatten((obs, base_reward, term, trunc, info, target, first), leaves)
+                self._mark["unencoded_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+            host = self._to_host({
+                "obs": self._wire(obs),
+                "base_reward": base_reward,
+                "term": term,
+                "trunc": trunc,
+                "info": info,
+                "target": target,
+                "first": first,
+            })
+            self._event("copied")
         return host
 
     def step(self, actions: dict[str, Any]):
+        if not self.record_timings:
+            return self._step(actions)
         self._mark = {}
-        self._host_mark("start")
+        with timed() as times:
+            out = self._step(actions)
+        self._finish_timings(times)
+        return out
+
+    def _step(self, actions: dict[str, Any]):
         env, p, n, dev = self.env, self.params, self.num_envs, self.device
         pred = actions["prediction"]
-        act_t = torch.as_tensor(np.asarray(actions["action"], dtype=np.float32), device=dev)
-        pred_t = torch.as_tensor(np.asarray(pred, dtype=np.float32), device=dev)
-        self._host_mark("uploaded")
-        self._event("step_start")
+        with span("gym.upload"):
+            act_t = torch.as_tensor(np.asarray(actions["action"], dtype=np.float32), device=dev)
+            pred_t = torch.as_tensor(np.asarray(pred, dtype=np.float32), device=dev)
 
         if self.autoreset == "lockstep" and self._prev_done.all():
             # Lockstep reset step (image_perception_module.py:197-202 +
             # active_perception_vector_env.py:84-111): base 0, not done,
             # loss vs the env-specific reset target.
-            old_state = self._state
-            if self.rng == "reference":
-                obs, state, info = reset_from_draws(env, self.shim.autoreset_draws(), p)
-            else:
-                obs, state, info = self._native_reset(old_state)
-            target = env.prediction_target_on_reset(old_state, state, p)
-            self._state = state
-            self._prev_done = np.zeros(n, dtype=bool)
-            falses = torch.zeros(n, dtype=torch.bool, device=dev)
-            host = self._fetch_step(obs, torch.zeros(n, device=dev), falses, falses, info,
-                                    target, tracker_slices(self.base, state))
-            zeros = np.zeros(n, dtype=np.float64)
-            falses_np = np.zeros(n, dtype=bool)
-            reward, info = self._compose(pred, zeros, falses_np, falses_np, host["info"],
-                                         host["target"], None)
-            self._host_mark("composed")
-            obs_np = self._unwire(host["obs"])
-            self._host_mark("decoded")
-            update_tracker_step(self.tracker, self.base, p, actions, obs_np, info,
-                                host["first"], was_reset=True)
-            self._finish_timings()
+            with span("gym.issue"):
+                self._event("step_start")
+                old_state = self._state
+                if self.rng == "reference":
+                    obs, state, info = reset_from_draws(env, self.shim.autoreset_draws(), p)
+                else:
+                    obs, state, info = self._native_reset(old_state)
+                target = env.prediction_target_on_reset(old_state, state, p)
+                self._state = state
+                self._prev_done = np.zeros(n, dtype=bool)
+                falses = torch.zeros(n, dtype=torch.bool, device=dev)
+                base_reward = torch.zeros(n, device=dev)
+                first = tracker_slices(self.base, state)
+            host = self._fetch_step(obs, base_reward, falses, falses, info, target, first)
+            with span("gym.compose"):
+                zeros = np.zeros(n, dtype=np.float64)
+                falses_np = np.zeros(n, dtype=bool)
+                reward, info = self._compose(pred, zeros, falses_np, falses_np, host["info"],
+                                             host["target"], None)
+            with span("gym.decode"):
+                obs_np = self._unwire(host["obs"])
+            with span("gym.tracker"):
+                update_tracker_step(self.tracker, self.base, p, actions, obs_np, info,
+                                    host["first"], was_reset=True)
             return obs_np, reward, falses_np, falses_np, info
 
+        with span("gym.issue"):
+            self._event("step_start")
+            obs, base_reward, term, trunc, info, target, first, reset_mask = self._issue(
+                act_t, pred_t)
+        host = self._fetch_step(obs, base_reward, term, trunc, info, target, first)
+        with span("gym.compose"):
+            term_np, trunc_np = host["term"], host["trunc"]
+            self._prev_done = term_np | trunc_np
+            reward, info = self._compose(pred, host["base_reward"], term_np, trunc_np,
+                                         host["info"], host["target"], reset_mask)
+        with span("gym.decode"):
+            obs_np = self._unwire(host["obs"])
+        with span("gym.tracker"):
+            update_tracker_step(self.tracker, self.base, p, actions, obs_np, info, host["first"])
+        return obs_np, reward, term_np, trunc_np, info
+
+    def _issue(self, act_t, pred_t):
+        """The device step of a step that is not a lockstep reset step, with
+        the merge of the NEXT_STEP resets: (obs, base reward, terminated,
+        truncated, info, target, the tracker's slices, the host reset mask
+        or None)."""
+        env, p, n, dev = self.env, self.params, self.num_envs, self.device
         reset_draws_host = None
         if self.rng == "reference":
             if self.autoreset == "next_step" and self._prev_done.any() and hasattr(
@@ -438,34 +468,12 @@ class VectorAdapter:
 
         first = tracker_slices(self.base, state, self._state)
         self._state = state
-        host = self._fetch_step(obs, base_reward, term, trunc, info, raw.prediction_target,
-                                first)
-        term_np, trunc_np = host["term"], host["trunc"]
-        self._prev_done = term_np | trunc_np
-        reward, info = self._compose(pred, host["base_reward"], term_np, trunc_np,
-                                     host["info"], host["target"], reset_mask)
-        self._host_mark("composed")
-        obs_np = self._unwire(host["obs"])
-        self._host_mark("decoded")
-        update_tracker_step(self.tracker, self.base, p, actions, obs_np, info, host["first"])
-        self._finish_timings()
-        return obs_np, reward, term_np, trunc_np, info
+        return obs, base_reward, term, trunc, info, raw.prediction_target, first, reset_mask
 
-    def _finish_timings(self):
-        if not self.record_timings:
-            return
+    def _finish_timings(self, times):
         m = self._mark
-        m["tracked"] = time.perf_counter()
-        row = {
-            "upload_s": m["uploaded"] - m["start"],
-            "issue_s": m["issued"] - m["uploaded"],
-            "transfer_s": m["fetched"] - m["issued"],
-            "compose_s": m["composed"] - m["fetched"],
-            "decode_s": m["decoded"] - m["composed"],
-            "tracker_s": m["tracked"] - m["decoded"],
-            "bytes": m["bytes"],
-            "unencoded_bytes": m["unencoded_bytes"],
-        }
+        row = {f"{phase}_s": times.seconds(f"gym.{phase}") for phase in _PHASES}
+        row.update(bytes=m["bytes"], unencoded_bytes=m["unencoded_bytes"])
         if "step_start" in m:
             row["device_step_ms"] = m["step_start"].elapsed_time(m["step_done"])
             row["copy_ms"] = m["step_done"].elapsed_time(m["copied"])

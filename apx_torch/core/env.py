@@ -33,6 +33,14 @@ its plain form ``ops.merge`` on the CPU and, on the card, for every
 other loss (the ``-sparse`` ids' weighted loss, cross-entropy, zero), with
 N1-N3 at its rounding sites. LOCKSTEP and DISABLED keep the op-by-op
 merge of ``step``.
+
+The vector env's stages are spans (``core.trace``): ``vector.step``,
+``vector.boundary_reset`` and ``vector.reset`` around its entries, and
+inside them ``env.step`` around each ``step_env``, ``env.reset`` around
+each reset from draws (and the reset's prediction target on a boundary)
+and ``env.draw`` around the draws it makes itself. A vector span's own
+time is the merge: the selects, the loss, the reward, the derived obs and
+``compose_info``.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import torch
 
 from .losses import LossFn
 from .spaces import ActivePerceptionActionSpace, Space
+from .trace import span
 
 __all__ = [
     "APEnv",
@@ -251,15 +260,19 @@ class VectorAPEnv:
     num_envs: int
     autoreset: AutoResetMode = AutoResetMode.NEXT_STEP
 
+    @span("vector.reset")
     def reset(self, params, generator: torch.Generator | None = None, draws=None):
         """Batched reset from ``generator``, or from injected ``draws``."""
         if draws is None:
-            draws = self.env.draw_reset(self.num_envs, params, _need(generator))
-        obs, state, info = self.env.reset_from_draws(draws, params)
+            with span("env.draw"):
+                draws = self.env.draw_reset(self.num_envs, params, _need(generator))
+        with span("env.reset"):
+            obs, state, info = self.env.reset_from_draws(draws, params)
         obs = self.env._merge_derived_obs(obs, state, params)
         prev_done = torch.zeros(self.num_envs, dtype=torch.bool, device=state_device(state))
         return obs, VectorState(inner=state, prev_done=prev_done), info
 
+    @span("vector.step")
     def step(self, state: VectorState, full_action: dict[str, Any], params,
              generator: torch.Generator | None = None, reset_draws=None, step_draws=None):
         """One vector step. NEXT_STEP resets the envs that were done at the
@@ -276,10 +289,12 @@ class VectorAPEnv:
             return self._next_step(state, full_action, params, loss_fn, generator, reset_draws,
                                    step_draws)
         if step_draws is None:
-            step_draws = env.draw_step(self.num_envs, params, generator)
-        r = env.step_env(
-            state.inner, full_action["action"], full_action["prediction"], params, step_draws
-        )
+            with span("env.draw"):
+                step_draws = env.draw_step(self.num_envs, params, generator)
+        with span("env.step"):
+            r = env.step_env(
+                state.inner, full_action["action"], full_action["prediction"], params, step_draws
+            )
 
         if self.autoreset is AutoResetMode.DISABLED:
             loss = loss_fn(full_action["prediction"], r.prediction_target)
@@ -305,10 +320,9 @@ class VectorAPEnv:
         info = tree_select(mask, reset_info, r.info)
         # Derived entries once, from the merged state (apx/core/env.py:378-380).
         obs = env._merge_derived_obs(obs, new_inner, params)
-        pred_target = tree_select(
-            mask, env.prediction_target_on_reset(state.inner, reset_state, params),
-            r.prediction_target,
-        )
+        with span("env.reset"):
+            reset_target = env.prediction_target_on_reset(state.inner, reset_state, params)
+        pred_target = tree_select(mask, reset_target, r.prediction_target)
         loss = loss_fn(full_action["prediction"], pred_target)
         reward = loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target)
         info = env.compose_info(
@@ -320,8 +334,11 @@ class VectorAPEnv:
     def _autoreset(self, env: APEnv, inner, params, generator, reset_draws, step_info):
         """The reset of all N envs that the merge selects from."""
         if reset_draws is None:
-            reset_draws = self.env.draw_reset(self.num_envs, params, _need(generator))
-        reset_obs, reset_state, reset_info = env.autoreset_from_draws(reset_draws, inner, params)
+            with span("env.draw"):
+                reset_draws = self.env.draw_reset(self.num_envs, params, _need(generator))
+        with span("env.reset"):
+            reset_obs, reset_state, reset_info = env.autoreset_from_draws(reset_draws, inner,
+                                                                          params)
         if set(reset_info) != set(step_info):
             raise ValueError(
                 "autoreset info keys differ from step info keys: "
@@ -342,8 +359,10 @@ class VectorAPEnv:
         inner_env, inner, counter = env.split_counter(state.inner)
         prediction = full_action["prediction"]
         if step_draws is None:
-            step_draws = env.draw_step(self.num_envs, params, generator)
-        r = inner_env.step_env(inner, full_action["action"], prediction, params, step_draws)
+            with span("env.draw"):
+                step_draws = env.draw_step(self.num_envs, params, generator)
+        with span("env.step"):
+            r = inner_env.step_env(inner, full_action["action"], prediction, params, step_draws)
         reset = self._autoreset(inner_env, inner, params, generator, reset_draws, r.info)
         m = merge_cuda.next_step(
             state.prev_done, (r.obs, r.state, r.info), reset, r.base_reward, r.terminated,
@@ -359,6 +378,7 @@ class VectorAPEnv:
         return (obs, VectorState(inner=new_inner, prev_done=m.done), m.reward, m.terminated,
                 m.truncated, info)
 
+    @span("vector.boundary_reset")
     def boundary_reset_step(self, state: VectorState, full_action: dict[str, Any], params,
                             generator: torch.Generator | None = None, reset_draws=None,
                             step_draws=None):
@@ -369,13 +389,15 @@ class VectorAPEnv:
         unused, as apx's boundary step drops its step key."""
         env = self.env
         if reset_draws is None:
-            if step_draws is None:
-                env.draw_step(self.num_envs, params, generator)
-            reset_draws = env.draw_reset(self.num_envs, params, _need(generator))
-        reset_obs, reset_state, reset_info = env.autoreset_from_draws(
-            reset_draws, state.inner, params
-        )
-        target = env.prediction_target_on_reset(state.inner, reset_state, params)
+            with span("env.draw"):
+                if step_draws is None:
+                    env.draw_step(self.num_envs, params, generator)
+                reset_draws = env.draw_reset(self.num_envs, params, _need(generator))
+        with span("env.reset"):
+            reset_obs, reset_state, reset_info = env.autoreset_from_draws(
+                reset_draws, state.inner, params
+            )
+            target = env.prediction_target_on_reset(state.inner, reset_state, params)
         prediction = full_action["prediction"]
         loss_fn = env.loss_fn(params)
         loss = loss_fn(prediction, target)

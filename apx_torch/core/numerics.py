@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import build
+from ..ops._launch import launch
 
 __all__ = ["fma", "sum_squares", "div", "sqrt", "time_obs", "matmul_tf32", "fma_plain",
            "sum_squares_plain", "sqrt_plain", "LAUNCHES", "reset_launch_counts"]
@@ -130,7 +131,8 @@ def _launch_fma(a, b, c) -> torch.Tensor:
                for x in ops]
     sizes, merged = _merged(shape, strides)
     # c_float rounds a Python float to float32 as torch.full((), c, dtype=float32) does.
-    err = build.load().fma_f32_launch(
+    err = launch(
+        "N1", build.load().fma_f32_launch,
         *(x.data_ptr() if isinstance(x, torch.Tensor) else None for x in ops),
         *(ctypes.c_float(0.0 if isinstance(x, torch.Tensor) else float(x)) for x in ops),
         len(sizes), _i64(sizes),
@@ -149,9 +151,10 @@ def _launch_sum_squares(x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     sizes, (strides,) = _merged(shape, [x.stride()[:-1]])
-    err = build.load().sum_squares_f32_launch(
-        x.data_ptr(), len(sizes), _i64(sizes), _i64(strides), x.shape[-1], x.stride(-1),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    err = launch(
+        "N2", build.load().sum_squares_f32_launch, x.data_ptr(), len(sizes), _i64(sizes),
+        _i64(strides), x.shape[-1], x.stride(-1), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "sum_squares")
     return out
 
@@ -162,9 +165,9 @@ def _launch_sqrt(x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     sizes, (strides,) = _merged(x.shape, [x.stride()])
-    err = build.load().sqrt_f32_launch(
-        x.data_ptr(), len(sizes), _i64(sizes), _i64(strides), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = launch(
+        "N3", build.load().sqrt_f32_launch, x.data_ptr(), len(sizes), _i64(sizes),
+        _i64(strides), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _check(err, "sqrt")
     return out
 

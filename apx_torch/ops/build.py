@@ -22,7 +22,7 @@ __all__ = ["load", "SOURCES", "NVCC_FLAGS", "build_seconds"]
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
     "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu", "numerics.cu",
-    "lidar_step.cu", "merge.cu", "lidar_fused.cu"))
+    "lidar_step.cu", "merge.cu", "lidar_fused.cu", "capture.cu"))
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 # These flags are what make the kernels bitwise equal to their plain forms.
@@ -108,9 +108,12 @@ def load(verbose: bool = False) -> ctypes.CDLL:
                                             *[ptr] * 9, ptr]
     lib.lidar_fused_reset_launch.argtypes = [ptr, ptr, ptr, i32, f32, ptr, f32, i32, i32, i32,
                                              i32, *[ptr] * 5, ptr]
+    i64out = ctypes.POINTER(ctypes.c_longlong)
+    lib.apx_graph_device_nodes.argtypes = [ptr, i64out]
+    lib.apx_capture_nodes.argtypes = [ptr, ctypes.POINTER(ctypes.c_ulonglong), i64out]
     for fn in (lib.lidar_step_a_launch, lib.lidar_step_b_launch, lib.lidar_step_c_launch,
                lib.lidar_step_d_launch, lib.merge_next_step_launch, lib.lidar_fused_step_launch,
-               lib.lidar_fused_reset_launch):
+               lib.lidar_fused_reset_launch, lib.apx_graph_device_nodes, lib.apx_capture_nodes):
         fn.restype = ctypes.c_int
     _LIB = lib
     return lib

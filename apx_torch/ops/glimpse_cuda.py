@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from . import build
+from ._launch import launch
 from .glimpse import extract_glimpse_batch, sensor_pos_lim_pixels
 
 __all__ = ["glimpse", "LAUNCHES", "reset_launch_counts"]
@@ -89,8 +90,9 @@ def glimpse(images: torch.Tensor, pos: torch.Tensor, sensor_size: tuple[int, int
         return out
     lim = sensor_pos_lim_pixels((h, w), sensor_size, sensor_scale)
     name = "glimpse_u8_launch" if images.dtype == torch.uint8 else "glimpse_f32_launch"
-    err = getattr(lib, name)(
-        images.data_ptr(), pos.data_ptr(), None if index is None else index.contiguous().data_ptr(),
+    err = launch(
+        "K3", getattr(lib, name), images.data_ptr(), pos.data_ptr(),
+        None if index is None else index.contiguous().data_ptr(),
         out.data_ptr(), n, h, w, c, s0, s1,
         ctypes.c_float(float(lim[0])), ctypes.c_float(float(lim[1])),
         ctypes.c_float(float(sensor_scale)), torch.cuda.current_stream(images.device).cuda_stream,

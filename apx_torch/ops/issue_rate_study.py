@@ -46,6 +46,7 @@ import re
 import torch
 
 from . import build
+from ._launch import launch
 
 __all__ = ["CHAIN_OPS_PER_ELEM", "LANES", "chain_body", "chain_cuda", "measure", "issue_rate",
            "LAUNCHES", "reset_launch_counts", "sass_loop_counts"]
@@ -104,9 +105,9 @@ def chain_cuda(nx, ny, fx, fy, occ, iters: int, layout: str = "wide") -> torch.T
     args = tuple(a.contiguous() for a in args)
     rows, lanes = nx.shape
     out = torch.empty_like(args[0])
-    err = lib.chain_launch(*(a.data_ptr() for a in args), out.data_ptr(), rows, lanes,
-                           int(iters), _LAYOUT_ID[layout],
-                           torch.cuda.current_stream(nx.device).cuda_stream)
+    err = launch("K4", lib.chain_launch, *(a.data_ptr() for a in args), out.data_ptr(), rows,
+                 lanes, int(iters), _LAYOUT_ID[layout],
+                 torch.cuda.current_stream(nx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chain kernel launch failed: CUDA error {err}")
     LAUNCHES["chain"] += 1

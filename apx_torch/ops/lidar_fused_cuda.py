@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from . import build, lidar_fused
-from ._launch import need, one_device, stream
+from ._launch import launch, need, one_device, stream
 from .raycast import EPS
 
 __all__ = ["step", "reset", "LAUNCHES", "reset_launch_counts"]
@@ -83,9 +83,9 @@ def step(occ: torch.Tensor, action: torch.Tensor, pos: torch.Tensor,
            "target": torch.empty((n, 2), device=dev),
            "lidar": torch.empty((n, beams), device=dev),
            "odometry": torch.empty((n, 2), device=dev)}
-    err = build.load().lidar_fused_step_launch(
-        *ptrs, beams, ctypes.c_float(inv_range), ctypes.c_float(EPS), n, h, w,
-        *(x.data_ptr() for x in out.values()), stream(dev))
+    err = launch(
+        "S", build.load().lidar_fused_step_launch, *ptrs, beams, ctypes.c_float(inv_range),
+        ctypes.c_float(EPS), n, h, w, *(x.data_ptr() for x in out.values()), stream(dev))
     _launched(err, kernel)
     return out
 
@@ -113,8 +113,8 @@ def reset(words: torch.Tensor, flat: torch.Tensor, w: int, beam_offsets: torch.T
            "odo_pending": torch.empty(n, dtype=torch.bool, device=dev),
            "lidar": torch.empty((n, beams), device=dev),
            "odometry": torch.empty((n, 2), device=dev)}
-    err = build.load().lidar_fused_reset_launch(
-        *ptrs, beams, ctypes.c_float(lidar_range),
+    err = launch(
+        "R", build.load().lidar_fused_reset_launch, *ptrs, beams, ctypes.c_float(lidar_range),
         need(kernel, "inv_map_size", inv_map_size, (2,)), ctypes.c_float(EPS),
         int(bool(typed)), n, h, w, *(x.data_ptr() for x in out.values()), stream(dev))
     _launched(err, kernel)

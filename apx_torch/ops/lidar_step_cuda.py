@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from . import build, lidar_step
-from ._launch import need, one_device, stream
+from ._launch import launch, need, one_device, stream
 
 __all__ = ["stage_a", "stage_b", "stage_c", "stage_d", "LAUNCHES", "reset_launch_counts"]
 
@@ -55,8 +55,8 @@ def stage_a(action, pos, unfused_len: bool, base=None) -> dict:
            "direction": torch.empty((n, 2), device=dev),
            "move_to": torch.empty((n, 1, 2), device=dev),
            "seg": torch.empty((n, 1), device=dev) if unfused_len else None}
-    err = build.load().lidar_step_a_launch(
-        *ptrs, int(bool(unfused_len)), n,
+    err = launch(
+        "F1", build.load().lidar_step_a_launch, *ptrs, int(bool(unfused_len)), n,
         *(out[k].data_ptr() for k in ("base_reward", "total", "direction", "move_to")),
         None if out["seg"] is None else out["seg"].data_ptr(), stream(dev))
     _launched(err, "a")
@@ -76,8 +76,8 @@ def stage_b(pos, direction, total, d2w) -> dict:
            "cand_diag": torch.empty((n, 2), device=dev),
            "cand": torch.empty((n, 2, 2), device=dev),
            "cand_targets": torch.empty((n, 2, 2), device=dev)}
-    err = build.load().lidar_step_b_launch(*ptrs, n, *(x.data_ptr() for x in out.values()),
-                                           stream(dev))
+    err = launch("F1", build.load().lidar_step_b_launch, *ptrs, n,
+                 *(x.data_ptr() for x in out.values()), stream(dev))
     _launched(err, "b")
     return out
 
@@ -108,8 +108,8 @@ def stage_c(pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist, odo_pendi
            "truncated": torch.empty(n, dtype=torch.bool, device=dev),
            "target": torch.empty((n, 2), device=dev),
            "beam_targets": torch.empty((n, beams, 2), device=dev)}
-    err = build.load().lidar_step_c_launch(*ptrs, beams, n, *(x.data_ptr() for x in out.values()),
-                                           stream(dev))
+    err = launch("F1", build.load().lidar_step_c_launch, *ptrs, beams, n,
+                 *(x.data_ptr() for x in out.values()), stream(dev))
     _launched(err, "c")
     return out
 
@@ -125,8 +125,9 @@ def stage_d(dist, pos, initial_pos, inv_range: float, inv_map_size) -> dict:
             need(KERNEL, "initial_pos", initial_pos, (n, 2))]
     out = {"lidar": torch.empty((n, beams), device=dev),
            "odometry": torch.empty((n, 2), device=dev)}
-    err = build.load().lidar_step_d_launch(
-        *ptrs, ctypes.c_float(inv_range), need(KERNEL, "inv_map_size", inv_map_size, (2,)),
-        beams, n, out["lidar"].data_ptr(), out["odometry"].data_ptr(), stream(dev))
+    err = launch(
+        "F1", build.load().lidar_step_d_launch, *ptrs, ctypes.c_float(inv_range),
+        need(KERNEL, "inv_map_size", inv_map_size, (2,)), beams, n, out["lidar"].data_ptr(),
+        out["odometry"].data_ptr(), stream(dev))
     _launched(err, "d")
     return out

@@ -39,7 +39,7 @@ import torch
 from ..core.env import tree_map
 from ..core.losses import LossFn, masked_loss_and_reward, mse_terms
 from . import build, merge
-from ._launch import stream
+from ._launch import launch as launch_kernel, stream
 from .merge import Merged
 
 __all__ = ["next_step", "LAUNCHES", "reset_launch_counts", "MAX_LEAVES"]
@@ -275,7 +275,8 @@ def _launch(mask, step, reset, base_reward, terminated, truncated, prediction, t
             int(counter is not None and counter.issue_termination), int(terms.fused_sum),
             int(terms.affine), int(terms.contract), plan.env_block, inv_limit, terms.scale,
             terms.offset, terms.k)
-        err = build.load().merge_next_step_launch(leaves, pmap, pterms, stream(dev))
+        err = launch_kernel("F2", build.load().merge_next_step_launch, leaves, pmap, pterms,
+                            stream(dev))
         if err != 0:
             raise RuntimeError(f"merge kernel launch failed: CUDA error {err}")
         LAUNCHES["merge"] += 1

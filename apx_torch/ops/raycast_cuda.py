@@ -42,6 +42,7 @@ import ctypes
 import torch
 
 from . import build
+from ._launch import launch
 from .raycast import EPS, raycast_grid, seg_length
 
 __all__ = ["raycast_fast", "raycast_typed", "LAUNCHES", "reset_launch_counts"]
@@ -94,10 +95,10 @@ def _launch(name: str, occ, origin, targets, seg, eps: float) -> torch.Tensor:
     if n * r == 0:
         return out
     stream = torch.cuda.current_stream(occ.device).cuda_stream
-    err = getattr(lib, f"{name}_launch")(
-        occ.data_ptr(), origin.data_ptr(), targets.data_ptr(),
-        None if seg is None else seg.data_ptr(),
-        out.data_ptr(), n, r, h, w, ctypes.c_float(eps), stream,
+    err = launch(
+        "K1", getattr(lib, f"{name}_launch"), occ.data_ptr(), origin.data_ptr(),
+        targets.data_ptr(), None if seg is None else seg.data_ptr(), out.data_ptr(), n, r, h, w,
+        ctypes.c_float(eps), stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from ._launch import launch
 from . import window as plain
 
 __all__ = ["extract_windows", "LAUNCHES", "reset_launch_counts"]
@@ -72,8 +73,8 @@ def extract_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int,
     out = torch.empty((n, plain.WIN_ROWS, win), dtype=torch.uint8, device=occ.device)
     if n == 0:
         return out
-    err = lib.window_launch(occ.data_ptr(), starts.data_ptr(), out.data_ptr(), n, h, w, pad, win,
-                            torch.cuda.current_stream(occ.device).cuda_stream)
+    err = launch("K2", lib.window_launch, occ.data_ptr(), starts.data_ptr(), out.data_ptr(), n, h,
+                 w, pad, win, torch.cuda.current_stream(occ.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"window kernel launch failed: CUDA error {err}")
     LAUNCHES["window"] += 1

@@ -9,9 +9,16 @@ longest idle gaps.
 Usage:
     python -m apx_torch.tools.parse_trace TRACE_JSON_OR_DIR [--top N] [--steps S]
     python -m apx_torch.tools.parse_trace trace.json --all-processes
+    python -m apx_torch.tools.parse_trace trace.json --spans
 
 Device-only is the default; ``--all-processes`` adds the host rows.
 ``--steps S`` divides every time and count by S (per-step figures).
+``--spans`` adds a table of the port's spans (``apx_torch.core.trace``):
+for each ``apx.*`` name, its count, the host microseconds inside it (its
+``user_annotation`` events) and the device microseconds under it (its
+``gpu_user_annotation`` events: from the first to the last device activity
+it issued); times include the spans nested inside. A trace of CUDA graph
+replays has none: no Python runs in a replay.
 
 How a torch trace marks the device (as torch 2.11 with CUDA 12.8 writes
 it on an H100): CUPTI's activities are complete events ("ph": "X") with
@@ -38,7 +45,7 @@ import json
 import os
 
 __all__ = ["DEVICE_CATEGORIES", "load_trace", "device_events", "summarize", "device_busy_us",
-           "device_summed_us", "idle_gaps", "main"]
+           "device_summed_us", "idle_gaps", "spans", "main"]
 
 # ``cat`` of the device activities in a torch.profiler chrome trace.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -159,6 +166,28 @@ def idle_gaps(trace: dict, top: int = 5) -> list[dict]:
     return out
 
 
+def spans(trace: dict) -> list[tuple[str, int, float, float]]:
+    """The port's spans: [(name, count, host us, device us)] for each
+    ``apx.*`` name, most host time first; count and host us from the
+    ``user_annotation`` events, device us from the ``gpu_user_annotation``
+    ones."""
+    count: collections.Counter = collections.Counter()
+    host: collections.Counter = collections.Counter()
+    device: collections.Counter = collections.Counter()
+    for e in trace.get("traceEvents", []):
+        name = str(e.get("name", ""))
+        if e.get("ph") != "X" or not name.startswith("apx."):
+            continue
+        cat = e.get("cat")
+        if cat == "user_annotation":
+            count[name] += 1
+            host[name] += float(e.get("dur", 0))
+        elif cat == "gpu_user_annotation":
+            device[name] += float(e.get("dur", 0))
+    names = sorted(set(count) | set(device), key=lambda n: (-host[n], n))
+    return [(n, count[n], host[n], device[n]) for n in names]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", help="trace .json(.gz) or a directory holding one")
@@ -168,6 +197,8 @@ def main(argv=None):
         "--all-processes", action="store_true",
         help="include host rows (default: device ops only)",
     )
+    ap.add_argument("--spans", action="store_true",
+                    help="add the host and device us of the port's apx.* spans")
     args = ap.parse_args(argv)
     trace = load_trace(args.path)
     rows = summarize(trace, device_only=not args.all_processes)
@@ -183,6 +214,14 @@ def main(argv=None):
             print(f"idle gap {g['us']:.1f} us at {g['start_us']:.1f}: {g['host']} ({g['host_cat']})")
     else:
         print("no device rows in this trace")
+    if args.spans:
+        rows = spans(trace)
+        print(f"{'host us':>12}  {'device us':>12}  {'count':>9}  span{per}")
+        for name, n, host_us, device_us in rows:
+            print(f"{host_us / args.steps:12.2f}  {device_us / args.steps:12.2f}  "
+                  f"{n / args.steps:9.2f}  {name}")
+        if not rows:
+            print("no apx.* spans in this trace")
 
 
 if __name__ == "__main__":

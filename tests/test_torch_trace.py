@@ -1,0 +1,372 @@
+"""The port's span facility (``apx_torch.core.trace``), the spans at the
+vector env's stages, the benchmark's reader of them through a capture
+layout (``benchmark/yardstick/stages.py``) and ``parse_trace --spans``.
+
+The CPU tests stub the capture (its query and its node counter). The card
+test (marked ``cuda``, skipped without a device) captures a LIDAR chunk:
+
+    python -m pytest --noconftest -o addopts="" tests/test_torch_trace.py -m cuda
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import apx_torch
+from apx_torch.core import trace
+from apx_torch.core.env import AutoResetMode, vector_env
+from apx_torch.ops import _launch
+from apx_torch.tools import parse_trace
+from benchmark.yardstick import stages
+
+
+@pytest.fixture
+def registry():
+    trace.clear()
+    yield
+    trace.clear()
+
+
+class FakeCapture:
+    """A capture that the stubbed queries report: ``issue(k)`` adds k
+    device nodes to its graph."""
+
+    def __init__(self, cid=7):
+        self.cid, self.nodes, self.active = cid, 0, True
+
+    def issue(self, k=1):
+        self.nodes += k
+
+    def count(self):
+        return self.cid, self.nodes
+
+
+@pytest.fixture
+def capture(monkeypatch, registry):
+    cap = FakeCapture()
+    monkeypatch.setattr(trace, "_OPEN", 1)
+    monkeypatch.setattr(trace, "_capturing", lambda: cap.active)
+    monkeypatch.setattr(trace, "_count_nodes", cap.count)
+    return cap
+
+
+def test_spans_nest_and_time_on_the_host():
+    @trace.span("outer")
+    def outer():
+        with trace.span("inner"):
+            sum(range(20000))
+        with trace.span("inner"):
+            pass
+        return "done"
+
+    with trace.timed() as times:
+        assert outer() == "done"
+    assert set(times.total) == {("apx.outer",), ("apx.outer", "apx.inner")}
+    assert 0 < times.seconds("inner") < times.seconds("outer")
+    assert outer.__name__ == "outer"
+    assert trace._stack() == []
+
+
+def test_inert_span_never_enters_record_function(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) off the profiler")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    with trace.span("a"):
+        pass
+    assert trace.span("b")(lambda x: x + 1)(1) == 2
+    assert trace.call("c", max, 3, 4) == 4
+    assert _launch.launch("S", lambda *a: 0, 1, 2) == 0
+    assert trace._stack() == []
+
+
+def test_span_under_the_profiler_annotates_the_trace(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("vector.step"):
+            trace.call("kernel.S", torch.ones(4).sum)
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"apx.vector.step", "apx.kernel.S"} <= names
+    rows = {name: (n, host) for name, n, host, _ in parse_trace.spans({"traceEvents": events})}
+    assert rows["apx.vector.step"][0] == 1
+    assert rows["apx.vector.step"][1] >= rows["apx.kernel.S"][1]
+
+
+def test_capture_records_each_span_range(capture):
+    with trace.span("vector.step"):
+        capture.issue(2)  # the merge's nodes before the step
+        with trace.span("env.step"):
+            _launch.launch("S", capture.issue)
+        with trace.span("env.reset"):
+            capture.issue(3)
+        capture.issue(1)
+    capture.issue(4)  # the harness, after the spans
+    (layout,) = trace.layouts()
+    assert layout["capture"] == 7 and layout["nodes"] is None
+    assert layout["spans"] == [
+        (("apx.vector.step", "apx.env.step", "apx.kernel.S"), 2, 3),
+        (("apx.vector.step", "apx.env.step"), 2, 3),
+        (("apx.vector.step", "apx.env.reset"), 3, 6),
+        (("apx.vector.step",), 0, 7),
+    ]
+    step = ("apx.vector.step",)
+    assert trace.owners(layout, 11) == [step, step, step + ("apx.env.step", "apx.kernel.S"),
+                                        *[step + ("apx.env.reset",)] * 3, step, *[None] * 4]
+    # A second capture gets its own layout, newest last; a span that ends
+    # after its capture did records nothing.
+    capture.cid, capture.nodes = 8, 0
+    with trace.span("vector.reset"):
+        capture.issue()
+        capture.active = False
+    assert [lay["capture"] for lay in trace.layouts()] == [7]
+    capture.active = True
+    with trace.span("vector.reset"):
+        capture.issue()
+    assert [lay["capture"] for lay in trace.layouts()] == [7, 8]
+    trace.clear()
+    assert trace.layouts() == []
+
+
+def test_captures_are_followed_through_torch(capture, monkeypatch):
+    class Graph:
+        calls = []
+
+        def capture_begin(self):
+            Graph.calls.append("begin")
+
+        def capture_end(self):
+            Graph.calls.append("end")
+
+    monkeypatch.setattr(trace, "_OPEN", 0)
+    trace._watch_captures(Graph)
+    graph = Graph()
+    with trace.span("vector.step"):  # before the capture: inert
+        capture.issue(3)
+    assert trace.layouts() == []
+    capture.nodes = 0
+    graph.capture_begin()
+    assert trace._OPEN == 1
+    with trace.span("vector.step"):
+        capture.issue(5)
+    capture.issue(2)
+    graph.capture_end()
+    assert Graph.calls == ["begin", "end"] and trace._OPEN == 0
+    (layout,) = trace.layouts()
+    assert layout["nodes"] == 7 and layout["spans"] == [(("apx.vector.step",), 0, 5)]
+
+
+def _lidar(n=4):
+    return apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
+
+
+def _act(n):
+    return {"action": torch.zeros((n, 2)), "prediction": torch.zeros((n, 2))}
+
+
+def test_vector_env_stages_are_spans():
+    venv, p = _lidar()
+    g = torch.Generator().manual_seed(0)
+    with trace.timed() as times:
+        _, state, _ = venv.reset(p, g)
+        venv.step(state, _act(4), p, g)
+    paths = set(times.total)
+    assert {("apx.vector.reset", "apx.env.draw"), ("apx.vector.reset", "apx.env.reset"),
+            ("apx.vector.step", "apx.env.draw"), ("apx.vector.step", "apx.env.step"),
+            ("apx.vector.step", "apx.env.reset")} <= paths
+
+
+def test_lockstep_and_boundary_stages_are_spans():
+    venv, p = apx_torch.make_vec("CircleSquare-v0", 4, device="cpu")
+    venv = vector_env(venv.env, 4, AutoResetMode.LOCKSTEP)
+    g = torch.Generator().manual_seed(0)
+    _, state, _ = venv.reset(p, g)
+    act = {"action": torch.zeros((4, 2)), "prediction": torch.zeros((4, 2))}
+    with trace.timed() as times:
+        venv.step(state, act, p, g)
+        venv.boundary_reset_step(state, act, p, g)
+    paths = set(times.total)
+    assert {("apx.vector.step", "apx.env.step"), ("apx.vector.step", "apx.env.reset"),
+            ("apx.vector.boundary_reset", "apx.env.draw"),
+            ("apx.vector.boundary_reset", "apx.env.reset")} <= paths
+
+
+def test_timed_spans_do_not_change_the_step():
+    venv, p = _lidar()
+    outs = []
+    for timing in (False, True):
+        g = torch.Generator().manual_seed(3)
+        _, state, _ = venv.reset(p, g)
+        if timing:
+            with trace.timed():
+                out = venv.step(state, _act(4), p, g)
+        else:
+            out = venv.step(state, _act(4), p, g)
+        outs.append(out)
+    for a, b in zip(outs[0][0].values(), outs[1][0].values()):
+        assert torch.equal(a, b)
+
+
+# ---- benchmark/yardstick/stages.py on a synthetic trace ----------------------------
+
+STEP = ("apx.vector.step",)
+LAYOUT = {"capture": 1, "nodes": 5, "spans": [
+    (STEP + ("apx.env.step", "apx.kernel.S"), 1, 2),
+    (STEP + ("apx.env.step",), 1, 2),
+    (STEP + ("apx.env.reset", "apx.kernel.R"), 2, 3),
+    (STEP + ("apx.env.reset",), 2, 3),
+    (STEP + ("apx.kernel.F2",), 3, 4),
+    (STEP, 0, 4),
+]}
+# node 0: the merge's copy; 1: S; 2: R; 3: F2; 4: the harness's accumulator.
+NODES = [("memcpy128", 1.0), ("apx_lidar_fused_step(...)", 40.0),
+         ("void apx_lidar_fused_reset<true>(...)", 30.0), ("apx_merge_next_step(...)", 20.0),
+         ("vectorized_elementwise_kernel", 2.0)]
+
+
+def _trace(node_ids=True, order=None):
+    events, t = [], 0.0
+    for corr in (100, 200):  # two replays
+        events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": t,
+                       "dur": 3.0, "args": {"correlation": corr}})
+        for k in (order or range(len(NODES))):
+            name, dur = NODES[k]
+            args = {"correlation": corr, **({"graph node id": 1000 + k} if node_ids else {})}
+            events.append({"ph": "X", "cat": "kernel", "name": name, "ts": t + 10 * k + 5,
+                           "dur": dur, "args": args})
+        t += 1000
+    # The draws' copy, outside any graph launch.
+    events.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": t,
+                   "dur": 2.0, "args": {"correlation": 300}})
+    events.append({"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": t + 4,
+                   "dur": 5.0, "args": {"correlation": 300}})
+    return {"traceEvents": events}
+
+
+@pytest.mark.parametrize("node_ids", [True, False])
+def test_stages_split_the_device_time(node_ids):
+    # Listed out of order: node ids (or start times) put them back.
+    got = stages.split_us(_trace(node_ids, order=[4, 2, 0, 3, 1]), LAYOUT, trace.owners,
+                          _launch.KERNELS)
+    assert got == {"env_step": 80.0, "env_reset": 60.0, "vector_merge": 42.0,
+                   "harness": 4.0 + 5.0}
+    total = sum(float(e["dur"]) for e in _trace()["traceEvents"] if e["cat"] != "cuda_runtime")
+    assert sum(got.values()) == total
+
+
+def test_stages_read_nothing_where_the_layout_disagrees():
+    args = (trace.owners, _launch.KERNELS)
+    assert stages.split_us(_trace(), {**LAYOUT, "nodes": 6}, *args) is None  # another total
+    assert stages.split_us(_trace(), {**LAYOUT, "nodes": None}, *args) is None  # not closed
+    shifted = {**LAYOUT, "spans": [(p, a + 1, b + 1) for p, a, b in LAYOUT["spans"]]}
+    assert stages.split_us(_trace(), shifted, *args) is None  # S's span on R's kernel
+    differ = _trace()
+    differ["traceEvents"][2]["name"] = "something_else"
+    assert stages.split_us(differ, LAYOUT, *args) is None  # the replays differ
+    assert stages.split_us({"traceEvents": []}, LAYOUT, *args) is None  # no replay
+
+
+def test_stages_per_step_without_a_layout(registry):
+    assert stages.per_step({"trace": _trace(), "steps": 2}, "env_step") is None
+
+
+def test_stages_of_paths():
+    assert stages.stage_of(None) == "harness"
+    assert stages.stage_of(("apx.vector.step", "apx.env.step", "apx.kernel.S")) == "env_step"
+    assert stages.stage_of(("apx.vector.boundary_reset", "apx.env.draw")) == "env_reset"
+    assert stages.stage_of(("apx.vector.step", "apx.kernel.F2")) == "vector_merge"
+    assert stages.stage_of(("apx.gym.issue",)) == "harness"
+
+
+def test_parse_trace_spans_table(tmp_path, capsys):
+    events = [{"ph": "X", "cat": "user_annotation", "name": "apx.vector.step", "ts": 0,
+               "dur": 50.0},
+              {"ph": "X", "cat": "user_annotation", "name": "apx.kernel.S", "ts": 10,
+               "dur": 8.0},
+              {"ph": "X", "cat": "gpu_user_annotation", "name": "apx.vector.step", "ts": 60,
+               "dur": 170.0},
+              {"ph": "X", "cat": "gpu_user_annotation", "name": "apx.kernel.S", "ts": 70,
+               "dur": 45.0},
+              {"ph": "X", "cat": "kernel", "name": "apx_lidar_fused_step", "ts": 70, "dur": 45.0},
+              {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 1, "dur": 2.0}]
+    assert parse_trace.spans({"traceEvents": events}) == [
+        ("apx.vector.step", 1, 50.0, 170.0), ("apx.kernel.S", 1, 8.0, 45.0)]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    parse_trace.main([str(path), "--spans", "--steps", "2"])
+    out = capsys.readouterr().out
+    assert "apx.vector.step" in out and "85.00" in out and "0.50" in out
+
+
+# ---- on the card -------------------------------------------------------------------
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_captured_lidar_chunk_layout_matches_its_graph(dev, registry, tmp_path):
+    """A 16-step LIDARLocRooms-v0 chunk captured as the benchmark captures
+    it: the layout's total is the graph's device nodes (counted on the
+    kept graph) and the events of a traced replay, and every kernel span
+    holds exactly one node, which carries the kernel's symbol."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from apx_torch.ops import build
+
+    n, steps = 1024, 16
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device=dev)
+    g = torch.Generator(dev).manual_seed(5)
+    obs, state, _ = venv.reset(p, g)
+    draws = [venv.env.draw_reset(n, p, g) for _ in range(steps)]
+    act = [{"action": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
+            "prediction": torch.randn((n, 2), generator=g, device=dev)} for _ in range(steps)]
+
+    def chunk(state):
+        for j in range(steps):
+            obs, state, *_ = venv.step(state, act[j], p, reset_draws=draws[j], step_draws={})
+        return obs, state
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chunk(state)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = chunk(state)
+    (layout,) = trace.layouts()
+    nodes = ctypes.c_longlong()
+    assert build.load().apx_graph_device_nodes(graph.raw_cuda_graph(),
+                                               ctypes.byref(nodes)) == 0
+    assert layout["nodes"] == nodes.value > 0
+    kernel_spans = [(path, a, b) for path, a, b in layout["spans"]
+                    if path[-1].startswith("apx.kernel.")]
+    assert {path[-1] for path, _, _ in kernel_spans} == {
+        "apx.kernel.S", "apx.kernel.R", "apx.kernel.F2"}
+    assert len(kernel_spans) == 3 * steps and all(b - a == 1 for _, a, b in kernel_spans)
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+    path = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(path))
+    got = stages.split_us(json.loads(path.read_text()), layout, trace.owners, _launch.KERNELS)
+    assert got is not None and got["env_step"] > 0 and got["env_reset"] > 0
+    assert got["vector_merge"] > 0
+    assert np.isfinite(out[0]["lidar"].cpu().numpy()).all()
