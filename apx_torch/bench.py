@@ -946,7 +946,10 @@ def profile(env: str = "lidar_rooms", num_envs: int = 4096, seed: int = 0, top: 
         wall = time.perf_counter() - t0
     if trace_path is not None:
         prof.export_chrome_trace(trace_path)
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # The device's own activities: the spans' ranges on the device's clock
+    # (``gpu_user_annotation``, named ``apx.*``) cover kernels, not add to them.
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("apx.")]
     total_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     per_step = 1e3 * PROFILE_STEPS

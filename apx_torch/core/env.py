@@ -17,6 +17,8 @@ reset draws, in the order of apx's split ``(step_key, reset_key)``.
 ``VectorAPEnv`` adds the reward composition (``base_reward - loss``, as
 ``LossFn.reward`` rounds it) and
 mask autoreset. NEXT_STEP and LOCKSTEP always run the reset for all envs
+(NEXT_STEP names the envs that were done, ``autoreset_from_draws``'s
+``only``, and an env may compute those alone: LIDAR's kernel R does)
 and merge it under the reset mask: apx gates the same merge behind
 ``lax.cond`` and pins the two forms bitwise-equal (apx/core/env.py:228-238,
 :366-376), and the masked form never asks the host whether any env is
@@ -163,8 +165,11 @@ class APEnv(Generic[P, S]):
         """Deterministic batched reset: returns (obs, state, info)."""
         raise NotImplementedError
 
-    def autoreset_from_draws(self, draws, old_state: S, params: P):
-        """Reset used on an autoreset step; defaults to reset_from_draws."""
+    def autoreset_from_draws(self, draws, old_state: S, params: P, only=None):
+        """Reset used on an autoreset step; defaults to reset_from_draws.
+        ``only`` (N,) bool, or None for every env: the envs whose reset the
+        caller reads. An env may leave the others' leaves unspecified; the
+        default resets every env."""
         return self.reset_from_draws(draws, params)
 
     def reset_env(self, num_envs: int, params: P, generator: torch.Generator):
@@ -331,14 +336,17 @@ class VectorAPEnv:
         vstate = VectorState(inner=new_inner, prev_done=terminated | truncated)
         return obs, vstate, reward, terminated, truncated, info
 
-    def _autoreset(self, env: APEnv, inner, params, generator, reset_draws, step_info):
-        """The reset of all N envs that the merge selects from."""
+    def _autoreset(self, env: APEnv, inner, params, generator, reset_draws, step_info,
+                   only=None):
+        """The reset that the merge selects from: of every env, the draws
+        for all N consumed alike, computed where ``only`` (N,) bool is set
+        or everywhere (None)."""
         if reset_draws is None:
             with span("env.draw"):
                 reset_draws = self.env.draw_reset(self.num_envs, params, _need(generator))
         with span("env.reset"):
             reset_obs, reset_state, reset_info = env.autoreset_from_draws(reset_draws, inner,
-                                                                          params)
+                                                                          params, only=only)
         if set(reset_info) != set(step_info):
             raise ValueError(
                 "autoreset info keys differ from step info keys: "
@@ -363,7 +371,9 @@ class VectorAPEnv:
                 step_draws = env.draw_step(self.num_envs, params, generator)
         with span("env.step"):
             r = inner_env.step_env(inner, full_action["action"], prediction, params, step_draws)
-        reset = self._autoreset(inner_env, inner, params, generator, reset_draws, r.info)
+        # The merge reads the reset only where the env was done.
+        reset = self._autoreset(inner_env, inner, params, generator, reset_draws, r.info,
+                                only=state.prev_done)
         m = merge_cuda.next_step(
             state.prev_done, (r.obs, r.state, r.info), reset, r.base_reward, r.terminated,
             r.truncated, prediction, r.prediction_target, loss_fn,

@@ -22,11 +22,16 @@ things holds, and then it does what each asks:
   node k (``owners``; ``benchmark/yardstick/stages.py`` reads it);
 * a ``timed()`` block is open: host seconds per span path.
 
+Beside the spans, kernel R's device counter (``reset_counter``): two
+int64 values on the card that R's masked launches add to as they run, so
+that the count is taken where the work happens, replays of a graph
+included. ``counters()`` reads it.
+
 Otherwise a span costs three tests of Python values: an open
 ``timed()``, the profiler's flag (``_is_profiler_enabled`` of
 ``torch.autograd.profiler``) and the count of captures in progress. The
 registry keeps Python data only: ``layouts()`` returns copies, newest
-last, and ``clear()`` empties it.
+last, and ``clear()`` empties it (and zeroes R's counter).
 
 torch has no callback at the start or end of a capture, its capture query
 (``torch.cuda.is_current_stream_capturing``) costs about 2 us on the host
@@ -49,7 +54,8 @@ import time
 import torch
 import torch.autograd.profiler as _profiler
 
-__all__ = ["span", "call", "timed", "HostTimes", "layouts", "clear", "owners"]
+__all__ = ["span", "call", "timed", "HostTimes", "layouts", "clear", "owners",
+           "reset_counter", "counters"]
 
 _PREFIX = "apx."
 
@@ -79,6 +85,7 @@ def _count_nodes() -> tuple[int, int]:
 
 _LAYOUTS: list[dict] = []  # in order of capture
 _BY_CAPTURE: dict[int, dict] = {}
+_RESET_COUNTS: dict[torch.device, torch.Tensor] = {}  # R's (asked, computed) by device
 _TIMERS: list["HostTimes"] = []
 _LOCAL = threading.local()
 
@@ -207,9 +214,39 @@ def layouts() -> list[dict]:
 
 
 def clear() -> None:
-    """Forget every layout."""
+    """Forget every layout and zero R's counter (in place: a captured
+    graph keeps adding to it)."""
     _LAYOUTS.clear()
     _BY_CAPTURE.clear()
+    for values in _RESET_COUNTS.values():
+        values.zero_()
+
+
+def reset_counter(device: torch.device) -> torch.Tensor | None:
+    """Kernel R's counter on ``device``: two int64 values, zeros when
+    made, to which R's launches given a mask add the envs asked and the
+    envs computed. It lives as long as the process, at one address, so a
+    graph that captured a launch adding to it keeps counting. It is made
+    outside a capture only (a graph would hold its fill and zero it at
+    every replay): None while it does not exist yet and the current stream
+    is capturing, and that launch counts nothing."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    values = _RESET_COUNTS.get(device)
+    if values is None:
+        if _OPEN and _capturing():
+            return None
+        values = _RESET_COUNTS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return values
+
+
+def counters() -> dict[str, list[int]]:
+    """``{"fused_reset": [asked, computed]}``, R's counter summed over its
+    devices as Python ints (a read that waits for the device); empty
+    before R's first launch given a mask."""
+    values = [v.tolist() for v in _RESET_COUNTS.values()]
+    return {"fused_reset": [sum(v[i] for v in values) for i in range(2)]} if values else {}
 
 
 def owners(layout: dict, nodes: int | None = None) -> list[tuple[str, ...] | None]:

@@ -11,10 +11,17 @@
 //     K1's three casts (raycast_cast.cuh): the move (1 ray, the stage's
 //     unfused |d|), the two wall-slide candidates and the beams (K1's own
 //     contracted |d|), on the whole map;
-//   lidar_fused_reset_launch (R): from the bank's row words (MapBank.spawn),
-//     the map as the `occ` leaf, the spawn position, the reset scan (typed,
-//     or untyped as apx's "pallas" backend scans) and the observation,
-//     lidar = clamp(dist / range, -1, 1) with a true division.
+//   lidar_fused_reset_launch (R): from the bank's row words, the map as the
+//     `occ` leaf, the spawn position, the reset scan (typed, or untyped as
+//     apx's "pallas" backend scans) and the observation, lidar =
+//     clamp(dist / range, -1, 1) with a true division. R reads the row
+//     words, the spawn cell and the dataset index from the bank itself
+//     (MapBank.spawn's three gathers), or takes them gathered (a sharded
+//     bank, the bit windows' row halves). Given a mask, it computes only
+//     the envs the mask selects: under NEXT_STEP the merge (merge.cu)
+//     reads the reset only where the env was done, one step in 101 on
+//     LIDARLocRooms-v0, and apx's vmapped select computes both sides only
+//     because XLA has no per-lane branch.
 //
 // What bounds them: the launch and the casts' instructions. S moves ~1.1 KB
 // per env (the map's bytes, 64 bytes of operands and outputs), R ~1.1 KB
@@ -33,7 +40,11 @@
 // the maps' size allows. Every lane computes the step's stages itself
 // (the same operands, the same results: nothing to broadcast) and the
 // casts run K1's pass over the bits. Lane j writes beam j; lane 0 the
-// per-env outputs.
+// per-env outputs. A warp of R whose env the mask leaves out returns
+// before it reads anything, and its slots of the outputs stay as they
+// were; launches given a mask add the envs asked and computed to a device
+// counter (apx_torch/core/trace.py), one atomic each per block that has
+// any to add.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,9 +178,26 @@ apx_lidar_fused_step(const uint8_t* __restrict__ occ, const float* __restrict__ 
   }
 }
 
+// Where R reads an env's row words and spawn cell. Gathered (bank_pos
+// null): words (N, H) and flat (N,), row `env`. From the bank: words
+// (rows, H), flat (rows, max_free) the free cells' row-major indices, and
+// the draws bank_pos and k (N,): row bank_pos[env], cell flat[row, k[env]],
+// and indices[row] (rows,) into map_idx (N,).
+struct ResetSource {
+  const int64_t* words;
+  const int64_t* flat;
+  const int64_t* bank_pos;
+  const int64_t* k;
+  const int64_t* indices;
+  int64_t* map_idx;
+  int rows;
+  int max_free;
+};
+
 template <bool kTyped>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-apx_lidar_fused_reset(const int64_t* __restrict__ words, const int64_t* __restrict__ flat,
+apx_lidar_fused_reset(ResetSource src, const bool* __restrict__ mask,
+                      unsigned long long* __restrict__ counter,
                       const float* __restrict__ beam_offsets, int beams, float range,
                       const float* __restrict__ inv_map_size, float eps, int n, int h, int w,
                       uint8_t* __restrict__ occ, float* __restrict__ pos_out,
@@ -179,13 +207,33 @@ apx_lidar_fused_reset(const int64_t* __restrict__ words, const int64_t* __restri
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int env = blockIdx.x * kWarpsPerBlock + warp;
-  if (env >= n) return;  // uniform across the warp; no block barrier follows
+  // The env is computed where the mask (if any) selects it. The counter
+  // (given with a mask) takes the block's count before any warp leaves,
+  // since the count is a barrier of the whole block.
+  const bool computed = env < n && (mask == nullptr || mask[env]);
+  if (counter != nullptr) {  // uniform across the grid
+    const int in_block = __syncthreads_count(computed && lane == 0);
+    if (threadIdx.x == 0) {
+      if (blockIdx.x == 0) atomicAdd(counter, static_cast<unsigned long long>(n));
+      if (in_block > 0) atomicAdd(counter + 1, static_cast<unsigned long long>(in_block));
+    }
+  }
+  if (!computed) return;  // uniform across the warp; no block barrier follows
   uint32_t* bits = bits_all[warp];
 
-  // Lane y holds row y's word (W <= 32 bits); the spawn cell's index.
-  const int64_t f = flat[env];
+  // The env's row of words and its spawn cell's index, from the bank or
+  // gathered; lane y holds row y's word (W <= 32 bits).
+  int64_t row = env, f;
+  if (src.bank_pos != nullptr) {
+    row = src.bank_pos[env];
+    const int64_t k = src.k[env];
+    if (row < 0 || row >= src.rows || k < 0 || k >= src.max_free) __trap();  // as ATen's gather
+    f = src.flat[row * src.max_free + k];
+  } else {
+    f = src.flat[env];
+  }
   const uint32_t row_word =
-      lane < h ? static_cast<uint32_t>(words[static_cast<size_t>(env) * h + lane]) : 0u;
+      lane < h ? static_cast<uint32_t>(src.words[row * h + lane]) : 0u;
 
   // The map as H*W row-major bits: lane k builds word k (cells 32k ..
   // 32k + 31) from the rows' words, a row's bits at a time (for W < 32 a
@@ -213,16 +261,17 @@ apx_lidar_fused_reset(const int64_t* __restrict__ words, const int64_t* __restri
     odo_out[env] = true;
     odometry[2 * env] = odometry_value(px, px, inv_map_size[0]);
     odometry[2 * env + 1] = odometry_value(py, py, inv_map_size[1]);
+    if (src.map_idx != nullptr) src.map_idx[env] = src.indices[row];
   }
 }
 
 template <bool kTyped>
-void launch_reset(unsigned blocks, cudaStream_t stream, const void* words, const void* flat,
-                  const void* beam_offsets, int beams, float range, const void* inv_map_size,
-                  float eps, int n, int h, int w, void* occ, void* pos_out, void* odo_out,
-                  void* lidar, void* odometry) {
+void launch_reset(unsigned blocks, cudaStream_t stream, const ResetSource& src,
+                  const void* mask, void* counter, const void* beam_offsets, int beams,
+                  float range, const void* inv_map_size, float eps, int n, int h, int w,
+                  void* occ, void* pos_out, void* odo_out, void* lidar, void* odometry) {
   apx_lidar_fused_reset<kTyped><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const int64_t*>(words), static_cast<const int64_t*>(flat),
+      src, static_cast<const bool*>(mask), static_cast<unsigned long long*>(counter),
       static_cast<const float*>(beam_offsets), beams, range,
       static_cast<const float*>(inv_map_size), eps, n, h, w, static_cast<uint8_t*>(occ),
       static_cast<float*>(pos_out), static_cast<bool*>(odo_out), static_cast<float*>(lidar),
@@ -270,24 +319,40 @@ extern "C" int lidar_fused_step_launch(const void* occ, const void* action, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// words (N, H) int64 row words, flat (N,) int64 the spawn cells' row-major
-// indices; outputs occ (N, H, W) bool, pos (N, 2) f32, odo_pending (N,)
-// bool, lidar (N, B) f32, odometry (N, 2) f32. `typed`: the GEOS-typed
-// scan, else the untyped one.
+// words (N, H) int64 row words and flat (N,) int64 the spawn cells'
+// row-major indices; or, with bank_pos, the bank's words (rows, H) and free
+// cells flat (rows, max_free), the draws bank_pos and k (N,) int64 and the
+// bank's dataset indices (rows,) int64, with map_idx (N,) int64 an output
+// (ResetSource). mask (N,) bool or null: the envs to compute (null: all);
+// counter (2,) int64 or null: adds N and the envs computed. Outputs occ
+// (N, H, W) bool, pos (N, 2) f32, odo_pending (N,) bool, lidar (N, B) f32,
+// odometry (N, 2) f32. `typed`: the GEOS-typed scan, else the untyped one.
 extern "C" int lidar_fused_reset_launch(const void* words, const void* flat,
+                                        const void* bank_pos, const void* k,
+                                        const void* indices, int rows, int max_free,
+                                        const void* mask, void* counter,
                                         const void* beam_offsets, int beams, float range,
                                         const void* inv_map_size, float eps, int typed, int n,
                                         int h, int w, void* occ, void* pos_out, void* odo_out,
-                                        void* lidar, void* odometry, void* stream) {
+                                        void* lidar, void* odometry, void* map_idx,
+                                        void* stream) {
   if (bad_shape(n, h, w, beams)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bank_pos != nullptr && (rows < 1 || max_free < 1 || k == nullptr || indices == nullptr ||
+                              map_idx == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0) return 0;
+  const ResetSource src{static_cast<const int64_t*>(words), static_cast<const int64_t*>(flat),
+                        static_cast<const int64_t*>(bank_pos), static_cast<const int64_t*>(k),
+                        static_cast<const int64_t*>(indices), static_cast<int64_t*>(map_idx),
+                        rows, max_free};
   const auto st = static_cast<cudaStream_t>(stream);
   if (typed) {
-    launch_reset<true>(blocks_for(n), st, words, flat, beam_offsets, beams, range, inv_map_size,
-                       eps, n, h, w, occ, pos_out, odo_out, lidar, odometry);
+    launch_reset<true>(blocks_for(n), st, src, mask, counter, beam_offsets, beams, range,
+                       inv_map_size, eps, n, h, w, occ, pos_out, odo_out, lidar, odometry);
   } else {
-    launch_reset<false>(blocks_for(n), st, words, flat, beam_offsets, beams, range, inv_map_size,
-                        eps, n, h, w, occ, pos_out, odo_out, lidar, odometry);
+    launch_reset<false>(blocks_for(n), st, src, mask, counter, beam_offsets, beams, range,
+                        inv_map_size, eps, n, h, w, occ, pos_out, odo_out, lidar, odometry);
   }
   return static_cast<int>(cudaGetLastError());
 }

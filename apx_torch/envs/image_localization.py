@@ -124,8 +124,9 @@ class ImageLocalizationEnv(APEnv[ImagePerceptionParams, ImageLocalizationState])
             torch.as_tensor(draws["jitter"], device=dev).to(torch.float32), params)
         return self._reset(perception, target, params)
 
-    def autoreset_from_draws(self, draws, old_state, params):
-        """Mid-run reset: the uniform target, no sweep."""
+    def autoreset_from_draws(self, draws, old_state, params, only=None):
+        """Mid-run reset: the uniform target, no sweep; every env (``only``
+        is not used)."""
         perception = ImagePerceptionEngine.reset_from_draws(draws, params)
         target = torch.as_tensor(draws["target"], device=params.device)
         return self._reset(perception, target, params)

@@ -47,6 +47,10 @@ the window-frame ones: ``"windowed"``, ``"mxu_window"``, ``"pallas_window"``
 where their windows fit), the step S wherever all three casts do (the
 dense backends without the beam tables); elsewhere K1 casts, with F1's
 four stages (``apx_torch.ops.lidar_step_cuda``) around the step's casts.
+R reads the bank itself unless the bank is sharded or the row halves are
+carried. Under NEXT_STEP the vector env's autoreset names the envs that
+were done (``autoreset_from_draws``'s ``only``), and R computes those
+alone.
 
 The window-frame backends round at other sites than the dense path, so
 each equals apx's env under the same backend (bitwise), and the dense one
@@ -472,21 +476,40 @@ class LIDARLocalizationEnv(APEnv[LIDARLocalizationParams, LIDARLocalizationState
         return {"bank_pos": bank_pos, "k": wide % bank.free_count(bank_pos)}
 
     def reset_from_draws(self, draws, params):
-        """The bank's fetch (``MapBank.spawn``), then kernel R where the reset
-        scan runs on the whole map (``ops.lidar_fused_cuda.reset``: the map,
-        the position, the scan and the observation in one launch; typed, or
-        untyped under ``"pallas"``), else the map and position unpacked and
-        the scan on the backend's window."""
+        """Kernel R where the reset scan runs on the whole map
+        (``ops.lidar_fused_cuda.reset``: the map, the position, the scan and
+        the observation in one launch; typed, or untyped under
+        ``"pallas"``), reading the bank itself where it is whole and no
+        row halves are carried, else from ``MapBank.spawn``'s fetch;
+        elsewhere the map and position unpacked from the fetch and the scan
+        on the backend's window."""
+        return self._reset(draws, params)
+
+    def autoreset_from_draws(self, draws, old_state, params, only=None):
+        """``reset_from_draws`` for the envs ``only`` selects ((N,) bool;
+        None: every env): R computes no other env, whose leaves are then
+        unspecified (``lidar_fused.RESET_POISON`` on the CPU). The window
+        backends compute every env."""
+        return self._reset(draws, params, only)
+
+    def _reset(self, draws, params, only=None):
         bank = params.map_bank
         _, w = bank.map_hw
         bank_pos = draws["bank_pos"].to(torch.int64)
         k = draws["k"].to(torch.int64)
-        words, flat_idx, map_idx = bank.spawn(bank_pos, k)  # k-th free cell, row-major
+        scan = (w, params.beam_offsets, params.lidar_range, params.inv_map_size,
+                params.raycast_backend != "pallas")
+        words = r = None
+        if params.reset_on_whole_map and bank.shard is None and not params.needs_row_halves:
+            r = lidar_fused_cuda.reset(bank.row_words, bank.free_cells, *scan, only=only,
+                                       fetch=(bank_pos, k, bank.indices))
+            map_idx = r["map_idx"]
+        else:
+            words, flat_idx, map_idx = bank.spawn(bank_pos, k)  # k-th free cell, row-major
+            if params.reset_on_whole_map:
+                r = lidar_fused_cuda.reset(words, flat_idx, *scan, only=only)
         obs = None
-        if params.reset_on_whole_map:
-            r = lidar_fused_cuda.reset(words, flat_idx, w, params.beam_offsets,
-                                       params.lidar_range, params.inv_map_size,
-                                       typed=params.raycast_backend != "pallas")
+        if r is not None:
             occ, pos, odo_pending = r["occ"], r["pos"], r["odo_pending"]
             obs = {"lidar": r["lidar"], "odometry": r["odometry"]}
         else:

@@ -106,8 +106,8 @@ def load(verbose: bool = False) -> ctypes.CDLL:
                                            merge_cuda._Terms, ptr]
     lib.lidar_fused_step_launch.argtypes = [*[ptr] * 8, i32, f32, f32, i32, i32, i32,
                                             *[ptr] * 9, ptr]
-    lib.lidar_fused_reset_launch.argtypes = [ptr, ptr, ptr, i32, f32, ptr, f32, i32, i32, i32,
-                                             i32, *[ptr] * 5, ptr]
+    lib.lidar_fused_reset_launch.argtypes = [*[ptr] * 5, i32, i32, ptr, ptr, ptr, i32, f32, ptr,
+                                             f32, i32, i32, i32, i32, *[ptr] * 6, ptr]
     i64out = ctypes.POINTER(ctypes.c_longlong)
     lib.apx_graph_device_nodes.argtypes = [ptr, i64out]
     lib.apx_capture_nodes.argtypes = [ptr, ctypes.POINTER(ctypes.c_ulonglong), i64out]

@@ -9,7 +9,9 @@ plain forms of kernels S and R (``apx_torch.ops.lidar_fused_cuda``).
 * ``reset_plain``: the spawn's map and position from the bank's row words
   (``spawn_leaves``), the reset scan from the spawn cell's centre (typed,
   or untyped as apx's ``"pallas"`` backend scans) and the observation
-  (``reset_observation``).
+  (``reset_observation``). Given a mask it writes ``RESET_POISON`` into
+  the envs the mask leaves out, whose slots R leaves unwritten, so that a
+  consumer reading one breaks the bitwise tests on the CPU.
 
 They run on the CPU, and on the card they are what S and R are held to
 (their ``fma`` / ``sum_squares`` / ``sqrt`` then launch N1-N3).
@@ -25,10 +27,15 @@ from . import lidar_step
 from .raycast import EPS, raycast_grid, seg_length
 
 __all__ = ["step_plain", "reset_plain", "spawn_leaves", "reset_observation", "whole_map_cast",
-           "RESET_LEAVES"]
+           "RESET_LEAVES", "RESET_POISON"]
 
-# What a reset returns (``reset_plain``, and kernel R's outputs).
+# What a reset returns (``reset_plain``, and kernel R's outputs), then
+# ``map_idx`` where the reset read the bank itself.
 RESET_LEAVES = ("occ", "pos", "odo_pending", "lidar", "odometry")
+# What ``reset_plain`` writes into the envs a mask leaves out, by leaf:
+# none of it is a value a reset can give.
+RESET_POISON = {"occ": True, "pos": float("nan"), "odo_pending": False, "lidar": float("nan"),
+                "odometry": float("nan"), "map_idx": -1}
 
 
 def whole_map_cast(occ: torch.Tensor, typed: bool):
@@ -75,15 +82,31 @@ def reset_observation(dist: torch.Tensor, pos: torch.Tensor, initial_pos: torch.
 
 
 def reset_plain(words: torch.Tensor, flat: torch.Tensor, w: int, beam_offsets: torch.Tensor,
-                lidar_range: float, inv_map_size: torch.Tensor,
-                typed: bool = True) -> dict[str, torch.Tensor]:
+                lidar_range: float, inv_map_size: torch.Tensor, typed: bool = True,
+                only: torch.Tensor | None = None,
+                fetch: tuple | None = None) -> dict[str, torch.Tensor]:
     """The reset from ``MapBank.spawn``'s row words (N, H) int64 and
     spawn cells ``flat`` (N,) int64, on maps W cells wide: the scan from
     the spawn position to ``pos + beam_offsets`` on the whole map (typed,
     or untyped) and its observation. Returns ``RESET_LEAVES``; the odometry
-    origin is the position itself."""
+    origin is the position itself. With ``fetch`` = (bank_pos, k, indices)
+    (N,), (N,), (M,) int64, ``words`` and ``flat`` are the bank's (M, H)
+    row words and (M, max_free) free cells, read as ``MapBank.spawn`` reads
+    them, and ``map_idx`` = indices[bank_pos] follows. ``only`` (N,) bool:
+    the envs left out get ``RESET_POISON``."""
+    map_idx = None
+    if fetch is not None:
+        bank_pos, k, indices = fetch
+        words, flat, map_idx = words[bank_pos], flat[bank_pos, k], indices[bank_pos]
     occ, pos = spawn_leaves(words, flat, w)
     dist = whole_map_cast(occ, typed)(pos, pos[:, None, :] + beam_offsets)
-    return {"occ": occ, "pos": pos,
-            "odo_pending": torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device),
-            **reset_observation(dist, pos, pos, lidar_range, inv_map_size)}
+    out = {"occ": occ, "pos": pos,
+           "odo_pending": torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device),
+           **reset_observation(dist, pos, pos, lidar_range, inv_map_size)}
+    if map_idx is not None:
+        out["map_idx"] = map_idx
+    if only is None:
+        return out
+    return {k: torch.where(only.reshape(-1, *[1] * (v.ndim - 1)), v,
+                           torch.tensor(RESET_POISON[k], dtype=v.dtype, device=v.device))
+            for k, v in out.items()}

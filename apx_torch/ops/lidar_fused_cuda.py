@@ -4,9 +4,11 @@ hand-written CUDA launch (``apx_torch/csrc/lidar_fused.cu``).
 * ``step``: kernel S, F1's four stages and K1's three casts (the move, the
   two wall-slide candidates, the beams) in one warp per env over the map
   packed into bits once; equal to ``lidar_fused.step_plain``;
-* ``reset``: kernel R, from ``MapBank.spawn``'s row words and spawn cells:
-  the ``occ`` leaf, the position, the reset scan and the observation;
-  equal to ``lidar_fused.reset_plain``.
+* ``reset``: kernel R, from the bank's row words and spawn cells (read
+  from the bank by R itself, or gathered by ``MapBank.spawn``): the
+  ``occ`` leaf, the position, the reset scan and the observation, for
+  every env or for those a mask selects; equal to
+  ``lidar_fused.reset_plain`` on the envs it computes.
 
 ``LIDARLocalizationEnv`` calls them where every cast of the step (S), or
 the reset scan (R), runs on the whole map. On CPU tensors they run the
@@ -16,7 +18,9 @@ or device raises, and so does an action that requires grad under grad
 mode (S has no backward: detach the action). Nothing falls back.
 
 ``LAUNCHES`` counts the kernels launched: ``fused_step`` (S) and
-``fused_reset`` (R), one each per NEXT_STEP LIDAR step on the card.
+``fused_reset`` (R), one each per NEXT_STEP LIDAR step on the card. R's
+launches given a mask add to its device counter
+(``core.trace.reset_counter``): the envs asked (N) and the envs computed.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..core import trace
 from . import build, lidar_fused
 from ._launch import launch, need, one_device, stream
 from .raycast import EPS
@@ -91,31 +96,57 @@ def step(occ: torch.Tensor, action: torch.Tensor, pos: torch.Tensor,
 
 
 def reset(words: torch.Tensor, flat: torch.Tensor, w: int, beam_offsets: torch.Tensor,
-          lidar_range: float, inv_map_size: torch.Tensor,
-          typed: bool = True) -> dict[str, torch.Tensor]:
-    """``lidar_fused.reset_plain``: words (N, H) int64, flat (N,) int64;
-    ``lidar_range`` is divided by as a float32."""
+          lidar_range: float, inv_map_size: torch.Tensor, typed: bool = True,
+          only: torch.Tensor | None = None, fetch: tuple | None = None) -> dict[str, torch.Tensor]:
+    """``lidar_fused.reset_plain``: words (N, H) int64, flat (N,) int64, or
+    with ``fetch`` = (bank_pos, k, indices) the bank's words (M, H) and
+    free cells (M, max_free), which R reads at the draws' rows and columns
+    itself, adding ``map_idx``; ``only`` (N,) bool the envs to compute (the
+    others' outputs are left unwritten); ``lidar_range`` is divided by as
+    a float32."""
     if words.device.type == "cpu":
         return lidar_fused.reset_plain(words, flat, w, beam_offsets, lidar_range, inv_map_size,
-                                       typed)
+                                       typed, only, fetch)
     kernel = "fused_reset"
     if words.ndim != 2:
-        raise ValueError(f"{kernel}: words must be (N, H), got {tuple(words.shape)}")
-    (n, h), beams = words.shape, beam_offsets.shape[0]
+        raise ValueError(f"{kernel}: words must be (N, H) or (M, H), got {tuple(words.shape)}")
+    (rows, h), beams = words.shape, beam_offsets.shape[0]
     _check_map(h, w, kernel)
     words, flat = words.contiguous(), flat.contiguous()
-    dev = one_device(kernel, words, flat, beam_offsets, inv_map_size)
-    ptrs = [need(kernel, "words", words, (n, h), torch.int64),
-            need(kernel, "flat", flat, (n,), torch.int64),
-            need(kernel, "beam_offsets", beam_offsets, (beams, 2))]
+    if fetch is None:
+        n, max_free, fetched = rows, 0, ()
+        src = [need(kernel, "words", words, (n, h), torch.int64),
+               need(kernel, "flat", flat, (n,), torch.int64), None, None, None]
+    else:
+        bank_pos, k, indices = (x.contiguous() for x in fetch)
+        if bank_pos.ndim != 1 or flat.ndim != 2:
+            raise ValueError(f"{kernel}: bank_pos must be (N,) and flat (M, max_free), got "
+                             f"{tuple(bank_pos.shape)} and {tuple(flat.shape)}")
+        n, max_free, fetched = bank_pos.shape[0], flat.shape[1], (bank_pos, k, indices)
+        src = [need(kernel, "words", words, (rows, h), torch.int64),
+               need(kernel, "flat", flat, (rows, max_free), torch.int64),
+               need(kernel, "bank_pos", bank_pos, (n,), torch.int64),
+               need(kernel, "k", k, (n,), torch.int64),
+               need(kernel, "indices", indices, (rows,), torch.int64)]
+    masked = () if only is None else (only,)
+    dev = one_device(kernel, words, flat, *fetched, *masked, beam_offsets, inv_map_size)
+    mask = None if only is None else need(kernel, "only", only, (n,), torch.bool)
+    counter = None if only is None else trace.reset_counter(dev)
     out = {"occ": torch.empty((n, h, w), dtype=torch.bool, device=dev),
            "pos": torch.empty((n, 2), device=dev),
            "odo_pending": torch.empty(n, dtype=torch.bool, device=dev),
            "lidar": torch.empty((n, beams), device=dev),
            "odometry": torch.empty((n, 2), device=dev)}
+    map_idx = None
+    if fetch is not None:
+        out["map_idx"] = torch.empty(n, dtype=torch.int64, device=dev)
+        map_idx = out["map_idx"].data_ptr()
     err = launch(
-        "R", build.load().lidar_fused_reset_launch, *ptrs, beams, ctypes.c_float(lidar_range),
-        need(kernel, "inv_map_size", inv_map_size, (2,)), ctypes.c_float(EPS),
-        int(bool(typed)), n, h, w, *(x.data_ptr() for x in out.values()), stream(dev))
+        "R", build.load().lidar_fused_reset_launch, *src, rows, max_free, mask,
+        None if counter is None else counter.data_ptr(),
+        need(kernel, "beam_offsets", beam_offsets, (beams, 2)), beams,
+        ctypes.c_float(lidar_range), need(kernel, "inv_map_size", inv_map_size, (2,)),
+        ctypes.c_float(EPS), int(bool(typed)), n, h, w,
+        *(out[k].data_ptr() for k in lidar_fused.RESET_LEAVES), map_idx, stream(dev))
     _launched(err, kernel)
     return out

@@ -4,7 +4,8 @@ loss F2 does not compute.
 
 A NEXT_STEP vector step runs the step and the reset for all N envs and
 keeps, env by env, the reset's result where the env was done at the
-previous step (``mask``). ``next_step`` is that merge as
+previous step (``mask``); the reset's other envs are never read (LIDAR's
+reset leaves them unwritten). ``next_step`` is that merge as
 ``VectorAPEnv.step`` composes it:
 
 * every leaf of the step's and the reset's (obs, state, info) selected by

@@ -40,8 +40,8 @@ class APWrapper(APEnv):
     def reset_from_draws(self, draws, params):
         return self.env.reset_from_draws(draws, params)
 
-    def autoreset_from_draws(self, draws, old_state, params):
-        return self.env.autoreset_from_draws(draws, old_state, params)
+    def autoreset_from_draws(self, draws, old_state, params, only=None):
+        return self.env.autoreset_from_draws(draws, old_state, params, only=only)
 
     def draw_step(self, num_envs, params, generator):
         return self.env.draw_step(num_envs, params, generator)

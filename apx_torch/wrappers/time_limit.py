@@ -125,8 +125,9 @@ class TimeLimit(APWrapper):
         obs, state, info = self.env.reset_from_draws(draws, params)
         return self.wrap_reset(obs, state, info, params)
 
-    def autoreset_from_draws(self, draws, old_state, params):
-        obs, state, info = self.env.autoreset_from_draws(draws, old_state.inner, params)
+    def autoreset_from_draws(self, draws, old_state, params, only=None):
+        obs, state, info = self.env.autoreset_from_draws(draws, old_state.inner, params,
+                                                         only=only)
         return self.wrap_reset(obs, state, info, params)
 
     def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:

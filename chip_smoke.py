@@ -1138,6 +1138,17 @@ def fused_casts(step_args) -> list:
     return casts
 
 
+def _as_read(name: str, args) -> tuple:
+    """The operands S or R reads: R given ``fetch`` (its ninth operand)
+    reads the bank's rows, spawn cells and indices that the draws select,
+    and the draws, in place of the whole bank."""
+    if name == "fused_step" or len(args) < 9 or args[8] is None:
+        return args
+    bank_pos, k, indices = args[8]
+    return (args[0][bank_pos], args[1][bank_pos, k], *args[2:8], bank_pos, k,
+            indices[bank_pos])
+
+
 def fused_bound(name: str, args, out) -> tuple[float, str]:
     """Least time (ms) of S or R on these operands: every operand read once
     and every output written once at the HBM rate (R reads the row words,
@@ -1147,6 +1158,7 @@ def fused_bound(name: str, args, out) -> tuple[float, str]:
     rates."""
     from apx_torch.ops import lidar_fused
 
+    args = _as_read(name, args)
     nbytes = _tree_bytes(args, out)
     if name == "fused_step":
         occ, n, beams = args[0], args[0].shape[0], args[7].shape[0]
@@ -1154,7 +1166,7 @@ def fused_bound(name: str, args, out) -> tuple[float, str]:
         t_ops = (cells * OPS_PER_CELL["raycast_fast"] / FP32_ISSUE_PER_S
                  + n * sum(a + b * beams for a, b in LIDAR_STEP_OPS.values()) / FP32_OPS_PER_S)
     else:
-        words, flat, w, offsets, _, _, typed = args
+        words, flat, w, offsets, _, _, typed = args[:7]
         occ, pos = lidar_fused.spawn_leaves(words, flat, w)
         cells = candidate_cells(occ, pos, pos[:, None, :] + offsets)
         kind = "raycast_typed" if typed else "raycast_fast"
@@ -1188,7 +1200,7 @@ def hold_fused(name: str, args, time_it: bool = True) -> dict:
         b_ms, b_by = fused_bound(name, args, want)
         res.update(ms=device_ms(lambda: kernel(*args), 50),
                    plain_ms=device_ms(lambda: plain(*args), 4), bound_ms=b_ms, bound_by=b_by,
-                   bytes=_tree_bytes(args, want))
+                   bytes=_tree_bytes(_as_read(name, args), want))
     return res
 
 
@@ -1220,7 +1232,130 @@ def phase_fused_kernels(dev) -> list[dict]:
                               + ("" if name == "fused_step" else ", typed scan"),
                      "by_bank": by_bank[name], "elements_held_bitwise": held[name]})
     rows[1]["untyped_by_bank"] = by_bank["fused_reset_untyped"]
+    rows[1]["masks"] = fused_reset_masks(dev)
+    rows[1]["merge_after_reset"] = merge_after_reset(dev)
     return rows
+
+
+def fused_reset_masks(dev, n: int = 16384) -> dict:
+    """R (typed) at N = ``n`` on the rooms bank, as the NEXT_STEP main path
+    launches it (reading the bank itself, given ``prev_done``): held
+    bitwise to the plain form (``reset_plain``, reading the bank as
+    ``MapBank.spawn`` does) unmasked and, on the envs each mask selects,
+    given masks that select no env, one in 101 (random) and every env
+    (``mask_0``, ``mask_1_in_101``, ``mask_all``). Device ms per launch
+    (CUDA-graph replay): on ``MapBank.spawn``'s gathered operands unmasked
+    (``gathered``), reading the bank unmasked (``fetch``), and given each
+    mask, with R's counter and without it (``no_counter``); the spawn's
+    three gathers alone (``spawn``)."""
+    import apx_torch
+    from apx_torch.core import trace
+    from apx_torch.ops import lidar_fused, lidar_fused_cuda
+
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    d = venv.env.draw_reset(n, p, gen)
+    bank = p.map_bank
+    scan = (bank.map_hw[1], p.beam_offsets, p.lidar_range, p.inv_map_size, True)
+    fetch = {"fetch": (d["bank_pos"], d["k"], bank.indices)}
+    words, flat, _ = bank.spawn(d["bank_pos"], d["k"])
+    masks = {"mask_0": torch.zeros(n, dtype=torch.bool, device=dev),
+             "mask_1_in_101": torch.rand(n, generator=gen, device=dev) < 1 / 101,
+             "mask_all": torch.ones(n, dtype=torch.bool, device=dev)}
+
+    def fused(only=None):
+        return lidar_fused_cuda.reset(bank.row_words, bank.free_cells, *scan, only=only, **fetch)
+
+    want = lidar_fused.reset_plain(bank.row_words, bank.free_cells, *scan, **fetch)
+    got = fused()
+    check(list(got) == list(want), f"R reading the bank: outputs {list(got)}, not {list(want)}")
+    for k, v in want.items():
+        check(_bits_equal_any(got[k], v), f"R reading the bank: output {k} is not the plain form's")
+    for name, only in masks.items():
+        plain = lidar_fused.reset_plain(bank.row_words, bank.free_cells, *scan, only=only, **fetch)
+        got = fused(only)
+        for k, v in plain.items():
+            check(_bits_equal_any(got[k][only], v[only]),
+                  f"R given {name}: output {k} is not the plain form's on the envs it selects")
+    out = {"n": n, "selected_1_in_101": int(masks["mask_1_in_101"].sum()),
+           "gathered": device_ms(lambda: lidar_fused_cuda.reset(words, flat, *scan), 50),
+           "fetch": device_ms(fused, 50),
+           "spawn": device_ms(lambda: bank.spawn(d["bank_pos"], d["k"]), 50)}
+    for name, only in masks.items():
+        out[name] = device_ms(lambda only=only: fused(only), 50)
+    counter = trace.reset_counter
+    try:  # R given a mask and no counter: the launch without its count
+        trace.reset_counter = lambda device: None
+        out["no_counter"] = {name: device_ms(lambda only=only: fused(only), 50)
+                             for name, only in masks.items()}
+    finally:
+        trace.reset_counter = counter
+    return out
+
+
+def merge_after_reset(dev, n: int = 16384, steps: int = 16, replays: int = 8) -> dict:
+    """F2's device us per launch beside R's and S's, in a captured
+    ``steps``-step NEXT_STEP chunk of LIDARLocRooms-v0 at N = ``n`` with no
+    env done (as 100 steps in 101 of the ``lidar_rooms`` cell): R given
+    ``prev_done`` (``masked``, the main path) and R resetting every env
+    (``unmasked``, as before the mask). Both graphs in one process, warmed
+    alternately for 3 s, then profiled ``replays`` replays at a time in the
+    order masked, unmasked, unmasked, masked."""
+    import apx_torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from apx_torch.envs.lidar_localization import LIDARLocalizationEnv
+
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    obs, state, _ = venv.reset(p, gen)
+    draws = [venv.env.draw_reset(n, p, gen) for _ in range(steps)]
+    act = [{"action": torch.rand((n, 2), generator=gen, device=dev) * 2 - 1,
+            "prediction": torch.randn((n, 2), generator=gen, device=dev)} for _ in range(steps)]
+
+    def chunk():
+        s = state
+        for j in range(steps):
+            _, s, *_ = venv.step(s, act[j], p, reset_draws=draws[j], step_draws={})
+        return s
+
+    masked = LIDARLocalizationEnv.autoreset_from_draws
+    graphs = {}
+    for name in ("masked", "unmasked"):
+        if name == "unmasked":
+            LIDARLocalizationEnv.autoreset_from_draws = \
+                lambda self, draws, old_state, params, only=None: masked(self, draws, old_state,
+                                                                          params)
+        try:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                chunk()
+            torch.cuda.current_stream().wait_stream(side)
+            graphs[name] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[name]):
+                chunk()
+        finally:
+            LIDARLocalizationEnv.autoreset_from_draws = masked
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 3.0:
+        for graph in graphs.values():
+            graph.replay()
+        torch.cuda.synchronize()
+    kernels = {"F2": "apx_merge_next_step", "R": "apx_lidar_fused_reset",
+               "S": "apx_lidar_fused_step"}
+    out = {name: {k: [] for k in kernels} for name in graphs}
+    for name in ("masked", "unmasked", "unmasked", "masked"):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                graphs[name].replay()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        for k, key in kernels.items():
+            hits = [e for e in events if key in e.key]
+            out[name][k].append(sum(e.self_device_time_total for e in hits)
+                                / max(1, sum(e.count for e in hits)))
+    return {"n": n, "steps": steps, "replays": replays, "us_per_launch": out}
 
 
 def _tree_bytes(*trees) -> int:
@@ -3487,7 +3622,7 @@ def phase_workload_kernels(dev) -> dict:
         for (kernel, r), (args, kwargs) in calls.items():
             if kernel == "glimpse":
                 res["kernels"]["glimpse"] = _hold_k3(args, kwargs)
-            elif kernel.startswith("fused"):  # R's typed flag comes by keyword
+            elif kernel.startswith("fused"):  # R's mask and bank operands come by keyword
                 held = hold_fused(kernel, (*args, *kwargs.values()))
                 held.pop("held")
                 res["kernels"][kernel] = {"shape": f"N={n} H={args[0].shape[1]}", **held}

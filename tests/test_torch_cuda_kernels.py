@@ -1040,3 +1040,186 @@ def test_fused_raises_on_card(dev):
     with torch.no_grad():
         lidar_fused_cuda.step(step[0], step[1].clone().requires_grad_(), *step[2:])
     assert lidar_fused_cuda.LAUNCHES["fused_step"] == before["fused_step"] + 1
+
+
+# ---- R's mask, its reads of the bank and its counter ---------------------------
+
+
+def _reset_operands(dev, env_id: str, n: int, seed: int):
+    """(params, the reset's draws, R's scan operands but ``typed``) of a
+    reset of ``env_id`` at N = n."""
+    import apx_torch
+
+    venv, p = apx_torch.make_vec(env_id, num_envs=n, device=dev)
+    d = venv.env.draw_reset(n, p, torch.Generator(device=dev).manual_seed(seed))
+    return p, d, (p.map_bank.map_hw[1], p.beam_offsets, p.lidar_range, p.inv_map_size)
+
+
+def _reset_forms(p, d):
+    """R's two forms on these draws, as (operands, keywords): reading the
+    bank itself, and on ``MapBank.spawn``'s gathered words and cells."""
+    bank = p.map_bank
+    words, flat, _ = bank.spawn(d["bank_pos"], d["k"])
+    return {"fetch": ((bank.row_words, bank.free_cells),
+                      {"fetch": (d["bank_pos"], d["k"], bank.indices)}),
+            "gathered": ((words, flat), {})}
+
+
+@pytest.mark.parametrize("share", [1.0, 0.0, 0.01, 0.5], ids=["all", "none", "1%", "50%"])
+@pytest.mark.parametrize("typed", [True, False], ids=["typed", "untyped"])
+@pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocMaze-v0"])
+def test_fused_reset_mask_on_card(dev, env_id, typed, share):
+    """R given a mask computes the envs it selects bitwise as R unmasked
+    and as the plain form given the mask (NaN as NaN), in both forms, one
+    launch each; a masked launch adds exactly N asked and the mask's count
+    computed to the device counter, an unmasked one nothing."""
+    from apx_torch.core import trace
+    from apx_torch.ops import lidar_fused, lidar_fused_cuda
+
+    n = 4096
+    p, d, scan = _reset_operands(dev, env_id, n, 41)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    only = torch.rand(n, generator=gen, device=dev) < share
+    counter = trace.reset_counter(dev)
+    for form, (args, kw) in _reset_forms(p, d).items():
+        start = counter.tolist()
+        want = lidar_fused_cuda.reset(*args, *scan, typed, **kw)
+        torch.cuda.synchronize()
+        assert counter.tolist() == start, form
+        launches = lidar_fused_cuda.LAUNCHES["fused_reset"]
+        got = lidar_fused_cuda.reset(*args, *scan, typed, only=only, **kw)
+        torch.cuda.synchronize()
+        assert lidar_fused_cuda.LAUNCHES["fused_reset"] == launches + 1, form
+        plain = lidar_fused.reset_plain(*args, *scan, typed, only=only, **kw)
+        assert list(got) == list(want) == list(plain), form
+        for key in want:
+            g = got[key][only]
+            for w in (want[key][only], plain[key][only]):
+                assert (_same_bits(g, w) if g.is_floating_point() else torch.equal(g, w)), \
+                    f"{form} {key}"
+        added = [a - b for a, b in zip(counter.tolist(), start)]
+        assert added == [n, int(only.sum())], form
+
+
+@pytest.mark.parametrize("typed", [True, False], ids=["typed", "untyped"])
+@pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocMaze-v0",
+                                    "LIDARLocRoomsStatic-v0"])
+def test_fused_reset_reads_the_bank_on_card(dev, env_id, typed):
+    """R reading the bank's rows, free cells and indices itself equals R on
+    ``MapBank.spawn``'s gathered operands, every output bitwise, and its
+    ``map_idx`` is spawn's; both equal the plain form (``reset_plain``'s
+    own fetch)."""
+    from apx_torch.ops import lidar_fused, lidar_fused_cuda
+
+    n = 4096
+    p, d, scan = _reset_operands(dev, env_id, n, 47)
+    forms = _reset_forms(p, d)
+    (args, kw), (g_args, _) = forms["fetch"], forms["gathered"]
+    got = lidar_fused_cuda.reset(*args, *scan, typed, **kw)
+    gathered = lidar_fused_cuda.reset(*g_args, *scan, typed)
+    plain = lidar_fused.reset_plain(*args, *scan, typed, **kw)
+    _, _, index = p.map_bank.spawn(d["bank_pos"], d["k"])
+    torch.cuda.synchronize()
+    assert list(got) == [*gathered, "map_idx"] == list(plain)
+    assert torch.equal(got["map_idx"], index)
+    for key, want in plain.items():
+        for other in (got, gathered):
+            if key in other:
+                assert (_same_bits(other[key], want) if want.is_floating_point()
+                        else torch.equal(other[key], want)), key
+
+
+def test_fused_reset_raises_on_bad_mask_or_fetch(dev):
+    """R raises on a mask of another dtype, length or device, and on
+    fetch operands of the wrong rank, dtype or device; nothing launched
+    and nothing counted."""
+    from apx_torch.core import trace
+    from apx_torch.ops import lidar_fused_cuda
+
+    n = 64
+    p, d, scan = _reset_operands(dev, "LIDARLocRooms-v0", n, 53)
+    forms = _reset_forms(p, d)
+    (args, kw), (g_args, _) = forms["fetch"], forms["gathered"]
+    bank_pos, k, indices = kw["fetch"]
+    only = torch.ones(n, dtype=torch.bool, device=dev)
+    counter = trace.reset_counter(dev)
+    start, launches = counter.tolist(), dict(lidar_fused_cuda.LAUNCHES)
+    bad = [(g_args, {"only": only.to(torch.uint8)}), (g_args, {"only": only[:32]}),
+           (g_args, {"only": only.cpu()}), (args, {"only": only[:32], **kw}),
+           (args, {"fetch": (bank_pos[:, None], k, indices)}),
+           (args, {"fetch": (bank_pos.to(torch.int32), k, indices)}),
+           (args, {"fetch": (bank_pos, k.cpu(), indices)}),
+           ((args[0], args[1][:, 0]), kw)]
+    for i, (a, kws) in enumerate(bad):
+        with pytest.raises(ValueError):
+            lidar_fused_cuda.reset(*a, *scan, True, **kws)
+        assert lidar_fused_cuda.LAUNCHES == launches, i
+    torch.cuda.synchronize()
+    assert counter.tolist() == start
+
+
+@pytest.mark.parametrize("timing", ["staggered", "synchronised"])
+def test_masked_next_step_graph_replays_like_eager_steps(dev, timing, monkeypatch):
+    """A 16-step NEXT_STEP chunk of LIDARLocRooms-v0 that crosses resets,
+    captured as a CUDA graph with R masked by ``prev_done`` and replayed,
+    gives bitwise the obs, state and rewards of eager steps that reset
+    every env (R unmasked); each replay adds 16 N asked and the envs that
+    were done computed to R's counter. Staggered: the envs end their
+    episodes on steps of their own; synchronised: all on one step."""
+    import apx_torch
+    from apx_torch.core import trace
+    from apx_torch.core.env import tree_map
+    from apx_torch.envs.lidar_localization import LIDARLocalizationEnv
+
+    n, steps = 1024, 16
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device=dev)
+    g = torch.Generator(dev).manual_seed(9)
+    _, state, _ = venv.reset(p, g)
+    limit = venv.env.max_episode_steps
+    t = torch.arange(n, dtype=state.inner.t.dtype, device=dev)
+    t = (t * 7) % limit if timing == "staggered" else torch.full_like(t, limit - 5)
+    state = type(state)(inner=type(state.inner)(inner=state.inner.inner, t=t),
+                        prev_done=state.prev_done)
+    draws = [venv.env.draw_reset(n, p, g) for _ in range(steps)]
+    act = [{"action": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
+            "prediction": torch.randn((n, 2), generator=g, device=dev)} for _ in range(steps)]
+
+    def chunk(state, done=None):
+        rewards = []
+        for j in range(steps):
+            if done is not None:
+                done.append(int(state.prev_done.sum()))
+            obs, state, reward, *_ = venv.step(state, act[j], p, reset_draws=draws[j],
+                                               step_draws={})
+            rewards.append(reward)
+        return obs, state, rewards
+
+    masked = LIDARLocalizationEnv.autoreset_from_draws
+    with monkeypatch.context() as m:
+        m.setattr(LIDARLocalizationEnv, "autoreset_from_draws",
+                  lambda self, draws, old_state, params, only=None:
+                  masked(self, draws, old_state, params))
+        done = []
+        want = chunk(state, done)
+    assert 0 < sum(done) < steps * n
+    if timing == "synchronised":
+        assert sorted(set(done)) == [0, n]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chunk(state)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chunk(state)
+    counter = trace.reset_counter(dev)
+    torch.cuda.synchronize()
+    start = counter.tolist()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counter.tolist(), start)] == [steps * n, sum(done)]
+    got_leaves, want_leaves = [], []
+    tree_map(got_leaves.append, out)
+    tree_map(want_leaves.append, want)
+    for a, b in zip(got_leaves, want_leaves, strict=True):
+        assert (_same_bits(a, b) if a.is_floating_point() else torch.equal(a, b))

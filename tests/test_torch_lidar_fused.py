@@ -6,7 +6,10 @@ LIDARLocRooms-v0, LIDARLocMaze-v0 (21x21: a 32-cell word of the map spans
 rows), LIDARLocRoomsStatic-v0 and under ``raycast_backend="pallas"`` (the
 untyped reset scan; apx's Pallas kernel in interpret mode); the edge
 actions and positions of ``chip_smoke.lidar_step_cases``; the wrappers'
-CPU dispatch and the env's choice of S and R by backend.
+CPU dispatch and the env's choice of S and R by backend; the reset of only
+the envs a mask selects (the NEXT_STEP autoreset's ``only``): the plain
+form's poison in the others, the mask through the wrappers, and masked
+rollouts bitwise the unmasked ones.
 """
 
 import jax
@@ -21,6 +24,8 @@ import apx
 from apx.compat.builders import reset_from_draws as jax_reset_from_draws
 
 import apx_torch
+from apx_torch.core.env import tree_map
+from apx_torch.envs.lidar_localization import LIDARLocalizationEnv
 from apx_torch.ops import lidar_fused, lidar_fused_cuda, lidar_step, raycast_cuda
 from apx_torch.ops.lidar_step import STEP_LEAVES
 from chip_smoke import lidar_step_cases
@@ -224,3 +229,190 @@ def test_step_plain_equals_the_staged_k1_path():
                                  p.map_size, p.inv_map_size, p.beam_offsets, p.inv_range)
     for k in STEP_LEAVES:
         assert torch.equal(got[k], want[k]), k
+
+
+# ---- the reset of the envs a mask selects ---------------------------------
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise, NaN as NaN (float32 compared as its bits)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def _assert_poisoned(got: dict, want: dict, only: torch.Tensor, what: str):
+    """``got`` equals ``want`` bitwise on the envs ``only`` selects and holds
+    ``lidar_fused.RESET_POISON`` in every slot of the others."""
+    assert list(got) == list(want), what
+    for k, v in got.items():
+        assert _same(v[only], want[k][only]), f"{what} {k}: a selected env changed"
+        skipped = v[~only]
+        poison = lidar_fused.RESET_POISON[k]
+        ok = torch.isnan(skipped) if v.is_floating_point() else skipped == poison
+        assert bool(ok.all()), f"{what} {k}: a skipped env is not poisoned"
+
+
+@pytest.mark.parametrize("fetch", [False, True], ids=["gathered", "fetch"])
+@pytest.mark.parametrize("typed", [True, False], ids=["typed", "untyped"])
+def test_reset_plain_poisons_exactly_the_skipped_envs(fetch, typed):
+    """``reset_plain`` given ``only``: the selected envs' leaves bitwise the
+    unmasked reset's, every slot of the others ``RESET_POISON`` (NaN
+    positions, lidar and odometry, an all-wall map, ``odo_pending`` False,
+    ``map_idx`` -1); the bank form equals ``MapBank.spawn``'s gathered
+    operands and adds their ``map_idx``."""
+    n = 64
+    _, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu")
+    bank = p.map_bank
+    bank_pos, k = (torch.from_numpy(x) for x in _spawns(p, n, np.random.default_rng(5)))
+    words, flat, index = bank.spawn(bank_pos, k)
+    scan = (32, p.beam_offsets, p.lidar_range, p.inv_map_size, typed)
+    gathered = lidar_fused.reset_plain(words, flat, *scan)
+    if fetch:
+        args, kw = (bank.row_words, bank.free_cells), {"fetch": (bank_pos, k, bank.indices)}
+        want = {**gathered, "map_idx": index}
+        got = lidar_fused.reset_plain(*args, *scan, **kw)
+        assert all(_same(got[key], want[key]) for key in want)
+    else:
+        args, kw, want = (words, flat), {}, gathered
+    only = torch.from_numpy(np.random.default_rng(6).random(n) < 0.3)
+    assert 0 < int(only.sum()) < n
+    _assert_poisoned(lidar_fused.reset_plain(*args, *scan, only=only, **kw), want, only,
+                     "reset_plain")
+    _assert_poisoned(lidar_fused_cuda.reset(*args, *scan, only=only, **kw), want, only,
+                     "reset on the CPU")
+
+
+@pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocRooms-sparse-v0"])
+def test_autoreset_mask_passes_through_the_wrappers(env_id):
+    """``autoreset_from_draws(..., only=)`` from the vector env's outermost
+    env (``TimeLimit``; on the ``-sparse`` id ``Sparsify``, the base
+    wrapper, around it) reaches the LIDAR env: the selected envs' leaves
+    are the explicit reset's, the others poisoned, and ``TimeLimit``'s
+    counter restarts for all."""
+    n = 32
+    venv, p = apx_torch.make_vec(env_id, n, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    _, state, _ = venv.reset(p, g)
+    draws = venv.env.draw_reset(n, p, g)
+    only = torch.arange(n) % 3 == 0
+    obs, s, info = venv.env.autoreset_from_draws(draws, state.inner, p, only=only)
+    want_obs, want_s, want_info = venv.env.reset_from_draws(draws, p)
+    inner, want_inner = s.inner, want_s.inner
+    assert torch.equal(s.t, want_s.t)
+    got = {"occ": inner.occ, "pos": inner.pos, "odo_pending": inner.odo_pending,
+           "lidar": obs["lidar"], "odometry": obs["odometry"], "map_idx": info["map_idx"]}
+    want = {"occ": want_inner.occ, "pos": want_inner.pos,
+            "odo_pending": want_inner.odo_pending, "lidar": want_obs["lidar"],
+            "odometry": want_obs["odometry"], "map_idx": want_info["map_idx"]}
+    _assert_poisoned(got, want, only, env_id)
+    assert torch.equal(inner.bank_pos, want_inner.bank_pos)
+
+
+@pytest.mark.parametrize("env_id", ["LightDark-v0", "CircleSquare-v0"])
+def test_envs_without_a_masked_reset_ignore_the_mask(env_id):
+    """The default ``autoreset_from_draws`` takes ``only`` and resets every
+    env: the leaves equal the unmasked reset's."""
+    n = 16
+    venv, p = apx_torch.make_vec(env_id, n, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    _, state, _ = venv.reset(p, g)
+    draws = venv.env.draw_reset(n, p, g)
+    only = torch.arange(n) % 2 == 0
+    got = venv.env.autoreset_from_draws(draws, state.inner, p, only=only)
+    want = venv.env.autoreset_from_draws(draws, state.inner, p)
+    for a, b in zip(_leaves(got), _leaves(want), strict=True):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("overrides,fetch", [
+    ({}, True), ({"raycast_backend": "pallas"}, True), ({"raycast_backend": "hybrid"}, True),
+    ({"raycast_backend": "bitslab2d"}, False), ({"raycast_backend": "pallas_window"}, False)])
+def test_env_lets_r_read_the_bank_where_it_can(overrides, fetch, monkeypatch):
+    """R reads the bank itself (``fetch``) wherever it runs on a whole,
+    unsharded bank and no row halves are carried; the bit windows (row
+    halves) and the window backends (no R) keep ``MapBank.spawn``."""
+    n = 8
+    venv, p = apx_torch.make_vec("LIDARLocRooms-v0", n, device="cpu", **overrides)
+    calls = {"spawn": 0, "fetch": 0}
+    spawn, reset = type(p.map_bank).spawn, lidar_fused_cuda.reset
+
+    def counted_spawn(self, *a):
+        calls["spawn"] += 1
+        return spawn(self, *a)
+
+    def counted_reset(*a, **kw):
+        calls["fetch"] += kw.get("fetch") is not None
+        return reset(*a, **kw)
+
+    monkeypatch.setattr(type(p.map_bank), "spawn", counted_spawn)
+    monkeypatch.setattr(lidar_fused_cuda, "reset", counted_reset)
+    venv.reset(p, torch.Generator().manual_seed(0))
+    assert calls == ({"spawn": 0, "fetch": 1} if fetch else {"spawn": 1, "fetch": 0})
+
+
+def _stagger(state, limit: int):
+    """The vector state with env i's first episode started ``7 i`` steps
+    before (mod the limit), so that its ``TimeLimit`` ends it early: the
+    envs' dones spread over the steps."""
+    t = (torch.arange(state.inner.t.shape[0], dtype=state.inner.t.dtype) * 7) % limit
+    return type(state)(inner=type(state.inner)(inner=state.inner.inner, t=t),
+                       prev_done=state.prev_done)
+
+
+@pytest.mark.parametrize("timing", ["synchronised", "staggered"])
+@pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocMaze-v0"])
+def test_masked_rollout_bitwise_equal_to_unmasked(env_id, timing, monkeypatch):
+    """A NEXT_STEP rollout of 205 steps with the reset computed only where
+    ``prev_done`` is set (the plain form poisoning the rest) equals the
+    rollout that resets every env, bitwise: obs, carried state, rewards,
+    dones and info at every step. Synchronised: ``prev_done`` all False but
+    on the two steps after the 100-step limit, when it is all True;
+    staggered: the envs' resets on steps of their own."""
+    n, steps = 16, 205
+    venv, p = apx_torch.make_vec(env_id, n, device="cpu")
+    limit = venv.env.max_episode_steps
+    asked = []
+    plain = LIDARLocalizationEnv.autoreset_from_draws
+
+    def spy(self, draws, old_state, params, only=None):
+        asked.append(None if only is None else int(only.sum()))
+        return plain(self, draws, old_state, params, only=only)
+
+    def unmasked(self, draws, old_state, params, only=None):
+        return plain(self, draws, old_state, params)
+
+    def run(autoreset):
+        monkeypatch.setattr(LIDARLocalizationEnv, "autoreset_from_draws", autoreset)
+        g = torch.Generator().manual_seed(17)
+        rng = np.random.default_rng(17)
+        obs, state, _ = venv.reset(p, g)
+        if timing == "staggered":
+            state = _stagger(state, limit)
+        out = []
+        for _ in range(steps):
+            act = torch.from_numpy(rng.uniform(-1, 1, (n, 2)).astype(np.float32))
+            pred = torch.from_numpy(rng.uniform(-1, 1, (n, 2)).astype(np.float32))
+            obs, state, *rest = venv.step(state, {"action": act, "prediction": pred}, p, g)
+            out.append(_leaves((obs, state, rest)))
+        return out
+
+    masked, whole = run(spy), run(unmasked)
+    for t, (a, b) in enumerate(zip(masked, whole, strict=True)):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            assert _same(x, y), f"{env_id} {timing} step {t} leaf {i}"
+    assert len(asked) == steps and None not in asked
+    if timing == "synchronised":
+        assert [i for i, c in enumerate(asked) if c] == [limit, 2 * limit + 1]
+        assert {asked[limit], asked[2 * limit + 1]} == {n}
+    else:
+        assert sum(0 < c < n for c in asked) >= n  # the envs' resets fall on other steps
+        assert sum(asked) >= 2 * n  # every env reset at least twice

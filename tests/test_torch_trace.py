@@ -1,6 +1,7 @@
 """The port's span facility (``apx_torch.core.trace``), the spans at the
 vector env's stages, the benchmark's reader of them through a capture
-layout (``benchmark/yardstick/stages.py``) and ``parse_trace --spans``.
+layout (``benchmark/yardstick/stages.py``) and ``parse_trace --spans``;
+the facility's device counters and the benchmark's reader of R's.
 
 The CPU tests stub the capture (its query and its node counter). The card
 test (marked ``cuda``, skipped without a device) captures a LIDAR chunk:
@@ -19,6 +20,7 @@ from apx_torch.core import trace
 from apx_torch.core.env import AutoResetMode, vector_env
 from apx_torch.ops import _launch
 from apx_torch.tools import parse_trace
+from benchmark import manifest
 from benchmark.yardstick import stages
 
 
@@ -160,6 +162,50 @@ def test_captures_are_followed_through_torch(capture, monkeypatch):
     assert Graph.calls == ["begin", "end"] and trace._OPEN == 0
     (layout,) = trace.layouts()
     assert layout["nodes"] == 7 and layout["spans"] == [(("apx.vector.step",), 0, 5)]
+
+
+def test_device_counters_are_made_once_read_and_cleared(registry, monkeypatch):
+    """``reset_counter`` makes R's int64 counter on a device once and hands
+    back the same tensor after; ``counters`` reads it (nothing before it is
+    made, summed over devices after); ``clear`` zeroes it in place; under a
+    capture a counter not yet made stays unmade (None), and one made
+    before is handed back."""
+    monkeypatch.setattr(trace, "_RESET_COUNTS", {})
+    assert trace.counters() == {}
+    c = trace.reset_counter("cpu")
+    assert c.dtype == torch.int64 and c.tolist() == [0, 0]
+    assert trace.reset_counter(torch.device("cpu")) is c
+    c += torch.tensor([16384, 163])
+    assert trace.counters() == {"fused_reset": [16384, 163]}
+    trace._RESET_COUNTS[torch.device("meta")] = torch.tensor([4096, 7])
+    assert trace.counters() == {"fused_reset": [20480, 170]}
+    del trace._RESET_COUNTS[torch.device("meta")]
+    trace.clear()
+    assert trace.counters() == {"fused_reset": [0, 0]}
+    assert trace.reset_counter("cpu") is c
+    monkeypatch.setattr(trace, "_RESET_COUNTS", {})
+    monkeypatch.setattr(trace, "_OPEN", 1)
+    monkeypatch.setattr(trace, "_capturing", lambda: True)
+    assert trace.reset_counter("cpu") is None
+    assert trace.counters() == {}
+    monkeypatch.setattr(trace, "_RESET_COUNTS", {torch.device("cpu"): c})
+    assert trace.reset_counter("cpu") is c
+
+
+@pytest.mark.parametrize("values,share", [
+    ("no counters", None), (None, None), ([0, 0], None), ([16384 * 101, 16384], 1 / 101),
+    ([4096, 4096], 1.0)])
+def test_reset_share_reads_the_reset_counter(values, share, monkeypatch):
+    """The benchmark's ``reset_share.rollout`` is R's envs computed over
+    envs asked; it reads nothing from a program without device counters,
+    without R's counter, or before a masked launch."""
+    reader = manifest.metric_reader("reset_share.rollout")
+    if values == "no counters":
+        monkeypatch.delattr(trace, "counters")
+    else:
+        got = {} if values is None else {"fused_reset": values}
+        monkeypatch.setattr(trace, "counters", lambda: got)
+    assert reader.read({}) == share
 
 
 def _lidar(n=4):
