@@ -1223,3 +1223,55 @@ def test_masked_next_step_graph_replays_like_eager_steps(dev, timing, monkeypatc
     tree_map(want_leaves.append, want)
     for a, b in zip(got_leaves, want_leaves, strict=True):
         assert (_same_bits(a, b) if a.is_floating_point() else torch.equal(a, b))
+
+
+def test_light_dark_chunk_graph_replays_like_eager_steps(dev):
+    """A 16-step NEXT_STEP chunk of LightDark-v0 with its step and reset
+    draws injected, captured as a CUDA graph and replayed, gives bitwise
+    the obs, state, rewards and dones of the same steps issued eagerly.
+    The envs' step counts are staggered, so that episodes end at the time
+    limit on steps of their own and resets fall inside the chunk."""
+    import apx_torch
+    from apx_torch.core.env import tree_map
+
+    n, steps = 4096, 16
+    venv, p = apx_torch.make_vec("LightDark-v0", n, device=dev)
+    g = torch.Generator(dev).manual_seed(13)
+    _, state, _ = venv.reset(p, g)
+    limit = venv.env.max_episode_steps
+    t = (torch.arange(n, dtype=state.inner.t.dtype, device=dev) * 7) % limit
+    state = type(state)(inner=type(state.inner)(inner=state.inner.inner, t=t),
+                        prev_done=state.prev_done)
+    resets = [venv.env.draw_reset(n, p, g) for _ in range(steps)]
+    noises = [venv.env.draw_step(n, p, g) for _ in range(steps)]
+    act = [{"action": torch.rand((n, 2), generator=g, device=dev) * 2.5 - 1.25,
+            "prediction": torch.randn((n, 2), generator=g, device=dev)} for _ in range(steps)]
+
+    def chunk(state, done=None):
+        outs = []
+        for j in range(steps):
+            if done is not None:
+                done.append(int(state.prev_done.sum()))
+            obs, state, *rest, _ = venv.step(state, act[j], p, reset_draws=resets[j],
+                                             step_draws=noises[j])
+            outs.append(rest)
+        return obs, state, outs
+
+    done = []
+    want = chunk(state, done)
+    assert 0 < sum(done) < steps * n
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chunk(state)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chunk(state)
+    graph.replay()
+    torch.cuda.synchronize()
+    got_leaves, want_leaves = [], []
+    tree_map(got_leaves.append, out)
+    tree_map(want_leaves.append, want)
+    for a, b in zip(got_leaves, want_leaves, strict=True):
+        assert (_same_bits(a, b) if a.is_floating_point() else torch.equal(a, b))

@@ -416,3 +416,67 @@ def test_captured_lidar_chunk_layout_matches_its_graph(dev, registry, tmp_path):
     assert got is not None and got["env_step"] > 0 and got["env_reset"] > 0
     assert got["vector_merge"] > 0
     assert np.isfinite(out[0]["lidar"].cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_captured_light_dark_chunk_lies_in_the_stages(dev, registry, tmp_path):
+    """A 16-step LightDark-v0 chunk captured as the benchmark's
+    ``light_dark.rollout`` captures it (the family's chunk, every draw
+    injected, the rollout's graph): the spans around each graph node are
+    nested, so each node lies in exactly one stage, and every stage has
+    nodes; F2 lies under ``apx.vector.step`` once a step; N1-N3 lie under
+    ``apx.env.step`` (3, 3 and 1 a step: the move's norm and FMA, the
+    brightness and the noisy FMA, the base reward's) and ``apx.env.reset``
+    (1 N1 and 1 N2 a step: the reset's brightness and noisy FMA); a trace
+    of replays splits by the layout."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.families import light_dark as family
+    from benchmark.kinds import rollout
+
+    cell = manifest.cell(manifest.load(), "light_dark.rollout")
+    env = family.build(cell["config"], {**cell["traffic"], "num_envs": 1024}, 0, dev)
+    steps = env.chunk
+    g = torch.Generator(dev).manual_seed(6)
+    obs, state, _ = family.initial_reset(env, g, rollout.policy)
+    draws = family.draw_pool(env, g, steps)
+    racc = torch.zeros(env.num_envs, device=dev)
+    dacc = torch.zeros(env.num_envs, dtype=torch.int32, device=dev)
+    trace.clear()
+    graph = rollout._Graph(
+        lambda o, s, d: family.step_chunk(env, o, s, d, racc, dacc, rollout.policy),
+        obs, state, draws)
+    (layout,) = trace.layouts()
+    total = layout["nodes"]
+    own = trace.owners(layout)
+    assert total > 0 and len(own) == total
+    for k in range(total):
+        holding = [path for path, a, b in layout["spans"] if a <= k < b]
+        inner = max(holding, key=len, default=())
+        assert all(inner[:len(path)] == path for path in holding), holding
+    by_stage = collections.Counter(stages.stage_of(path) for path in own)
+    assert set(by_stage) == set(stages.STAGES) and all(by_stage.values())
+    kernels = collections.Counter()
+    for path, a, b in layout["spans"]:
+        if path[-1].startswith("apx.kernel."):
+            assert b - a == 1, path
+            kernels[(path[-1][len("apx.kernel."):], stages.stage_of(path))] += 1
+            if path[-1] == "apx.kernel.F2":
+                assert path == ("apx.vector.step", "apx.kernel.F2")
+    assert dict(kernels) == {
+        ("F2", "vector_merge"): steps,
+        ("N1", "env_step"): 3 * steps, ("N2", "env_step"): 3 * steps,
+        ("N3", "env_step"): steps,
+        ("N1", "env_reset"): steps, ("N2", "env_reset"): steps}
+    graph.replay(draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay(draws)
+        graph.replay(draws)
+        torch.cuda.synchronize()
+    path = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(path))
+    got = stages.split_us(json.loads(path.read_text()), layout, trace.owners, _launch.KERNELS)
+    assert got is not None and all(got[s] > 0 for s in stages.STAGES)
