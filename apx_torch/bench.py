@@ -31,8 +31,8 @@ the timed window instead, as apx keeps such a leaf's draw in its loop
   The masked-merge ``venv.step`` loop, which runs the reset (an image
   gather and a second glimpse) on every step, is timed beside it;
 * ``light_dark``: a bare ``LightDarkEnv()`` under NEXT_STEP autoreset,
-  apx's ``make_light_dark`` (``bench.py:334-341``); it runs no kernel of
-  the port, and its step draws its observation noise;
+  apx's ``make_light_dark`` (``bench.py:334-341``); it runs L's step and
+  reset and F2 on the card, and its step draws its observation noise;
 * ``mnist``, ``cifar10``: ``ImageClassificationEnv`` over the MNIST
   (28x28x1) and CIFAR10 (32x32x3) banks, 5x5 sensor, as ``circle_square``
   (``bench.py:402-415, 440-451``);
@@ -255,7 +255,9 @@ PORT_KERNELS = {"raycast": "raycast_kernel", "glimpse": "glimpse_kernel",
                 "window": "window_kernel", "fma": "apx_fma_f32",
                 "sum_squares": "apx_sum_squares_f32", "sqrt": "apx_sqrt_f32",
                 "lidar_step": "apx_lidar_step", "merge": "apx_merge_next_step",
-                "fused_step": "apx_lidar_fused_step", "fused_reset": "apx_lidar_fused_reset"}
+                "fused_step": "apx_lidar_fused_step", "fused_reset": "apx_lidar_fused_reset",
+                "light_dark_step": "apx_light_dark_step",
+                "light_dark_reset": "apx_light_dark_reset"}
 # vs_baseline's denominators: the reference's own measured CPU rates
 # (bench.py:323-451). apx divides the LIDAR family by BASELINE.json's
 # 1M-aggregate target on a TPU v5e-8, a TPU figure: those records carry

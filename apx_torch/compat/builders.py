@@ -21,7 +21,7 @@ from ..envs.image_perception import ImagePerceptionEngine
 from ..envs.lidar_localization import (LIDARBitslabState, LIDARLocalizationEnv,
                                        LIDARLocalizationState)
 from ..ops.raycast import pack_row_halves
-from ..envs.light_dark import LightDarkEnv, LightDarkState, noisy_position
+from ..envs.light_dark import LightDarkEnv, LightDarkState, observe
 from ..wrappers.base import APWrapper
 
 __all__ = ["reset_from_draws", "apply_step_draws", "unwrap_state"]
@@ -81,7 +81,7 @@ def _base_reset_from_draws(base, draws: dict[str, Any], params):
         dev = params.device
         pos = torch.as_tensor(draws["pos"], dtype=torch.float32, device=dev)
         noise = torch.as_tensor(draws["noise"], dtype=torch.float32, device=dev)
-        obs = {"noisy_position": noisy_position(pos, noise, params.noise_scale, params)}
+        obs = {"noisy_position": observe(pos, noise, params.noise_scale, params)}
         return obs, LightDarkState(pos=pos), {}
     raise TypeError(f"No reset builder for {type(base).__name__}")
 
@@ -114,6 +114,6 @@ def apply_step_draws(env, result, draws: dict[str, Any] | None, params):
     if isinstance(base, LightDarkEnv) and "noise" in draws:
         pos = unwrap_state(result.state).pos
         noise = torch.as_tensor(draws["noise"], dtype=torch.float32, device=pos.device)
-        noisy = noisy_position(pos, noise, params.noise_scale, params)
+        noisy = observe(pos, noise, params.noise_scale, params)
         return result.replace(obs={**result.obs, "noisy_position": noisy})
     return result

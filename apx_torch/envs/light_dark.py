@@ -19,6 +19,11 @@ same way, so injected ``erfinv(u)`` draws give apx's observations bitwise.
 
 apx's ``reset_prefers_merge`` has no counterpart: the port always runs the
 masked merge, which apx pins bitwise to its ``lax.cond``.
+
+On CUDA tensors the step and the reset's observation are kernel L, one
+launch each (``ops.light_dark_cuda``), which raises on operands it cannot
+take; on the CPU they are the plain forms, ``step_plain`` and
+``noisy_position``, which L equals bitwise.
 """
 
 from __future__ import annotations
@@ -34,11 +39,12 @@ from ..core.env import APEnv, APStepResult, _need
 from ..core.losses import LossFn
 from ..core.numerics import fma, sum_squares
 from ..core.spaces import Box, DictSpace, Space
+from ..ops import light_dark_cuda
 from ..ops.geometry import normalize_into_unit_ball
 from .common import make_regression_loss_and_target_space
 
 __all__ = ["LightDarkEnv", "LightDarkParams", "LightDarkState", "base_reward", "brightness",
-           "moved_position", "noisy_position", "obs_std"]
+           "moved_position", "noisy_position", "observe", "obs_std", "step_plain"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +65,11 @@ class LightDarkParams:
         return torch.tensor(self.light_pos, dtype=torch.float32, device=self.device)
 
     @property
+    def light_height_sq(self) -> float:
+        """f32(light_height^2), the h^2 of the brightness."""
+        return float(np.float32(self.light_height ** 2))
+
+    @property
     def folded_noise_scale(self) -> float:
         """f32(f32(sqrt 2) * noise_scale): the constant XLA folds from the
         normal's sqrt(2) and the noise scale (module docstring)."""
@@ -75,7 +86,7 @@ def brightness(pos: torch.Tensor, params: LightDarkParams, fused: bool = True) -
     jitted reference rounds it: the sum of squares contracted, then a true
     division. ``fused=False`` rounds each square, as apx's unjitted call
     does (its renderer's brightness field)."""
-    h2 = float(np.float32(params.light_height ** 2))
+    h2 = params.light_height_sq
     d = pos - params.light
     dist_sq = (sum_squares(d) if fused else (d * d).sum(dim=-1)) + h2
     return torch.full_like(dist_sq, h2) / dist_sq
@@ -90,9 +101,18 @@ def noisy_position(pos, noise, scale: float, params: LightDarkParams) -> torch.T
     """clip(pos + noise * (1 - brightness) * scale, -2, 2), the add
     contracted into an FMA as in the jitted reference. ``scale`` is the
     noise scale for standard-normal noise and ``folded_noise_scale`` for
-    the env's N(0, 1/2) draws."""
+    the env's N(0, 1/2) draws. The plain form of L's reset (``observe``)."""
     std = (1.0 - brightness(pos, params)) * scale
     return fma(noise, std[:, None], pos).clamp(-2.0, 2.0)
+
+
+def observe(pos, noise, scale: float, params: LightDarkParams) -> torch.Tensor:
+    """``noisy_position``: one launch of L's reset on CUDA tensors, else
+    the plain form."""
+    if pos.device.type == "cuda":
+        return light_dark_cuda.reset(pos.contiguous(), noise.contiguous(), params.light_pos,
+                                     params.light_height_sq, scale)
+    return noisy_position(pos, noise, scale, params)
 
 
 def base_reward(action: torch.Tensor) -> torch.Tensor:
@@ -104,6 +124,18 @@ def moved_position(pos, action, params: LightDarkParams) -> torch.Tensor:
     """pos + normalize_into_unit_ball(a) * move_scale, the add contracted."""
     move = normalize_into_unit_ball(action)
     return fma(move, params.move_scale, pos)
+
+
+def step_plain(pos, action, noise, params: LightDarkParams) -> tuple[torch.Tensor, ...]:
+    """(position, observation, base reward, terminated, truncated) of a
+    step from ``pos``: the move, termination when a coordinate reaches
+    |p| >= 1 (before the clip), the clip to [-1, 1], the noisy observation
+    of the clipped position, the base reward. The plain form of L's step."""
+    moved = moved_position(pos, action, params)
+    terminated = (moved.abs() >= 1.0).any(dim=-1)
+    moved = moved.clamp(-1.0, 1.0)
+    return (moved, noisy_position(moved, noise, params.folded_noise_scale, params),
+            base_reward(action), terminated, torch.zeros_like(terminated))
 
 
 class LightDarkEnv(APEnv[LightDarkParams, LightDarkState]):
@@ -148,20 +180,25 @@ class LightDarkEnv(APEnv[LightDarkParams, LightDarkState]):
     def reset_from_draws(self, draws, params):
         pos = torch.as_tensor(draws["pos"], device=params.device).to(torch.float32)
         noise = torch.as_tensor(draws["noise"], device=params.device).to(torch.float32)
-        obs = {"noisy_position": noisy_position(pos, noise, params.folded_noise_scale, params)}
+        obs = {"noisy_position": observe(pos, noise, params.folded_noise_scale, params)}
         return obs, LightDarkState(pos=pos), {}
 
     def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
-        pos = moved_position(state.pos, action, params)
-        terminated = (pos.abs() >= 1.0).any(dim=-1)
-        pos = pos.clamp(-1.0, 1.0)
         noise = draws["noise"]
+        if state.pos.device.type == "cuda":
+            out = light_dark_cuda.step(
+                state.pos.contiguous(), action.contiguous(), noise.contiguous(),
+                params.light_pos, params.light_height_sq, params.move_scale,
+                params.folded_noise_scale)
+        else:
+            out = step_plain(state.pos, action, noise, params)
+        pos, obs, reward, terminated, truncated = out
         return APStepResult(
-            obs={"noisy_position": noisy_position(pos, noise, params.folded_noise_scale, params)},
+            obs={"noisy_position": obs},
             state=LightDarkState(pos=pos),
-            base_reward=base_reward(action),
+            base_reward=reward,
             terminated=terminated,
-            truncated=torch.zeros_like(terminated),
+            truncated=truncated,
             info={},
             prediction_target=state.pos,
         )

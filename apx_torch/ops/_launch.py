@@ -26,6 +26,7 @@ KERNELS = {
     "F2": "apx_merge_next_step",  # merge_cuda
     "S": "apx_lidar_fused_step",  # lidar_fused_cuda
     "R": "apx_lidar_fused_reset",
+    "L": "apx_light_dark",  # light_dark_cuda: apx_light_dark_step and apx_light_dark_reset
 }
 
 

@@ -29,7 +29,13 @@ Phases, one line each; any failure exits non-zero:
    (``ops.lidar_fused_cuda``) against their plain forms
    (``ops.lidar_fused``) at N = 4096 on the rooms (32x32) and maze (21x21)
    banks, R typed and untyped, S from edge actions and positions
-   (``fused_inputs``); device, plain and bound ms of each. Phases 4 and 9
+   (``fused_inputs``); device, plain and bound ms of each.
+3b. light dark kernel: L's step and reset (``ops.light_dark_cuda``)
+   against their plain forms (``envs.light_dark.step_plain`` and
+   ``noisy_position``) on the card at N = 4096 and 16384, bitwise with NaN
+   as NaN, on ``light_dark_cases`` (zero, unit and NaN actions, moves onto
+   |p| = 1, the light, noise past +-2); device, plain and bytes-bound ms
+   of each entry at each N (``phase_light_dark_kernel``). Phases 4 and 9
    check the launches per step (``lidar_path_launches``), N1 once (the
    reset's time obs); every LIDAR path without a metrics wrapper launches
    no N3.
@@ -82,8 +88,9 @@ Phases, one line each; any failure exits non-zero:
     zero predictions (its step draws its observation noise); every obs
     finite, ``noisy_position`` in [-2, 2], ``time_step`` in [-1, 1], rewards
     in [-2.002, 1] (base reward 1 - 1e-3 |a|^2 less a normalized MSE of at
-    most 3), every env through at least three episode ends. It runs no
-    kernel of the port.
+    most 3), every env through at least three episode ends; L's step once
+    per step, L's reset once at the reset and once per step, F2 once per
+    step, and no N2 or N3.
 13. wrapped kernel paths: ``make_vec("LIDARLocRooms-sparse-v0",
     num_envs=4096, metrics=True)`` for 250 steps and
     ``make_vec("CircleSquare-sparse-v0", num_envs=4096, metrics=True)`` for
@@ -300,7 +307,7 @@ Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 its own path, the counts set to 0 just before it: S's, R's and F2's on
 phase 4 (and under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase
 13), K1's and F1's on phase 9 (0 on phase 4: S and R cast there), K2's on
-phase 9, N1-N3's on phase 12,
+phase 9, N1-N3's on phase 15, L's on phase 12,
 K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
 and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 ``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
@@ -812,14 +819,14 @@ def phase_glimpse_kernel(dev) -> dict:
 
 def _launch_modules():
     from apx_torch.ops import (glimpse_cuda, issue_rate_study, lidar_fused_cuda, lidar_step_cuda,
-                               merge_cuda, raycast_cuda, window_cuda)
+                               light_dark_cuda, merge_cuda, raycast_cuda, window_cuda)
 
     return (raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study, lidar_step_cuda,
-            merge_cuda, lidar_fused_cuda)
+            merge_cuda, lidar_fused_cuda, light_dark_cuda)
 
 
 def reset_all_launch_counts() -> None:
-    """Sets K1-K4's, F1's, F2's, S's and R's counts and N1-N3's
+    """Sets K1-K4's, F1's, F2's, S's, R's and L's counts and N1-N3's
     (``core.numerics``) to 0."""
     from apx_torch.core import numerics
 
@@ -830,8 +837,8 @@ def reset_all_launch_counts() -> None:
 
 def all_launch_counts() -> dict:
     """K1-K4's, F1's (``lidar_step``), F2's (``merge``), S's
-    (``fused_step``) and R's (``fused_reset``) counts (N1-N3's:
-    ``numerics_launches``)."""
+    (``fused_step``), R's (``fused_reset``) and L's (``light_dark_step``,
+    ``light_dark_reset``) counts (N1-N3's: ``numerics_launches``)."""
     return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
 
 
@@ -1536,6 +1543,128 @@ def phase_lidar_step_kernels(dev) -> list[dict]:
     return [f1, f2, s_row, r_row]
 
 
+# ---- L: LightDark's step and reset (ops.light_dark_cuda) ----------------------
+
+LIGHT_DARK_REPLACES = {
+    "light_dark_step": "apx/envs/light_dark.py:78-107 (the step: move, wall test, clip, noisy "
+                       "observation, base reward, which XLA fuses; no Pallas kernel)",
+    "light_dark_reset": "apx/envs/light_dark.py:78-107 (the reset's noisy observation, XLA "
+                        "fusions; no Pallas kernel)",
+}
+LIGHT_DARK_NS = (N, 16384)  # the main paths' N and the benchmark cell's
+
+
+def light_dark_cases(seed: int, n: int) -> dict:
+    """L's operands, float32 numpy arrays ``pos``, ``action`` and ``noise``,
+    each (n, 2) (the reset reads ``pos`` and ``noise``). Hand-built rows
+    first: zero actions (signed zeros), |a| exactly 1 and one ulp above,
+    moves from p = 1 - f32(0.15) +- 8 ulps by a unit action on each axis
+    and sign (so that the moved position lands exactly on |p| = 1, just
+    short of it and one ulp beyond), positions at the light (brightness 1, no
+    noise), noise that drives the observation past +-2 (and inf noise),
+    NaN, inf and subnormal actions, NaN noise; then random rows: positions
+    in [-1, 1), actions in [-1.5, 1.5) (a third of them past |a| = 1),
+    N(0, 1/2) noise, one in a hundred times 100."""
+    rng = np.random.default_rng(seed)
+    inf, nan = np.inf, np.nan
+    up = float(np.nextafter(np.float32(1), np.float32(2)))
+    rows = []  # (px, py, ax, ay, zx, zy)
+    for p in ((0.3, 0.2), (0.0, -0.7)):
+        rows += [(*p, 0.0, 0.0, 0.5, -0.5), (*p, -0.0, 0.0, 0.5, -0.5), (*p, 0.0, -0.0, 0.0, 0.0)]
+    for a in ((1.0, 0.0), (0.0, -1.0), (-1.0, 0.0), (0.6, 0.8), (up, 0.0), (0.0, -up), (up, up)):
+        rows.append((0.1, -0.2, *a, 0.3, 0.1))
+    x = np.float32(1) - np.float32(0.15)
+    for _ in range(8):
+        x = np.nextafter(x, np.float32(0))
+    for _ in range(17):
+        v = float(x)
+        rows += [(v, 0.0, 1.0, 0.0, 0.1, 0.1), (-v, 0.5, -1.0, 0.0, 0.1, 0.1),
+                 (0.0, v, 0.0, 1.0, 0.1, 0.1), (-0.5, -v, 0.0, -1.0, 0.1, 0.1)]
+        x = np.nextafter(x, np.float32(1))
+    rows += [(0.0, -0.7, 0.0, 0.0, 3.0, -3.0), (0.0, -0.7, 0.0, 0.0, inf, 1.0),
+             (0.9, 0.9, 0.1, 0.1, 50.0, 50.0), (-0.9, 0.9, 0.0, 0.0, -50.0, 60.0),
+             (0.9, -0.9, 0.0, 0.0, inf, -inf)]
+    rows += [(0.2, 0.2, nan, 0.0, 0.1, 0.1), (0.2, 0.2, 0.0, nan, 0.1, 0.1),
+             (0.2, 0.2, nan, nan, 0.1, 0.1), (0.2, 0.2, inf, 0.0, 0.1, 0.1),
+             (0.2, 0.2, -inf, inf, 0.1, 0.1), (0.2, 0.2, 1e-40, 0.0, 0.1, 0.1),
+             (0.2, 0.2, 0.5, 0.5, nan, 0.0)]
+    if n < len(rows):
+        raise ValueError(f"light_dark_cases: n = {n} < {len(rows)} hand-built rows")
+    edge = _f32(np.array(rows, dtype=np.float64))
+    k = n - len(rows)
+    noise = rng.normal(0.0, np.sqrt(0.5), (k, 2)) * np.where(rng.random((k, 1)) < 0.01, 100, 1)
+    rand = _f32(np.concatenate([rng.uniform(-1, 1, (k, 2)), rng.uniform(-1.5, 1.5, (k, 2)),
+                                noise], axis=1))
+    cases = np.concatenate([edge, rand])
+    return {"pos": cases[:, 0:2].copy(), "action": cases[:, 2:4].copy(),
+            "noise": cases[:, 4:6].copy()}
+
+
+def hold_light_dark(x: dict, params, time_it: bool = True) -> dict:
+    """L's step and reset (``light_dark_cuda``) against their plain forms
+    (``envs.light_dark.step_plain`` and ``noisy_position``, N1-N3 and ATen
+    on the card) on the CUDA tensors ``x`` (``light_dark_cases``' keys):
+    every output bitwise with NaN as NaN, one launch per call; with
+    ``time_it`` each entry's and its plain form's device ms (CUDA-graph
+    replay) and the bytes bound. Returns {kernel: measurements}."""
+    from apx_torch.envs import light_dark as ld
+    from apx_torch.ops import light_dark_cuda
+
+    pos, action, noise = x["pos"], x["action"], x["noise"]
+    light, h2, scale = params.light_pos, params.light_height_sq, params.folded_noise_scale
+    forms = {
+        "light_dark_step": (
+            lambda: light_dark_cuda.step(pos, action, noise, light, h2, params.move_scale, scale),
+            lambda: ld.step_plain(pos, action, noise, params), (pos, action, noise)),
+        "light_dark_reset": (
+            lambda: (light_dark_cuda.reset(pos, noise, light, h2, scale),),
+            lambda: (ld.noisy_position(pos, noise, scale, params),), (pos, noise)),
+    }
+    res = {}
+    for name, (kernel, plain, read) in forms.items():
+        before = light_dark_cuda.LAUNCHES[name]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(light_dark_cuda.LAUNCHES[name] == before + 1,
+              f"{name}: {light_dark_cuda.LAUNCHES[name] - before} launches, not 1")
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            check(_bits_equal_any(g, w), f"{name} output {i} at N={pos.shape[0]} is not bitwise "
+                                         "its plain form")
+        nbytes = _tree_bytes(read, want)
+        res[name] = {"held": sum(w.numel() for w in want), "bytes": nbytes}
+        if time_it:
+            res[name].update(ms=device_ms(kernel, 50), plain_ms=device_ms(plain, 10),
+                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return res
+
+
+def phase_light_dark_kernel(dev) -> list[dict]:
+    """L against its plain forms on the card at N = 4096 and 16384
+    (``light_dark_cases``), bitwise with NaN as NaN, each entry timed
+    (CUDA-graph replay) against its plain form and its bytes bound (an
+    entry's float32 operations, ~30 an env, are 1% of its bytes' time).
+    Returns the rows of L's step and reset (N = 4096's times; ``by_n``
+    holds both sizes)."""
+    import apx_torch
+
+    _, params = apx_torch.make_vec("LightDark-v0", num_envs=N, device=dev)
+    by_n = {"light_dark_step": {}, "light_dark_reset": {}}
+    for n in LIGHT_DARK_NS:
+        x = {k: torch.from_numpy(v).to(dev) for k, v in light_dark_cases(23 + n, n).items()}
+        for name, r in hold_light_dark(x, params).items():
+            by_n[name][n] = r
+    rows = []
+    for name, sizes in by_n.items():
+        main = sizes[N]
+        rows.append({"name": name, "route": "cuda", "source": "apx_torch/csrc/light_dark.cu",
+                     "replaces": LIGHT_DARK_REPLACES[name], "launches": None, "max_abs_err": 0.0,
+                     **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                     "library_ms": None,  # no PyTorch call computes a LightDark step or reset
+                     "shape": f"N={N} (N, 2) leaves", "by_n": sizes,
+                     "elements_held_bitwise": sum(r["held"] for r in sizes.values())})
+    return rows
+
+
 WINDOW_PAD = 16  # LIDARLocRooms-v0's ray_pad under "pallas_window"
 
 
@@ -1938,7 +2067,8 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
             "max_abs_err": max_err,
             "numerics_launches": numerics_launches(
                 f"{env_id}{overrides or ''} card vs cpu, N={n}", steps,
-                roots=None if build else metrics or not env_id.startswith("LIDAR")),
+                roots=None if build or env_id.startswith("LightDark")
+                else metrics or not env_id.startswith("LIDAR")),
             "bitwise": sorted(set(oc) - set(tol)) + ["state", "dones"]
             + ([] if "reward" in tol else ["reward"])}
 
@@ -1973,8 +2103,13 @@ def phase_light_dark_main_path(dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = all_launch_counts()
-    numerics = numerics_launches("LightDark main path", steps)
+    numerics = numerics_launches("LightDark main path", steps, roots=None)
 
+    want = {"light_dark_step": steps, "light_dark_reset": 1 + steps, "merge": steps}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"LightDark main path: launches {got}, expected {want}")
+    check(numerics["sum_squares"] == numerics["sqrt"] == 0,
+          f"LightDark main path: N2 or N3 launched beside L ({numerics})")
     check(bool(finite), "non-finite observation")
     check(bool(ranges_ok), "noisy_position outside [-2, 2] or time_step outside [-1, 1]")
     check(-2.002 <= float(r_lo) and float(r_hi) <= 1.0,
@@ -2554,7 +2689,8 @@ def phase_compat_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: float | 
     torch.cuda.synchronize()
     launches = all_launch_counts()
     numerics = numerics_launches(f"{env_id}{overrides or ''} compat core, N={n}", steps,
-                                 roots=not env_id.startswith("LIDAR"))
+                                 roots=None if env_id.startswith("LightDark")
+                                 else not env_id.startswith("LIDAR"))
     ends = int(sum(np.asarray(outs[1][2]) | np.asarray(outs[1][3])))
     return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "merge_steps": merges,
             "seconds": time.perf_counter() - t0, "launches": launches,
@@ -3711,6 +3847,8 @@ def main() -> int:
     emit(f"numerics kernels: {json.dumps(numerics_rows)}", flush=True)
     fused_rows = phase_lidar_step_kernels(dev)
     emit(f"lidar step kernels: {json.dumps(fused_rows)}", flush=True)
+    ld_rows = phase_light_dark_kernel(dev)
+    emit(f"light dark kernel: {json.dumps(ld_rows)}", flush=True)
 
     main_path = phase_main_path(dev)
     emit(f"main path: {json.dumps(main_path)}", flush=True)
@@ -3755,6 +3893,9 @@ def main() -> int:
 
     ld_path = phase_light_dark_main_path(dev)
     emit(f"light dark main path: {json.dumps(ld_path)}", flush=True)
+    for r in ld_rows:
+        r["launches"] = ld_path["launches"][r["name"]]
+        r["launches_path"] = f"LightDark-v0 main path, N={N}, reset + {ld_path['steps']} steps"
     lidar_sparse = phase_sparse_metrics_path(dev, "LIDARLocRooms-sparse-v0", 250)
     emit(f"sparse metrics path: {json.dumps(lidar_sparse)}", flush=True)
     cs_sparse = phase_sparse_metrics_path(dev, "CircleSquare-sparse-v0", 51)
@@ -3902,16 +4043,19 @@ def main() -> int:
     k3["entry"] = {"launches": flagship["launches"], "max_abs_err": flagship["max_abs_err"],
                    "path": "graft_entry.entry(): CircleSquare 16x16, N=64, reset + one step"}
 
-    # N1-N3 left the LIDAR step (F1, F2): their launches are LightDark's.
-    ld_numerics = ld_path["numerics_launches"]
+    # N1-N3 left the LIDAR step (F1, F2) and LightDark's (L): their
+    # launches are TinyImageNetLoc's.
+    tin_numerics = tin_path["numerics_launches"]
     for r in numerics_rows:
-        r["launches"] = ld_numerics[r["name"]]
-        r["launches_path"] = f"LightDark-v0 main path, N={N}, reset + {ld_path['steps']} steps"
+        r["launches"] = tin_numerics[r["name"]]
+        r["launches_path"] = f"TinyImageNetLoc-v0 main path, N={N}, reset + " \
+                             f"{tin_path['steps']} steps"
         r["paths"] = {path: {"steps": c["steps"], "launches": c[r["name"]],
                              "per_step": c["per_step"][r["name"]]}
                       for path, c in NUMERICS_BY_PATH.items()}
     rows.extend(numerics_rows)
     rows.extend(fused_rows)
+    rows.extend(ld_rows)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1275,3 +1275,94 @@ def test_light_dark_chunk_graph_replays_like_eager_steps(dev):
     tree_map(want_leaves.append, want)
     for a, b in zip(got_leaves, want_leaves, strict=True):
         assert (_same_bits(a, b) if a.is_floating_point() else torch.equal(a, b))
+
+
+@pytest.mark.parametrize("n", [16384, 1000])
+def test_light_dark_kernel_bitwise_on_card(dev, n):
+    """L's step and reset against their plain forms (``step_plain``,
+    ``noisy_position``: N1-N3 and ATen on the card) on
+    ``chip_smoke.light_dark_cases`` (zero, unit and NaN actions, moves
+    onto |p| = 1, the light, noise past +-2, random rows), every output
+    bitwise with NaN as NaN, one launch per call; the reset at the env's
+    folded scale and at the drop-in's."""
+    import apx_torch
+    from apx_torch.envs import light_dark as ld
+    from apx_torch.ops import light_dark_cuda
+    from chip_smoke import light_dark_cases
+
+    _, p = apx_torch.make_vec("LightDark-v0", n, device=dev)
+    x = {k: torch.from_numpy(v).to(dev) for k, v in light_dark_cases(n, n).items()}
+    pos, action, noise = x["pos"], x["action"], x["noise"]
+    before = dict(light_dark_cuda.LAUNCHES)
+    got = light_dark_cuda.step(pos, action, noise, p.light_pos, p.light_height_sq, p.move_scale,
+                               p.folded_noise_scale)
+    torch.cuda.synchronize()
+    assert light_dark_cuda.LAUNCHES["light_dark_step"] == before["light_dark_step"] + 1
+    want = ld.step_plain(pos, action, noise, p)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and (_same_bits(g, w) if g.is_floating_point()
+                                       else torch.equal(g, w))
+    assert not bool(got[4].any()) and bool(got[3].any()) and bool(torch.isnan(got[1]).any())
+    for k, scale in enumerate((p.folded_noise_scale, p.noise_scale), start=1):
+        obs = light_dark_cuda.reset(pos, noise, p.light_pos, p.light_height_sq, scale)
+        torch.cuda.synchronize()
+        assert light_dark_cuda.LAUNCHES["light_dark_reset"] == before["light_dark_reset"] + k
+        assert _same_bits(obs, ld.noisy_position(pos, noise, scale, p))
+
+
+def test_light_dark_env_raises_for_what_l_cannot_take(dev):
+    """On the card the env's step takes L whatever its operands, as S's
+    does: an action that asks for a gradient, or one of another dtype,
+    raises in L's wrapper before any launch instead of taking the plain
+    form."""
+    import apx_torch
+    from apx_torch.envs import light_dark as ld
+    from apx_torch.ops import light_dark_cuda
+
+    n = 256
+    venv, p = apx_torch.make_vec("LightDark-v0", n, device=dev)
+    env = venv.env.env  # under the TimeLimit
+    state = ld.LightDarkState(pos=torch.zeros((n, 2), device=dev))
+    draws = {"noise": torch.zeros((n, 2), device=dev)}
+    before = dict(light_dark_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="light_dark_step: an operand requires grad"):
+        env.step_env(state, torch.zeros((n, 2), device=dev, requires_grad=True), None, p, draws)
+    with pytest.raises(ValueError, match="light_dark_step: action must be"):
+        env.step_env(state, torch.zeros((n, 2), device=dev, dtype=torch.float64), None, p, draws)
+    assert light_dark_cuda.LAUNCHES == before
+    with torch.no_grad():
+        env.step_env(state, torch.zeros((n, 2), device=dev, requires_grad=True), None, p, draws)
+    assert light_dark_cuda.LAUNCHES["light_dark_step"] == before["light_dark_step"] + 1
+
+
+def test_light_dark_step_launches_on_card(dev):
+    """A NEXT_STEP LightDark-v0 step on the card is L's step, L's reset
+    and F2, one launch each, and no N1-N3; the drop-in's reset builder
+    takes L's reset at its own noise scale."""
+    import apx_torch
+    from apx_torch.compat.builders import reset_from_draws
+    from apx_torch.core import numerics
+    from apx_torch.ops import light_dark_cuda, merge_cuda
+
+    n = 4096
+    venv, p = apx_torch.make_vec("LightDark-v0", n, device=dev)
+    g = torch.Generator(dev).manual_seed(3)
+    _, state, _ = venv.reset(p, g)
+    act = {"action": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
+           "prediction": torch.zeros((n, 2), device=dev)}
+    torch.cuda.synchronize()
+    counts = (light_dark_cuda.LAUNCHES, merge_cuda.LAUNCHES, numerics.LAUNCHES)
+    before = [dict(c) for c in counts]
+    venv.step(state, act, p, g)
+    torch.cuda.synchronize()
+    assert [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)] == [
+        {"light_dark_step": 1, "light_dark_reset": 1}, {"merge": 1},
+        {"fma": 0, "sum_squares": 0, "sqrt": 0}]
+    draws = {"pos": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
+             "noise": torch.randn((n, 2), generator=g, device=dev)}
+    k = light_dark_cuda.LAUNCHES["light_dark_reset"]
+    obs, _, _ = reset_from_draws(venv.env, draws, p)
+    assert light_dark_cuda.LAUNCHES["light_dark_reset"] == k + 1
+    cpu_venv, cpu_p = apx_torch.make_vec("LightDark-v0", n, device="cpu")
+    cpu_obs, _, _ = reset_from_draws(cpu_venv.env, {k: v.cpu() for k, v in draws.items()}, cpu_p)
+    assert _same_bits(obs["noisy_position"], cpu_obs["noisy_position"])

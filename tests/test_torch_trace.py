@@ -424,10 +424,9 @@ def test_captured_light_dark_chunk_lies_in_the_stages(dev, registry, tmp_path):
     ``light_dark.rollout`` captures it (the family's chunk, every draw
     injected, the rollout's graph): the spans around each graph node are
     nested, so each node lies in exactly one stage, and every stage has
-    nodes; F2 lies under ``apx.vector.step`` once a step; N1-N3 lie under
-    ``apx.env.step`` (3, 3 and 1 a step: the move's norm and FMA, the
-    brightness and the noisy FMA, the base reward's) and ``apx.env.reset``
-    (1 N1 and 1 N2 a step: the reset's brightness and noisy FMA); a trace
+    nodes; F2 lies under ``apx.vector.step`` once a step; L lies under
+    ``apx.env.step`` (the whole step) and ``apx.env.reset`` (the reset's
+    noisy observation) once a step each, and no N1-N3 is launched; a trace
     of replays splits by the layout."""
     import collections
 
@@ -466,10 +465,7 @@ def test_captured_light_dark_chunk_lies_in_the_stages(dev, registry, tmp_path):
             if path[-1] == "apx.kernel.F2":
                 assert path == ("apx.vector.step", "apx.kernel.F2")
     assert dict(kernels) == {
-        ("F2", "vector_merge"): steps,
-        ("N1", "env_step"): 3 * steps, ("N2", "env_step"): 3 * steps,
-        ("N3", "env_step"): steps,
-        ("N1", "env_reset"): steps, ("N2", "env_reset"): steps}
+        ("F2", "vector_merge"): steps, ("L", "env_step"): steps, ("L", "env_reset"): steps}
     graph.replay(draws)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
