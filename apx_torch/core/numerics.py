@@ -19,11 +19,10 @@ and :func:`sqrt` each launch one hand-written kernel of
 or raise: they never fall back. Operands are read in place through their
 strides (a slice, a ``[:, None]`` view, an expanded tensor) and a Python
 float operand of :func:`fma` is passed to N1 by value, rounded to float32
-on the host. ``LAUNCHES`` counts the launches per kernel. On a CPU tensor
-they run the plain forms, which the kernels are held to bitwise: the FMA
-in float64 with a round-to-odd correction (``_fma_f64``), the root in
-float64 (53 >= 2 * 24 + 2 bits, so rounding it back to float32 is the
-correctly rounded root). Gradients are the plain forms' on both devices:
+on the host. On a CPU tensor they run the plain forms, which the kernels
+are held to bitwise: the FMA in float64 with a round-to-odd correction
+(``_fma_f64``), the root in float64 (53 >= 2 * 24 + 2 bits, so rounding it
+back to float32 is the correctly rounded root). Gradients are the plain forms' on both devices:
 ``_FMA``'s backward, ``sum_squares`` as a chain of :func:`fma` calls when
 its input requires grad, and ``_Sqrt``'s float64 backward.
 
@@ -41,19 +40,12 @@ import ctypes
 import numpy as np
 import torch
 
-from ..ops import build
-from ..ops._launch import launch
+from ..ops._launch import entry
 
 __all__ = ["fma", "sum_squares", "div", "sqrt", "time_obs", "matmul_tf32", "fma_plain",
-           "sum_squares_plain", "sqrt_plain", "LAUNCHES", "reset_launch_counts"]
+           "sum_squares_plain", "sqrt_plain"]
 
-LAUNCHES: dict[str, int] = {"fma": 0, "sum_squares": 0, "sqrt": 0}
 MAX_DIMS = 4  # numerics.cu's kMaxDims, after merging dimensions
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _fma_f64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -112,10 +104,9 @@ def _i64(values) -> ctypes.Array:
     return (ctypes.c_int64 * max(len(values), 1))(*values)
 
 
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+_ptr, _int, _i64p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
+_FMA_F32 = entry("N1", "fma_f32_launch",
+                 [_ptr, _ptr, _ptr, *[ctypes.c_float] * 3, _int, _i64p, _i64p, _ptr])
 
 
 def _launch_fma(a, b, c) -> torch.Tensor:
@@ -131,15 +122,14 @@ def _launch_fma(a, b, c) -> torch.Tensor:
                for x in ops]
     sizes, merged = _merged(shape, strides)
     # c_float rounds a Python float to float32 as torch.full((), c, dtype=float32) does.
-    err = launch(
-        "N1", build.load().fma_f32_launch,
-        *(x.data_ptr() if isinstance(x, torch.Tensor) else None for x in ops),
-        *(ctypes.c_float(0.0 if isinstance(x, torch.Tensor) else float(x)) for x in ops),
-        len(sizes), _i64(sizes),
-        _i64([s for st in merged for s in st]), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _check(err, "fma")
+    _FMA_F32(dev, *(x.data_ptr() if isinstance(x, torch.Tensor) else None for x in ops),
+             *(ctypes.c_float(0.0 if isinstance(x, torch.Tensor) else float(x)) for x in ops),
+             len(sizes), _i64(sizes), _i64([s for st in merged for s in st]), out.data_ptr())
     return out
+
+
+_SUM_SQUARES_F32 = entry("N2", "sum_squares_f32_launch",
+                         [_ptr, _int, _i64p, _i64p, _int, ctypes.c_int64, _ptr])
 
 
 def _launch_sum_squares(x: torch.Tensor) -> torch.Tensor:
@@ -151,12 +141,12 @@ def _launch_sum_squares(x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     sizes, (strides,) = _merged(shape, [x.stride()[:-1]])
-    err = launch(
-        "N2", build.load().sum_squares_f32_launch, x.data_ptr(), len(sizes), _i64(sizes),
-        _i64(strides), x.shape[-1], x.stride(-1), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _check(err, "sum_squares")
+    _SUM_SQUARES_F32(dev, x.data_ptr(), len(sizes), _i64(sizes), _i64(strides), x.shape[-1],
+                     x.stride(-1), out.data_ptr())
     return out
+
+
+_SQRT_F32 = entry("N3", "sqrt_f32_launch", [_ptr, _int, _i64p, _i64p, _ptr])
 
 
 def _launch_sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -165,10 +155,7 @@ def _launch_sqrt(x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     sizes, (strides,) = _merged(x.shape, [x.stride()])
-    err = launch(
-        "N3", build.load().sqrt_f32_launch, x.data_ptr(), len(sizes), _i64(sizes),
-        _i64(strides), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _check(err, "sqrt")
+    _SQRT_F32(dev, x.data_ptr(), len(sizes), _i64(sizes), _i64(strides), out.data_ptr())
     return out
 
 

@@ -45,25 +45,17 @@ import torch
 import torch.distributed as dist
 
 from ..core.env import AutoResetMode, rollout, rollout_episodic, tree_map
-from ..ops import (glimpse_cuda, issue_rate_study, lidar_fused_cuda, lidar_step_cuda, merge_cuda,
-                   raycast_cuda, window_cuda)
+from ..ops._launch import clear_launches, launches
 from ..registry import make_vec
 from .mesh import (COLLECTIVE_BYTES, EnvSharding, init_distributed, make_env_mesh,
                    shard_env_batch, shard_params, sharded_rollout)
 
 __all__ = ["random_policy", "state_digest", "main"]
 
-_LAUNCH_MODULES = (raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study, lidar_step_cuda,
-                   merge_cuda, lidar_fused_cuda)
-
-
-def _reset_launches() -> None:
-    for m in _LAUNCH_MODULES:
-        m.reset_launch_counts()
-
 
 def _launches() -> dict[str, int]:
-    return {k: v for m in _LAUNCH_MODULES for k, v in m.LAUNCHES.items() if v}
+    """The entries launched since the last ``clear_launches()``, by key."""
+    return {k: v for k, v in launches().items() if v}
 
 
 def random_policy(venv, params):
@@ -139,7 +131,7 @@ def run(args) -> dict:
         go = sharded_rollout(venv, sharding, run_params, policy, args.steps, args.episodic_period)
 
         _sync(dev)
-        _reset_launches()
+        clear_launches()
         moved = COLLECTIVE_BYTES["bank_fetch"]
         t0 = time.perf_counter()
         state, mean_reward, done_count = go(torch.Generator(dev).manual_seed(args.seed))
@@ -172,7 +164,7 @@ def run(args) -> dict:
     if sharding.rank == 0:
         g = torch.Generator(dev).manual_seed(args.seed)
         _sync(dev)
-        _reset_launches()
+        clear_launches()
         t0 = time.perf_counter()
         if args.episodic_period is None:
             _, state, (rewards, terms, truncs) = rollout(venv, params, policy, g, args.steps)

@@ -1,16 +1,37 @@
-"""Operand checks shared by the ctypes wrappers of the LIDAR step's
-kernels (F1 in ``lidar_step_cuda``, S and R in ``lidar_fused_cuda``), the
-stream they launch on, and ``launch``, through which every wrapper of a
-hand-written kernel makes its ctypes call. ``kernel`` names the caller in
-every error."""
+"""The launch seam of the port's hand-written kernels, and the operand
+checks their ctypes wrappers share.
+
+A wrapper declares each C entry of the kernel library (``ops.build``) it
+calls once, at module level, beside the call that uses it, and launches
+through it:
+
+    _WINDOW = entry("K2", "window_launch", [ptr, ptr, ptr, *[c_int] * 5])
+    ...
+    _WINDOW(occ.device, occ.data_ptr(), ...)
+
+The first call binds the C signature (``argtypes``, the stream, an int
+return) on the library, built on first use. Every call passes the
+device's current stream last and makes the ctypes call inside the span
+``kernel.<id>`` (``core.trace``), raises when it returns a CUDA error, and
+otherwise counts one launch in the process's launch table under
+``"<id>.<C name>"``. ``launches()`` copies the table, ``launched(key)``
+reads one entry or one kernel's entries, ``clear_launches()`` zeroes it.
+Checks that a run really went through a kernel read the table; a replayed
+CUDA graph runs no Python and counts nothing.
+
+``need`` and ``one_device`` are the wrappers' operand checks; ``kernel``
+names the caller in every error."""
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..core.trace import call
+from . import build
 
-__all__ = ["KERNELS", "launch", "need", "one_device", "stream"]
+__all__ = ["KERNELS", "entry", "launches", "launched", "clear_launches", "need", "one_device"]
 
 # Each hand-written kernel by its id (PERF.md's tables) and the symbol of
 # its device function, which a profiler's trace shows in the kernel's name.
@@ -28,6 +49,63 @@ KERNELS = {
     "R": "apx_lidar_fused_reset",
     "L": "apx_light_dark",  # light_dark_cuda: apx_light_dark_step and apx_light_dark_reset
 }
+
+_TABLE: dict[str, int] = {}  # "<id>.<C name>" of every declared entry -> launches
+
+
+class entry:
+    """The launch of the C function ``name`` of kernel ``kernel`` (a key of
+    ``KERNELS``), whose parameters are ``argtypes`` and then the CUDA
+    stream, as every entry's are. Calling it with a CUDA device and the
+    other arguments launches on the device's current stream (see the
+    module's docstring) and returns None. ``fn`` is the bound function:
+    None until the first call, and a test may set a stand-in."""
+
+    __slots__ = ("kernel", "name", "key", "argtypes", "fn", "_span")
+
+    def __init__(self, kernel: str, name: str, argtypes):
+        if kernel not in KERNELS:
+            raise ValueError(f"{name}: kernel id {kernel!r} is not one of {sorted(KERNELS)}")
+        self.kernel, self.name, self.key = kernel, name, f"{kernel}.{name}"
+        self.argtypes, self.fn, self._span = [*argtypes, ctypes.c_void_p], None, "kernel." + kernel
+        _TABLE.setdefault(self.key, 0)
+
+    def __call__(self, dev: torch.device, *args) -> None:
+        fn = self.fn
+        if fn is None:
+            fn = self.fn = getattr(build.load(), self.name)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        err = call(self._span, fn, *args, stream(dev))
+        if err != 0:
+            raise RuntimeError(
+                f"{self.kernel} ({self.name}): kernel launch failed: CUDA error {err}")
+        _TABLE[self.key] += 1
+
+
+def launches() -> dict[str, int]:
+    """A copy of the launch table: each declared entry's launches since the
+    last ``clear_launches()``, keyed ``"<id>.<C name>"``."""
+    return dict(_TABLE)
+
+
+def launched(key: str, table: dict[str, int] | None = None) -> int:
+    """The launches of one entry (``"K1.raycast_fast_launch"``) or of every
+    entry of one kernel id (``"K3"``): in the launch table since the last
+    ``clear_launches()``, or in ``table``, a copy of it (one that leaves
+    out entries never launched, as a report may)."""
+    kernel, _, name = key.partition(".")
+    if kernel not in KERNELS or (name and table is None and key not in _TABLE):
+        raise KeyError(f"{key!r} is neither a kernel id nor a declared entry")
+    table = _TABLE if table is None else table
+    if name:
+        return table.get(key, 0)
+    return sum(n for k, n in table.items() if k.partition(".")[0] == key)
+
+
+def clear_launches() -> None:
+    """Zero every count of the launch table."""
+    for key in _TABLE:
+        _TABLE[key] = 0
 
 
 def need(kernel: str, name: str, x: torch.Tensor, shape: tuple, dtype=torch.float32) -> int:
@@ -58,9 +136,3 @@ def one_device(kernel: str, *xs: torch.Tensor) -> torch.device:
 def stream(dev: torch.device) -> int:
     """The handle of ``dev``'s current CUDA stream."""
     return torch.cuda.current_stream(dev).cuda_stream
-
-
-def launch(kernel: str, fn, *args) -> int:
-    """``fn(*args)``, the ctypes launch of the kernel ``kernel`` (a key of
-    ``KERNELS``), inside the span ``kernel.<id>``: its return code."""
-    return call("kernel." + kernel, fn, *args)

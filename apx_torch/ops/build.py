@@ -20,9 +20,7 @@ from pathlib import Path
 __all__ = ["load", "SOURCES", "NVCC_FLAGS", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "raycast_slab.cu", "glimpse.cu", "window.cu", "issue_rate_study.cu", "numerics.cu",
-    "lidar_step.cu", "merge.cu", "lidar_fused.cu", "light_dark.cu", "capture.cu"))
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
 # These flags are what make the kernels bitwise equal to their plain forms.
@@ -72,52 +70,13 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     )
     _BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
-    ptr = ctypes.c_void_p
-    for name in ("raycast_fast_launch", "raycast_typed_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
-    for name in ("glimpse_f32_launch", "glimpse_u8_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, *[ctypes.c_int] * 6, ctypes.c_float, ctypes.c_float,
-                       ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
-    lib.window_launch.argtypes = [ptr, ptr, ptr, *[ctypes.c_int] * 5, ptr]
-    lib.window_launch.restype = ctypes.c_int
-    lib.chain_launch.argtypes = [*[ptr] * 6, *[ctypes.c_int] * 4, ptr]
-    lib.chain_launch.restype = ctypes.c_int
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.fma_f32_launch.argtypes = [ptr, ptr, ptr, *[ctypes.c_float] * 3, ctypes.c_int, i64p,
-                                   i64p, ptr, ptr]
-    lib.sum_squares_f32_launch.argtypes = [ptr, ctypes.c_int, i64p, i64p, ctypes.c_int,
-                                           ctypes.c_int64, ptr, ptr]
-    lib.sqrt_f32_launch.argtypes = [ptr, ctypes.c_int, i64p, i64p, ptr, ptr]
-    for fn in (lib.fma_f32_launch, lib.sum_squares_f32_launch, lib.sqrt_f32_launch):
-        fn.restype = ctypes.c_int
-    i32, f32 = ctypes.c_int, ctypes.c_float
-    lib.lidar_step_a_launch.argtypes = [ptr, ptr, ptr, i32, i32, *[ptr] * 5, ptr]
-    lib.lidar_step_b_launch.argtypes = [*[ptr] * 4, i32, *[ptr] * 6, ptr]
-    lib.lidar_step_c_launch.argtypes = [*[ptr] * 13, i32, i32, *[ptr] * 7, ptr]
-    lib.lidar_step_d_launch.argtypes = [ptr, ptr, ptr, f32, ptr, i32, i32, ptr, ptr, ptr]
-    from . import merge_cuda
-
-    lib.merge_next_step_launch.argtypes = [merge_cuda._Leaves, merge_cuda._Map,
-                                           merge_cuda._Terms, ptr]
-    lib.lidar_fused_step_launch.argtypes = [*[ptr] * 8, i32, f32, f32, i32, i32, i32,
-                                            *[ptr] * 9, ptr]
-    lib.lidar_fused_reset_launch.argtypes = [*[ptr] * 5, i32, i32, ptr, ptr, ptr, i32, f32, ptr,
-                                             f32, i32, i32, i32, i32, *[ptr] * 6, ptr]
-    lib.light_dark_step_launch.argtypes = [*[ptr] * 3, *[f32] * 5, i32, *[ptr] * 5, ptr]
-    lib.light_dark_reset_launch.argtypes = [ptr, ptr, *[f32] * 4, i32, ptr, ptr]
-    i64out = ctypes.POINTER(ctypes.c_longlong)
-    lib.apx_graph_device_nodes.argtypes = [ptr, i64out]
-    lib.apx_capture_nodes.argtypes = [ptr, ctypes.POINTER(ctypes.c_ulonglong), i64out]
-    for fn in (lib.lidar_step_a_launch, lib.lidar_step_b_launch, lib.lidar_step_c_launch,
-               lib.lidar_step_d_launch, lib.merge_next_step_launch, lib.lidar_fused_step_launch,
-               lib.lidar_fused_reset_launch, lib.light_dark_step_launch,
-               lib.light_dark_reset_launch, lib.apx_graph_device_nodes, lib.apx_capture_nodes):
-        fn.restype = ctypes.c_int
+    # The library's two entries that launch no kernel (capture.cu, read by
+    # core.trace); the kernels' entries are declared by their wrappers
+    # (ops._launch.entry).
+    ptr, nodes = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
+    lib.apx_graph_device_nodes.argtypes = [ptr, nodes]
+    lib.apx_capture_nodes.argtypes = [ptr, ctypes.POINTER(ctypes.c_ulonglong), nodes]
+    lib.apx_graph_device_nodes.restype = lib.apx_capture_nodes.restype = ctypes.c_int
     _LIB = lib
     return lib
 

@@ -26,8 +26,7 @@ sampler), with no copy of the images.
 On a CUDA tensor ``glimpse`` launches the kernel (building the library on
 first use, ``apx_torch.ops.build``) or raises; it never falls back to the
 plain form. On a CPU tensor it runs the plain form
-(``apx_torch.ops.glimpse.extract_glimpse_batch``). ``LAUNCHES`` counts
-kernel launches, for checks that a run really went through the kernel.
+(``apx_torch.ops.glimpse.extract_glimpse_batch``).
 """
 
 from __future__ import annotations
@@ -36,18 +35,10 @@ import ctypes
 
 import torch
 
-from . import build
-from ._launch import launch
+from ._launch import entry
 from .glimpse import extract_glimpse_batch, sensor_pos_lim_pixels
 
-__all__ = ["glimpse", "LAUNCHES", "reset_launch_counts"]
-
-LAUNCHES: dict[str, int] = {"glimpse": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+__all__ = ["glimpse"]
 
 
 def _check(images: torch.Tensor, pos: torch.Tensor, sensor_size, index) -> None:
@@ -68,6 +59,12 @@ def _check(images: torch.Tensor, pos: torch.Tensor, sensor_size, index) -> None:
         raise ValueError("images and pos must be on one device")
 
 
+_ptr, _f32 = ctypes.c_void_p, ctypes.c_float
+_ENTRIES = {dtype: entry("K3", f"glimpse_{name}_launch",
+                         [*[_ptr] * 4, *[ctypes.c_int] * 6, _f32, _f32, _f32])
+            for dtype, name in ((torch.uint8, "u8"), (torch.float32, "f32"))}
+
+
 def glimpse(images: torch.Tensor, pos: torch.Tensor, sensor_size: tuple[int, int],
             sensor_scale: float = 1.0, index: torch.Tensor | None = None) -> torch.Tensor:
     """(N, s0, s1, C) float32 glimpses at normalized positions pos (N, 2) =
@@ -79,7 +76,6 @@ def glimpse(images: torch.Tensor, pos: torch.Tensor, sensor_size: tuple[int, int
     if images.device.type == "cpu":
         return extract_glimpse_batch(images if index is None else images[index], pos,
                                      sensor_size, sensor_scale)
-    lib = build.load()
     images = images.contiguous()
     pos = pos.contiguous()
     n = pos.shape[0]
@@ -89,15 +85,8 @@ def glimpse(images: torch.Tensor, pos: torch.Tensor, sensor_size: tuple[int, int
     if out.numel() == 0:
         return out
     lim = sensor_pos_lim_pixels((h, w), sensor_size, sensor_scale)
-    name = "glimpse_u8_launch" if images.dtype == torch.uint8 else "glimpse_f32_launch"
-    err = launch(
-        "K3", getattr(lib, name), images.data_ptr(), pos.data_ptr(),
-        None if index is None else index.contiguous().data_ptr(),
-        out.data_ptr(), n, h, w, c, s0, s1,
-        ctypes.c_float(float(lim[0])), ctypes.c_float(float(lim[1])),
-        ctypes.c_float(float(sensor_scale)), torch.cuda.current_stream(images.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"glimpse kernel launch failed: CUDA error {err}")
-    LAUNCHES["glimpse"] += 1
+    _ENTRIES[images.dtype](
+        images.device, images.data_ptr(), pos.data_ptr(),
+        None if index is None else index.contiguous().data_ptr(), out.data_ptr(), n, h, w, c, s0,
+        s1, _f32(float(lim[0])), _f32(float(lim[1])), _f32(float(sensor_scale)))
     return out

@@ -65,6 +65,7 @@ import torch.nn.functional as F
 
 from ..core.numerics import div
 from . import glimpse_cuda
+from ._launch import launched
 from .glimpse import extract_glimpse_batch, glimpse_coords, interp_weights
 
 __all__ = ["tap2_glimpse", "oracle_glimpse", "glimpse_variants", "chain_us", "alone_us",
@@ -261,14 +262,14 @@ def run_study(device, n: int = N, hw: tuple[int, int] = (H, W), c: int = C,
     per batch on the card in apx's chain, in the moving chain and alone;
     the chains' own costs per step; then the row gathers. Raises if K3 or
     tap2 is off the fp32 plain form by more than ``TOL``. K3's launches in
-    the study are ``k3_launches`` (the wrapper's count: the eager checks,
+    the study are ``k3_launches`` (``ops._launch``'s count: the eager checks,
     and of each timed run the warmup and the captured one; graph replays
     re-run the captured launches without the wrapper)."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     images = torch.as_tensor(rng.integers(0, 255, (n, *hw, c), dtype=np.uint8), device=device)
     pos = torch.as_tensor(rng.uniform(-1, 1, (n, 2)).astype(np.float32), device=device)
-    launches0 = glimpse_cuda.LAUNCHES["glimpse"]
+    launches0 = launched("K3")
     oracle = oracle_glimpse(images, pos, sensor_size)
     fp32 = extract_glimpse_batch(images, pos, sensor_size, precision="highest")
     variants = {}
@@ -298,7 +299,7 @@ def run_study(device, n: int = N, hw: tuple[int, int] = (H, W), c: int = C,
             "reps": reps, "move": MOVE, "variants": variants,
             "chain_overhead_us": overhead_us, "moving_chain_overhead_us": moving_overhead_us,
             "row_gather": gather,
-            "k3_launches": glimpse_cuda.LAUNCHES["glimpse"] - launches0}
+            "k3_launches": launched("K3") - launches0}
 
 
 def main(argv=None) -> None:

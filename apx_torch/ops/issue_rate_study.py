@@ -34,22 +34,22 @@ iteration, beside the 16 operations that ``CHAIN_OPS_PER_ELEM`` prices.
 It needs no card.
 
 ``chain_cuda`` launches K4 on CUDA tensors or raises, and runs the plain
-form ``chain_body`` on CPU tensors; ``LAUNCHES`` counts kernel launches.
+form ``chain_body`` on CPU tensors.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 
 import torch
 
-from . import build
-from ._launch import launch
+from ._launch import entry
 
 __all__ = ["CHAIN_OPS_PER_ELEM", "LANES", "chain_body", "chain_cuda", "measure", "issue_rate",
-           "LAUNCHES", "reset_launch_counts", "sass_loop_counts"]
+           "sass_loop_counts"]
 
 # Ops per element per iteration of the chain (2 mul, 2 sub, 1 add at the
 # tail + 3 max, 3 min, 2 compare, 1 and, 1 select, and the x update's
@@ -57,13 +57,6 @@ __all__ = ["CHAIN_OPS_PER_ELEM", "LANES", "chain_body", "chain_cuda", "measure",
 CHAIN_OPS_PER_ELEM = 16
 LANES = {"wide": 128, "narrow": 16}
 _LAYOUT_ID = {"wide": 0, "narrow": 1}
-
-LAUNCHES: dict[str, int] = {"chain": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def chain_body(nx, ny, fx, fy, occ, iters: int) -> torch.Tensor:
@@ -94,6 +87,9 @@ def _check(args, layout: str) -> None:
         raise ValueError(f"the narrow layout puts one row in a warp: lanes <= 32, got {shape[1]}")
 
 
+_CHAIN = entry("K4", "chain_launch", [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 4])
+
+
 def chain_cuda(nx, ny, fx, fy, occ, iters: int, layout: str = "wide") -> torch.Tensor:
     """K4 over (rows, lanes) float32 inputs in ``layout`` ("wide" or
     "narrow"); the plain ``chain_body`` for CPU tensors."""
@@ -101,16 +97,11 @@ def chain_cuda(nx, ny, fx, fy, occ, iters: int, layout: str = "wide") -> torch.T
     _check(args, layout)
     if nx.device.type == "cpu":
         return chain_body(*args, iters)
-    lib = build.load()
     args = tuple(a.contiguous() for a in args)
     rows, lanes = nx.shape
     out = torch.empty_like(args[0])
-    err = launch("K4", lib.chain_launch, *(a.data_ptr() for a in args), out.data_ptr(), rows,
-                 lanes, int(iters), _LAYOUT_ID[layout],
-                 torch.cuda.current_stream(nx.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"chain kernel launch failed: CUDA error {err}")
-    LAUNCHES["chain"] += 1
+    _CHAIN(nx.device, *(a.data_ptr() for a in args), out.data_ptr(), rows, lanes, int(iters),
+           _LAYOUT_ID[layout])
     return out
 
 

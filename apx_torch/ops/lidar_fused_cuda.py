@@ -17,9 +17,7 @@ use, ``apx_torch.ops.build``), or an error: a wrong dtype, shape, layout
 or device raises, and so does an action that requires grad under grad
 mode (S has no backward: detach the action). Nothing falls back.
 
-``LAUNCHES`` counts the kernels launched: ``fused_step`` (S) and
-``fused_reset`` (R), one each per NEXT_STEP LIDAR step on the card. R's
-launches given a mask add to its device counter
+R's launches given a mask add to its device counter
 (``core.trace.reset_counter``): the envs asked (N) and the envs computed.
 """
 
@@ -30,29 +28,22 @@ import ctypes
 import torch
 
 from ..core import trace
-from . import build, lidar_fused
-from ._launch import launch, need, one_device, stream
+from . import lidar_fused
+from ._launch import entry, need, one_device
 from .raycast import EPS
 
-__all__ = ["step", "reset", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["step", "reset"]
 
-LAUNCHES: dict[str, int] = {"fused_step": 0, "fused_reset": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _launched(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _check_map(h: int, w: int, kernel: str) -> None:
     if not (1 <= h <= 32 and 1 <= w <= 32):
         raise ValueError(f"{kernel}: maps of 1 to 32 cells a side, got {h}x{w}")
+
+
+_STEP = entry("S", "lidar_fused_step_launch",
+               [*[_ptr] * 8, _i32, _f32, _f32, _i32, _i32, _i32, *[_ptr] * 9])
 
 
 def step(occ: torch.Tensor, action: torch.Tensor, pos: torch.Tensor,
@@ -88,11 +79,14 @@ def step(occ: torch.Tensor, action: torch.Tensor, pos: torch.Tensor,
            "target": torch.empty((n, 2), device=dev),
            "lidar": torch.empty((n, beams), device=dev),
            "odometry": torch.empty((n, 2), device=dev)}
-    err = launch(
-        "S", build.load().lidar_fused_step_launch, *ptrs, beams, ctypes.c_float(inv_range),
-        ctypes.c_float(EPS), n, h, w, *(x.data_ptr() for x in out.values()), stream(dev))
-    _launched(err, kernel)
+    _STEP(dev, *ptrs, beams, _f32(inv_range), _f32(EPS), n, h, w,
+          *(x.data_ptr() for x in out.values()))
     return out
+
+
+_RESET = entry("R", "lidar_fused_reset_launch",
+               [*[_ptr] * 5, _i32, _i32, _ptr, _ptr, _ptr, _i32, _f32, _ptr, _f32, _i32, _i32,
+                _i32, _i32, *[_ptr] * 6])
 
 
 def reset(words: torch.Tensor, flat: torch.Tensor, w: int, beam_offsets: torch.Tensor,
@@ -141,12 +135,8 @@ def reset(words: torch.Tensor, flat: torch.Tensor, w: int, beam_offsets: torch.T
     if fetch is not None:
         out["map_idx"] = torch.empty(n, dtype=torch.int64, device=dev)
         map_idx = out["map_idx"].data_ptr()
-    err = launch(
-        "R", build.load().lidar_fused_reset_launch, *src, rows, max_free, mask,
-        None if counter is None else counter.data_ptr(),
-        need(kernel, "beam_offsets", beam_offsets, (beams, 2)), beams,
-        ctypes.c_float(lidar_range), need(kernel, "inv_map_size", inv_map_size, (2,)),
-        ctypes.c_float(EPS), int(bool(typed)), n, h, w,
-        *(out[k].data_ptr() for k in lidar_fused.RESET_LEAVES), map_idx, stream(dev))
-    _launched(err, kernel)
+    _RESET(dev, *src, rows, max_free, mask, None if counter is None else counter.data_ptr(),
+           need(kernel, "beam_offsets", beam_offsets, (beams, 2)), beams, _f32(lidar_range),
+           need(kernel, "inv_map_size", inv_map_size, (2,)), _f32(EPS), int(bool(typed)), n, h, w,
+           *(out[k].data_ptr() for k in lidar_fused.RESET_LEAVES), map_idx)
     return out

@@ -12,9 +12,6 @@ name in ``apx_torch.ops.lidar_step`` does, bitwise. Which path runs where:
   mode (F1 has no backward: detach the action, as the training recipes
   do; apx's own gradient through a live action is NaN). Nothing falls
   back.
-
-``LAUNCHES["lidar_step"]`` counts the kernels launched (four per step on
-the card).
 """
 
 from __future__ import annotations
@@ -23,24 +20,15 @@ import ctypes
 
 import torch
 
-from . import build, lidar_step
-from ._launch import launch, need, one_device, stream
+from . import lidar_step
+from ._launch import entry, need, one_device
 
-__all__ = ["stage_a", "stage_b", "stage_c", "stage_d", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["stage_a", "stage_b", "stage_c", "stage_d"]
 
 KERNEL = "lidar_step"
-LAUNCHES: dict[str, int] = {KERNEL: 0}
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _launched(err: int, stage: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"lidar_step stage {stage} kernel launch failed: CUDA error {err}")
-    LAUNCHES[KERNEL] += 1
+_STAGE_A = entry("F1", "lidar_step_a_launch", [_ptr, _ptr, _ptr, _i32, _i32, *[_ptr] * 5])
 
 
 def stage_a(action, pos, unfused_len: bool, base=None) -> dict:
@@ -55,12 +43,13 @@ def stage_a(action, pos, unfused_len: bool, base=None) -> dict:
            "direction": torch.empty((n, 2), device=dev),
            "move_to": torch.empty((n, 1, 2), device=dev),
            "seg": torch.empty((n, 1), device=dev) if unfused_len else None}
-    err = launch(
-        "F1", build.load().lidar_step_a_launch, *ptrs, int(bool(unfused_len)), n,
-        *(out[k].data_ptr() for k in ("base_reward", "total", "direction", "move_to")),
-        None if out["seg"] is None else out["seg"].data_ptr(), stream(dev))
-    _launched(err, "a")
+    _STAGE_A(dev, *ptrs, int(bool(unfused_len)), n,
+             *(out[k].data_ptr() for k in ("base_reward", "total", "direction", "move_to")),
+             None if out["seg"] is None else out["seg"].data_ptr())
     return out
+
+
+_STAGE_B = entry("F1", "lidar_step_b_launch", [*[_ptr] * 4, _i32, *[_ptr] * 6])
 
 
 def stage_b(pos, direction, total, d2w) -> dict:
@@ -76,10 +65,11 @@ def stage_b(pos, direction, total, d2w) -> dict:
            "cand_diag": torch.empty((n, 2), device=dev),
            "cand": torch.empty((n, 2, 2), device=dev),
            "cand_targets": torch.empty((n, 2, 2), device=dev)}
-    err = launch("F1", build.load().lidar_step_b_launch, *ptrs, n,
-                 *(x.data_ptr() for x in out.values()), stream(dev))
-    _launched(err, "b")
+    _STAGE_B(dev, *ptrs, n, *(x.data_ptr() for x in out.values()))
     return out
+
+
+_STAGE_C = entry("F1", "lidar_step_c_launch", [*[_ptr] * 13, _i32, _i32, *[_ptr] * 7])
 
 
 def stage_c(pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist, odo_pending,
@@ -108,10 +98,12 @@ def stage_c(pos, pos1, total, rem, n_keep, cand, cand_diag, cand_dist, odo_pendi
            "truncated": torch.empty(n, dtype=torch.bool, device=dev),
            "target": torch.empty((n, 2), device=dev),
            "beam_targets": torch.empty((n, beams, 2), device=dev)}
-    err = launch("F1", build.load().lidar_step_c_launch, *ptrs, beams, n,
-                 *(x.data_ptr() for x in out.values()), stream(dev))
-    _launched(err, "c")
+    _STAGE_C(dev, *ptrs, beams, n, *(x.data_ptr() for x in out.values()))
     return out
+
+
+_STAGE_D = entry("F1", "lidar_step_d_launch",
+                 [_ptr, _ptr, _ptr, ctypes.c_float, _ptr, _i32, _i32, _ptr, _ptr])
 
 
 def stage_d(dist, pos, initial_pos, inv_range: float, inv_map_size) -> dict:
@@ -125,9 +117,7 @@ def stage_d(dist, pos, initial_pos, inv_range: float, inv_map_size) -> dict:
             need(KERNEL, "initial_pos", initial_pos, (n, 2))]
     out = {"lidar": torch.empty((n, beams), device=dev),
            "odometry": torch.empty((n, 2), device=dev)}
-    err = launch(
-        "F1", build.load().lidar_step_d_launch, *ptrs, ctypes.c_float(inv_range),
-        need(KERNEL, "inv_map_size", inv_map_size, (2,)), beams, n, out["lidar"].data_ptr(),
-        out["odometry"].data_ptr(), stream(dev))
-    _launched(err, "d")
+    _STAGE_D(dev, *ptrs, ctypes.c_float(inv_range),
+             need(KERNEL, "inv_map_size", inv_map_size, (2,)), beams, n, out["lidar"].data_ptr(),
+             out["odometry"].data_ptr())
     return out

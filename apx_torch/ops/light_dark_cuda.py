@@ -13,8 +13,7 @@ R's do on the card: a leaf of another shape, dtype or layout (each
 (N, 2) float32 leaf contiguous and 8-byte aligned, for the kernel's
 float2 loads), operands on two devices or on the CPU, or an operand that
 requires grad under grad mode (L has no backward) raise, and nothing
-falls back. ``LAUNCHES`` counts the launches: ``light_dark_step`` and
-``light_dark_reset``, one each per NEXT_STEP LightDark step on the card.
+falls back.
 """
 
 from __future__ import annotations
@@ -23,21 +22,13 @@ import ctypes
 
 import torch
 
-from . import build
-from ._launch import launch, need, one_device, stream
+from ._launch import entry, need, one_device
 
-__all__ = ["step", "reset", "LAUNCHES", "reset_launch_counts"]
-
-LAUNCHES: dict[str, int] = {"light_dark_step": 0, "light_dark_reset": 0}
+__all__ = ["step", "reset"]
 
 # The most envs a launch takes: the kernel's block count (n + 255) / 256
 # and its thread index are ints.
 MAX_N = 2**31 - 256
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _leaves(kernel: str, n: int, **xs: torch.Tensor) -> list[int]:
@@ -59,10 +50,9 @@ def _n(kernel: str, pos: torch.Tensor) -> int:
     return pos.shape[0]
 
 
-def _launched(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+_ptr, _f32 = ctypes.c_void_p, ctypes.c_float
+_STEP = entry("L", "light_dark_step_launch",
+              [*[_ptr] * 3, *[_f32] * 5, ctypes.c_int, *[_ptr] * 5])
 
 
 def step(pos: torch.Tensor, action: torch.Tensor, noise: torch.Tensor,
@@ -78,11 +68,12 @@ def step(pos: torch.Tensor, action: torch.Tensor, noise: torch.Tensor,
     out = (torch.empty((n, 2), device=dev), torch.empty((n, 2), device=dev),
            torch.empty(n, device=dev), torch.empty(n, dtype=torch.bool, device=dev),
            torch.empty(n, dtype=torch.bool, device=dev))
-    err = launch("L", build.load().light_dark_step_launch, *ptrs,
-                 *(ctypes.c_float(v) for v in (*light, h2, move_scale, scale)), n,
-                 *(x.data_ptr() for x in out), stream(dev))
-    _launched(err, kernel)
+    _STEP(dev, *ptrs, *(_f32(v) for v in (*light, h2, move_scale, scale)), n,
+          *(x.data_ptr() for x in out))
     return out
+
+
+_RESET = entry("L", "light_dark_reset_launch", [_ptr, _ptr, *[_f32] * 4, ctypes.c_int, _ptr])
 
 
 def reset(pos: torch.Tensor, noise: torch.Tensor, light: tuple[float, float], h2: float,
@@ -93,8 +84,5 @@ def reset(pos: torch.Tensor, noise: torch.Tensor, light: tuple[float, float], h2
     ptrs = _leaves(kernel, n, pos=pos, noise=noise)
     dev = one_device(kernel, pos, noise)
     obs = torch.empty((n, 2), device=dev)
-    err = launch("L", build.load().light_dark_reset_launch, *ptrs,
-                 *(ctypes.c_float(v) for v in (*light, h2, scale)), n, obs.data_ptr(),
-                 stream(dev))
-    _launched(err, kernel)
+    _RESET(dev, *ptrs, *(_f32(v) for v in (*light, h2, scale)), n, obs.data_ptr())
     return obs

@@ -23,7 +23,7 @@ The loss and the reward are differentiable in the prediction through
 ``_LossReward``, whose backward is the plain form's gradient: it runs
 ``core.losses.masked_loss_and_reward`` again on the saved operands and
 differentiates it, so the gradient is the plain path's bitwise (N1's
-``_FMA`` backward included). ``LAUNCHES["merge"]`` counts the launches.
+``_FMA`` backward included).
 
 The host builds the by-value leaf table once per tree structure (leaf
 sizes and word widths, ``_PLANS``) and writes only the pointers per call.
@@ -38,20 +38,14 @@ import torch
 
 from ..core.env import tree_map
 from ..core.losses import LossFn, masked_loss_and_reward, mse_terms
-from . import build, merge
-from ._launch import launch as launch_kernel, stream
+from . import merge
+from ._launch import entry
 from .merge import Merged
 
-__all__ = ["next_step", "LAUNCHES", "reset_launch_counts", "MAX_LEAVES"]
+__all__ = ["next_step", "MAX_LEAVES"]
 
-LAUNCHES: dict[str, int] = {"merge": 0}
 MAX_LEAVES = 32  # merge.cu's kMaxLeaves
 THREADS = 256  # merge.cu's kThreads
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 class _Leaf(ctypes.Structure):
@@ -79,6 +73,9 @@ class _Terms(ctypes.Structure):
             "n", "d", "limit", "issue_termination", "fused_sum", "affine", "contract",
             "first_block")] + [(name, ctypes.c_float) for name in (
                 "inv_limit", "scale", "offset", "k")]
+
+
+_MERGE = entry("F2", "merge_next_step_launch", [_Leaves, _Map, _Terms])
 
 
 def _blocks(work: int) -> int:
@@ -275,11 +272,7 @@ def _launch(mask, step, reset, base_reward, terminated, truncated, prediction, t
             int(counter is not None and counter.issue_termination), int(terms.fused_sum),
             int(terms.affine), int(terms.contract), plan.env_block, inv_limit, terms.scale,
             terms.offset, terms.k)
-        err = launch_kernel("F2", build.load().merge_next_step_launch, leaves, pmap, pterms,
-                            stream(dev))
-        if err != 0:
-            raise RuntimeError(f"merge kernel launch failed: CUDA error {err}")
-        LAUNCHES["merge"] += 1
+        _MERGE(dev, leaves, pmap, pterms)
         return res["loss"], res["reward"]
 
     if torch.is_grad_enabled() and prediction.requires_grad:

@@ -30,9 +30,7 @@ it per ray in its own body, on the CPU the plain form computes it first.
 
 On a CUDA tensor each wrapper launches its kernel (building the library
 on first use, ``apx_torch.ops.build``) or raises; it never falls back to
-the plain form. On a CPU tensor it runs the plain form. ``LAUNCHES``
-counts kernel launches per kernel name, for checks that a run really went
-through the kernel.
+the plain form. On a CPU tensor it runs the plain form.
 """
 
 from __future__ import annotations
@@ -41,18 +39,10 @@ import ctypes
 
 import torch
 
-from . import build
-from ._launch import launch
+from ._launch import entry
 from .raycast import EPS, raycast_grid, seg_length
 
-__all__ = ["raycast_fast", "raycast_typed", "LAUNCHES", "reset_launch_counts"]
-
-LAUNCHES: dict[str, int] = {"raycast_fast": 0, "raycast_typed": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+__all__ = ["raycast_fast", "raycast_typed"]
 
 
 def _seg(occ, origin, targets, seg):
@@ -83,8 +73,13 @@ def _check(occ, origin, targets):
         raise ValueError("occ, origin and targets must be on one device")
 
 
+_ptr = ctypes.c_void_p
+_ENTRIES = {name: entry("K1", f"{name}_launch", [*[_ptr] * 5, *[ctypes.c_int] * 4,
+                                                  ctypes.c_float])
+            for name in ("raycast_fast", "raycast_typed")}
+
+
 def _launch(name: str, occ, origin, targets, seg, eps: float) -> torch.Tensor:
-    lib = build.load()
     occ = occ.contiguous()
     origin = origin.contiguous()
     targets = targets.contiguous()
@@ -94,15 +89,9 @@ def _launch(name: str, occ, origin, targets, seg, eps: float) -> torch.Tensor:
     out = torch.empty((n, r), dtype=torch.float32, device=occ.device)
     if n * r == 0:
         return out
-    stream = torch.cuda.current_stream(occ.device).cuda_stream
-    err = launch(
-        "K1", getattr(lib, f"{name}_launch"), occ.data_ptr(), origin.data_ptr(),
-        targets.data_ptr(), None if seg is None else seg.data_ptr(), out.data_ptr(), n, r, h, w,
-        ctypes.c_float(eps), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    _ENTRIES[name](occ.device, occ.data_ptr(), origin.data_ptr(), targets.data_ptr(),
+                   None if seg is None else seg.data_ptr(), out.data_ptr(), n, r, h, w,
+                   ctypes.c_float(eps))
     return out
 
 

@@ -18,26 +18,19 @@ and no load for a cell outside the map.
 On a CUDA tensor ``extract_windows`` launches the kernel (building the
 library on first use, ``apx_torch.ops.build``) or raises; it never falls
 back to the plain form. On a CPU tensor it runs the plain form
-(``apx_torch.ops.window.extract_windows``). ``LAUNCHES`` counts kernel
-launches, for checks that a run really went through the kernel.
+(``apx_torch.ops.window.extract_windows``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import build
-from ._launch import launch
+from ._launch import entry
 from . import window as plain
 
-__all__ = ["extract_windows", "LAUNCHES", "reset_launch_counts"]
-
-LAUNCHES: dict[str, int] = {"window": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+__all__ = ["extract_windows"]
 
 
 def _check(occ: torch.Tensor, starts: torch.Tensor, pad: int, win: int) -> None:
@@ -55,6 +48,9 @@ def _check(occ: torch.Tensor, starts: torch.Tensor, pad: int, win: int) -> None:
         raise ValueError("occ and starts must be on one device")
 
 
+_WINDOW = entry("K2", "window_launch", [*[ctypes.c_void_p] * 3, *[ctypes.c_int] * 5])
+
+
 def extract_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int,
                     win: int = plain.WIN) -> torch.Tensor:
     """(N, 24, win) uint8 windows of ``pad_occupancy(occ, pad)`` at starts
@@ -64,7 +60,6 @@ def extract_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int,
     _check(occ, starts, pad, win)
     if occ.device.type == "cpu":
         return plain.extract_windows(occ, starts, pad, win)
-    lib = build.load()
     occ = occ.contiguous()
     starts = starts.contiguous()
     if starts.data_ptr() % 8:  # the kernel reads each env's starts as one int2
@@ -73,9 +68,5 @@ def extract_windows(occ: torch.Tensor, starts: torch.Tensor, pad: int,
     out = torch.empty((n, plain.WIN_ROWS, win), dtype=torch.uint8, device=occ.device)
     if n == 0:
         return out
-    err = launch("K2", lib.window_launch, occ.data_ptr(), starts.data_ptr(), out.data_ptr(), n, h,
-                 w, pad, win, torch.cuda.current_stream(occ.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window kernel launch failed: CUDA error {err}")
-    LAUNCHES["window"] += 1
+    _WINDOW(occ.device, occ.data_ptr(), starts.data_ptr(), out.data_ptr(), n, h, w, pad, win)
     return out

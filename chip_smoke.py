@@ -25,7 +25,7 @@ Phases, one line each; any failure exits non-zero:
    ``lidar_step_cases`` at N = 4096, F2 on a step of LIDARLocRooms-v0,
    LIDARLocMaze-v0 and LightDark-v0 with half the envs reset, and F2's
    prediction gradient; one dense LIDAR step launches S 1, R 1, F2 1 and
-   no standalone K1, F1 or N1-N3 (``DENSE_STEP_LAUNCHES``); then S and R
+   no standalone K1, F1 or N1-N3 (``DENSE_STEP``); then S and R
    (``ops.lidar_fused_cuda``) against their plain forms
    (``ops.lidar_fused``) at N = 4096 on the rooms (32x32) and maze (21x21)
    banks, R typed and untyped, S from edge actions and positions
@@ -152,12 +152,13 @@ Phases, one line each; any failure exits non-zero:
     ``LIDARLocRooms-v0`` at N = 4096 for 250 steps: the final state
     bitwise the one-process ``rollout`` on the card with the same seed, done
     counts equal, mean rewards within rtol 1e-6, S launched once per step
-    and R once per step and once at the reset, in both runs.
+    and R once per step and once at the reset, in both runs, and N1 in
+    each run's report (which lists every kernel, ``ops._launch.launches``).
 19. two gloo ranks on cuda:0 (NCCL refuses two ranks on one GPU), N = 4096
     in all: LIDARLocRooms-v0 for 250 steps and the episodic CircleSquare-v0
     (period 16) for 51, each rank's block bitwise the solo run's block,
     the same counts and tolerance, K3 launched once per step and once at
-    the reset on each rank.
+    the reset on each rank, N1 in every report.
 20. checkpoint: LIDARLocRooms-v0 and CircleSquare-v0 with ``metrics=True``
     at N = 4096, saved after k steps with the generator's state, restored
     into a fresh state on the card and continued: bitwise the uninterrupted
@@ -266,7 +267,8 @@ Phases, one line each; any failure exits non-zero:
 34. sharded bank: ``selftest --shard-bank`` on two gloo ranks on cuda:0 for
     ``LIDARLocRooms-v0`` (N = 4096, 30 steps) and the episodic
     ``CircleSquare-v0`` (34 steps), at once: each rank's block bitwise the
-    replicated solo run's, each rank holding only its bank block, the
+    replicated solo run's, each rank holding only its bank block and
+    reporting N1 and S and R (LIDAR) or K3 (CircleSquare) launches, the
     bytes per step of its fetches; ``bench --distributed --shard-bank``
     (eager ms per step replicated and sharded, interleaved).
 
@@ -345,6 +347,7 @@ import torch
 # outside the tensor cores (an FMA counts as two operations); the import
 # fails where chip_smoke.py stands without the repo.
 from apx_torch.core.peaks import FP32_OPS_PER_S, HBM_BYTES_PER_S
+from apx_torch.ops._launch import clear_launches, launched
 # float32 instructions issued per second: half of FP32_OPS_PER_S, where an
 # FMA is one instruction (132 SMs x 128 lanes x 1.98 GHz). K1, K3 and K4
 # are counted in instructions (min, max, compare and select are one each,
@@ -817,32 +820,28 @@ def phase_glimpse_kernel(dev) -> dict:
     }
 
 
-def _launch_modules():
-    from apx_torch.ops import (glimpse_cuda, issue_rate_study, lidar_fused_cuda, lidar_step_cuda,
-                               light_dark_cuda, merge_cuda, raycast_cuda, window_cuda)
-
-    return (raycast_cuda, glimpse_cuda, window_cuda, issue_rate_study, lidar_step_cuda,
-            merge_cuda, lidar_fused_cuda, light_dark_cuda)
-
-
-def reset_all_launch_counts() -> None:
-    """Sets K1-K4's, F1's, F2's, S's, R's and L's counts and N1-N3's
-    (``core.numerics``) to 0."""
-    from apx_torch.core import numerics
-
-    for m in _launch_modules():
-        m.reset_launch_counts()
-    numerics.reset_launch_counts()
+# The launch key (``ops._launch.launched``) of each kernels row: its kernel
+# id, or its entry where the id has more than one.
+ROW_KEYS = {"raycast_fast": "K1.raycast_fast_launch", "raycast_typed": "K1.raycast_typed_launch",
+            "window": "K2", "glimpse": "K3", "chain": "K4", "fma": "N1", "sum_squares": "N2",
+            "sqrt": "N3", "lidar_step": "F1", "merge": "F2", "fused_step": "S",
+            "fused_reset": "R", "light_dark_step": "L.light_dark_step_launch",
+            "light_dark_reset": "L.light_dark_reset_launch"}
+NUMERICS = ("N1", "N2", "N3")
 
 
-def all_launch_counts() -> dict:
-    """K1-K4's, F1's (``lidar_step``), F2's (``merge``), S's
-    (``fused_step``), R's (``fused_reset``) and L's (``light_dark_step``,
-    ``light_dark_reset``) counts (N1-N3's: ``numerics_launches``)."""
-    return {k: v for m in _launch_modules() for k, v in m.LAUNCHES.items()}
+def launch_counts(keys, table: dict | None = None) -> dict:
+    """The counts (``ops._launch.launched``) of ``keys``, kernel ids or
+    entries, in the launch table or in ``table``, a copy of it (a selftest
+    rank's report)."""
+    return {k: launched(k, table) for k in keys}
 
 
-NUMERICS_KERNELS = ("fma", "sum_squares", "sqrt")
+def kernel_launches(nonzero: bool = False) -> dict:
+    """The counts of every row's key but N1-N3's (``numerics_launches``);
+    with ``nonzero``, those above 0 only."""
+    counts = launch_counts(k for k in ROW_KEYS.values() if k not in NUMERICS)
+    return {k: v for k, v in counts.items() if v or not nonzero}
 
 
 NUMERICS_BY_PATH: dict[str, dict] = {}  # N1-N3's counts on each path driven, for the kernels line
@@ -857,15 +856,12 @@ def numerics_launches(path: str, steps: int, roots: bool | None = True) -> dict:
     F1 took them; ``roots`` None checks nothing (the bit windows' plain
     casts compute their own roots). Keeps the counts under the path's
     name in NUMERICS_BY_PATH."""
-    from apx_torch.core import numerics
-
-    counts = dict(numerics.LAUNCHES)
+    counts = launch_counts(NUMERICS)
     if roots:
-        check(all(counts[k] > 0 for k in NUMERICS_KERNELS),
-              f"{path}: N1-N3 launches {counts}, expected each > 0")
+        check(all(counts.values()), f"{path}: N1-N3 launches {counts}, expected each > 0")
     elif roots is not None:
-        check(counts["sqrt"] == 0, f"{path}: N3 launched {counts['sqrt']} times beside F1")
-    counts["per_step"] = {k: counts[k] / steps for k in NUMERICS_KERNELS}
+        check(counts["N3"] == 0, f"{path}: N3 launched {counts['N3']} times beside F1")
+    counts["per_step"] = {k: counts[k] / steps for k in NUMERICS}
     NUMERICS_BY_PATH[path] = {"steps": steps, **counts}
     return counts
 
@@ -924,7 +920,6 @@ def phase_numerics_kernels(dev) -> list[dict]:
     call (``torch.addcmul``, ``torch.linalg.vecdot``, ``torch.sqrt``;
     timed only, with whether its bits agree). One launch per call.
     Returns the three kernels rows."""
-    from apx_torch.core import numerics
     from apx_torch.core.numerics import fma, fma_plain, sqrt, sqrt_plain, sum_squares
     from apx_torch.core.numerics import sum_squares_plain
 
@@ -934,12 +929,12 @@ def phase_numerics_kernels(dev) -> list[dict]:
 
     def hold(name, args, what):
         kernel, plain = kernels[name]
-        before = numerics.LAUNCHES[name]
+        before = launched(ROW_KEYS[name])
         got = kernel(*args)
         want = plain(*args)
         torch.cuda.synchronize()
-        check(numerics.LAUNCHES[name] == before + 1,
-              f"{name} on {what}: {numerics.LAUNCHES[name] - before} launches, not 1")
+        count = launched(ROW_KEYS[name]) - before
+        check(count == 1, f"{name} on {what}: {count} launches, not 1")
         err = (got - want).abs().nan_to_num(0.0).max().item() if got.numel() else 0.0
         check(_bits_equal(got, want), f"{name} on {what}: not bitwise its plain form "
                                       f"(max |diff| {err})")
@@ -1193,12 +1188,12 @@ def hold_fused(name: str, args, time_it: bool = True) -> dict:
 
     kernel = lidar_fused_cuda.step if name == "fused_step" else lidar_fused_cuda.reset
     plain = lidar_fused.step_plain if name == "fused_step" else lidar_fused.reset_plain
-    before = lidar_fused_cuda.LAUNCHES[name]
+    key = ROW_KEYS[name]
+    before = launched(key)
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
-    check(lidar_fused_cuda.LAUNCHES[name] == before + 1,
-          f"{name}: {lidar_fused_cuda.LAUNCHES[name] - before} launches, not 1")
+    check(launched(key) == before + 1, f"{name}: {launched(key) - before} launches, not 1")
     check(list(got) == list(want), f"{name}: outputs {list(got)}, plain {list(want)}")
     for k in want:
         check(_bits_equal_any(got[k], want[k]), f"{name} output {k} is not bitwise its plain form")
@@ -1425,8 +1420,8 @@ def _bits_equal_any(got, want) -> bool:
 
 # One dense NEXT_STEP LIDAR step on the card: S and R once each, F2 once;
 # no standalone K1 or F1 launch and no N1-N3.
-DENSE_STEP_LAUNCHES = {"fma": 0, "sum_squares": 0, "sqrt": 0, "lidar_step": 0, "merge": 1,
-                       "raycast_fast": 0, "raycast_typed": 0, "fused_step": 1, "fused_reset": 1}
+DENSE_STEP = {"N1": 0, "N2": 0, "N3": 0, "F1": 0, "F2": 1, "K1.raycast_fast_launch": 0,
+              "K1.raycast_typed_launch": 0, "S": 1, "R": 1}
 
 
 def phase_lidar_step_kernels(dev) -> list[dict]:
@@ -1442,11 +1437,10 @@ def phase_lidar_step_kernels(dev) -> list[dict]:
     prediction against the plain form's. Each is timed (CUDA-graph replay)
     against its plain form and its bound (bytes at 3.35 TB/s, the operations
     at the float32 rate). Then one dense LIDARLocRooms-v0 step, counted
-    from 0 (``DENSE_STEP_LAUNCHES``: S 1, R 1, F2 1, no K1, F1 or N1-N3),
+    from 0 (``DENSE_STEP``: S 1, R 1, F2 1, no K1, F1 or N1-N3),
     and S and R against their plain forms (``phase_fused_kernels``).
     Returns the kernels rows of F1, F2, S and R."""
     import apx_torch
-    from apx_torch.core import numerics
     from apx_torch.ops import lidar_step, lidar_step_cuda, merge, merge_cuda
 
     _, params = apx_torch.make_vec("LIDARLocRooms-v0", num_envs=N, device=dev)
@@ -1458,12 +1452,13 @@ def phase_lidar_step_kernels(dev) -> list[dict]:
         kernel = getattr(lidar_step_cuda, f"stage_{stage}")
         plain = getattr(lidar_step, f"stage_{stage}")
         for args in calls:
-            before = lidar_step_cuda.LAUNCHES["lidar_step"]
+            key = f"F1.lidar_step_{stage}_launch"
+            before = launched(key)
             got = kernel(*args)
             want = plain(*args)
             torch.cuda.synchronize()
-            check(lidar_step_cuda.LAUNCHES["lidar_step"] == before + 1,
-                  f"F1 stage {stage}: {lidar_step_cuda.LAUNCHES['lidar_step'] - before} launches")
+            check(launched(key) == before + 1,
+                  f"F1 stage {stage}: {launched(key) - before} launches")
             check(set(got) == set(want), f"F1 stage {stage}: outputs {sorted(got)}")
             for k in want:
                 check(_bits_equal_any(got[k], want[k]),
@@ -1491,11 +1486,11 @@ def phase_lidar_step_kernels(dev) -> list[dict]:
     merge_rows, m_held = {}, 0
     for env_id in ("LIDARLocRooms-v0", "LIDARLocMaze-v0", "LightDark-v0"):
         args, kw = merge_inputs(dev, env_id, N, 18)
-        before = merge_cuda.LAUNCHES["merge"]
+        before = launched("F2")
         got = merge_cuda.next_step(*args, **kw)
         want = merge.next_step(*args, **kw)
         torch.cuda.synchronize()
-        check(merge_cuda.LAUNCHES["merge"] == before + 1, f"F2 on {env_id}: not one launch")
+        check(launched("F2") == before + 1, f"F2 on {env_id}: not one launch")
         for i, (g, w) in enumerate(zip(merged_leaves(got), merged_leaves(want), strict=True)):
             check(_bits_equal_any(g, w), f"F2 on {env_id}: output {i} not bitwise its plain form")
             m_held += 0 if w is None else w.numel()
@@ -1530,16 +1525,14 @@ def phase_lidar_step_kernels(dev) -> list[dict]:
     _, state, _ = venv.reset(params, gen)
     act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     venv.step(state, {"action": act, "prediction": torch.zeros((N, 2), device=dev)}, params, gen)
     torch.cuda.synchronize()
-    step = {**all_launch_counts(), **numerics.LAUNCHES}
-    got = {k: step[k] for k in DENSE_STEP_LAUNCHES}
-    check(got == DENSE_STEP_LAUNCHES,
-          f"a dense LIDAR step launched {got}, expected {DENSE_STEP_LAUNCHES}")
+    got = launch_counts(DENSE_STEP)
+    check(got == DENSE_STEP, f"a dense LIDAR step launched {got}, expected {DENSE_STEP}")
     s_row, r_row = phase_fused_kernels(dev)
     for r in (f1, f2, s_row, r_row):
-        r["launches_one_step"] = got[r["name"]]
+        r["launches_one_step"] = got[ROW_KEYS[r["name"]]]
     return [f1, f2, s_row, r_row]
 
 
@@ -1622,11 +1615,11 @@ def hold_light_dark(x: dict, params, time_it: bool = True) -> dict:
     }
     res = {}
     for name, (kernel, plain, read) in forms.items():
-        before = light_dark_cuda.LAUNCHES[name]
+        key = ROW_KEYS[name]
+        before = launched(key)
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        check(light_dark_cuda.LAUNCHES[name] == before + 1,
-              f"{name}: {light_dark_cuda.LAUNCHES[name] - before} launches, not 1")
+        check(launched(key) == before + 1, f"{name}: {launched(key) - before} launches, not 1")
         for i, (g, w) in enumerate(zip(got, want, strict=True)):
             check(_bits_equal_any(g, w), f"{name} output {i} at N={pos.shape[0]} is not bitwise "
                                          "its plain form")
@@ -1807,9 +1800,9 @@ def phase_chain(dev) -> dict:
             torch.cuda.synchronize()
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                   f"chain ({layout}, rows={r}, iters={it}) not bitwise equal to its plain form")
-    reset_all_launch_counts()
+    clear_launches()
     res = study.measure(rows=rows, iters=iters, reps=20)
-    launches = all_launch_counts()["chain"]
+    launches = launched("K4")
     print(f"issue-rate study: {json.dumps(res)}", flush=True)
     check(launches == 2 * 21, f"chain launched {launches} times in measure(), not 42")
     by_layout = {}
@@ -1839,10 +1832,10 @@ def lidar_path_launches(steps: int, window: bool = False) -> dict:
     step and per reset, K1 3 fast per step and 1 typed per reset, F1 4 per
     step, F2 once per step, no S or R."""
     if window:
-        return {"window": 1 + 2 * steps, "raycast_fast": 3 * steps, "raycast_typed": 1 + steps,
-                "lidar_step": 4 * steps, "merge": steps, "fused_step": 0, "fused_reset": 0}
-    return {"fused_step": steps, "fused_reset": 1 + steps, "merge": steps, "raycast_fast": 0,
-            "raycast_typed": 0, "lidar_step": 0}
+        return {"K2": 1 + 2 * steps, "K1.raycast_fast_launch": 3 * steps,
+                "K1.raycast_typed_launch": 1 + steps, "F1": 4 * steps, "F2": steps, "S": 0, "R": 0}
+    return {"S": steps, "R": 1 + steps, "F2": steps, "K1.raycast_fast_launch": 0,
+            "K1.raycast_typed_launch": 0, "F1": 0}
 
 
 def phase_main_path(dev, **overrides) -> dict:
@@ -1859,7 +1852,7 @@ def phase_main_path(dev, **overrides) -> dict:
     ends = torch.zeros(N, dtype=torch.int64, device=dev)
 
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     obs, state, _ = venv.reset(params, gen)
     for _ in range(steps):
@@ -1874,11 +1867,11 @@ def phase_main_path(dev, **overrides) -> dict:
         ends += (term | trunc).to(torch.int64)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = all_launch_counts()
+    counts = kernel_launches()
     path = "LIDAR main path" + (" (window)" if params.use_pallas_window else "")
     numerics = numerics_launches(path, steps, roots=False)
-    n12 = {"fma": numerics["fma"], "sum_squares": numerics["sum_squares"]}
-    check(n12 == {"fma": 1, "sum_squares": 0},
+    n12 = {"N1": numerics["N1"], "N2": numerics["N2"]}
+    check(n12 == {"N1": 1, "N2": 0},
           f"{path}: N1, N2 launched {n12}, expected N1 once (the reset's time obs), N2 never")
 
     check(bool(finite), "non-finite observation")
@@ -1890,12 +1883,12 @@ def phase_main_path(dev, **overrides) -> dict:
     check(shapes == {"lidar": (N, 8), "odometry": (N, 2), "time_step": (N,),
                      "map": (N, 32, 32, 1)}, f"obs shapes {shapes}")
     want = lidar_path_launches(steps, window=params.use_pallas_window)
-    got = {k: launches[k] for k in want}
+    got = launch_counts(want)
     check(got == want, f"{path} launches {got}, expected {want}")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)],
             "episode_ends_min": int(ends.min()), "terminations": int(ends.sum()),
-            "launches": launches, "numerics_launches": numerics}
+            "launches": counts, "numerics_launches": numerics}
 
 
 def phase_circle_square_main_path(dev) -> dict:
@@ -1912,7 +1905,7 @@ def phase_circle_square_main_path(dev) -> dict:
     resets = torch.zeros(N, dtype=torch.int64, device=dev)
 
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     obs, state, _ = venv.reset(params, gen)
     for _ in range(steps):
@@ -1927,7 +1920,7 @@ def phase_circle_square_main_path(dev) -> dict:
         resets += (state.inner.time == 0).to(torch.int64)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = all_launch_counts()
+    counts = kernel_launches()
     numerics = numerics_launches("CircleSquare main path", steps)
 
     check(bool(finite), "non-finite observation")
@@ -1938,12 +1931,12 @@ def phase_circle_square_main_path(dev) -> dict:
     shapes = {k: tuple(v.shape) for k, v in obs.items()}
     check(shapes == {"glimpse": (N, 5, 5, 1), "glimpse_pos": (N, 2), "time_step": (N,)},
           f"obs shapes {shapes}")
-    check(launches["glimpse"] == 1 + 2 * steps,
-          f"glimpse launched {launches['glimpse']} times, not once for the reset and twice "
+    check(launched("K3") == 1 + 2 * steps,
+          f"glimpse launched {launched('K3')} times, not once for the reset and twice "
           f"per masked-merge step ({1 + 2 * steps})")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)], "resets_min": int(resets.min()),
-            "launches": launches, "numerics_launches": numerics}
+            "launches": counts, "numerics_launches": numerics}
 
 
 STATS_TOL = 1e-6  # float stats: softmax, and sums over the ring
@@ -1972,9 +1965,7 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
             apx_torch.make_vec(env_id, num_envs=n, device=d, metrics=metrics, **overrides)
             for d in devices]
     cpu_venv, cpu_params = runs[0]
-    from apx_torch.core import numerics
-
-    numerics.reset_launch_counts()  # only the card's run counts: N1-N3 on this path
+    clear_launches()  # only the card's run counts: N1-N3 on this path
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
     space = cpu_venv.env.prediction_space(cpu_params)
@@ -2087,7 +2078,7 @@ def phase_light_dark_main_path(dev) -> dict:
     ends = torch.zeros(N, dtype=torch.int64, device=dev)
 
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     obs, state, _ = venv.reset(params, gen)
     for _ in range(steps):
@@ -2102,13 +2093,14 @@ def phase_light_dark_main_path(dev) -> dict:
         ends += (term | trunc).to(torch.int64)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = all_launch_counts()
+    counts = kernel_launches()
     numerics = numerics_launches("LightDark main path", steps, roots=None)
 
-    want = {"light_dark_step": steps, "light_dark_reset": 1 + steps, "merge": steps}
-    got = {k: launches[k] for k in want}
+    want = {"L.light_dark_step_launch": steps, "L.light_dark_reset_launch": 1 + steps,
+            "F2": steps}
+    got = launch_counts(want)
     check(got == want, f"LightDark main path: launches {got}, expected {want}")
-    check(numerics["sum_squares"] == numerics["sqrt"] == 0,
+    check(numerics["N2"] == numerics["N3"] == 0,
           f"LightDark main path: N2 or N3 launched beside L ({numerics})")
     check(bool(finite), "non-finite observation")
     check(bool(ranges_ok), "noisy_position outside [-2, 2] or time_step outside [-1, 1]")
@@ -2119,7 +2111,7 @@ def phase_light_dark_main_path(dev) -> dict:
     check(shapes == {"noisy_position": (N, 2), "time_step": (N,)}, f"obs shapes {shapes}")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reward_range": [float(r_lo), float(r_hi)], "episode_ends_min": int(ends.min()),
-            "launches": launches, "numerics_launches": numerics}
+            "launches": counts, "numerics_launches": numerics}
 
 
 def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
@@ -2139,7 +2131,7 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
     ends = torch.zeros(N, dtype=torch.int64, device=dev)
 
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     obs, state, _ = venv.reset(params, gen)
     for _ in range(steps):
@@ -2169,7 +2161,7 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
         ends += done.to(torch.int64)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = all_launch_counts()
+    counts = kernel_launches()
     numerics = numerics_launches(f"{env_id} metrics path", steps)
 
     for name, flag in ok.items():
@@ -2177,15 +2169,15 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
     check(float(err) <= 1e-6, f"{env_id}: reward vs base - weight * loss |diff| {float(err)}")
     check(int(ends.min()) >= 2, f"{env_id}: an env crossed {int(ends.min())} episode ends (< 2)")
     if classification:
-        want_launches = {"glimpse": 1 + 2 * steps}
+        want_launches = {"K3": 1 + 2 * steps}
     else:
         # the -sparse loss takes the plain merge (no F2)
-        want_launches = {**lidar_path_launches(steps), "merge": 0}
-    got = {name: launches[name] for name in want_launches}
+        want_launches = {**lidar_path_launches(steps), "F2": 0}
+    got = launch_counts(want_launches)
     check(got == want_launches, f"{env_id} launches {got}, expected {want_launches}")
     return {"env": env_id, "metrics": True, "steps": steps, "seconds": dt,
             "ms_per_step": 1e3 * dt / steps, "reward_err_max": float(err),
-            "episode_ends_min": int(ends.min()), "launches": launches,
+            "episode_ends_min": int(ends.min()), "launches": counts,
             "numerics_launches": numerics}
 
 
@@ -2216,13 +2208,13 @@ def phase_tin_loc_main_path(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start_bytes = torch.cuda.memory_allocated()
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     obs, state, _ = venv.reset(params, gen)
     torch.cuda.synchronize()
     reset_ms = 1e3 * (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    reset_launches = all_launch_counts()["glimpse"]
+    reset_launches = launched("K3")
     t0 = time.perf_counter()
     for _ in range(steps):
         act = torch.rand((N, 2), generator=gen, device=dev) * 2 - 1
@@ -2237,7 +2229,7 @@ def phase_tin_loc_main_path(dev) -> dict:
         resets += (state.inner.perception.time == 0).to(torch.int64)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = all_launch_counts()
+    counts = kernel_launches()
     numerics = numerics_launches("TinyImageNetLoc main path", steps)
 
     check(bool(finite), "non-finite observation")
@@ -2251,13 +2243,13 @@ def phase_tin_loc_main_path(dev) -> dict:
     # The explicit reset: the obs and the target glimpse; a masked-merge
     # step: the step's obs, and the autoreset's obs and target glimpse.
     check(reset_launches == 2, f"glimpse launched {reset_launches} times in the reset, not 2")
-    check(launches["glimpse"] == 2 + 3 * steps,
-          f"glimpse launched {launches['glimpse']} times, not 2 + 3 per step ({2 + 3 * steps})")
+    check(launched("K3") == 2 + 3 * steps,
+          f"glimpse launched {launched('K3')} times, not 2 + 3 per step ({2 + 3 * steps})")
     return {"steps": steps, "seconds": dt, "ms_per_step": 1e3 * dt / steps,
             "reset_ms": reset_ms, "reset_peak_bytes": peak,
             "reset_peak_above_start_bytes": peak - start_bytes,
             "reward_range": [float(r_lo), float(r_hi)], "resets_min": int(resets.min()),
-            "launches": launches, "numerics_launches": numerics}
+            "launches": counts, "numerics_launches": numerics}
 
 
 def ranking_gap(u_ref: np.ndarray, u_got: np.ndarray) -> float | None:
@@ -2353,7 +2345,7 @@ def path_launches(env_id: str, steps: int) -> dict:
     (DISABLED or boundary) and the reset one glimpse each."""
     if env_id.startswith("LIDAR"):
         return lidar_path_launches(steps)
-    return {"glimpse": 1 + steps}
+    return {"K3": 1 + steps}
 
 
 def phase_sharded_rollout(env_id: str, world: int, backend: str, steps: int,
@@ -2362,7 +2354,8 @@ def phase_sharded_rollout(env_id: str, world: int, backend: str, steps: int,
     over ``backend``, N = 4096 in all: each rank's block of the final state
     bitwise the one-process rollout's (rank 0 runs it on the card with the
     same seed), equal done counts, mean rewards within rtol 1e-6, and each
-    rank's and the solo run's kernel launches ``path_launches``."""
+    rank's and the solo run's kernel launches ``path_launches``, N1 among
+    them (the report counts every kernel: ``ops._launch.launches``)."""
     store = tempfile.mkdtemp(prefix="apx_store_")
     try:
         extra = ["--episodic-period", str(period)] if period is not None else []
@@ -2378,8 +2371,10 @@ def phase_sharded_rollout(env_id: str, world: int, backend: str, steps: int,
     solo = ranks[0]["solo"]
     want = path_launches(env_id, steps)
     what = f"{env_id} sharded over {world} {backend} rank(s)"
-    check({k: solo["launches"].get(k, 0) for k in want} == want,
-          f"{what}: the solo run launched {solo['launches']}, expected {want}")
+    for who, report in (("the solo run", solo["launches"]),
+                        *((f"rank {r}", out["launches"]) for r, out in enumerate(ranks))):
+        check(launch_counts(want, report) == want and launched("N1", report) > 0,
+              f"{what}: {who} launched {report}, expected {want} and N1")
     for r, out in enumerate(ranks):
         check(out["rank"] == r and out["backend"] == backend and out["device"] == "cuda:0",
               f"{what}: rank {r} ran as {out['rank']} on {out['device']} over {out['backend']}")
@@ -2390,8 +2385,6 @@ def phase_sharded_rollout(env_id: str, world: int, backend: str, steps: int,
         rel = abs(out["mean_reward"] - solo["mean_reward"]) / abs(solo["mean_reward"])
         check(rel <= 1e-6, f"{what}: mean reward {out['mean_reward']} vs solo "
                            f"{solo['mean_reward']} (rel {rel})")
-        check({k: out["launches"].get(k, 0) for k in want} == want,
-              f"{what}: rank {r} launched {out['launches']}, expected {want}")
     return {"env": env_id, "world_size": world, "backend": backend, "num_envs": N,
             "steps": steps, "episodic_period": period,
             "ranks": [{k: out[k] for k in ("rank", "block", "seconds", "launches",
@@ -2670,7 +2663,7 @@ def phase_compat_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: float | 
     t0 = time.perf_counter()
     outs = [cores[0].reset(seed=0)]
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     outs.append(cores[1].reset(seed=0))
     for k, x, y in zip(("obs", "info"), *outs):
         _np_same(x, y, f"{env_id} reset {k}", tol, err)
@@ -2687,13 +2680,13 @@ def phase_compat_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: float | 
             _np_same(x, y, f"{env_id} step {t} {k}", tol, err)
         prev_done = bool(np.any(outs[1][2] | outs[1][3]))
     torch.cuda.synchronize()
-    launches = all_launch_counts()
+    counts = kernel_launches()
     numerics = numerics_launches(f"{env_id}{overrides or ''} compat core, N={n}", steps,
                                  roots=None if env_id.startswith("LightDark")
                                  else not env_id.startswith("LIDAR"))
     ends = int(sum(np.asarray(outs[1][2]) | np.asarray(outs[1][3])))
     return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "merge_steps": merges,
-            "seconds": time.perf_counter() - t0, "launches": launches,
+            "seconds": time.perf_counter() - t0, "launches": counts,
             "numerics_launches": numerics,
             "compared": "bitwise" if tol is None else f"ints and bools bitwise, floats {tol}",
             "last_step_ends": ends, **err}
@@ -2717,17 +2710,17 @@ def phase_compat(dev) -> tuple[list[dict], dict]:
         if env_id.startswith("LIDAR"):
             # Reference-mode resets build the state from host maps and scan
             # with K1 typed (``compat.builders``); the steps are the env's.
-            want = {"raycast_typed": 1 + m, "fused_reset": 0}
+            want = {"K1.raycast_typed_launch": 1 + m, "R": 0}
             if kw:
-                want.update(raycast_fast=3 * steps, lidar_step=4 * steps, fused_step=0,
-                            window=steps + 1 + m)
+                want.update({"K1.raycast_fast_launch": 3 * steps, "F1": 4 * steps, "S": 0,
+                             "K2": steps + 1 + m})
             else:
-                want.update(raycast_fast=0, lidar_step=0, fused_step=steps)
+                want.update({"K1.raycast_fast_launch": 0, "F1": 0, "S": steps})
             check(m == 2, f"{env_id}: {m} NEXT_STEP merge steps, expected the two boundaries")
         elif env_id == "CircleSquare-v0":
-            want = {"glimpse": 1 + steps}
+            want = {"K3": 1 + steps}
         elif env_id == "TinyImageNetLoc-v0":
-            want = {"glimpse": 2 + steps}
+            want = {"K3": 2 + steps}
         else:
             want = {}
         check(all(got[k] == v for k, v in want.items()),
@@ -2837,13 +2830,13 @@ def phase_glimpse_study(dev) -> dict:
     """Phase 27: apx's glimpse study at its geometry, on the card."""
     from apx_torch.ops import glimpse_study
 
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     res = glimpse_study.run_study(dev)
     res["seconds"] = time.perf_counter() - t0
-    launched = all_launch_counts()["glimpse"]
-    check(launched == res["k3_launches"] and launched > 0,
-          f"glimpse study: K3 launched {launched} times, the study counted {res['k3_launches']}")
+    k3 = launched("K3")
+    check(k3 == res["k3_launches"] and k3 > 0,
+          f"glimpse study: K3 launched {k3} times, the study counted {res['k3_launches']}")
     for name, v in res["variants"].items():
         for key in ("us_per_batch", "moving_us_per_batch", "alone_us_per_batch"):
             check(v[key] is not None and v[key] > 0, f"{name}: {key} not timed")
@@ -2873,12 +2866,12 @@ def backend_launches(name: str, steps: int) -> dict:
     the bit windows (plain PyTorch), 2 under the beam tables (the scan is a
     lookup). F2 once per step under every backend."""
     dense_reset = name not in ("windowed", "mxu_window")
-    out = {"merge": steps, "fused_reset": 1 + steps if dense_reset else 0,
-           "raycast_typed": 0 if dense_reset else 1 + steps}
+    out = {"F2": steps, "R": 1 + steps if dense_reset else 0,
+           "K1.raycast_typed_launch": 0 if dense_reset else 1 + steps}
     if name in ("xla", "pallas"):
-        return {**out, "fused_step": steps, "lidar_step": 0, "raycast_fast": 0}
+        return {**out, "S": steps, "F1": 0, "K1.raycast_fast_launch": 0}
     fast = {"bitslab2d": 0, "bitslab": 0, "beam_rects": 0, "beam_tables": 2}.get(name, 3)
-    return {**out, "fused_step": 0, "lidar_step": 4 * steps, "raycast_fast": fast * steps}
+    return {**out, "S": 0, "F1": 4 * steps, "K1.raycast_fast_launch": fast * steps}
 
 
 def _lidar_build(config: dict):
@@ -2962,7 +2955,7 @@ def phase_backend_path(dev, name: str, config: dict) -> dict:
     r_lo = torch.full((), float("inf"), device=dev)
     r_hi = torch.full((), -float("inf"), device=dev)
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     obs, state, _ = venv.reset(params, gen)
     for _ in range(BACKEND_STEPS):
@@ -2976,12 +2969,11 @@ def phase_backend_path(dev, name: str, config: dict) -> dict:
         r_hi = torch.maximum(r_hi, reward.max())
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = all_launch_counts()
     check(bool(ok), f"{name}: non-finite obs or lidar outside [0, 1]")
     check(-2.9 <= float(r_lo) and float(r_hi) <= 0.1,
           f"{name}: rewards outside [-2.9, 0.1]: [{float(r_lo)}, {float(r_hi)}]")
     want = backend_launches(name, BACKEND_STEPS)
-    got = {k: launches[k] for k in want}
+    got = launch_counts(want)
     check(got == want, f"{name} path launches {got}, expected {want}")
     return {"backend": name, "config": config, "steps": BACKEND_STEPS,
             "eager_ms_per_step": 1e3 * dt / BACKEND_STEPS, "launches": got}
@@ -3022,14 +3014,14 @@ def _sweep_reset(venv, params, draws) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
-    reset_all_launch_counts()
+    clear_launches()
     t0 = time.perf_counter()
     out = venv.reset(params, draws=draws)
     torch.cuda.synchronize()
     return {"ms": 1e3 * (time.perf_counter() - t0),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "peak_above_start_bytes": torch.cuda.max_memory_allocated() - start,
-            "glimpse_launches": all_launch_counts()["glimpse"]}, out
+            "glimpse_launches": launched("K3")}, out
 
 
 def phase_samplers(dev) -> dict:
@@ -3138,15 +3130,15 @@ def phase_image_storage(dev) -> dict:
         """The path's reset and steps: (obs, reward, perception state) per
         step, and K3's launches at the reset and over the steps."""
         torch.cuda.synchronize()
-        reset_all_launch_counts()
+        clear_launches()
         obs, state, _ = lp.venv.reset(lp.params, draws=draws)
-        at_reset = all_launch_counts()["glimpse"]
+        at_reset = launched("K3")
         outs = []
         for act, rd in steps_draws:
             obs, state, reward, *_ = lp.venv.step(state, act, lp.params, reset_draws=rd)
             outs.append((obs, reward, state.inner.perception))
         torch.cuda.synchronize()
-        return outs, at_reset, all_launch_counts()["glimpse"] - at_reset
+        return outs, at_reset, launched("K3") - at_reset
 
     g = torch.Generator(device=dev).manual_seed(5)
     draws = base_lp.venv.env.draw_reset(N, base_lp.params, g)
@@ -3232,9 +3224,13 @@ def phase_sharded_bank(dev) -> dict:
     for i, (env_id, steps, _) in enumerate(runs):
         ranks = [_tagged(out, "SELFTEST ") for out in outs[2 * i:2 * i + 2]]
         solo = ranks[0]["solo"]
+        kernels = ("N1", "S", "R") if env_id.startswith("LIDAR") else ("N1", "K3")
         for r, out in enumerate(ranks):
             check(out["digest"] == solo["digests"][r],
                   f"{env_id} sharded bank: rank {r}'s block is not bitwise the solo run's")
+            check(all(launched(k, out["launches"]) for k in kernels),
+                  f"{env_id} sharded bank: rank {r} launched {out['launches']}, not each of "
+                  f"{kernels}")
             check(out["bank"]["digest"] == solo["bank_digests"][r],
                   f"{env_id} sharded bank: rank {r} does not hold its block")
             m = out["bank"]["num_rows"]
@@ -3359,27 +3355,26 @@ def phase_train_ppo(dev) -> dict:
 
     venv, params = apx_torch.make_vec("LIDARLocRooms-v0", TRAIN_N, device=dev)
     g = torch.Generator(dev).manual_seed(0)
-    reset_all_launch_counts()
+    clear_launches()
     obs, state, _ = venv.reset(params, g)
     torch.cuda.synchronize()
-    reset_launches = {k: v for k, v in all_launch_counts().items() if v}
-    check(reset_launches == {"fused_reset": 1},
-          f"train reset launched {reset_launches}, expected one fused_reset")
+    reset_launches = kernel_launches(nonzero=True)
+    check(reset_launches == {"R": 1}, f"train reset launched {reset_launches}, expected one R")
     net = init_net(g, params.map_bank.map_hw, dev)
     opt = ClipAdam(0.5, 3e-4)
     opt_state = opt.init(net)
     train_iter = make_train_iter(venv, opt, TRAIN_N, TRAIN_T)
-    want = {"fused_step": TRAIN_T, "fused_reset": TRAIN_T, "merge": TRAIN_T}
+    want = {"S": TRAIN_T, "R": TRAIN_T, "F2": TRAIN_T}
     iters = []
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_ITERS):
         stats = {}
-        reset_all_launch_counts()
+        clear_launches()
         t0 = time.perf_counter()
         state, obs, mean_r = train_iter(net, opt_state, state, obs, g, params, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: v for k, v in all_launch_counts().items() if v}
+        launches = kernel_launches(nonzero=True)
         check(launches == want, f"train iteration {i} launched {launches}, expected {want}")
         numerics = numerics_launches(f"train iteration {i}", TRAIN_T, roots=False)
         mean_r = float(mean_r)
@@ -3565,12 +3560,12 @@ def phase_entry(dev) -> dict:
     from apx_torch.graft_entry import entry
     from apx_torch.ops.glimpse import extract_glimpse_batch
 
-    reset_all_launch_counts()
+    clear_launches()
     fn, args = entry(dev)
     obs, state1, reward, term, trunc = fn(*args)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in all_launch_counts().items() if v}
-    check(launches == {"glimpse": 3}, f"entry() launched {launches}, expected 3 glimpse")
+    launches = kernel_launches(nonzero=True)
+    check(launches == {"K3": 3}, f"entry() launched {launches}, expected 3 K3")
     gl = obs["glimpse"]
     check(bool(torch.isfinite(gl).all()) and float(gl.min()) >= 0 and float(gl.max()) <= 1,
           "entry(): glimpse outside [0, 1]")
@@ -3590,7 +3585,7 @@ def phase_entry(dev) -> dict:
         errs[when] = float((got - want).abs().max())
         check(errs[when] <= GLIMPSE_TOL,
               f"entry() {when}: K3 against its plain form, max |diff| {errs[when]}")
-    return {"launches": launches["glimpse"], "glimpse_shape": list(gl.shape),
+    return {"launches": launches["K3"], "glimpse_shape": list(gl.shape),
             "image_shape": list(images.shape[1:]), "image_dtype": str(images.dtype),
             "max_abs_err": max(errs.values()), "max_abs_err_by_call": errs,
             "tolerance": GLIMPSE_TOL, "reward_max_abs_err_vs_minus_one": err}
@@ -3653,10 +3648,10 @@ def expected_workload_launches(name: str, steps: int, cycles: int) -> dict:
     boundary) and the reset one glimpse; TinyImageNetLoc adds the target
     glimpse at the reset and at each cycle's boundary."""
     if name.startswith("lidar"):  # S, R (the merge's reset) and F2 per step
-        return {"fused_step": steps, "fused_reset": 1 + steps, "merge": steps}
+        return {"S": steps, "R": 1 + steps, "F2": steps}
     if name == "tin_loc":
-        return {"glimpse": 2 + steps + cycles}
-    return {"glimpse": 1 + steps}
+        return {"K3": 2 + steps + cycles}
+    return {"K3": 1 + steps}
 
 
 def _hold_k1(name: str, args) -> dict:
@@ -3743,17 +3738,17 @@ def phase_workload_kernels(dev) -> dict:
                                {"step": "fused_step", "reset": "fused_reset"}), \
                 recorded_calls(image_mod, ("glimpse",), calls, counts):
             torch.cuda.synchronize()
-            reset_all_launch_counts()
+            clear_launches()
             obs, state, _ = lp.venv.reset(lp.params, g)
             _steps(lp, obs, state, _draws(lp, lp.chunk, g),
                    torch.zeros((), device=dev))
             torch.cuda.synchronize()
-            launched = {k: v for k, v in all_launch_counts().items() if v}
+            got = kernel_launches(nonzero=True)
         want = expected_workload_launches(name, lp.chunk, 1)
-        check(launched == want and {k: launched.get(k, 0) for k in counts} == counts,
-              f"{name}: launches {launched}, wrapper calls {counts}, expected {want}")
-        res = {"num_envs": n, "steps": lp.chunk, "launches": launched,
-               "launches_per_step": {k: v / lp.chunk for k, v in launched.items()},
+        check(got == want and {k: got.get(ROW_KEYS[k], 0) for k in counts} == counts,
+              f"{name}: launches {got}, wrapper calls {counts}, expected {want}")
+        res = {"num_envs": n, "steps": lp.chunk, "launches": got,
+               "launches_per_step": {k: v / lp.chunk for k, v in got.items()},
                "kernels": {}}
         for (kernel, r), (args, kwargs) in calls.items():
             if kernel == "glimpse":
@@ -3855,13 +3850,13 @@ def main() -> int:
     # S, R and F2 run on the dense main path; K1 and F1 on the window path
     # (below) and the other window backends.
     for r in rows + fused_rows:
-        r["launches"] = main_path["launches"][r["name"]]
+        r["launches"] = main_path["launches"][ROW_KEYS[r["name"]]]
     emit(f"card vs cpu: {json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}))}",
          flush=True)
 
     cs_path = phase_circle_square_main_path(dev)
     emit(f"circle square main path: {json.dumps(cs_path)}", flush=True)
-    k3["launches"] = cs_path["launches"]["glimpse"]
+    k3["launches"] = cs_path["launches"]["K3"]
     rows.append(k3)
     tol = {"glimpse": GLIMPSE_TOL, "reward": 1e-6}
     for env_id in ("CircleSquare-v0", "CircleSquareInverted-v0"):
@@ -3875,15 +3870,15 @@ def main() -> int:
     window_path = phase_main_path(dev, **window)
     emit(f"window main path: {json.dumps(window_path)}", flush=True)
     for r in rows[:2]:
-        r["window"] = {"launches": window_path["launches"][r["name"]],
+        r["window"] = {"launches": window_path["launches"][ROW_KEYS[r["name"]]],
                        "by_r": k1_window[r["name"]]}
     for r in fused_rows:
-        r["window"] = {"launches": window_path["launches"][r["name"]]}
+        r["window"] = {"launches": window_path["launches"][ROW_KEYS[r["name"]]]}
     for r in rows[:2] + fused_rows[:1]:  # K1 and F1: their launches are the window path's
-        r["launches"] = window_path["launches"][r["name"]]
+        r["launches"] = window_path["launches"][ROW_KEYS[r["name"]]]
         r["launches_path"] = f"LIDARLocRooms-v0 pallas_window, N={N}, reset + " \
                              f"{window_path['steps']} steps (0 on the dense path: S and R)"
-    k2["launches"] = window_path["launches"]["window"]
+    k2["launches"] = window_path["launches"]["K2"]
     rows.append(k2)
     emit(f"window card vs cpu: "
          f"{json.dumps(phase_card_vs_cpu(dev, 'LIDARLocRooms-v0', 256, 120, {}, **window))}",
@@ -3894,7 +3889,7 @@ def main() -> int:
     ld_path = phase_light_dark_main_path(dev)
     emit(f"light dark main path: {json.dumps(ld_path)}", flush=True)
     for r in ld_rows:
-        r["launches"] = ld_path["launches"][r["name"]]
+        r["launches"] = ld_path["launches"][ROW_KEYS[r["name"]]]
         r["launches_path"] = f"LightDark-v0 main path, N={N}, reset + {ld_path['steps']} steps"
     lidar_sparse = phase_sparse_metrics_path(dev, "LIDARLocRooms-sparse-v0", 250)
     emit(f"sparse metrics path: {json.dumps(lidar_sparse)}", flush=True)
@@ -3902,8 +3897,9 @@ def main() -> int:
     emit(f"sparse metrics path: {json.dumps(cs_sparse)}", flush=True)
     for r in rows:
         for path in (lidar_sparse, cs_sparse):
-            if path["launches"].get(r["name"]):
-                r["sparse_metrics"] = {"env": path["env"], "launches": path["launches"][r["name"]]}
+            if path["launches"].get(ROW_KEYS[r["name"]]):
+                r["sparse_metrics"] = {"env": path["env"],
+                                       "launches": path["launches"][ROW_KEYS[r["name"]]]}
     for env_id, n, steps, tol in (
             ("LightDark-v0", 256, 120, {}),
             ("LIDARLocRooms-sparse-v0", 256, 120, {}),
@@ -3913,7 +3909,7 @@ def main() -> int:
 
     tin_path = phase_tin_loc_main_path(dev)
     emit(f"tin_loc main path: {json.dumps(tin_path)}", flush=True)
-    k3["tin_loc"] = {"launches": tin_path["launches"]["glimpse"],
+    k3["tin_loc"] = {"launches": tin_path["launches"]["K3"],
                      "geometry": k3["by_geometry"]["tiny_imagenet"]["shape"]}
     emit(f"sweep card vs cpu: {json.dumps(phase_sweep_card_vs_cpu(dev))}", flush=True)
     res = phase_card_vs_cpu(dev, "TinyImageNetLoc-v0", 64, 51, {
@@ -3924,9 +3920,9 @@ def main() -> int:
     for env_id, geometry in (("DoubleCircleSquare-v0", None), ("MNIST-v0", "mnist"),
                              ("CIFAR10-v0", "cifar10"), ("CircleSquareHideAndSeek-v0", None),
                              ("CircleSquareHideAndSeekNoPrediction-sparse-v0", None)):
-        reset_all_launch_counts()
+        clear_launches()
         res = phase_card_vs_cpu(dev, env_id, 256, 51, tol)
-        res["glimpse_launches"] = all_launch_counts()["glimpse"]
+        res["glimpse_launches"] = launched("K3")
         check(res["glimpse_launches"] == 1 + 2 * 51,
               f"{env_id}: glimpse launched {res['glimpse_launches']} times, not 1 + 2 per step")
         if geometry:
@@ -3949,8 +3945,8 @@ def main() -> int:
     for r in rows[:2] + [k3] + fused_rows[2:]:
         r["workloads"] = {
             name: {"num_envs": path["num_envs"], "steps": path["steps"],
-                   "launches": path["launches"][r["name"]],
-                   "launches_per_step": path["launches_per_step"][r["name"]],
+                   "launches": path["launches"][ROW_KEYS[r["name"]]],
+                   "launches_per_step": path["launches_per_step"][ROW_KEYS[r["name"]]],
                    **path["kernels"][r["name"]]}
             for name, path in workloads.items() if r["name"] in path["kernels"]}
         r["max_abs_err"] = max([r["max_abs_err"]] + [
@@ -3964,12 +3960,13 @@ def main() -> int:
     gloo_cs = phase_sharded_rollout("CircleSquare-v0", 2, "gloo", EPISODIC_STEPS, period=16)
     emit(f"sharded rollout: {json.dumps(gloo_cs)}", flush=True)
     for r in rows + fused_rows:
+        key = ROW_KEYS[r["name"]]
         for path in (sharded, gloo_lidar, gloo_cs):
-            if r["name"] in path["ranks"][0]["launches"]:
+            if launched(key, path["ranks"][0]["launches"]):
                 r.setdefault("sharded", []).append({
                     "env": path["env"], "world_size": path["world_size"],
                     "backend": path["backend"], "steps": path["steps"],
-                    "launches_per_rank": [x["launches"][r["name"]] for x in path["ranks"]]})
+                    "launches_per_rank": [launched(key, x["launches"]) for x in path["ranks"]]})
     emit(f"checkpoint: {json.dumps(phase_checkpoint(dev))}", flush=True)
     emit(f"bank rotator: {json.dumps(phase_bank_rotator(dev))}", flush=True)
     emit(f"native bank: {json.dumps(phase_native_bank(dev))}", flush=True)
@@ -3982,8 +3979,8 @@ def main() -> int:
     for res in compat:
         emit(f"compat card vs cpu: {json.dumps(res)}", flush=True)
     for r in rows + fused_rows:
-        if r["name"] in compat_launches:
-            r["compat"] = compat_launches[r["name"]]
+        if ROW_KEYS[r["name"]] in compat_launches:
+            r["compat"] = compat_launches[ROW_KEYS[r["name"]]]
     for env in ("lidar_rooms", "circle_square"):
         emit(f"compat throughput: {json.dumps(bench_compat(env, N))}", flush=True)
     emit("compat: the gymnasium shells (make / make_vec) and the PIL frames need gymnasium "
@@ -4008,7 +4005,7 @@ def main() -> int:
     backends = phase_raycast_backends(dev)
     emit(f"raycast backends: {json.dumps(backends)}", flush=True)
     for r in rows[:2] + fused_rows:
-        r["backends"] = {name: path["launches"][r["name"]]
+        r["backends"] = {name: path["launches"][ROW_KEYS[r["name"]]]
                          for name, path in backends["paths"].items()}
     for r in rows[:2]:
         r["backend_windows"] = backend_kernels[r["name"]]
@@ -4029,9 +4026,11 @@ def main() -> int:
 
     train = phase_train_ppo(dev)
     emit(f"train ppo: {json.dumps(train)}", flush=True)
-    for r in (r for r in rows + fused_rows if r["name"] in train["launches_per_iteration"]):
-        r["train"] = {"launches_per_iteration": train["launches_per_iteration"][r["name"]],
-                      "launches": [x["launches"][r["name"]] for x in train["iterations"]],
+    for r in (r for r in rows + fused_rows
+              if ROW_KEYS[r["name"]] in train["launches_per_iteration"]):
+        key = ROW_KEYS[r["name"]]
+        r["train"] = {"launches_per_iteration": train["launches_per_iteration"][key],
+                      "launches": [x["launches"][key] for x in train["iterations"]],
                       "path": f"train_ppo_lidar iteration, LIDARLocRooms-v0, N={TRAIN_N}, "
                               f"rollout {TRAIN_T}"}
     emit(f"train card vs cpu: {json.dumps(phase_train_card_vs_cpu(dev))}", flush=True)
@@ -4047,11 +4046,12 @@ def main() -> int:
     # launches are TinyImageNetLoc's.
     tin_numerics = tin_path["numerics_launches"]
     for r in numerics_rows:
-        r["launches"] = tin_numerics[r["name"]]
+        key = ROW_KEYS[r["name"]]
+        r["launches"] = tin_numerics[key]
         r["launches_path"] = f"TinyImageNetLoc-v0 main path, N={N}, reset + " \
                              f"{tin_path['steps']} steps"
-        r["paths"] = {path: {"steps": c["steps"], "launches": c[r["name"]],
-                             "per_step": c["per_step"][r["name"]]}
+        r["paths"] = {path: {"steps": c["steps"], "launches": c[key],
+                             "per_step": c["per_step"][key]}
                       for path, c in NUMERICS_BY_PATH.items()}
     rows.extend(numerics_rows)
     rows.extend(fused_rows)

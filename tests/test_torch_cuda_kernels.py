@@ -14,14 +14,20 @@ import pytest
 import torch
 
 from apx_torch.data.floor_map import make_maze_bank, make_rooms_bank
-from apx_torch.ops import build, glimpse_cuda, issue_rate_study, raycast_cuda, window_cuda
+from apx_torch.ops import glimpse_cuda, issue_rate_study, raycast_cuda, window_cuda
+from apx_torch.ops._launch import clear_launches, launched
 from apx_torch.ops.glimpse import extract_glimpse_batch
 from apx_torch.ops.raycast import lidar_directions_np, pad_occupancy, raycast_grid, seg_length
 from apx_torch.ops.window import clamp_starts, extract_windows, window_starts
-from chip_smoke import EDGE_MAPS, EDGE_N, EDGE_RAYS, edge_casts, edge_maps
+from chip_smoke import EDGE_MAPS, EDGE_N, EDGE_RAYS, NUMERICS, ROW_KEYS, edge_casts, edge_maps
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
+STEP_L, RESET_L = "L.light_dark_step_launch", "L.light_dark_reset_launch"
+
+
+def _failing_launch(*args):
+    return 98  # cudaErrorInvalidDeviceFunction
 
 
 @pytest.fixture
@@ -69,10 +75,11 @@ def test_kernel_bitwise_equal_to_plain(dev, kind, r, typed, centres):
         origin, targets = edge_casts(occ_np, r, rng, centres)
         occ, origin, targets = (torch.from_numpy(x).to(dev) for x in (occ_np, origin, targets))
     kernel = raycast_cuda.raycast_typed if typed else raycast_cuda.raycast_fast
-    before = raycast_cuda.LAUNCHES[kernel.__name__]
+    key = f"K1.{kernel.__name__}_launch"
+    before = launched(key)
     got = kernel(occ, origin, targets)
     torch.cuda.synchronize()
-    assert raycast_cuda.LAUNCHES[kernel.__name__] == before + 1
+    assert launched(key) == before + 1
     want = raycast_grid(occ, origin, targets, geos_typing=typed)[0]
     assert torch.equal(_bits(got), _bits(want))
     seg = seg_length(targets - origin[:, None]) * 0.5  # a caller's own lengths
@@ -127,7 +134,6 @@ def test_numerics_on_card(dev):
     """The exact-rounding helpers give the CPU's bits on the card: N1-N3
     (one launch each) on ``chip_smoke.numerics_cases`` and at the call
     sites' shapes and strides; ``div`` as before."""
-    from apx_torch.core import numerics
     from apx_torch.core.numerics import div, fma, sqrt, sum_squares
     from chip_smoke import numerics_cases
 
@@ -138,10 +144,10 @@ def test_numerics_on_card(dev):
         assert torch.equal(f(a, b, c), f(a.to(dev), b.to(dev), c.to(dev)).cpu())
 
     def held(name, fn, *args):
-        before = numerics.LAUNCHES[name]
+        before = launched(ROW_KEYS[name])
         got = fn(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in args))
         torch.cuda.synchronize()
-        assert numerics.LAUNCHES[name] == before + 1, name
+        assert launched(ROW_KEYS[name]) == before + 1, name
         assert _same_bits(got, fn(*args)), name
 
     cases = numerics_cases(0)
@@ -165,10 +171,9 @@ def test_numerics_on_card(dev):
 def test_numerics_raise_on_card(dev):
     """float64 operands and operands on two devices raise; nothing is
     counted."""
-    from apx_torch.core import numerics
     from apx_torch.core.numerics import fma, sqrt, sum_squares
 
-    before = dict(numerics.LAUNCHES)
+    before = [launched(k) for k in NUMERICS]
     x = torch.rand((16, 2), device=dev)
     with pytest.raises(TypeError):
         fma(x.double(), x.double(), 1.0)
@@ -182,7 +187,7 @@ def test_numerics_raise_on_card(dev):
         sqrt(x.double())
     with pytest.raises(ValueError):
         sum_squares(x[0, 0])
-    assert numerics.LAUNCHES == before
+    assert [launched(k) for k in NUMERICS] == before
 
 
 def test_numerics_in_cuda_graph(dev):
@@ -213,7 +218,6 @@ def test_kernel_computes_its_own_lengths(dev, kind, typed):
     """K1 with no lengths (the kernel computes the contracted |d|) equals K1
     given ``seg_length``'s, bitwise, on ``_casts`` and in the window frame;
     the wrapper launches K1 alone."""
-    from apx_torch.core import numerics
     from apx_torch.ops.window_cuda import extract_windows as cut
 
     bank = (make_maze_bank if kind == "maze" else make_rooms_bank)(16, device=dev)
@@ -226,10 +230,10 @@ def test_kernel_computes_its_own_lengths(dev, kind, typed):
             origin, targets = origin - base, targets - base[:, None]
         kernel = raycast_cuda.raycast_typed if typed else raycast_cuda.raycast_fast
         seg = seg_length(targets - origin[:, None])
-        before = dict(numerics.LAUNCHES)
+        before = [launched(k) for k in NUMERICS]
         got = kernel(occ, origin, targets)
         torch.cuda.synchronize()
-        assert numerics.LAUNCHES == before  # no length computed before the launch
+        assert [launched(k) for k in NUMERICS] == before  # no length computed before the launch
         assert torch.equal(_bits(got), _bits(kernel(occ, origin, targets, seg)))
         assert torch.equal(_bits(got), _bits(raycast_grid(occ, origin, targets,
                                                           geos_typing=typed)[0]))
@@ -262,10 +266,10 @@ def test_glimpse_kernel_matches_plain(dev, shape, sensor, scale, n, dtype):
     pos = torch.rand((n, 2), generator=gen, device=dev) * 2 - 1
     edges = torch.tensor([[1, 1], [-1, -1], [1, -1], [-1, 1], [0, 1], [1, 0]], device=dev)
     pos[:6] = edges[:n]
-    before = glimpse_cuda.LAUNCHES["glimpse"]
+    before = launched("K3")
     got = glimpse_cuda.glimpse(images, pos, sensor, scale)
     torch.cuda.synchronize()
-    assert glimpse_cuda.LAUNCHES["glimpse"] == before + 1
+    assert launched("K3") == before + 1
     want = extract_glimpse_batch(images, pos, sensor, scale)
     assert got.shape == want.shape and (got - want).abs().max().item() <= 1e-6
     cpu = extract_glimpse_batch(images.cpu(), pos.cpu(), sensor, scale)
@@ -283,17 +287,12 @@ def test_glimpse_uint8_conversion_on_card(dev):
 
 def test_glimpse_raises_on_cuda_without_fallback(dev, monkeypatch):
     """A failed launch raises; the wrapper never returns the plain form."""
-    class FailingLib:
-        @staticmethod
-        def glimpse_f32_launch(*args):
-            return 98  # cudaErrorInvalidDeviceFunction
-
-    monkeypatch.setattr(build, "load", lambda: FailingLib)
-    before = glimpse_cuda.LAUNCHES["glimpse"]
+    monkeypatch.setattr(glimpse_cuda._ENTRIES[torch.float32], "fn", _failing_launch)
+    before = launched("K3")
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         glimpse_cuda.glimpse(torch.rand((4, 8, 8, 1), device=dev), torch.zeros((4, 2), device=dev),
                              (3, 3))
-    assert glimpse_cuda.LAUNCHES["glimpse"] == before
+    assert launched("K3") == before
 
 
 def test_image_env_on_card_matches_cpu(dev):
@@ -388,10 +387,10 @@ def test_window_kernel_bitwise_equal_to_plain(dev, kind, hw, pad, win):
     starts[n // 2:] = out_of_range.to(torch.int32)
     starts[-4:] = torch.tensor([[-wp - 4, -hp - 4], [wp + 4, hp + 4], [-1, -1], [wp, 0]],
                                dtype=torch.int32, device=dev)
-    before = window_cuda.LAUNCHES["window"]
+    before = launched("K2")
     got = window_cuda.extract_windows(occ, starts, pad, win)
     torch.cuda.synchronize()
-    assert window_cuda.LAUNCHES["window"] == before + 1
+    assert launched("K2") == before + 1
     assert got.shape == (n, 24, win) and got.dtype == torch.uint8
     assert torch.equal(got, extract_windows(occ, starts, pad, win))
     assert torch.equal(got.cpu(), extract_windows(occ.cpu(), starts.cpu(), pad, win))
@@ -428,10 +427,10 @@ def test_chain_kernel_bitwise_equal_to_plain(dev, layout, rows, iters):
     gen = torch.Generator(device=dev).manual_seed(5 + rows + iters)
     lanes = issue_rate_study.LANES[layout]
     args = [torch.rand((rows, lanes), generator=gen, device=dev) for _ in range(5)]
-    before = issue_rate_study.LAUNCHES["chain"]
+    before = launched("K4")
     got = issue_rate_study.chain_cuda(*args, iters=iters, layout=layout)
     torch.cuda.synchronize()
-    assert issue_rate_study.LAUNCHES["chain"] == before + 1
+    assert launched("K4") == before + 1
     assert torch.equal(_bits(got), _bits(issue_rate_study.chain_body(*args, iters)))
     if iters <= 7:
         cpu = issue_rate_study.chain_body(*(a.cpu() for a in args), iters)
@@ -449,7 +448,7 @@ def test_window_env_on_card_matches_cpu(dev):
     draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
     carry = [v.reset(p, draws={k: x.to(p.device) for k, x in draws.items()})[:2]
              for v, p in runs]
-    before = window_cuda.LAUNCHES["window"]
+    before = launched("K2")
     for _ in range(110):
         act = torch.rand((n, 2), generator=gen) * 2 - 1
         draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
@@ -464,33 +463,25 @@ def test_window_env_on_card_matches_cpu(dev):
             outs.append(leaves)
         for a, b in zip(*outs):
             assert torch.equal(a, b)
-    assert window_cuda.LAUNCHES["window"] == before + 2 * 110  # the step's and the reset's
-
-
-class _FailingLib:
-    @staticmethod
-    def window_launch(*args):
-        return 98  # cudaErrorInvalidDeviceFunction
-
-    chain_launch = window_launch
+    assert launched("K2") == before + 2 * 110  # the step's and the reset's
 
 
 def test_window_raises_on_cuda_without_fallback(dev, monkeypatch):
-    monkeypatch.setattr(build, "load", lambda: _FailingLib)
-    before = window_cuda.LAUNCHES["window"]
+    monkeypatch.setattr(window_cuda._WINDOW, "fn", _failing_launch)
+    before = launched("K2")
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         window_cuda.extract_windows(torch.zeros((4, 32, 32), dtype=torch.bool, device=dev),
                                     torch.zeros((4, 2), dtype=torch.int32, device=dev), 16)
-    assert window_cuda.LAUNCHES["window"] == before
+    assert launched("K2") == before
 
 
 def test_chain_raises_on_cuda_without_fallback(dev, monkeypatch):
-    monkeypatch.setattr(build, "load", lambda: _FailingLib)
-    before = issue_rate_study.LAUNCHES["chain"]
+    monkeypatch.setattr(issue_rate_study._CHAIN, "fn", _failing_launch)
+    before = launched("K4")
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         issue_rate_study.chain_cuda(*[torch.zeros((8, 16), device=dev)] * 5, iters=2,
                                     layout="narrow")
-    assert issue_rate_study.LAUNCHES["chain"] == before
+    assert launched("K4") == before
 
 
 def _card_and_cpu_steps(dev, env_id, n, steps, seed, metrics=False):
@@ -537,7 +528,6 @@ def test_sparse_metrics_lidar_on_card_matches_cpu(dev):
     the prediction info bitwise; the stats' ints, bools and NaN positions
     bitwise, their floats within 1e-6; S launched once per step."""
     from apx_torch.core.env import tree_map
-    from apx_torch.ops import lidar_fused_cuda
 
     def bitwise(out):
         obs, s, *rest, info = out
@@ -546,7 +536,7 @@ def test_sparse_metrics_lidar_on_card_matches_cpu(dev):
     def stats(out):
         return out[1].buf, out[5]["stats"]
 
-    before = lidar_fused_cuda.LAUNCHES["fused_step"]
+    before = launched("S")
     for cpu, card in _card_and_cpu_steps(dev, "LIDARLocMaze-sparse-v0", 64, 110, 9, metrics=True):
         a, b = [], []
         tree_map(a.append, bitwise(cpu))
@@ -563,7 +553,7 @@ def test_sparse_metrics_lidar_on_card_matches_cpu(dev):
                 assert not ok.any() or (x[ok] - y[ok]).abs().max() <= 1e-6
             else:
                 assert torch.equal(x, y)
-    assert lidar_fused_cuda.LAUNCHES["fused_step"] == before + 110
+    assert launched("S") == before + 110
 
 
 def test_space_sample_lands_on_the_generators_card(dev):
@@ -738,18 +728,18 @@ def test_backend_env_on_card_matches_cpu(dev, backend):
     all are."""
     import apx_torch
     from apx_torch.core.env import tree_map
-    from chip_smoke import all_launch_counts, backend_launches, reset_all_launch_counts
+    from chip_smoke import backend_launches, launch_counts
 
     n = 64
     runs = [apx_torch.make_vec("LIDARLocRooms-v0", n, device=d, raycast_backend=backend)
             for d in ("cpu", dev)]
     gen = torch.Generator().manual_seed(4)
     draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
-    reset_all_launch_counts()
+    clear_launches()
     carry = [v.reset(p, draws={k: x.to(p.device) for k, x in draws.items()})[:2]
              for v, p in runs]
     want = backend_launches(backend, 0)
-    assert {k: all_launch_counts()[k] for k in want} == want
+    assert launch_counts(want) == want
     for _ in range(40):
         act = torch.rand((n, 2), generator=gen) * 2 - 1
         draws = runs[0][0].env.draw_reset(n, runs[0][1], gen)
@@ -765,7 +755,7 @@ def test_backend_env_on_card_matches_cpu(dev, backend):
         for a, b in zip(*outs):
             assert torch.equal(a, b)
     want = backend_launches(backend, 40)
-    assert {k: all_launch_counts()[k] for k in want} == want
+    assert launch_counts(want) == want
 
 
 @pytest.mark.parametrize("shape,sensor", [((64, 64, 3), (10, 10)), ((28, 28, 1), (5, 5))])
@@ -779,9 +769,9 @@ def test_glimpse_index_matches_plain(dev, shape, sensor):
                   torch.randint(0, 300, (4096,), generator=gen, device=dev)):
         pos = torch.rand((index.shape[0], 2), generator=gen, device=dev) * 2 - 1
         pos[:4] = torch.tensor([[1.0, 1.0], [-1.0, -1.0], [1.0, -1.0], [0.0, 0.0]], device=dev)
-        before = glimpse_cuda.LAUNCHES["glimpse"]
+        before = launched("K3")
         got = glimpse_cuda.glimpse(bank, pos, sensor, index=index)
-        assert glimpse_cuda.LAUNCHES["glimpse"] == before + 1
+        assert launched("K3") == before + 1
         copied = glimpse_cuda.glimpse(bank[index], pos, sensor)
         assert torch.equal(_bits(got), _bits(copied))
         want = extract_glimpse_batch(bank[index], pos, sensor, precision="highest")
@@ -806,9 +796,9 @@ def test_image_storage_on_card_bitwise_array(dev, mode):
     launches = []
     carry = []
     for v, p in runs:
-        glimpse_cuda.reset_launch_counts()
+        clear_launches()
         carry.append(v.reset(p, draws=draws)[:2])
-        launches.append(glimpse_cuda.LAUNCHES["glimpse"])
+        launches.append(launched("K3"))
     for _ in range(20):
         act = {"action": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
                "prediction": torch.zeros((n, 2), device=dev)}
@@ -842,10 +832,9 @@ def test_samplers_on_card_match_cpu(dev):
                                       unique_sampling_backend=backend)
         p_dev = ImagePerceptionParams(dataset=card, sensor_size=(10, 10),
                                       unique_sampling_backend=backend)
-        before = glimpse_cuda.LAUNCHES["glimpse"]
+        before = launched("K3")
         u_dev = ImagePerceptionEngine.uniqueness(card.images, p_dev)
-        launched = glimpse_cuda.LAUNCHES["glimpse"] - before
-        assert launched == (27 if backend == "chunked" else 0)
+        assert launched("K3") - before == (27 if backend == "chunked" else 0)
         u_cpu = ImagePerceptionEngine.uniqueness(bank.images, p_cpu)
         assert (u_dev.cpu() - u_cpu).abs().max().item() <= 3e-6, backend
 
@@ -868,11 +857,11 @@ def test_lidar_step_stage_bitwise_on_card(dev, stage):
     x = lidar_step_inputs(lidar_step_cases(17, 4096), dev)
     kernel = getattr(lidar_step_cuda, f"stage_{stage}")
     for args in lidar_step_stage_args(x, params)[stage]:
-        before = lidar_step_cuda.LAUNCHES["lidar_step"]
+        before = launched("F1")
         got = kernel(*args)
         want = getattr(lidar_step, f"stage_{stage}")(*args)
         torch.cuda.synchronize()
-        assert lidar_step_cuda.LAUNCHES["lidar_step"] == before + 1
+        assert launched("F1") == before + 1
         assert set(got) == set(want)
         for k in want:
             assert _bits_equal_any(got[k], want[k]), k
@@ -884,13 +873,13 @@ def test_lidar_step_raises_on_card(dev):
     from apx_torch.ops import lidar_step_cuda
 
     a = torch.rand((64, 2), device=dev)
-    before = dict(lidar_step_cuda.LAUNCHES)
+    before = launched("F1")
     with pytest.raises(ValueError, match="detach"):
         lidar_step_cuda.stage_a(a.clone().requires_grad_(), a, True)
     with torch.no_grad():
         lidar_step_cuda.stage_a(a.clone().requires_grad_(), a, True)
-    assert lidar_step_cuda.LAUNCHES["lidar_step"] == before["lidar_step"] + 1
-    before = dict(lidar_step_cuda.LAUNCHES)
+    assert launched("F1") == before + 1
+    before = launched("F1")
     with pytest.raises(ValueError):
         lidar_step_cuda.stage_a(a.double(), a, True)
     with pytest.raises(ValueError):
@@ -899,7 +888,7 @@ def test_lidar_step_raises_on_card(dev):
         lidar_step_cuda.stage_a(a.t().contiguous().t(), a, True)
     with pytest.raises(ValueError):
         lidar_step_cuda.stage_a(a, a.cpu(), True)
-    assert lidar_step_cuda.LAUNCHES == before
+    assert launched("F1") == before
 
 
 @pytest.mark.parametrize("env_id", ["LIDARLocRooms-v0", "LIDARLocMaze-v0", "LightDark-v0"])
@@ -911,11 +900,11 @@ def test_merge_bitwise_on_card(dev, env_id):
     from chip_smoke import _bits_equal_any, merge_inputs, merged_leaves
 
     args, kw = merge_inputs(dev, env_id, 4096, 18)
-    before = merge_cuda.LAUNCHES["merge"]
+    before = launched("F2")
     got = merge_cuda.next_step(*args, **kw)
     want = merge.next_step(*args, **kw)
     torch.cuda.synchronize()
-    assert merge_cuda.LAUNCHES["merge"] == before + 1
+    assert launched("F2") == before + 1
     for i, (g, w) in enumerate(zip(merged_leaves(got), merged_leaves(want), strict=True)):
         assert _bits_equal_any(g, w), i
     args, kw = merge_inputs(dev, env_id, 4096, 19, grad=True)
@@ -937,7 +926,7 @@ def test_merge_dispatch_on_card(dev):
     from chip_smoke import _bits_equal_any, merge_inputs, merged_leaves
 
     args, kw = merge_inputs(dev, "LightDark-v0", 256, 4)
-    before = merge_cuda.LAUNCHES["merge"]
+    before = launched("F2")
     with pytest.raises(ValueError, match="detach"):
         merge_cuda.next_step(args[0], *args[1:3], args[3].clone().requires_grad_(), *args[4:],
                              **kw)
@@ -946,27 +935,25 @@ def test_merge_dispatch_on_card(dev):
     target = {"target": args[7], "weight": args[4].to(torch.float32)}  # weight: terminated
     got = merge_cuda.next_step(*args[:7], target, sparse, **kw)
     want = merge.next_step(*args[:7], target, sparse, **kw)
-    assert merge_cuda.LAUNCHES["merge"] == before
+    assert launched("F2") == before
     for i, (g, w) in enumerate(zip(merged_leaves(got), merged_leaves(want), strict=True)):
         assert _bits_equal_any(g, w), i
 
 
 def test_dense_lidar_step_launches(dev):
-    """One dense LIDAR step (``chip_smoke.DENSE_STEP_LAUNCHES``): S 1, R 1,
+    """One dense LIDAR step (``chip_smoke.DENSE_STEP``): S 1, R 1,
     F2 1, no standalone K1 or F1 launch and no N1-N3."""
     import apx_torch
-    from chip_smoke import DENSE_STEP_LAUNCHES, all_launch_counts, reset_all_launch_counts
-    from apx_torch.core import numerics
+    from chip_smoke import DENSE_STEP, launch_counts
 
     venv, p = apx_torch.make_vec("LIDARLocRooms-v0", 256, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     _, state, _ = venv.reset(p, gen)
     act = torch.rand((256, 2), generator=gen, device=dev) * 2 - 1
     torch.cuda.synchronize()
-    reset_all_launch_counts()
+    clear_launches()
     venv.step(state, {"action": act, "prediction": torch.zeros((256, 2), device=dev)}, p, gen)
-    got = {**all_launch_counts(), **numerics.LAUNCHES}
-    assert {k: got[k] for k in DENSE_STEP_LAUNCHES} == DENSE_STEP_LAUNCHES
+    assert launch_counts(DENSE_STEP) == DENSE_STEP
 
 
 def test_fused_step_in_cuda_graph(dev):
@@ -1023,7 +1010,7 @@ def test_fused_raises_on_card(dev):
 
     x = fused_inputs(dev, "LIDARLocRooms-v0", 64, 3)
     step, reset = list(x["step"]), list(x["reset"])
-    before = dict(lidar_fused_cuda.LAUNCHES)
+    before = launched("S"), launched("R")
     with pytest.raises(ValueError, match="detach"):
         lidar_fused_cuda.step(step[0], step[1].clone().requires_grad_(), *step[2:])
     bad = [(1, step[1].double()), (2, step[2][:32]), (2, step[2].t().contiguous().t()),
@@ -1036,10 +1023,10 @@ def test_fused_raises_on_card(dev):
             lidar_fused_cuda.reset(*reset[:i], v, *reset[i + 1:])
     with pytest.raises(ValueError):
         lidar_fused_cuda.reset(*reset[:2], 33, *reset[3:])
-    assert lidar_fused_cuda.LAUNCHES == before
+    assert (launched("S"), launched("R")) == before
     with torch.no_grad():
         lidar_fused_cuda.step(step[0], step[1].clone().requires_grad_(), *step[2:])
-    assert lidar_fused_cuda.LAUNCHES["fused_step"] == before["fused_step"] + 1
+    assert launched("S") == before[0] + 1
 
 
 # ---- R's mask, its reads of the bank and its counter ---------------------------
@@ -1086,10 +1073,10 @@ def test_fused_reset_mask_on_card(dev, env_id, typed, share):
         want = lidar_fused_cuda.reset(*args, *scan, typed, **kw)
         torch.cuda.synchronize()
         assert counter.tolist() == start, form
-        launches = lidar_fused_cuda.LAUNCHES["fused_reset"]
+        launches = launched("R")
         got = lidar_fused_cuda.reset(*args, *scan, typed, only=only, **kw)
         torch.cuda.synchronize()
-        assert lidar_fused_cuda.LAUNCHES["fused_reset"] == launches + 1, form
+        assert launched("R") == launches + 1, form
         plain = lidar_fused.reset_plain(*args, *scan, typed, only=only, **kw)
         assert list(got) == list(want) == list(plain), form
         for key in want:
@@ -1143,7 +1130,7 @@ def test_fused_reset_raises_on_bad_mask_or_fetch(dev):
     bank_pos, k, indices = kw["fetch"]
     only = torch.ones(n, dtype=torch.bool, device=dev)
     counter = trace.reset_counter(dev)
-    start, launches = counter.tolist(), dict(lidar_fused_cuda.LAUNCHES)
+    start, launches = counter.tolist(), (launched("S"), launched("R"))
     bad = [(g_args, {"only": only.to(torch.uint8)}), (g_args, {"only": only[:32]}),
            (g_args, {"only": only.cpu()}), (args, {"only": only[:32], **kw}),
            (args, {"fetch": (bank_pos[:, None], k, indices)}),
@@ -1153,7 +1140,7 @@ def test_fused_reset_raises_on_bad_mask_or_fetch(dev):
     for i, (a, kws) in enumerate(bad):
         with pytest.raises(ValueError):
             lidar_fused_cuda.reset(*a, *scan, True, **kws)
-        assert lidar_fused_cuda.LAUNCHES == launches, i
+        assert (launched("S"), launched("R")) == launches, i
     torch.cuda.synchronize()
     assert counter.tolist() == start
 
@@ -1293,11 +1280,11 @@ def test_light_dark_kernel_bitwise_on_card(dev, n):
     _, p = apx_torch.make_vec("LightDark-v0", n, device=dev)
     x = {k: torch.from_numpy(v).to(dev) for k, v in light_dark_cases(n, n).items()}
     pos, action, noise = x["pos"], x["action"], x["noise"]
-    before = dict(light_dark_cuda.LAUNCHES)
+    before = launched(STEP_L), launched(RESET_L)
     got = light_dark_cuda.step(pos, action, noise, p.light_pos, p.light_height_sq, p.move_scale,
                                p.folded_noise_scale)
     torch.cuda.synchronize()
-    assert light_dark_cuda.LAUNCHES["light_dark_step"] == before["light_dark_step"] + 1
+    assert launched(STEP_L) == before[0] + 1
     want = ld.step_plain(pos, action, noise, p)
     for g, w in zip(got, want, strict=True):
         assert g.dtype == w.dtype and (_same_bits(g, w) if g.is_floating_point()
@@ -1306,7 +1293,7 @@ def test_light_dark_kernel_bitwise_on_card(dev, n):
     for k, scale in enumerate((p.folded_noise_scale, p.noise_scale), start=1):
         obs = light_dark_cuda.reset(pos, noise, p.light_pos, p.light_height_sq, scale)
         torch.cuda.synchronize()
-        assert light_dark_cuda.LAUNCHES["light_dark_reset"] == before["light_dark_reset"] + k
+        assert launched(RESET_L) == before[1] + k
         assert _same_bits(obs, ld.noisy_position(pos, noise, scale, p))
 
 
@@ -1317,22 +1304,20 @@ def test_light_dark_env_raises_for_what_l_cannot_take(dev):
     form."""
     import apx_torch
     from apx_torch.envs import light_dark as ld
-    from apx_torch.ops import light_dark_cuda
-
     n = 256
     venv, p = apx_torch.make_vec("LightDark-v0", n, device=dev)
     env = venv.env.env  # under the TimeLimit
     state = ld.LightDarkState(pos=torch.zeros((n, 2), device=dev))
     draws = {"noise": torch.zeros((n, 2), device=dev)}
-    before = dict(light_dark_cuda.LAUNCHES)
+    before = launched(STEP_L), launched(RESET_L)
     with pytest.raises(ValueError, match="light_dark_step: an operand requires grad"):
         env.step_env(state, torch.zeros((n, 2), device=dev, requires_grad=True), None, p, draws)
     with pytest.raises(ValueError, match="light_dark_step: action must be"):
         env.step_env(state, torch.zeros((n, 2), device=dev, dtype=torch.float64), None, p, draws)
-    assert light_dark_cuda.LAUNCHES == before
+    assert (launched(STEP_L), launched(RESET_L)) == before
     with torch.no_grad():
         env.step_env(state, torch.zeros((n, 2), device=dev, requires_grad=True), None, p, draws)
-    assert light_dark_cuda.LAUNCHES["light_dark_step"] == before["light_dark_step"] + 1
+    assert launched(STEP_L) == before[0] + 1
 
 
 def test_light_dark_step_launches_on_card(dev):
@@ -1341,8 +1326,6 @@ def test_light_dark_step_launches_on_card(dev):
     takes L's reset at its own noise scale."""
     import apx_torch
     from apx_torch.compat.builders import reset_from_draws
-    from apx_torch.core import numerics
-    from apx_torch.ops import light_dark_cuda, merge_cuda
 
     n = 4096
     venv, p = apx_torch.make_vec("LightDark-v0", n, device=dev)
@@ -1351,18 +1334,16 @@ def test_light_dark_step_launches_on_card(dev):
     act = {"action": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
            "prediction": torch.zeros((n, 2), device=dev)}
     torch.cuda.synchronize()
-    counts = (light_dark_cuda.LAUNCHES, merge_cuda.LAUNCHES, numerics.LAUNCHES)
-    before = [dict(c) for c in counts]
+    keys = (STEP_L, RESET_L, "F2", *NUMERICS)
+    before = [launched(k) for k in keys]
     venv.step(state, act, p, g)
     torch.cuda.synchronize()
-    assert [{k: c[k] - b[k] for k in c} for c, b in zip(counts, before)] == [
-        {"light_dark_step": 1, "light_dark_reset": 1}, {"merge": 1},
-        {"fma": 0, "sum_squares": 0, "sqrt": 0}]
+    assert [launched(k) - b for k, b in zip(keys, before)] == [1, 1, 1, 0, 0, 0]
     draws = {"pos": torch.rand((n, 2), generator=g, device=dev) * 2 - 1,
              "noise": torch.randn((n, 2), generator=g, device=dev)}
-    k = light_dark_cuda.LAUNCHES["light_dark_reset"]
+    k = launched(RESET_L)
     obs, _, _ = reset_from_draws(venv.env, draws, p)
-    assert light_dark_cuda.LAUNCHES["light_dark_reset"] == k + 1
+    assert launched(RESET_L) == k + 1
     cpu_venv, cpu_p = apx_torch.make_vec("LightDark-v0", n, device="cpu")
     cpu_obs, _, _ = reset_from_draws(cpu_venv.env, {k: v.cpu() for k, v in draws.items()}, cpu_p)
     assert _same_bits(obs["noisy_position"], cpu_obs["noisy_position"])

@@ -20,6 +20,7 @@ from apx.ops.glimpse_pallas import glimpse_batch_lane_major
 
 from apx_torch.core.numerics import fma
 from apx_torch.ops import build, glimpse_cuda
+from apx_torch.ops._launch import launched
 from apx_torch.ops.geometry import project_sphere
 from apx_torch.ops.glimpse import extract_glimpse_batch, glimpse_coords, interp_weights
 
@@ -54,9 +55,9 @@ def test_plain_glimpse_matches_apx(shape, sensor, scale, dtype):
     assert np.abs(got.numpy() - ref).max() <= TOL
     assert got.min() >= 0 and got.max() <= 1
     # The wrapper runs the plain form for a CPU tensor and launches nothing.
-    before = glimpse_cuda.LAUNCHES["glimpse"]
+    before = launched("K3")
     wrapped = glimpse_cuda.glimpse(torch.from_numpy(images), torch.from_numpy(pos), sensor, scale)
-    assert torch.equal(wrapped, got) and glimpse_cuda.LAUNCHES["glimpse"] == before
+    assert torch.equal(wrapped, got) and launched("K3") == before
 
 
 @pytest.mark.parametrize("shape,sensor,scale", GEOMETRIES)

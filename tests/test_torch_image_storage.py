@@ -34,7 +34,7 @@ from apx_torch.data.dataset import BankImageDataset, pack_rows_u8, unpack_rows
 from apx_torch.data.huggingface import synthetic_image_bank
 from apx_torch.envs.image_localization import ImageLocalizationEnv
 from apx_torch.envs.image_perception import ImagePerceptionEngine as TE
-from apx_torch.ops import glimpse_cuda
+from apx_torch.ops._launch import launched
 from apx_torch.ops.glimpse import extract_glimpse_batch
 
 torch.set_num_threads(1)
@@ -258,9 +258,9 @@ def test_chunked_sampler_matches_apx(name):
     assert np.abs(jflat - chunked[:2].numpy()).max() <= 1e-5
     pc = apx_torch.make("MNISTLoc-v0" if name == "mnist" else "TinyImageNetLoc-v0",
                         device="cpu", unique_sampling_backend="chunked")[1]
-    before = glimpse_cuda.LAUNCHES["glimpse"]
+    before = launched("K3")
     ours = TE.uniqueness(t_img, pc).numpy()
-    assert glimpse_cuda.LAUNCHES["glimpse"] == before  # CPU tensors: the plain form
+    assert launched("K3") == before  # CPU tensors: the plain form
     ref = _apx_scores_by(images, jp, "chunked")
     err = np.abs(ours - ref).max()
     assert err <= SCORE_TOL[name], err

@@ -14,6 +14,7 @@ from apx.ops.issue_rate_study import CHAIN_OPS_PER_ELEM as JAX_OPS
 from apx.ops.issue_rate_study import _chain_body, chain_pallas
 
 from apx_torch.ops import issue_rate_study as study
+from apx_torch.ops._launch import launched
 
 torch.set_num_threads(1)
 
@@ -54,11 +55,11 @@ def test_chain_wrapper_on_cpu_and_its_checks():
     assert study.CHAIN_OPS_PER_ELEM == JAX_OPS == 16
     assert study.LANES == {"wide": 128, "narrow": 16}
     args = [torch.from_numpy(a) for a in _inputs(32, 16, 2)]
-    before = study.LAUNCHES["chain"]
+    before = launched("K4")
     for layout in ("wide", "narrow"):
         assert torch.equal(study.chain_cuda(*args, iters=3, layout=layout),
                            study.chain_body(*args, 3))
-    assert study.LAUNCHES["chain"] == before  # the plain form launches nothing
+    assert launched("K4") == before  # the plain form launches nothing
     with pytest.raises(ValueError, match="layout"):
         study.chain_cuda(*args, iters=3, layout="diagonal")
     wide = [torch.zeros((4, 128)) for _ in range(5)]

@@ -27,6 +27,7 @@ import apx_torch
 from apx_torch.core.env import tree_map
 from apx_torch.envs.lidar_localization import LIDARLocalizationEnv
 from apx_torch.ops import lidar_fused, lidar_fused_cuda, lidar_step, raycast_cuda
+from apx_torch.ops._launch import launched
 from apx_torch.ops.lidar_step import STEP_LEAVES
 from chip_smoke import lidar_step_cases
 
@@ -89,7 +90,7 @@ def test_step_plain_bitwise_equal_to_apx(env_id, kw, pallas_interpret):  # noqa:
     step = jax.jit(jax.vmap(lambda k, s, a, pr: jenv.step_env(k, s, a, pr, jp)))
     js, action = _edge_state(js, p, n)
     rng = np.random.default_rng(7)
-    before = dict(lidar_fused_cuda.LAUNCHES), dict(raycast_cuda.LAUNCHES)
+    before = [launched(k) for k in ("S", "R", "K1")]
     ends = 0
     for t in range(40):
         if t:
@@ -110,7 +111,7 @@ def test_step_plain_bitwise_equal_to_apx(env_id, kw, pallas_interpret):  # noqa:
         ends += int(np.asarray(r.terminated).sum())
         js = r.state
     assert ends > 0
-    assert (dict(lidar_fused_cuda.LAUNCHES), dict(raycast_cuda.LAUNCHES)) == before
+    assert [launched(k) for k in ("S", "R", "K1")] == before
 
 
 def _spawns(p, n: int, rng):
@@ -163,7 +164,7 @@ def test_wrappers_run_the_plain_forms_on_the_cpu():
     g = torch.Generator().manual_seed(0)
     draws = venv.env.draw_reset(n, p, g)
     words, flat, _ = p.map_bank.spawn(draws["bank_pos"], draws["k"])
-    before = dict(lidar_fused_cuda.LAUNCHES)
+    before = launched("S"), launched("R")
     args = (words, flat, 32, p.beam_offsets, p.lidar_range, p.inv_map_size)
     for typed in (True, False):
         got, want = lidar_fused_cuda.reset(*args, typed), lidar_fused.reset_plain(*args, typed)
@@ -176,7 +177,7 @@ def test_wrappers_run_the_plain_forms_on_the_cpu():
     got, want = lidar_fused_cuda.step(*step_args), lidar_fused.step_plain(*step_args)
     for k in want:
         assert torch.equal(got[k], want[k]), k
-    assert dict(lidar_fused_cuda.LAUNCHES) == before
+    assert (launched("S"), launched("R")) == before
 
 
 @pytest.mark.parametrize("overrides,step_s,reset_r", [

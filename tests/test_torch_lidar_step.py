@@ -18,7 +18,8 @@ from test_torch_raycast_backends import _rollout_pair, pallas_interpret  # noqa:
 import apx_torch
 from apx_torch.core.env import AutoResetMode, tree_map, tree_select
 from apx_torch.core.numerics import fma, sqrt, sum_squares
-from apx_torch.ops import lidar_step, lidar_step_cuda, merge_cuda
+from apx_torch.ops import lidar_step
+from apx_torch.ops._launch import launched
 from apx_torch.ops.geometry import normalize_into_unit_ball
 from apx_torch.ops.raycast import raycast_grid, seg_length
 from apx_torch.wrappers.time_limit import TimeLimit, TimeLimitState
@@ -35,7 +36,7 @@ def test_staged_step_bitwise_equal_to_apx(backend, pallas_interpret):  # noqa: F
     the time counter and dones bitwise, rewards within one ulp (as the
     dense trajectory test holds them); nothing launched on the CPU."""
     n, ends = 16, 0
-    before = (dict(lidar_step_cuda.LAUNCHES), dict(merge_cuda.LAUNCHES))
+    before = launched("F1"), launched("F2")
     for t, jout, out, _ in _rollout_pair("LIDARLocRooms-v0", n, {"raycast_backend": backend},
                                          250, seed=4):
         what = f"{backend} step {t}"
@@ -51,7 +52,7 @@ def test_staged_step_bitwise_equal_to_apx(backend, pallas_interpret):  # noqa: F
             _within_one_ulp(jout[2], out[2], f"{what} reward")
             ends += int(out[3].sum())
     assert ends >= 2 * n
-    assert (dict(lidar_step_cuda.LAUNCHES), dict(merge_cuda.LAUNCHES)) == before
+    assert (launched("F1"), launched("F2")) == before
 
 
 def _monolithic(action, pos, cast, odo_pending, initial_pos, params):
@@ -315,10 +316,10 @@ def test_next_step_merge_of_other_losses_and_wrappers(env_id, autoreset):
     act = venv.env.action_space(p).sample(g, (n,))
     step_draws = venv.env.draw_step(n, p, g)
     draws = venv.env.draw_reset(n, p, g)
-    before = dict(merge_cuda.LAUNCHES)
+    before = launched("F2")
     obs, s, reward, term, trunc, info = venv.step(state, act, p, reset_draws=draws,
                                                   step_draws=step_draws)
-    assert dict(merge_cuda.LAUNCHES) == before
+    assert launched("F2") == before
     w_obs, w_inner, w_reward, w_term, w_trunc, w_info, w_done = _old_merge(
         venv, state, act, p, draws, step_draws)
     assert list(obs) == list(w_obs)

@@ -59,10 +59,10 @@ BAD_ACTION = {
 def test_wrapper_raises_on_a_bad_leaf(kernel, case):
     """A leaf of another shape, dtype or layout raises before any launch
     (the checks run on any device)."""
-    before = dict(light_dark_cuda.LAUNCHES)
+    before = _launch.launched("L")
     with pytest.raises(ValueError, match=f"light_dark_{kernel}"):
         _call(kernel, *BAD[case])
-    assert light_dark_cuda.LAUNCHES == before
+    assert _launch.launched("L") == before
 
 
 @pytest.mark.parametrize("case", list(BAD_ACTION))
@@ -84,7 +84,7 @@ def test_cpu_takes_the_plain_form_with_no_launch():
     plain forms, with no launch."""
     venv, p = apx_torch.make_vec("LightDark-v0", 2 * N, device="cpu")
     x = {k: torch.from_numpy(v) for k, v in light_dark_cases(1, 2 * N).items()}
-    before = dict(light_dark_cuda.LAUNCHES)
+    before = _launch.launched("L")
     env = venv.env.env  # under the TimeLimit
     r = env.step_env(ld.LightDarkState(pos=x["pos"]), x["action"], None, p,
                      {"noise": x["noise"]})
@@ -98,7 +98,7 @@ def test_cpu_takes_the_plain_form_with_no_launch():
     assert torch.equal(obs["noisy_position"].view(torch.int32), ld.noisy_position(
         x["pos"], x["noise"], p.folded_noise_scale, p).view(torch.int32))
     assert state.pos is x["pos"]
-    assert light_dark_cuda.LAUNCHES == before
+    assert _launch.launched("L") == before
 
 
 def test_cpu_step_keeps_a_gradient():
@@ -109,11 +109,11 @@ def test_cpu_step_keeps_a_gradient():
     g = torch.Generator().manual_seed(3)
     pos, noise = torch.rand((N, 2), generator=g) * 2 - 1, torch.randn((N, 2), generator=g)
     action = (torch.rand((N, 2), generator=g) - 0.5).requires_grad_(True)
-    before = dict(light_dark_cuda.LAUNCHES)
+    before = _launch.launched("L")
     r = venv.env.env.step_env(ld.LightDarkState(pos=pos), action, None, p, {"noise": noise})
     r.base_reward.sum().backward()
     assert torch.allclose(action.grad, -2e-3 * action.detach())
-    assert light_dark_cuda.LAUNCHES == before
+    assert _launch.launched("L") == before
 
 
 def test_kernel_symbol_is_in_both_entries():

@@ -25,7 +25,8 @@ from apx.ops.raycast import raycast_grid as jax_raycast
 from apx_torch.core.numerics import fma
 from apx_torch.ops.raycast import (_slab_axis, lidar_directions, lidar_directions_np,
                                    raycast_grid, seg_length)
-from apx_torch.ops.raycast_cuda import LAUNCHES, raycast_fast, raycast_typed
+from apx_torch.ops._launch import launched
+from apx_torch.ops.raycast_cuda import raycast_fast, raycast_typed
 from chip_smoke import EDGE_MAPS, EDGE_RAYS, edge_casts, edge_maps
 
 torch.set_num_threads(1)
@@ -134,10 +135,10 @@ def test_cpu_wrappers_run_the_plain_forms():
     origin, targets = _random_casts(occ, 8, 3, seed=4)
     args = (torch.from_numpy(np.broadcast_to(occ, (8, *occ.shape)).copy()),
             torch.from_numpy(origin), torch.from_numpy(targets))
-    before = dict(LAUNCHES)
+    before = launched("K1")
     assert torch.equal(raycast_fast(*args), raycast_grid(*args, geos_typing=False)[0])
     assert torch.equal(raycast_typed(*args), raycast_grid(*args, geos_typing=True)[0])
-    assert LAUNCHES == before  # the CPU path launches no kernel
+    assert launched("K1") == before  # the CPU path launches no kernel
     with pytest.raises(TypeError):
         raycast_fast(args[0].float(), *args[1:])
     with pytest.raises(ValueError):

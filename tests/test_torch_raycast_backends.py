@@ -30,6 +30,7 @@ from apx_torch.convert import lidar_state_from_numpy, map_bank_from_numpy
 from apx_torch.data.floor_map import (BEAM_SIGNS, build_beam_tables, generate_maze_map,
                                       generate_rooms_map, make_rooms_bank)
 from apx_torch.ops import raycast_cuda
+from apx_torch.ops._launch import launched
 
 torch.set_num_threads(1)
 BACKENDS = ("bitslab2d", "bitslab", "windowed", "hybrid", "mxu_window", "pallas", "xla")
@@ -458,12 +459,12 @@ def test_pallas_backend_reset_is_untyped():
     assert torch.equal(obs["lidar"], (fast / torch.tensor(5.0)).clamp(-1, 1))
     assert torch.equal(dobs["lidar"], (typed / torch.tensor(5.0)).clamp(-1, 1))
     assert not torch.equal(fast, typed)
-    before = dict(raycast_cuda.LAUNCHES)
+    before = launched("K1")
     act = {"action": torch.rand((n, 2), generator=g) * 2 - 1, "prediction": torch.zeros(n, 2)}
     o1, s1, *_ = venv.step(s, act, p, reset_draws=draws)
     o2, s2, *_ = dvenv.step(s, act, dp, reset_draws=draws)
     assert torch.equal(o1["lidar"], o2["lidar"])
-    assert raycast_cuda.LAUNCHES == before  # CPU tensors: the plain forms, no launch
+    assert launched("K1") == before  # CPU tensors: the plain forms, no launch
 
 
 @pytest.mark.parametrize("backend", ["bitslab2d", "windowed", "mxu_window"])

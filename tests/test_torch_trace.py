@@ -1,7 +1,8 @@
 """The port's span facility (``apx_torch.core.trace``), the spans at the
 vector env's stages, the benchmark's reader of them through a capture
 layout (``benchmark/yardstick/stages.py``) and ``parse_trace --spans``;
-the facility's device counters and the benchmark's reader of R's.
+the facility's device counters and the benchmark's reader of R's; the
+kernels' launch seam (``apx_torch.ops._launch``) with stand-in functions.
 
 The CPU tests stub the capture (its query and its node counter). The card
 test (marked ``cuda``, skipped without a device) captures a LIDAR chunk:
@@ -9,7 +10,11 @@ test (marked ``cuda``, skipped without a device) captures a LIDAR chunk:
     python -m pytest --noconftest -o addopts="" tests/test_torch_trace.py -m cuda
 """
 
+import ctypes
+import importlib
 import json
+import pkgutil
+import types
 
 import numpy as np
 import pytest
@@ -54,6 +59,22 @@ def capture(monkeypatch, registry):
     return cap
 
 
+@pytest.fixture
+def stand_in(monkeypatch):
+    """``make(fn, kernel="S")``: a new entry of ``kernel`` whose library
+    function is the stand-in ``fn``, launching on stream handle 0; the
+    launch table is restored after the test."""
+    monkeypatch.setattr(_launch, "_TABLE", dict(_launch._TABLE))
+    monkeypatch.setattr(_launch, "stream", lambda dev: 0)
+
+    def make(fn, kernel="S", name="stand_in_launch"):
+        launch = _launch.entry(kernel, name, [])
+        launch.fn = fn
+        return launch
+
+    return make
+
+
 def test_spans_nest_and_time_on_the_host():
     @trace.span("outer")
     def outer():
@@ -71,7 +92,7 @@ def test_spans_nest_and_time_on_the_host():
     assert trace._stack() == []
 
 
-def test_inert_span_never_enters_record_function(monkeypatch):
+def test_inert_span_never_enters_record_function(monkeypatch, stand_in):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) off the profiler")
 
@@ -81,7 +102,7 @@ def test_inert_span_never_enters_record_function(monkeypatch):
         pass
     assert trace.span("b")(lambda x: x + 1)(1) == 2
     assert trace.call("c", max, 3, 4) == 4
-    assert _launch.launch("S", lambda *a: 0, 1, 2) == 0
+    assert stand_in(lambda *a: 0)(torch.device("cpu"), 1, 2) is None
     assert trace._stack() == []
 
 
@@ -101,11 +122,12 @@ def test_span_under_the_profiler_annotates_the_trace(tmp_path):
     assert rows["apx.vector.step"][1] >= rows["apx.kernel.S"][1]
 
 
-def test_capture_records_each_span_range(capture):
+def test_capture_records_each_span_range(capture, stand_in):
+    launch = stand_in(lambda stream: capture.issue() or 0)
     with trace.span("vector.step"):
         capture.issue(2)  # the merge's nodes before the step
         with trace.span("env.step"):
-            _launch.launch("S", capture.issue)
+            launch(torch.device("cpu"))
         with trace.span("env.reset"):
             capture.issue(3)
         capture.issue(1)
@@ -162,6 +184,71 @@ def test_captures_are_followed_through_torch(capture, monkeypatch):
     assert Graph.calls == ["begin", "end"] and trace._OPEN == 0
     (layout,) = trace.layouts()
     assert layout["nodes"] == 7 and layout["spans"] == [(("apx.vector.step",), 0, 5)]
+
+
+def test_entry_counts_a_launch_under_its_id_and_entry(stand_in):
+    calls = []
+    launch = stand_in(lambda *args: calls.append(args) or 0)
+    before = _launch.launched("S")
+    launch(torch.device("cpu"), 1, None)
+    assert calls == [(1, None, 0)]  # the stream handle last
+    assert _launch.launches()["S.stand_in_launch"] == 1
+    assert _launch.launched("S.stand_in_launch") == 1 and _launch.launched("S") == before + 1
+
+
+def test_entry_raises_on_a_cuda_error_and_counts_nothing(stand_in):
+    launch = stand_in(lambda *args: 98)
+    with pytest.raises(RuntimeError, match=r"^S \(stand_in_launch\): .* CUDA error 98$"):
+        launch(torch.device("cpu"), 1)
+    assert _launch.launched("S.stand_in_launch") == 0
+
+
+def test_entry_launches_inside_its_kernel_span(stand_in):
+    launch = stand_in(lambda *args: 0, kernel="L")
+    with trace.timed() as times:
+        with trace.span("env.step"):
+            launch(torch.device("cpu"))
+    assert ("apx.env.step", "apx.kernel.L") in times.total
+
+
+def test_entry_binds_its_signature_on_first_call(stand_in, monkeypatch):
+    def bind_launch(*args):
+        return 0
+
+    lib = types.SimpleNamespace(bind_launch=bind_launch)
+    monkeypatch.setattr(_launch.build, "load", lambda: lib)
+    launch = stand_in(None, kernel="K2", name="bind_launch")
+    launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    launch(torch.device("cpu"), 3)
+    assert launch.fn is bind_launch and bind_launch.restype is ctypes.c_int
+    assert bind_launch.argtypes == [ctypes.c_int, ctypes.c_void_p]
+
+
+def test_clear_launches_zeroes_the_table(stand_in):
+    stand_in(lambda *args: 0)(torch.device("cpu"))
+    stand_in(lambda *args: 0, kernel="K1", name="other_launch")(torch.device("cpu"))
+    assert _launch.launched("S") >= 1 and _launch.launched("K1") >= 1
+    _launch.clear_launches()
+    assert set(_launch.launches().values()) == {0}
+    with pytest.raises(KeyError):
+        _launch.launched("K9")
+    with pytest.raises(KeyError):
+        _launch.launched("S.undeclared_launch")
+
+
+def test_every_kernel_id_has_a_declared_entry():
+    """Every wrapper's entries name an id of ``KERNELS`` (the benchmark's
+    stage split checks each kernel span's node against its symbol), and
+    every id has at least one entry."""
+    import apx_torch.core.numerics  # noqa: F401  (N1-N3)
+    import apx_torch.ops
+
+    for mod in pkgutil.iter_modules(apx_torch.ops.__path__):
+        importlib.import_module(f"apx_torch.ops.{mod.name}")
+    ids = [key.partition(".")[0] for key in _launch.launches()]
+    assert set(ids) == set(_launch.KERNELS)
+    with pytest.raises(ValueError, match="not one of"):
+        _launch.entry("K9", "unknown_launch", [])
 
 
 def test_device_counters_are_made_once_read_and_cleared(registry, monkeypatch):

@@ -33,6 +33,7 @@ from apx_torch.convert import lidar_state_from_numpy
 from apx_torch.core.numerics import div, sqrt
 from apx_torch.envs.lidar_localization import LIDARLocalizationEnv, LIDARLocalizationState
 from apx_torch.ops import lidar_step, lidar_step_cuda, raycast_cuda, window_cuda
+from apx_torch.ops._launch import launched
 from apx_torch.ops.lidar_step import unfused_length
 from apx_torch.ops.raycast import pad_occupancy
 from apx_torch.ops.window import WIN_ROWS, clamp_starts, extract_windows, window_starts
@@ -74,9 +75,9 @@ def test_extract_windows_matches_apx(n):
     assert got.dtype == torch.uint8 and got.shape == (n, WIN_ROWS, 16)
     np.testing.assert_array_equal(got.numpy(), want)
     # The wrapper runs the plain form on CPU tensors, and launches nothing.
-    before = window_cuda.LAUNCHES["window"]
+    before = launched("K2")
     assert torch.equal(window_cuda.extract_windows(t_occ, t_starts, 16), got)
-    assert window_cuda.LAUNCHES["window"] == before
+    assert launched("K2") == before
 
 
 def test_extract_windows_matches_apx_fallback_paths():
