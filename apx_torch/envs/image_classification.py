@@ -59,13 +59,14 @@ class ImageClassificationEnv(APEnv[ImagePerceptionParams, ImagePerceptionState])
                 ImagePerceptionEngine.info(state))
 
     def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
-        new_state, base_reward, terminated = ImagePerceptionEngine.move(state, action, params)
+        new_state, obs, base_reward, terminated, truncated = ImagePerceptionEngine.step(
+            state, action, params)
         return APStepResult(
-            obs=ImagePerceptionEngine.observe(new_state, params),
+            obs=obs,
             state=new_state,
             base_reward=base_reward,
             terminated=terminated,
-            truncated=torch.zeros_like(terminated),
+            truncated=truncated,
             info=ImagePerceptionEngine.info(new_state),
             prediction_target=new_state.label,
         )

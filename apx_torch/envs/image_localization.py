@@ -132,15 +132,15 @@ class ImageLocalizationEnv(APEnv[ImagePerceptionParams, ImageLocalizationState])
         return self._reset(perception, target, params)
 
     def step_env(self, state, action, prediction, params, draws=None) -> APStepResult:
-        perception, base_reward, terminated = ImagePerceptionEngine.move(
+        perception, obs, base_reward, terminated, truncated = ImagePerceptionEngine.step(
             state.perception, action, params)
-        new_state = dataclasses.replace(state, perception=perception)
+        obs["target_glimpse"] = state.target_glimpse
         return APStepResult(
-            obs=self.observe(new_state, params),
-            state=new_state,
+            obs=obs,
+            state=dataclasses.replace(state, perception=perception),
             base_reward=base_reward,
             terminated=terminated,
-            truncated=torch.zeros_like(terminated),
+            truncated=truncated,
             info=ImagePerceptionEngine.info(perception),
             prediction_target=state.target,
         )

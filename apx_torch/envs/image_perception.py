@@ -13,6 +13,12 @@ Same semantics as apx's engine (after ap_gym's image_perception_module):
   * a reset draws one dataset index, the label inversion and a start
     position uniform in [-1, 1)^2.
 
+A step (``ImagePerceptionEngine.step``) is ``move`` then ``observe``. On
+CUDA tensors everything but its glimpse is kernel M, one launch
+(``apx_torch.ops.image_move_cuda``), which raises on operands it cannot
+take; on the CPU it is the plain chain, ``move_plain`` (``move``, then
+``observe_rest``), which M equals bitwise.
+
 Every glimpse, of a step and of a reset, goes through K3
 (``apx_torch.ops.glimpse_cuda``), but under apx's ``glimpse_window="rows"``
 (below). apx's ``image_storage`` switch says how the state carries the
@@ -72,6 +78,7 @@ from ..data.dataset import ImageDataset, unpack_rows
 from ..ops.geometry import norm2, project_sphere
 from ..ops.glimpse import extract_glimpse_batch, interp_weights, sensor_pos_lim_pixels
 from ..ops.glimpse_cuda import glimpse
+from ..ops.image_move_cuda import move as image_move
 
 __all__ = ["ImagePerceptionParams", "ImagePerceptionState", "ImagePerceptionEngine",
            "IMAGE_STORAGES", "SAMPLERS"]
@@ -300,16 +307,54 @@ class ImagePerceptionEngine:
 
     @staticmethod
     def observe(state: ImagePerceptionState, params: ImagePerceptionParams) -> dict[str, torch.Tensor]:
-        obs = {
-            "glimpse": ImagePerceptionEngine.get_glimpse(state, state.pos, params),
-            "glimpse_pos": state.pos,
-            "time_step": time_obs(state.time, params.step_limit),
-        }
+        return {"glimpse": ImagePerceptionEngine.get_glimpse(state, state.pos, params),
+                **ImagePerceptionEngine.observe_rest(state, params)}
+
+    @staticmethod
+    def observe_rest(state: ImagePerceptionState,
+                     params: ImagePerceptionParams) -> dict[str, torch.Tensor]:
+        """The observation's leaves but the glimpse: glimpse_pos, time_step
+        and, where labels are randomly inverted, inverted_label."""
+        obs = {"glimpse_pos": state.pos, "time_step": time_obs(state.time, params.step_limit)}
         if params.randomly_invert_labels:
             obs["inverted_label"] = torch.where(
                 state.time > 0, 2, state.label_inverted.to(torch.int32)
             ).to(torch.int32)
         return obs
+
+    @staticmethod
+    def move_plain(state: ImagePerceptionState, action: torch.Tensor,
+                   params: ImagePerceptionParams) -> tuple:
+        """The plain form of M: (new_state, ``observe_rest`` of it,
+        base_reward, terminated, truncated) of ``move``, truncated all
+        false."""
+        new, base_reward, terminated = ImagePerceptionEngine.move(state, action, params)
+        return (new, ImagePerceptionEngine.observe_rest(new, params), base_reward, terminated,
+                torch.zeros_like(terminated))
+
+    @staticmethod
+    def step(state: ImagePerceptionState, action: torch.Tensor,
+             params: ImagePerceptionParams) -> tuple[ImagePerceptionState, dict, torch.Tensor,
+                                                     torch.Tensor, torch.Tensor]:
+        """(new_state, obs, base_reward, terminated, truncated) of a step:
+        ``move``, then ``observe`` of the moved state. On CUDA tensors M
+        computes all but the glimpse in one launch; on the CPU
+        ``move_plain`` does. The glimpse is taken at the moved position
+        after it."""
+        if state.pos.device.type == "cuda":
+            pos, time, base_reward, terminated, truncated, time_step, inverted = image_move(
+                state.pos.contiguous(), action.contiguous(), state.time.contiguous(),
+                state.label_inverted.contiguous() if params.randomly_invert_labels else None,
+                params.max_step_length, params.step_limit)
+            new = dataclasses.replace(state, pos=pos, time=time)
+            rest = {"glimpse_pos": pos, "time_step": time_step}
+            if inverted is not None:
+                rest["inverted_label"] = inverted
+        else:
+            new, rest, base_reward, terminated, truncated = ImagePerceptionEngine.move_plain(
+                state, action, params)
+        obs = {"glimpse": ImagePerceptionEngine.get_glimpse(new, new.pos, params), **rest}
+        return new, obs, base_reward, terminated, truncated
 
     @staticmethod
     def info(state: ImagePerceptionState) -> dict[str, torch.Tensor]:

@@ -48,6 +48,7 @@ KERNELS = {
     "S": "apx_lidar_fused_step",  # lidar_fused_cuda
     "R": "apx_lidar_fused_reset",
     "L": "apx_light_dark",  # light_dark_cuda: apx_light_dark_step and apx_light_dark_reset
+    "M": "apx_image_move",  # image_move_cuda
 }
 
 _TABLE: dict[str, int] = {}  # "<id>.<C name>" of every declared entry -> launches

@@ -39,6 +39,16 @@ Phases, one line each; any failure exits non-zero:
    check the launches per step (``lidar_path_launches``), N1 once (the
    reset's time obs); every LIDAR path without a metrics wrapper launches
    no N3.
+3c. image move kernel: M (``ops.image_move_cuda``) against its plain form
+   (``ImagePerceptionEngine.move_plain``) on the card at N = 1000, 4096 and
+   16384, bitwise with NaN as NaN, on ``image_move_cases`` (zero, unit,
+   huge, inf and NaN actions, positions at and past +-1, moves onto |p| =
+   1, times at the limit and the int32 extremes) under TinyImageNetLoc-v0's
+   parameters and under unequal max steps, a step limit of 7 and inverted
+   labels (``IMAGE_MOVE_PARAMS``); device, plain and bytes-bound ms at
+   N = 4096 and 16384 (``phase_image_move_kernel``). Every image-engine
+   step launches M once and no N2 or N3 (phases 6, 13-16, 17, 24 and the
+   entry).
 4. LIDAR main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
    num_envs=4096)``, reset and 250 steps of uniform random actions with
    zero predictions; every obs finite, lidar in [0, 1], rewards in
@@ -53,8 +63,8 @@ Phases, one line each; any failure exits non-zero:
    cycles) of uniform random actions with zero logits; every obs finite,
    glimpse in [0, 1], rewards in [-1.0015, -1 + 1e-6] (normalized CE of
    zero logits is 1, base reward -1e-3 |a|), every env through at least
-   two LOCKSTEP resets, and ``glimpse`` launched once for the reset and
-   twice per masked-merge step.
+   two LOCKSTEP resets, ``glimpse`` launched once for the reset and
+   twice per masked-merge step, M once per step, N1 and no N2 or N3.
 7. CircleSquare card vs CPU (CircleSquare-v0 and CircleSquareInverted-v0):
    51 steps at N = 256 with injected reset draws; states, dones and the
    non-glimpse obs bitwise equal, glimpse and rewards within 1e-6.
@@ -120,7 +130,8 @@ Phases, one line each; any failure exits non-zero:
     rewards in [-3.0015, 0] (base -1e-3 |a| less a normalized MSE of at
     most 3), every env through at least two LOCKSTEP resets; ``glimpse``
     launched twice by the reset (obs and target) and three times per
-    masked-merge step (the step's obs, the autoreset's obs and target).
+    masked-merge step (the step's obs, the autoreset's obs and target); M
+   once per step, N1 and no N2 or N3.
 16. card vs CPU, the new ids: the sweep of ``TinyImageNetLoc-v0`` at
     N = 64 from the same draws (scores within 3e-6; top-k and targets
     equal on every env whose ranking the scores decide, their count
@@ -301,7 +312,7 @@ Phases, one line each; any failure exits non-zero:
     iterations; the restored run's net, Adam state, obs, env state and
     generator after 2 more bitwise the uninterrupted run's.
 Then K3 on ``apx_torch.graft_entry.entry()`` (the flagship CircleSquare,
-16x16, N = 64): 1 launch at the reset and 2 in its step; its glimpses at
+16x16, N = 64): 1 launch at the reset and 2 in its step, and M once; its glimpses at
 the reset's and the step's images and positions against the plain form.
 
 Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
@@ -309,7 +320,7 @@ Then a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 its own path, the counts set to 0 just before it: S's, R's and F2's on
 phase 4 (and under ``"window"`` on phase 9, ``"sparse_metrics"`` on phase
 13), K1's and F1's on phase 9 (0 on phase 4: S and R cast there), K2's on
-phase 9, N1-N3's on phase 15, L's on phase 12,
+phase 9, N1-N3's and M's on phase 15, L's on phase 12,
 K3's on phase 6 (and phase 13, under ``"tin_loc"`` on phase 15,
 and per geometry on the MNIST-v0 and CIFAR10-v0 runs of phase 16), K4's in
 ``measure()``; K1's and K3's ``"sharded"`` entries are each rank's counts
@@ -826,7 +837,7 @@ ROW_KEYS = {"raycast_fast": "K1.raycast_fast_launch", "raycast_typed": "K1.rayca
             "window": "K2", "glimpse": "K3", "chain": "K4", "fma": "N1", "sum_squares": "N2",
             "sqrt": "N3", "lidar_step": "F1", "merge": "F2", "fused_step": "S",
             "fused_reset": "R", "light_dark_step": "L.light_dark_step_launch",
-            "light_dark_reset": "L.light_dark_reset_launch"}
+            "light_dark_reset": "L.light_dark_reset_launch", "image_move": "M"}
 NUMERICS = ("N1", "N2", "N3")
 
 
@@ -864,6 +875,21 @@ def numerics_launches(path: str, steps: int, roots: bool | None = True) -> dict:
     counts["per_step"] = {k: counts[k] / steps for k in NUMERICS}
     NUMERICS_BY_PATH[path] = {"steps": steps, **counts}
     return counts
+
+
+def image_engine(env) -> bool:
+    """Whether ``env`` (a vector env, a wrapper or a compat core) steps an
+    env of the image engine, whose step's move and observation are M and
+    launch no N2 or N3: its ``.env`` chain reaches an image classification
+    or localization env."""
+    from apx_torch.envs.image_classification import ImageClassificationEnv
+    from apx_torch.envs.image_localization import ImageLocalizationEnv
+
+    while env is not None:
+        if isinstance(env, (ImageClassificationEnv, ImageLocalizationEnv)):
+            return True
+        env = getattr(env, "env", None)
+    return False
 
 
 # ---- N1-N3: XLA's contracted float32 arithmetic (core.numerics) --------------
@@ -1658,6 +1684,166 @@ def phase_light_dark_kernel(dev) -> list[dict]:
     return rows
 
 
+# ---- M: the image envs' move and step observation (ops.image_move_cuda) ---------
+
+IMAGE_MOVE_REPLACES = ("apx/envs/image_perception.py:237-287 (move, and observe around the "
+                       "glimpse: the projected move, the clip, the base reward, the time and "
+                       "its observation, which XLA fuses; no Pallas kernel)")
+IMAGE_MOVE_NS = (1000, N, 16384)  # a partial block, the main paths' N and the benchmark cell's
+# The parameters M is held at: TinyImageNetLoc-v0's (the benchmark cell's),
+# and unequal per-axis max steps with a step limit whose reciprocal is
+# inexact and labels randomly inverted.
+IMAGE_MOVE_PARAMS = {
+    "tin_loc": {"max_step_length": (0.2, 0.2), "step_limit": 16,
+                "randomly_invert_labels": False},
+    "unequal, inverted": {"max_step_length": (0.15, 0.35), "step_limit": 7,
+                          "randomly_invert_labels": True},
+}
+
+
+def image_move_params(dev, name: str):
+    """CircleSquareInverted-v0's params on ``dev`` with IMAGE_MOVE_PARAMS'
+    ``name`` fields: M reads only those."""
+    import apx_torch
+
+    _, params = apx_torch.make_vec("CircleSquareInverted-v0", num_envs=1, device=dev)
+    return dataclasses.replace(params, **IMAGE_MOVE_PARAMS[name])
+
+
+def image_move_cases(seed: int, n: int, max_step: tuple[float, float], step_limit: int) -> dict:
+    """M's operands as numpy arrays: ``pos`` and ``action`` (n, 2) float32,
+    ``time`` (n,) int32, ``label_inverted`` (n,) bool. Hand-built rows
+    first: actions at zero (signed zeros), inside, on and one ulp outside
+    the unit sphere, far outside, huge (squares that overflow), subnormal,
+    +-inf and NaN; positions at and past +-1, inf and NaN; moves by a unit
+    action from 1 - f32(max step) +- 8 ulps on each axis and sign (landing
+    exactly on |p| = 1, short of it and one ulp beyond); times at
+    ``step_limit - 1``, ``- 2``, at the limit, 0, -1 (a moved time of 0),
+    the int32 extremes (the add wraps) and 2**24 + 1 (its float rounds),
+    labels inverted and not; then random rows: positions in [-1, 1),
+    actions in [-1.5, 1.5) (one in a hundred times 1000), times in
+    [0, step_limit), labels inverted with probability 1/2."""
+    rng = np.random.default_rng(seed)
+    inf, nan = np.inf, np.nan
+    up = float(np.nextafter(np.float32(1), np.float32(2)))
+    i32 = np.iinfo(np.int32)
+    rows = []  # (px, py, ax, ay, time, inverted)
+    for k, a in enumerate(((0.0, 0.0), (-0.0, 0.0), (0.0, -0.0), (0.3, -0.4), (1.0, 0.0),
+                           (0.0, -1.0), (-0.6, 0.8), (up, 0.0), (0.0, -up), (up, up),
+                           (1.5, -2.0), (1e20, 1e20), (3e38, -3e38), (1e-40, 0.0),
+                           (1e-40, -1e-40), (inf, 0.0), (-inf, inf), (nan, 0.0), (0.0, nan),
+                           (nan, nan), (nan, inf))):
+        rows.append((0.1, -0.2, *a, 3, k % 2))
+    for k, p in enumerate(((1.0, 1.0), (-1.0, -1.0), (1.0, -1.0), (-1.0, 1.0), (1.5, -3.0),
+                           (inf, -inf), (nan, 0.5), (0.5, nan))):
+        rows += [(*p, 0.5, -0.5, 5, k % 2), (*p, 1.0, 1.0, 5, 1 - k % 2)]
+    for axis in (0, 1):
+        x = np.float32(1) - np.float32(max_step[axis])
+        for _ in range(8):
+            x = np.nextafter(x, np.float32(0))
+        for _ in range(17):
+            v = float(x)
+            if axis == 0:
+                rows += [(v, 0.0, 1.0, 0.0, 1, 0), (-v, 0.5, -1.0, 0.0, 1, 1)]
+            else:
+                rows += [(0.0, v, 0.0, 1.0, 1, 0), (-0.5, -v, 0.0, -1.0, 1, 1)]
+            x = np.nextafter(x, np.float32(1))
+    for t in (step_limit - 1, step_limit - 2, step_limit, 0, -1, i32.max, i32.min, 2**24 + 1):
+        rows += [(0.2, 0.3, 0.1, 0.1, t, 0), (0.2, 0.3, 0.1, 0.1, t, 1)]
+    if n < len(rows):
+        raise ValueError(f"image_move_cases: n = {n} < {len(rows)} hand-built rows")
+    edge = np.array(rows, dtype=np.float64)
+    k = n - len(rows)
+    action = rng.uniform(-1.5, 1.5, (k, 2)) * np.where(rng.random((k, 1)) < 0.01, 1000, 1)
+    return {"pos": _f32(np.concatenate([edge[:, 0:2], rng.uniform(-1, 1, (k, 2))])),
+            "action": _f32(np.concatenate([edge[:, 2:4], action])),
+            "time": np.concatenate([np.array([r[4] for r in rows], dtype=np.int64),
+                                    rng.integers(0, step_limit, k)]).astype(np.int32),
+            "label_inverted": np.concatenate([edge[:, 5] != 0, rng.random(k) < 0.5])}
+
+
+def image_move_plain(x: dict, params) -> tuple:
+    """M's plain form (``ImagePerceptionEngine.move_plain``) on the
+    operands ``x`` (``image_move_cases``' keys, tensors), in M's output
+    order: (position, time, base reward, terminated, truncated, time step,
+    inverted label or None)."""
+    from apx_torch.envs.image_perception import ImagePerceptionEngine, ImagePerceptionState
+
+    n, dev = x["pos"].shape[0], x["pos"].device
+    zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+    state = ImagePerceptionState(image=torch.zeros((n, 0), dtype=torch.uint8, device=dev),
+                                 label=zeros, data_index=zeros, pos=x["pos"], time=x["time"],
+                                 label_inverted=x["label_inverted"])
+    new, rest, reward, terminated, truncated = ImagePerceptionEngine.move_plain(
+        state, x["action"], params)
+    return (new.pos, new.time, reward, terminated, truncated, rest["time_step"],
+            rest.get("inverted_label"))
+
+
+def image_move_kernel(x: dict, params) -> tuple:
+    """M (``image_move_cuda.move``) on the CUDA tensors ``x`` at ``params``."""
+    from apx_torch.ops import image_move_cuda
+
+    return image_move_cuda.move(
+        x["pos"], x["action"], x["time"],
+        x["label_inverted"] if params.randomly_invert_labels else None,
+        params.max_step_length, params.step_limit)
+
+
+def hold_image_move(x: dict, params, time_it: bool = True) -> dict:
+    """M against its plain form (``image_move_plain``: N1-N3 and ATen on
+    the card) on the CUDA tensors ``x``: every output bitwise with NaN as
+    NaN and of the plain form's dtype, one launch per call; with
+    ``time_it`` M's and the plain form's device ms (CUDA-graph replay) and
+    the bytes bound. Returns the measurements."""
+    key = ROW_KEYS["image_move"]
+    before = launched(key)
+    got, want = image_move_kernel(x, params), image_move_plain(x, params)
+    torch.cuda.synchronize()
+    n = x["pos"].shape[0]
+    check(launched(key) == before + 1, f"image_move: {launched(key) - before} launches, not 1")
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        check((g is None and w is None) or (g.dtype == w.dtype and _bits_equal_any(g, w)),
+              f"image_move output {i} at N={n} is not bitwise its plain form")
+    read = [x["pos"], x["action"], x["time"]]
+    if params.randomly_invert_labels:
+        read.append(x["label_inverted"])
+    nbytes = _tree_bytes(read, [w for w in want if w is not None])
+    res = {"held": sum(w.numel() for w in want if w is not None), "bytes": nbytes}
+    if time_it:
+        res.update(ms=device_ms(lambda: image_move_kernel(x, params), 50),
+                   plain_ms=device_ms(lambda: image_move_plain(x, params), 10),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return res
+
+
+def phase_image_move_kernel(dev) -> list[dict]:
+    """M against its plain form on the card at N = 1000, 4096 and 16384
+    (``image_move_cases``) under each of IMAGE_MOVE_PARAMS, bitwise with
+    NaN as NaN; at N = 4096 and 16384 under TinyImageNetLoc-v0's
+    parameters timed (CUDA-graph replay) against its plain form and its
+    bytes bound (its ~20 float32 operations an env are under 1% of its
+    bytes' time). Returns M's row (N = 4096's times; ``by_n`` holds each
+    size's)."""
+    by_n, held = {}, 0
+    for name in IMAGE_MOVE_PARAMS:
+        params = image_move_params(dev, name)
+        for n in IMAGE_MOVE_NS:
+            cases = image_move_cases(31 + n, n, params.max_step_length, params.step_limit)
+            x = {k: torch.from_numpy(v).to(dev) for k, v in cases.items()}
+            r = hold_image_move(x, params, time_it=name == "tin_loc" and n != 1000)
+            held += r["held"]
+            if name == "tin_loc" and n != 1000:
+                by_n[n] = r
+    main = by_n[N]
+    return [{"name": "image_move", "route": "cuda", "source": "apx_torch/csrc/image_move.cu",
+             "replaces": IMAGE_MOVE_REPLACES, "launches": None, "max_abs_err": 0.0,
+             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             "library_ms": None,  # no PyTorch call computes an image env's move
+             "shape": f"N={N} (N, 2) and (N,) leaves", "by_n": by_n,
+             "params_held": list(IMAGE_MOVE_PARAMS), "elements_held_bitwise": held}]
+
+
 WINDOW_PAD = 16  # LIDARLocRooms-v0's ray_pad under "pallas_window"
 
 
@@ -1921,7 +2107,10 @@ def phase_circle_square_main_path(dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernel_launches()
-    numerics = numerics_launches("CircleSquare main path", steps)
+    numerics = numerics_launches("CircleSquare main path", steps, roots=None)
+    check(launched("M") == steps and numerics["N1"] > 0 and numerics["N2"] == numerics["N3"] == 0,
+          f"CircleSquare main path: M launched {launched('M')} times, N1-N3 {numerics}; "
+          f"expected M once per step ({steps}), N1 (the resets' time obs) and no N2 or N3")
 
     check(bool(finite), "non-finite observation")
     check(bool(glimpse_ok), "glimpse outside [0, 1]")
@@ -1965,6 +2154,7 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
             apx_torch.make_vec(env_id, num_envs=n, device=d, metrics=metrics, **overrides)
             for d in devices]
     cpu_venv, cpu_params = runs[0]
+    image = image_engine(cpu_venv)
     clear_launches()  # only the card's run counts: N1-N3 on this path
     gen = torch.Generator().manual_seed(7)
     rng = np.random.default_rng(7)
@@ -2054,11 +2244,15 @@ def phase_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: dict, metrics: 
         if metrics:
             stats_like(fc, fg, f"{what} metrics buffers")
             stats_like(ic["stats"], ig["stats"], f"{what} stats")
+    moves = launched("M")
+    check(moves == (steps if image else 0),
+          f"{env_id} card vs cpu: M launched {moves} times, expected "
+          f"{steps if image else 0}")
     return {"env": env_id, **overrides, "metrics": metrics, "num_envs": n, "steps": steps,
-            "max_abs_err": max_err,
+            "max_abs_err": max_err, "image_move_launches": moves,
             "numerics_launches": numerics_launches(
                 f"{env_id}{overrides or ''} card vs cpu, N={n}", steps,
-                roots=None if build or env_id.startswith("LightDark")
+                roots=None if build or image or env_id.startswith("LightDark")
                 else metrics or not env_id.startswith("LIDAR")),
             "bitwise": sorted(set(oc) - set(tol)) + ["state", "dones"]
             + ([] if "reward" in tol else ["reward"])}
@@ -2162,14 +2356,15 @@ def phase_sparse_metrics_path(dev, env_id: str, steps: int) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernel_launches()
-    numerics = numerics_launches(f"{env_id} metrics path", steps)
+    numerics = numerics_launches(f"{env_id} metrics path", steps,
+                                 roots=None if classification else True)
 
     for name, flag in ok.items():
         check(bool(flag), f"{env_id} metrics path: check {name!r} failed")
     check(float(err) <= 1e-6, f"{env_id}: reward vs base - weight * loss |diff| {float(err)}")
     check(int(ends.min()) >= 2, f"{env_id}: an env crossed {int(ends.min())} episode ends (< 2)")
     if classification:
-        want_launches = {"K3": 1 + 2 * steps}
+        want_launches = {"K3": 1 + 2 * steps, "M": steps}
     else:
         # the -sparse loss takes the plain merge (no F2)
         want_launches = {**lidar_path_launches(steps), "F2": 0}
@@ -2230,7 +2425,10 @@ def phase_tin_loc_main_path(dev) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernel_launches()
-    numerics = numerics_launches("TinyImageNetLoc main path", steps)
+    numerics = numerics_launches("TinyImageNetLoc main path", steps, roots=None)
+    check(launched("M") == steps and numerics["N1"] > 0 and numerics["N2"] == numerics["N3"] == 0,
+          f"TinyImageNetLoc main path: M launched {launched('M')} times, N1-N3 {numerics}; "
+          f"expected M once per step ({steps}), N1 (time obs, rewards) and no N2 or N3")
 
     check(bool(finite), "non-finite observation")
     check(bool(glimpse_ok), "glimpse or target_glimpse outside [0, 1]")
@@ -2683,6 +2881,7 @@ def phase_compat_card_vs_cpu(dev, env_id: str, n: int, steps: int, tol: float | 
     counts = kernel_launches()
     numerics = numerics_launches(f"{env_id}{overrides or ''} compat core, N={n}", steps,
                                  roots=None if env_id.startswith("LightDark")
+                                 or image_engine(cores[1])
                                  else not env_id.startswith("LIDAR"))
     ends = int(sum(np.asarray(outs[1][2]) | np.asarray(outs[1][3])))
     return {"env": env_id, **overrides, "num_envs": n, "steps": steps, "merge_steps": merges,
@@ -3565,7 +3764,7 @@ def phase_entry(dev) -> dict:
     obs, state1, reward, term, trunc = fn(*args)
     torch.cuda.synchronize()
     launches = kernel_launches(nonzero=True)
-    check(launches == {"K3": 3}, f"entry() launched {launches}, expected 3 K3")
+    check(launches == {"K3": 3, "M": 1}, f"entry() launched {launches}, expected 3 K3, 1 M")
     gl = obs["glimpse"]
     check(bool(torch.isfinite(gl).all()) and float(gl.min()) >= 0 and float(gl.max()) <= 1,
           "entry(): glimpse outside [0, 1]")
@@ -3646,12 +3845,13 @@ def expected_workload_launches(name: str, steps: int, cycles: int) -> dict:
     its loop: a LIDAR step launches S, R (the merge's reset) and F2, the
     reset R; an episodic classification step (DISABLED or
     boundary) and the reset one glimpse; TinyImageNetLoc adds the target
-    glimpse at the reset and at each cycle's boundary."""
+    glimpse at the reset and at each cycle's boundary; every step of an
+    episodic image loop but its boundary launches M."""
     if name.startswith("lidar"):  # S, R (the merge's reset) and F2 per step
         return {"S": steps, "R": 1 + steps, "F2": steps}
     if name == "tin_loc":
-        return {"K3": 2 + steps + cycles}
-    return {"K3": 1 + steps}
+        return {"K3": 2 + steps + cycles, "M": steps - cycles}
+    return {"K3": 1 + steps, "M": steps - cycles}
 
 
 def _hold_k1(name: str, args) -> dict:
@@ -3844,6 +4044,8 @@ def main() -> int:
     emit(f"lidar step kernels: {json.dumps(fused_rows)}", flush=True)
     ld_rows = phase_light_dark_kernel(dev)
     emit(f"light dark kernel: {json.dumps(ld_rows)}", flush=True)
+    im_rows = phase_image_move_kernel(dev)
+    emit(f"image move kernel: {json.dumps(im_rows)}", flush=True)
 
     main_path = phase_main_path(dev)
     emit(f"main path: {json.dumps(main_path)}", flush=True)
@@ -3911,6 +4113,13 @@ def main() -> int:
     emit(f"tin_loc main path: {json.dumps(tin_path)}", flush=True)
     k3["tin_loc"] = {"launches": tin_path["launches"]["K3"],
                      "geometry": k3["by_geometry"]["tiny_imagenet"]["shape"]}
+    for r in im_rows:
+        r["launches"] = tin_path["launches"]["M"]
+        r["launches_path"] = f"TinyImageNetLoc-v0 main path, N={N}, reset + " \
+                             f"{tin_path['steps']} steps"
+        r["launches_per_step"] = {"TinyImageNetLoc-v0": tin_path["launches"]["M"] /
+                                  tin_path["steps"],
+                                  "CircleSquare-v0": cs_path["launches"]["M"] / cs_path["steps"]}
     emit(f"sweep card vs cpu: {json.dumps(phase_sweep_card_vs_cpu(dev))}", flush=True)
     res = phase_card_vs_cpu(dev, "TinyImageNetLoc-v0", 64, 51, {
         "glimpse": GLIMPSE_TOL, "target_glimpse": GLIMPSE_TOL, "reward": 1e-6},
@@ -4042,8 +4251,8 @@ def main() -> int:
     k3["entry"] = {"launches": flagship["launches"], "max_abs_err": flagship["max_abs_err"],
                    "path": "graft_entry.entry(): CircleSquare 16x16, N=64, reset + one step"}
 
-    # N1-N3 left the LIDAR step (F1, F2) and LightDark's (L): their
-    # launches are TinyImageNetLoc's.
+    # N1-N3 left the LIDAR step (F1, F2), LightDark's (L) and the image
+    # step's move (M): their launches are TinyImageNetLoc's (N1 only).
     tin_numerics = tin_path["numerics_launches"]
     for r in numerics_rows:
         key = ROW_KEYS[r["name"]]
@@ -4056,6 +4265,7 @@ def main() -> int:
     rows.extend(numerics_rows)
     rows.extend(fused_rows)
     rows.extend(ld_rows)
+    rows.extend(im_rows)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

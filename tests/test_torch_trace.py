@@ -563,3 +563,65 @@ def test_captured_light_dark_chunk_lies_in_the_stages(dev, registry, tmp_path):
     prof.export_chrome_trace(str(path))
     got = stages.split_us(json.loads(path.read_text()), layout, trace.owners, _launch.KERNELS)
     assert got is not None and all(got[s] > 0 for s in stages.STAGES)
+
+
+@pytest.mark.cuda
+def test_captured_tin_loc_chunk_lies_in_the_stages(dev, registry, tmp_path):
+    """A 17-step TinyImageNetLoc-v0 chunk captured as the benchmark's
+    ``tin_loc.rollout`` captures it (the family's chunk: the boundary reset,
+    then 16 steps; every draw injected; a smaller bank): each node lies in
+    exactly one stage, and every stage has nodes; each of the 16 steps
+    launches M and K3 once under ``apx.env.step`` and nothing else there,
+    no N1-N3 in ``env_step``; the boundary's reset takes its two glimpses
+    (obs and target) under ``apx.env.reset``; a trace of replays splits by
+    the layout."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.families import image_loc as family
+    from benchmark.kinds import rollout
+
+    cell = manifest.cell(manifest.load(), "tin_loc.rollout")
+    env = family.build({**cell["config"], "bank_images": 4096},
+                       {**cell["traffic"], "num_envs": 1024}, 0, dev)
+    steps = env.chunk
+    g = torch.Generator(dev).manual_seed(7)
+    obs, state, _ = family.initial_reset(env, g, rollout.policy)
+    draws = family.draw_pool(env, g, steps)
+    racc = torch.zeros(env.num_envs, device=dev)
+    dacc = torch.zeros(env.num_envs, dtype=torch.int32, device=dev)
+    trace.clear()
+    graph = rollout._Graph(
+        lambda o, s, d: family.step_chunk(env, o, s, d, racc, dacc, rollout.policy),
+        obs, state, draws)
+    (layout,) = trace.layouts()
+    total = layout["nodes"]
+    own = trace.owners(layout)
+    assert total > 0 and len(own) == total
+    for k in range(total):
+        holding = [path for path, a, b in layout["spans"] if a <= k < b]
+        inner = max(holding, key=len, default=())
+        assert all(inner[:len(path)] == path for path in holding), holding
+    by_stage = collections.Counter(stages.stage_of(path) for path in own)
+    assert set(by_stage) == set(stages.STAGES) and all(by_stage.values())
+    kernels = collections.Counter()
+    for path, a, b in layout["spans"]:
+        if path[-1].startswith("apx.kernel."):
+            assert b - a == 1, path
+            kernels[(path[-1][len("apx.kernel."):], stages.stage_of(path))] += 1
+    in_step = {k: v for (k, stage), v in kernels.items() if stage == "env_step"}
+    assert in_step == {"M": steps - 1, "K3": steps - 1}
+    assert by_stage["env_step"] == 2 * (steps - 1)  # M and K3 are the step's only nodes
+    assert kernels[("K3", "env_reset")] == 2
+    assert not any(k in ("N2", "N3") for k, _ in kernels)
+    graph.replay(draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay(draws)
+        graph.replay(draws)
+        torch.cuda.synchronize()
+    path = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(path))
+    got = stages.split_us(json.loads(path.read_text()), layout, trace.owners, _launch.KERNELS)
+    assert got is not None and all(got[s] > 0 for s in stages.STAGES)
