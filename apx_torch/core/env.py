@@ -42,7 +42,10 @@ inside them ``env.step`` around each ``step_env``, ``env.reset`` around
 each reset from draws (and the reset's prediction target on a boundary)
 and ``env.draw`` around the draws it makes itself. A vector span's own
 time is the merge: the selects, the loss, the reward, the derived obs and
-``compose_info``.
+``compose_info``. Where the loss and the reward are computed op by op
+(LOCKSTEP, DISABLED and the boundary step), ``vector.loss`` is open around
+them; F2's call under NEXT_STEP is not wrapped, since there the loss is
+inside the one kernel.
 """
 
 from __future__ import annotations
@@ -302,9 +305,10 @@ class VectorAPEnv:
             )
 
         if self.autoreset is AutoResetMode.DISABLED:
-            loss = loss_fn(full_action["prediction"], r.prediction_target)
-            reward = loss_fn.reward(r.base_reward, loss, full_action["prediction"],
-                                    r.prediction_target)
+            with span("vector.loss"):
+                loss = loss_fn(full_action["prediction"], r.prediction_target)
+                reward = loss_fn.reward(r.base_reward, loss, full_action["prediction"],
+                                        r.prediction_target)
             info = env.compose_info(
                 r.info, r.base_reward, r.prediction_target, loss,
                 full_action["prediction"], params,
@@ -328,8 +332,9 @@ class VectorAPEnv:
         with span("env.reset"):
             reset_target = env.prediction_target_on_reset(state.inner, reset_state, params)
         pred_target = tree_select(mask, reset_target, r.prediction_target)
-        loss = loss_fn(full_action["prediction"], pred_target)
-        reward = loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target)
+        with span("vector.loss"):
+            loss = loss_fn(full_action["prediction"], pred_target)
+            reward = loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target)
         info = env.compose_info(
             info, base_reward, pred_target, loss, full_action["prediction"], params
         )
@@ -410,10 +415,11 @@ class VectorAPEnv:
             target = env.prediction_target_on_reset(state.inner, reset_state, params)
         prediction = full_action["prediction"]
         loss_fn = env.loss_fn(params)
-        loss = loss_fn(prediction, target)
         dev = state.prev_done.device
         base_reward = torch.zeros(self.num_envs, dtype=torch.float32, device=dev)
-        reward = loss_fn.reward(base_reward, loss, prediction, target)
+        with span("vector.loss"):
+            loss = loss_fn(prediction, target)
+            reward = loss_fn.reward(base_reward, loss, prediction, target)
         done = torch.zeros(self.num_envs, dtype=torch.bool, device=dev)
         info = env.compose_info(reset_info, base_reward, target, loss, prediction, params)
         obs = env._merge_derived_obs(reset_obs, reset_state, params)

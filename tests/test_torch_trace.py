@@ -330,6 +330,37 @@ def test_lockstep_and_boundary_stages_are_spans():
             ("apx.vector.boundary_reset", "apx.env.reset")} <= paths
 
 
+def test_loss_span_opens_at_the_op_by_op_sites():
+    """``apx.vector.loss`` is open around the loss and the reward where the
+    vector env computes them op by op: the LOCKSTEP step, the DISABLED step
+    and the boundary step, inside their vector spans."""
+    venv, p = apx_torch.make_vec("CircleSquare-v0", 4, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    _, state, _ = venv.reset(p, g)
+    act = {"action": torch.zeros((4, 2)), "prediction": torch.zeros((4, 2))}
+    for mode, entry, vector in [
+            (AutoResetMode.LOCKSTEP, "step", "apx.vector.step"),
+            (AutoResetMode.DISABLED, "step", "apx.vector.step"),
+            (AutoResetMode.LOCKSTEP, "boundary_reset_step", "apx.vector.boundary_reset")]:
+        with trace.timed() as times:
+            getattr(vector_env(venv.env, 4, mode), entry)(state, act, p, g)
+        loss = {path for path in times.total if "apx.vector.loss" in path}
+        assert loss == {(vector, "apx.vector.loss")}, (mode, entry)
+
+
+def test_next_step_records_no_loss_span():
+    """Under NEXT_STEP the loss is F2's (its plain form on the CPU), whose
+    call is not wrapped: no ``apx.vector.loss``."""
+    for env_id in ("LightDark-v0", "LIDARLocRooms-v0"):
+        venv, p = apx_torch.make_vec(env_id, 4, device="cpu")
+        g = torch.Generator().manual_seed(1)
+        _, state, _ = venv.reset(p, g)
+        with trace.timed() as times:
+            venv.step(state, _act(4), p, g)
+        assert ("apx.vector.step", "apx.env.step") in times.total
+        assert not any("apx.vector.loss" in path for path in times.total), env_id
+
+
 def test_timed_spans_do_not_change_the_step():
     venv, p = _lidar()
     outs = []
@@ -414,6 +445,9 @@ def test_stages_of_paths():
     assert stages.stage_of(("apx.vector.step", "apx.env.step", "apx.kernel.S")) == "env_step"
     assert stages.stage_of(("apx.vector.boundary_reset", "apx.env.draw")) == "env_reset"
     assert stages.stage_of(("apx.vector.step", "apx.kernel.F2")) == "vector_merge"
+    assert stages.stage_of(("apx.vector.step", "apx.vector.loss")) == "vector_merge"
+    assert stages.stage_of(("apx.vector.boundary_reset", "apx.vector.loss",
+                            "apx.kernel.N1")) == "vector_merge"
     assert stages.stage_of(("apx.gym.issue",)) == "harness"
 
 
@@ -445,6 +479,29 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _capture_chunk(family, cell_name, dev, seed, bank=4096):
+    """A chunk of ``cell_name``'s family captured as the benchmark captures
+    it (the family's chunk, N=1024, an image family's bank cut to ``bank``,
+    every draw injected, the rollout's graph): (graph, its layout, the
+    chunk's draws)."""
+    from benchmark.kinds import rollout
+
+    cell = manifest.cell(manifest.load(), cell_name)
+    env = family.build({**cell["config"], "bank_images": bank},
+                       {**cell["traffic"], "num_envs": 1024}, 0, dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    obs, state, _ = family.initial_reset(env, g, rollout.policy)
+    draws = family.draw_pool(env, g, env.chunk)
+    racc = torch.zeros(env.num_envs, device=dev)
+    dacc = torch.zeros(env.num_envs, dtype=torch.int32, device=dev)
+    trace.clear()
+    graph = rollout._Graph(
+        lambda o, s, d: family.step_chunk(env, o, s, d, racc, dacc, rollout.policy),
+        obs, state, draws)
+    (layout,) = trace.layouts()
+    return graph, layout, draws
 
 
 @pytest.mark.cuda
@@ -520,21 +577,9 @@ def test_captured_light_dark_chunk_lies_in_the_stages(dev, registry, tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
     from benchmark.families import light_dark as family
-    from benchmark.kinds import rollout
 
-    cell = manifest.cell(manifest.load(), "light_dark.rollout")
-    env = family.build(cell["config"], {**cell["traffic"], "num_envs": 1024}, 0, dev)
-    steps = env.chunk
-    g = torch.Generator(dev).manual_seed(6)
-    obs, state, _ = family.initial_reset(env, g, rollout.policy)
-    draws = family.draw_pool(env, g, steps)
-    racc = torch.zeros(env.num_envs, device=dev)
-    dacc = torch.zeros(env.num_envs, dtype=torch.int32, device=dev)
-    trace.clear()
-    graph = rollout._Graph(
-        lambda o, s, d: family.step_chunk(env, o, s, d, racc, dacc, rollout.policy),
-        obs, state, draws)
-    (layout,) = trace.layouts()
+    graph, layout, draws = _capture_chunk(family, "light_dark.rollout", dev, 6)
+    steps = draws["action"].shape[0]
     total = layout["nodes"]
     own = trace.owners(layout)
     assert total > 0 and len(own) == total
@@ -580,22 +625,9 @@ def test_captured_tin_loc_chunk_lies_in_the_stages(dev, registry, tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
     from benchmark.families import image_loc as family
-    from benchmark.kinds import rollout
 
-    cell = manifest.cell(manifest.load(), "tin_loc.rollout")
-    env = family.build({**cell["config"], "bank_images": 4096},
-                       {**cell["traffic"], "num_envs": 1024}, 0, dev)
-    steps = env.chunk
-    g = torch.Generator(dev).manual_seed(7)
-    obs, state, _ = family.initial_reset(env, g, rollout.policy)
-    draws = family.draw_pool(env, g, steps)
-    racc = torch.zeros(env.num_envs, device=dev)
-    dacc = torch.zeros(env.num_envs, dtype=torch.int32, device=dev)
-    trace.clear()
-    graph = rollout._Graph(
-        lambda o, s, d: family.step_chunk(env, o, s, d, racc, dacc, rollout.policy),
-        obs, state, draws)
-    (layout,) = trace.layouts()
+    graph, layout, draws = _capture_chunk(family, "tin_loc.rollout", dev, 7)
+    steps = draws["action"].shape[0]
     total = layout["nodes"]
     own = trace.owners(layout)
     assert total > 0 and len(own) == total
@@ -625,3 +657,60 @@ def test_captured_tin_loc_chunk_lies_in_the_stages(dev, registry, tmp_path):
     prof.export_chrome_trace(str(path))
     got = stages.split_us(json.loads(path.read_text()), layout, trace.owners, _launch.KERNELS)
     assert got is not None and all(got[s] > 0 for s in stages.STAGES)
+
+
+@pytest.mark.cuda
+def test_captured_classification_chunk_has_a_loss_span_a_step(dev, registry, tmp_path):
+    """A 17-step TinyImageNet-v0 chunk captured as ``tin_cls.rollout``
+    captures it: an ``apx.vector.loss`` range of nodes at each of the 17
+    steps, inside the boundary's or the step's vector span, its nodes in
+    the ``vector_merge`` stage; a trace of replays gives the span a time."""
+    from benchmark.families import image_cls as family
+    from benchmark.yardstick import loss
+
+    graph, layout, draws = _capture_chunk(family, "tin_cls.rollout", dev, 8)
+    spans = [(path, a, b) for path, a, b in layout["spans"] if path[-1] == "apx.vector.loss"]
+    assert [path for path, _, _ in spans] == \
+        [("apx.vector.boundary_reset", "apx.vector.loss")] + \
+        [("apx.vector.step", "apx.vector.loss")] * 16
+    assert all(b > a for _, a, b in spans)
+    own = trace.owners(layout)
+    assert {stages.stage_of(path) for path in own if path and "apx.vector.loss" in path} == \
+        {"vector_merge"}
+    graph.replay(draws)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay(draws)
+        graph.replay(draws)
+        torch.cuda.synchronize()
+    path = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(path))
+    replays = json.loads(path.read_text())
+    split = stages.split_us(replays, layout, trace.owners, _launch.KERNELS)
+    got = loss.span_us(replays, layout, trace.owners, _launch.KERNELS)
+    assert split is not None and got is not None and 0 < got < split["vector_merge"]
+
+
+@pytest.mark.cuda
+def test_loss_span_adds_no_node_and_keeps_the_stages(dev, registry, monkeypatch):
+    """A ``tin_loc``-shaped chunk captured with the loss span and with it
+    made inert: the same device nodes, each in the same stage; the span's
+    nodes (the MSE and its reward) are ``vector_merge``'s."""
+    import contextlib
+
+    from apx_torch.core import env as core_env
+    from benchmark.families import image_loc as family
+
+    _, with_span, _ = _capture_chunk(family, "tin_loc.rollout", dev, 9)
+    real = core_env.span
+    monkeypatch.setattr(core_env, "span", lambda name: contextlib.nullcontext()
+                        if name == "vector.loss" else real(name))
+    _, without, _ = _capture_chunk(family, "tin_loc.rollout", dev, 9)
+    assert not any("apx.vector.loss" in path for path, _, _ in without["spans"])
+    assert with_span["nodes"] == without["nodes"] > 0
+    own, plain = trace.owners(with_span), trace.owners(without)
+    assert [stages.stage_of(p) for p in own] == [stages.stage_of(p) for p in plain]
+    in_loss = [p for p in own if p and "apx.vector.loss" in p]
+    assert in_loss and {stages.stage_of(p) for p in in_loss} == {"vector_merge"}
