@@ -34,7 +34,10 @@ one, of the widths ``core.losses.mse_terms`` accepts: LIDAR, LightDark);
 its plain form ``ops.merge`` on the CPU and, on the card, for every
 other loss (the ``-sparse`` ids' weighted loss, cross-entropy, zero), with
 N1-N3 at its rounding sites. LOCKSTEP and DISABLED keep the op-by-op
-merge of ``step``.
+merge of ``step``, but for the loss and the reward, which they and
+``boundary_reset_step`` compute with ``ops.loss_cuda.loss_and_reward``: P,
+one kernel, on the card for a cross-entropy or MSE loss, the plain chain
+``loss_fn(...)``, ``loss_fn.reward(...)`` on the CPU and for other losses.
 
 The vector env's stages are spans (``core.trace``): ``vector.step``,
 ``vector.boundary_reset`` and ``vector.reset`` around its entries, and
@@ -42,10 +45,10 @@ inside them ``env.step`` around each ``step_env``, ``env.reset`` around
 each reset from draws (and the reset's prediction target on a boundary)
 and ``env.draw`` around the draws it makes itself. A vector span's own
 time is the merge: the selects, the loss, the reward, the derived obs and
-``compose_info``. Where the loss and the reward are computed op by op
+``compose_info``. Where the loss and the reward are computed outside F2
 (LOCKSTEP, DISABLED and the boundary step), ``vector.loss`` is open around
-them; F2's call under NEXT_STEP is not wrapped, since there the loss is
-inside the one kernel.
+``loss_and_reward``; F2's call under NEXT_STEP is not wrapped, since there
+the loss is inside the one kernel.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from typing import Any, Callable, Generic, TypeVar
 
 import torch
 
+from ..ops import loss_cuda
 from .losses import LossFn
 from .spaces import ActivePerceptionActionSpace, Space
 from .trace import span
@@ -306,9 +310,9 @@ class VectorAPEnv:
 
         if self.autoreset is AutoResetMode.DISABLED:
             with span("vector.loss"):
-                loss = loss_fn(full_action["prediction"], r.prediction_target)
-                reward = loss_fn.reward(r.base_reward, loss, full_action["prediction"],
-                                        r.prediction_target)
+                loss, reward = loss_cuda.loss_and_reward(loss_fn, r.base_reward,
+                                                         full_action["prediction"],
+                                                         r.prediction_target)
             info = env.compose_info(
                 r.info, r.base_reward, r.prediction_target, loss,
                 full_action["prediction"], params,
@@ -333,8 +337,8 @@ class VectorAPEnv:
             reset_target = env.prediction_target_on_reset(state.inner, reset_state, params)
         pred_target = tree_select(mask, reset_target, r.prediction_target)
         with span("vector.loss"):
-            loss = loss_fn(full_action["prediction"], pred_target)
-            reward = loss_fn.reward(base_reward, loss, full_action["prediction"], pred_target)
+            loss, reward = loss_cuda.loss_and_reward(loss_fn, base_reward,
+                                                     full_action["prediction"], pred_target)
         info = env.compose_info(
             info, base_reward, pred_target, loss, full_action["prediction"], params
         )
@@ -418,8 +422,7 @@ class VectorAPEnv:
         dev = state.prev_done.device
         base_reward = torch.zeros(self.num_envs, dtype=torch.float32, device=dev)
         with span("vector.loss"):
-            loss = loss_fn(prediction, target)
-            reward = loss_fn.reward(base_reward, loss, prediction, target)
+            loss, reward = loss_cuda.loss_and_reward(loss_fn, base_reward, prediction, target)
         done = torch.zeros(self.num_envs, dtype=torch.bool, device=dev)
         info = env.compose_info(reset_info, base_reward, target, loss, prediction, params)
         obs = env._merge_derived_obs(reset_obs, reset_state, params)

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mse_terms.cuh"
+
 constexpr int kMaxLeaves = 32;
 
 // The launch's arguments, passed by value. They are declared outside the
@@ -160,19 +162,10 @@ __device__ void env_segment(const MergeTerms& e, int i) {
   e.done_out[i] = term || trunc;
   const float base = e.base_reward[i];
   e.base_out[i] = m ? 0.0f : base;
-  // The sum of squares of p - t: x0 * x0, then an FMA per further element
-  // (fused_sum), or the rounded squares summed left to right (d <= 2).
-  const float* p = e.prediction + static_cast<size_t>(e.d) * i;
-  const float* q = e.target + static_cast<size_t>(e.d) * i;
-  float x = __fsub_rn(p[0], q[0]);
-  float s = __fmul_rn(x, x);
-  for (int j = 1; j < e.d; ++j) {
-    x = __fsub_rn(p[j], q[j]);
-    s = e.fused_sum ? __fmaf_rn(x, x, s) : __fadd_rn(s, __fmul_rn(x, x));
-  }
-  float loss = __fdiv_rn(s, static_cast<float>(e.d));
-  if (e.affine) loss = __fadd_rn(__fmul_rn(loss, e.scale), e.offset);
-  const float reward = e.contract ? __fmaf_rn(s, -e.k, base) : __fsub_rn(base, loss);
+  float loss, reward;
+  mse_loss_reward(e.prediction + static_cast<size_t>(e.d) * i,
+                  e.target + static_cast<size_t>(e.d) * i, e.d, e.fused_sum, e.affine, e.scale,
+                  e.offset, e.contract, e.k, base, loss, reward);
   e.loss_out[i] = m ? 0.0f : loss;
   e.reward_out[i] = m ? 0.0f : reward;
 }

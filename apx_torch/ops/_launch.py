@@ -49,6 +49,7 @@ KERNELS = {
     "R": "apx_lidar_fused_reset",
     "L": "apx_light_dark",  # light_dark_cuda: apx_light_dark_step and apx_light_dark_reset
     "M": "apx_image_move",  # image_move_cuda
+    "P": "apx_loss_",  # loss_cuda: apx_loss_cross_entropy and apx_loss_mse
 }
 
 _TABLE: dict[str, int] = {}  # "<id>.<C name>" of every declared entry -> launches

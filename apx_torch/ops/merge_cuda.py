@@ -20,9 +20,9 @@ this is where the merge is chosen, on the operands' device and the loss:
   sites: the kernel computes the MSE loss only.
 
 The loss and the reward are differentiable in the prediction through
-``_LossReward``, whose backward is the plain form's gradient: it runs
-``core.losses.masked_loss_and_reward`` again on the saved operands and
-differentiates it, so the gradient is the plain path's bitwise (N1's
+``loss_cuda.LossReward``, whose backward is the plain form's gradient: it
+runs ``core.losses.masked_loss_and_reward`` again on the saved operands
+and differentiates it, so the gradient is the plain path's bitwise (N1's
 ``_FMA`` backward included).
 
 The host builds the by-value leaf table once per tree structure (leaf
@@ -40,6 +40,7 @@ from ..core.env import tree_map
 from ..core.losses import LossFn, masked_loss_and_reward, mse_terms
 from . import merge
 from ._launch import entry
+from .loss_cuda import LossReward
 from .merge import Merged
 
 __all__ = ["next_step", "MAX_LEAVES"]
@@ -93,31 +94,6 @@ def _width(nbytes: int, *ptrs: int) -> int:
 
 def _ptr(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
-
-
-class _LossReward(torch.autograd.Function):
-    """(loss, reward) of the launch, differentiable in the prediction: the
-    backward differentiates the plain form (see the module docstring)."""
-
-    @staticmethod
-    def forward(ctx, prediction, launch, plain):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(prediction)
-        ctx.plain = plain
-        return launch()
-
-    @staticmethod
-    def backward(ctx, g_loss, g_reward):
-        (prediction,) = ctx.saved_tensors
-        with torch.enable_grad():
-            p = prediction.detach().requires_grad_()
-            outs = ctx.plain(p)
-            used = [(o, g) for o, g in zip(outs, (g_loss, g_reward)) if g is not None]
-            if not used:
-                return None, None, None
-            (grad,) = torch.autograd.grad([o for o, _ in used], p, [g for _, g in used],
-                                          allow_unused=True)
-        return grad, None, None
 
 
 def next_step(mask: torch.Tensor, step: tuple, reset: tuple, base_reward: torch.Tensor,
@@ -276,7 +252,7 @@ def _launch(mask, step, reset, base_reward, terminated, truncated, prediction, t
         return res["loss"], res["reward"]
 
     if torch.is_grad_enabled() and prediction.requires_grad:
-        loss, reward = _LossReward.apply(  # res["base"]: the launch's masked base reward
+        loss, reward = LossReward.apply(  # res["base"]: the launch's masked base reward
             prediction, launch,
             lambda p: masked_loss_and_reward(loss_fn, mask, res["base"], p, target))
     else:

@@ -49,6 +49,15 @@ Phases, one line each; any failure exits non-zero:
    N = 4096 and 16384 (``phase_image_move_kernel``). Every image-engine
    step launches M once and no N2 or N3 (phases 6, 13-16, 17, 24 and the
    entry).
+3d. loss kernel: P (``ops.loss_cuda``) against its plain form
+   (``loss_cuda.plain``, the ATen chain) on the card at N = 1000, 4096 and
+   16384, bitwise with NaN as NaN: the cross-entropy plain and normalized
+   over 200, 10 and 2 classes on ``cross_entropy_cases`` (labels out of
+   range, -inf, NaN, +inf and huge logits, logits times 100), and the
+   localization, LIDAR and LightDark MSE on ``mse_cases``;
+   device, plain, ``F.cross_entropy`` and bytes-bound ms at N = 4096 and
+   16384 (``phase_loss_kernel``). Every image-engine step launches P once
+   (phases 6 and 15).
 4. LIDAR main path: ``apx_torch.make_vec("LIDARLocRooms-v0",
    num_envs=4096)``, reset and 250 steps of uniform random actions with
    zero predictions; every obs finite, lidar in [0, 1], rewards in
@@ -358,7 +367,7 @@ import torch
 # outside the tensor cores (an FMA counts as two operations); the import
 # fails where chip_smoke.py stands without the repo.
 from apx_torch.core.peaks import FP32_OPS_PER_S, HBM_BYTES_PER_S
-from apx_torch.ops._launch import clear_launches, launched
+from apx_torch.ops._launch import clear_launches, launched, launches
 # float32 instructions issued per second: half of FP32_OPS_PER_S, where an
 # FMA is one instruction (132 SMs x 128 lanes x 1.98 GHz). K1, K3 and K4
 # are counted in instructions (min, max, compare and select are one each,
@@ -837,7 +846,8 @@ ROW_KEYS = {"raycast_fast": "K1.raycast_fast_launch", "raycast_typed": "K1.rayca
             "window": "K2", "glimpse": "K3", "chain": "K4", "fma": "N1", "sum_squares": "N2",
             "sqrt": "N3", "lidar_step": "F1", "merge": "F2", "fused_step": "S",
             "fused_reset": "R", "light_dark_step": "L.light_dark_step_launch",
-            "light_dark_reset": "L.light_dark_reset_launch", "image_move": "M"}
+            "light_dark_reset": "L.light_dark_reset_launch", "image_move": "M",
+            "loss_cross_entropy": "P.loss_cross_entropy_launch", "loss_mse": "P.loss_mse_launch"}
 NUMERICS = ("N1", "N2", "N3")
 
 
@@ -846,6 +856,11 @@ def launch_counts(keys, table: dict | None = None) -> dict:
     entries, in the launch table or in ``table``, a copy of it (a selftest
     rank's report)."""
     return {k: launched(k, table) for k in keys}
+
+
+def launches_of(kernel: str) -> dict:
+    """Each entry of ``kernel``'s launches in the launch table."""
+    return {k: v for k, v in launches().items() if k.partition(".")[0] == kernel}
 
 
 def kernel_launches(nonzero: bool = False) -> dict:
@@ -1844,6 +1859,195 @@ def phase_image_move_kernel(dev) -> list[dict]:
              "params_held": list(IMAGE_MOVE_PARAMS), "elements_held_bitwise": held}]
 
 
+# ---- P: the op-by-op sites' loss and reward (ops.loss_cuda) --------------------
+
+LOSS_REPLACES = ("apx/core/losses.py (the cross-entropy's log_softmax and pick, the MSE, each "
+                 "loss's affine step and the reward base - loss, which XLA fuses into the "
+                 "jitted step; no Pallas kernel)")
+LOSS_NS = (1000, N, 16384)  # a partial block, the main paths' N and the benchmark cells'
+LOSS_CLASSES = (200, 10, 2)  # TinyImageNet's; CIFAR10's and MNIST's group widths; CircleSquare's
+
+
+def loss_fns() -> dict:
+    """The losses P computes, by the ids they come from: the cross-entropy
+    plain and normalized (the classification ids), and the MSE with
+    rounded squares and a contracted reward (the localization ids), with
+    an FMA chain (LIDAR) and with rounded squares (LightDark)."""
+    from apx_torch.core.losses import CrossEntropyLossFn
+    from apx_torch.envs.common import make_regression_loss_and_target_space as mse
+
+    return {"cross_entropy": CrossEntropyLossFn(num_classes=200),
+            "cross_entropy_normalized": CrossEntropyLossFn(num_classes=200).normalized,
+            "mse_localization": mse(2, -1.0, 1.0, fused_sum=False, contract_reward=True)[0],
+            "mse_lidar": mse(2, -1.0, 1.0)[0],
+            "mse_light_dark": mse(2, -1.0, 1.0, fused_sum=False)[0]}
+
+
+def _base_rewards(rng, n: int) -> np.ndarray:
+    base = rng.uniform(-1, 0, n).astype(np.float32)
+    base[:4] = (0.0, -0.0, np.inf, np.nan)
+    return base
+
+
+def cross_entropy_cases(seed: int, n: int, classes: int, scale: float = 1.0) -> dict:
+    """P's cross-entropy operands as numpy arrays: ``prediction`` (n,
+    classes) float32 logits, standard normal times ``scale``; ``target``
+    (n,) int64 labels uniform over the classes; ``base_reward`` (n,)
+    float32. Hand-built rows first: labels out of range (-1, C, the int64
+    extremes), a row of -inf, -inf at and beside the label, NaN at and
+    beside the label and a NaN row whose label is out of range, +inf at
+    and beside the label, a row of zeros, a huge logit at and beside the
+    label, equal logits, subnormal logits; base rewards 0, -0, inf and
+    NaN."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, classes)) * scale).astype(np.float32)
+    label = rng.integers(0, classes, n)
+    info = np.iinfo(np.int64)
+    other = 1 if classes > 1 else 0
+    rows = [(-1, None), (classes, None), (int(info.max), None), (int(info.min), None)]
+    for v in (-np.inf, np.nan, np.inf, 1e30):
+        rows += [(0, ("at", v)), (0, ("beside", v))]
+    rows += [(0, ("row", -np.inf)), (-1, ("row", np.nan)), (0, ("row", 0.0)),
+             (classes - 1, ("row", 5.0)), (0, ("row", 1e-40))]
+    if n < len(rows):
+        raise ValueError(f"cross_entropy_cases: n = {n} < {len(rows)} hand-built rows")
+    for i, (lab, edit) in enumerate(rows):
+        label[i] = lab
+        if edit is None:
+            continue
+        where, v = edit
+        if where == "row":
+            x[i] = v
+        else:
+            x[i, 0 if where == "at" else other] = v
+    return {"prediction": x, "target": label.astype(np.int64),
+            "base_reward": _base_rewards(rng, n)}
+
+
+def mse_cases(seed: int, n: int, d: int = 2) -> dict:
+    """P's MSE operands as numpy arrays: ``prediction`` and ``target`` (n,
+    d) float32 uniform in [-1.5, 1.5), ``base_reward`` (n,) float32.
+    Hand-built rows first: equal, NaN, +-inf, huge (squares that
+    overflow), subnormal and signed-zero differences; base rewards 0, -0,
+    inf and NaN."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-1.5, 1.5, (n, d))
+    t = rng.uniform(-1.5, 1.5, (n, d))
+    rows = [(0.25, 0.25), (np.nan, 0.0), (np.inf, 0.0), (-np.inf, np.inf), (3e38, -3e38),
+            (1e-40, -1e-40), (-0.0, 0.0), (1e20, 0.0)]
+    if n < len(rows):
+        raise ValueError(f"mse_cases: n = {n} < {len(rows)} hand-built rows")
+    for i, (a, b) in enumerate(rows):
+        p[i], t[i] = a, b
+    return {"prediction": _f32(p), "target": _f32(t), "base_reward": _base_rewards(rng, n)}
+
+
+def loss_bytes(x: dict) -> int:
+    """Bytes P moves on the operands ``x``: each read once, the loss and
+    the reward (float32, one per row) written once."""
+    return _tree_bytes(x) + 2 * 4 * x["base_reward"].numel()
+
+
+def hold_loss(loss_fn, x: dict, time_it: bool = True, library: bool = False) -> dict:
+    """P (``loss_cuda.loss_and_reward``) against its plain form
+    (``loss_cuda.plain``: the ATen chain, N1 in the localization reward)
+    on the CUDA tensors ``x``: the loss and the reward bitwise with NaN as
+    NaN, one launch per call; with ``time_it`` P's and the plain form's
+    device ms (CUDA-graph replay) and the bytes bound, and with
+    ``library`` that of ``torch.nn.functional.cross_entropy`` on the same
+    logits and labels (unreduced; labels in range). Returns the
+    measurements."""
+    from apx_torch.ops import loss_cuda
+
+    args = (loss_fn, x["base_reward"], x["prediction"], x["target"])
+    before = launched("P")
+    got, want = loss_cuda.loss_and_reward(*args), loss_cuda.plain(*args)
+    torch.cuda.synchronize()
+    n = x["base_reward"].shape[0]
+    check(launched("P") == before + 1, f"loss: {launched('P') - before} launches, not 1")
+    for what, g, w in zip(("loss", "reward"), got, want):
+        check(g.dtype == w.dtype and _bits_equal(g, w),
+              f"loss: the {what} at N={n}, {tuple(x['prediction'].shape)} is not bitwise its "
+              f"plain form ({int((g != w).sum())} differ)")
+    nbytes = loss_bytes(x)
+    res = {"held": 2 * n, "bytes": nbytes}
+    if time_it:
+        res.update(ms=device_ms(lambda: loss_cuda.loss_and_reward(*args), 50),
+                   plain_ms=device_ms(lambda: loss_cuda.plain(*args), 10),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    if library:
+        res["library_ms"] = device_ms(lambda: torch.nn.functional.cross_entropy(
+            x["prediction"], x["target"], reduction="none"), 50)
+    return res
+
+
+def loss_from_hbm(loss_fn, x: dict, copies: int = 8) -> dict:
+    """Device ms per call of P, the chain and ``F.cross_entropy`` over
+    ``copies`` distinct copies of the logits taken in turn (8 x 13.1 MB at
+    N = 16384, past the 50 MB L2), so that each call reads its logits from
+    HBM, as a rollout step does."""
+    from apx_torch.ops import loss_cuda
+
+    pool = x["prediction"].expand(copies, *x["prediction"].shape).clone()
+    turn = [0]
+
+    def take():
+        turn[0] += 1
+        return pool[turn[0] % copies]
+
+    base, label = x["base_reward"], x["target"]
+    return {"ms": device_ms(lambda: loss_cuda.loss_and_reward(loss_fn, base, take(), label), 48),
+            "plain_ms": device_ms(lambda: loss_cuda.plain(loss_fn, base, take(), label), 16),
+            "library_ms": device_ms(lambda: torch.nn.functional.cross_entropy(
+                take(), label, reduction="none"), 48)}
+
+
+def phase_loss_kernel(dev) -> list[dict]:
+    """P against its plain form on the card, bitwise with NaN as NaN: the
+    cross-entropy plain and normalized at N = 1000, 4096 and 16384 with
+    200, 10 and 2 classes, standard-normal logits and logits times 100
+    (``cross_entropy_cases``), and the MSE losses
+    (``mse_cases``). At N = 4096 and 16384
+    the normalized cross-entropy over 200 classes on clean rows (labels in
+    range) is timed against the chain, ``F.cross_entropy`` and its bytes
+    bound, on one copy of the logits (L2-resident) and on 8 taken in turn
+    (``loss_from_hbm``); the localization MSE against the chain and its
+    bound. Returns P's rows (N = 4096's times; ``by_n`` holds each
+    size's)."""
+    fns = loss_fns()
+    to = lambda case: {k: torch.from_numpy(v).to(dev) for k, v in case.items()}  # noqa: E731
+    held, by_n = 0, {"cross_entropy": {}, "mse": {}}
+    for n in LOSS_NS:
+        for classes in LOSS_CLASSES:
+            for scale in (1.0, 100.0):
+                x = to(cross_entropy_cases(7 + n + classes, n, classes, scale))
+                for name in ("cross_entropy", "cross_entropy_normalized"):
+                    held += hold_loss(fns[name], x, time_it=False)["held"]
+        for name in ("mse_localization", "mse_lidar", "mse_light_dark"):
+            x = to(mse_cases(13 + n, n))
+            held += hold_loss(fns[name], x, time_it=False)["held"]
+        if n == 1000:
+            continue
+        g = torch.Generator(dev).manual_seed(n)
+        clean = {"prediction": torch.randn((n, 200), generator=g, device=dev),
+                 "target": torch.randint(0, 200, (n,), generator=g, device=dev),
+                 "base_reward": -torch.rand(n, generator=g, device=dev)}
+        r = hold_loss(fns["cross_entropy_normalized"], clean, library=True)
+        r["from_hbm"] = loss_from_hbm(fns["cross_entropy_normalized"], clean)
+        by_n["cross_entropy"][n] = r
+        by_n["mse"][n] = hold_loss(fns["mse_localization"], to(mse_cases(17 + n, n)))
+    rows = []
+    for name, shape in (("cross_entropy", f"N={N}, 200 classes, normalized"),
+                        ("mse", f"N={N}, D=2, TinyImageNetLoc-v0's loss")):
+        main = by_n[name][N]
+        rows.append({"name": f"loss_{name}", "route": "cuda", "source": "apx_torch/csrc/loss.cu",
+                     "replaces": LOSS_REPLACES, "launches": None, "max_abs_err": 0.0,
+                     **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                     "library_ms": main.get("library_ms"), "shape": shape,
+                     "by_n": by_n[name], "elements_held_bitwise": held})
+    return rows
+
+
 WINDOW_PAD = 16  # LIDARLocRooms-v0's ray_pad under "pallas_window"
 
 
@@ -2108,6 +2312,9 @@ def phase_circle_square_main_path(dev) -> dict:
     dt = time.perf_counter() - t0
     counts = kernel_launches()
     numerics = numerics_launches("CircleSquare main path", steps, roots=None)
+    check(launched("P.loss_cross_entropy_launch") == launched("P") == steps,
+          f"CircleSquare main path: P launched {launches_of('P')}, expected its "
+          f"cross-entropy once per step ({steps})")
     check(launched("M") == steps and numerics["N1"] > 0 and numerics["N2"] == numerics["N3"] == 0,
           f"CircleSquare main path: M launched {launched('M')} times, N1-N3 {numerics}; "
           f"expected M once per step ({steps}), N1 (the resets' time obs) and no N2 or N3")
@@ -2428,7 +2635,10 @@ def phase_tin_loc_main_path(dev) -> dict:
     numerics = numerics_launches("TinyImageNetLoc main path", steps, roots=None)
     check(launched("M") == steps and numerics["N1"] > 0 and numerics["N2"] == numerics["N3"] == 0,
           f"TinyImageNetLoc main path: M launched {launched('M')} times, N1-N3 {numerics}; "
-          f"expected M once per step ({steps}), N1 (time obs, rewards) and no N2 or N3")
+          f"expected M once per step ({steps}), N1 (the resets' time obs) and no N2 or N3")
+    check(launched("P.loss_mse_launch") == launched("P") == steps,
+          f"TinyImageNetLoc main path: P launched {launches_of('P')}, expected its MSE once "
+          f"per step ({steps})")
 
     check(bool(finite), "non-finite observation")
     check(bool(glimpse_ok), "glimpse or target_glimpse outside [0, 1]")
@@ -3750,7 +3960,8 @@ def phase_entry(dev) -> dict:
     """K3 on ``graft_entry.entry()``: the flagship CircleSquare (16x16, N =
     64) reset and one LOCKSTEP step at zero actions and logits, its counts
     set to 0 just before: ``glimpse`` 1 at the reset and 2 in the
-    masked-merge step; glimpse in [0, 1], rewards -1 within 1e-6. Then K3
+    masked-merge step, M and P's cross-entropy once in the step; glimpse
+    in [0, 1], rewards -1 within 1e-6. Then K3
     held against its plain form (``extract_glimpse_batch``) at this path's
     inputs, within GLIMPSE_TOL: the step's observed glimpses against the
     plain glimpses of the stepped state's images and positions, and K3 at
@@ -3764,7 +3975,8 @@ def phase_entry(dev) -> dict:
     obs, state1, reward, term, trunc = fn(*args)
     torch.cuda.synchronize()
     launches = kernel_launches(nonzero=True)
-    check(launches == {"K3": 3, "M": 1}, f"entry() launched {launches}, expected 3 K3, 1 M")
+    want = {"K3": 3, "M": 1, "P.loss_cross_entropy_launch": 1}
+    check(launches == want, f"entry() launched {launches}, expected {want}")
     gl = obs["glimpse"]
     check(bool(torch.isfinite(gl).all()) and float(gl.min()) >= 0 and float(gl.max()) <= 1,
           "entry(): glimpse outside [0, 1]")
@@ -3846,12 +4058,13 @@ def expected_workload_launches(name: str, steps: int, cycles: int) -> dict:
     reset R; an episodic classification step (DISABLED or
     boundary) and the reset one glimpse; TinyImageNetLoc adds the target
     glimpse at the reset and at each cycle's boundary; every step of an
-    episodic image loop but its boundary launches M."""
+    episodic image loop but its boundary launches M, and every step P once
+    (its cross-entropy, or TinyImageNetLoc's MSE)."""
     if name.startswith("lidar"):  # S, R (the merge's reset) and F2 per step
         return {"S": steps, "R": 1 + steps, "F2": steps}
     if name == "tin_loc":
-        return {"K3": 2 + steps + cycles, "M": steps - cycles}
-    return {"K3": 1 + steps, "M": steps - cycles}
+        return {"K3": 2 + steps + cycles, "M": steps - cycles, "P.loss_mse_launch": steps}
+    return {"K3": 1 + steps, "M": steps - cycles, "P.loss_cross_entropy_launch": steps}
 
 
 def _hold_k1(name: str, args) -> dict:
@@ -4046,6 +4259,8 @@ def main() -> int:
     emit(f"light dark kernel: {json.dumps(ld_rows)}", flush=True)
     im_rows = phase_image_move_kernel(dev)
     emit(f"image move kernel: {json.dumps(im_rows)}", flush=True)
+    loss_rows = phase_loss_kernel(dev)
+    emit(f"loss kernel: {json.dumps(loss_rows)}", flush=True)
 
     main_path = phase_main_path(dev)
     emit(f"main path: {json.dumps(main_path)}", flush=True)
@@ -4120,6 +4335,11 @@ def main() -> int:
         r["launches_per_step"] = {"TinyImageNetLoc-v0": tin_path["launches"]["M"] /
                                   tin_path["steps"],
                                   "CircleSquare-v0": cs_path["launches"]["M"] / cs_path["steps"]}
+    for r in loss_rows:
+        key = ROW_KEYS[r["name"]]
+        r["launches"] = {"TinyImageNetLoc-v0": tin_path["launches"][key],
+                         "CircleSquare-v0": cs_path["launches"][key]}
+        r["launches_path"] = f"main paths, N={N}, reset + {tin_path['steps']} steps"
     emit(f"sweep card vs cpu: {json.dumps(phase_sweep_card_vs_cpu(dev))}", flush=True)
     res = phase_card_vs_cpu(dev, "TinyImageNetLoc-v0", 64, 51, {
         "glimpse": GLIMPSE_TOL, "target_glimpse": GLIMPSE_TOL, "reward": 1e-6},
@@ -4266,6 +4486,7 @@ def main() -> int:
     rows.extend(fused_rows)
     rows.extend(ld_rows)
     rows.extend(im_rows)
+    rows.extend(loss_rows)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

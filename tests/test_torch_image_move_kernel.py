@@ -251,8 +251,8 @@ def test_image_env_raises_for_what_m_cannot_take(dev):
 @pytest.mark.parametrize("env_id", ["CircleSquareInverted-v0", "TinyImageNetLoc-v0"])
 def test_image_step_launches_on_card(dev, env_id):
     """A LOCKSTEP image step on the card launches M once for the env's
-    move and observation, and no N2 or N3 (its glimpse and the autoreset's
-    are K3's); from the same state, action and draws its state (but the
+    move and observation, P once for its loss and reward, and no N2 or N3
+    (its glimpse and the autoreset's are K3's); from the same state, action and draws its state (but the
     carried target glimpse), dones and observation (but the glimpses)
     equal the CPU's bitwise, its rewards within 1e-6."""
     from apx_torch.core.env import tree_map
@@ -271,11 +271,11 @@ def test_image_step_launches_on_card(dev, env_id):
 
     state = to(cpu_state)
     torch.cuda.synchronize()
-    keys = ("M", "N2", "N3")
+    keys = ("M", "N2", "N3", "P")
     before = [_launch.launched(k) for k in keys]
     got = venv.step(state, to(act), p, reset_draws=to(reset))
     torch.cuda.synchronize()
-    assert [_launch.launched(k) - b for k, b in zip(keys, before)] == [1, 0, 0]
+    assert [_launch.launched(k) - b for k, b in zip(keys, before)] == [1, 0, 0, 1]
     want = cpu_venv.step(cpu_state, act, cpu_p, reset_draws=reset)
     for k in want[0]:
         if not k.endswith("glimpse"):

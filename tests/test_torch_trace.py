@@ -659,21 +659,43 @@ def test_captured_tin_loc_chunk_lies_in_the_stages(dev, registry, tmp_path):
     assert got is not None and all(got[s] > 0 for s in stages.STAGES)
 
 
+def _loss_spans_hold_one_p_node(layout: dict) -> list[tuple]:
+    """The layout's ``apx.vector.loss`` ranges, after checking that each
+    holds exactly one node, P's launch (an ``apx.kernel.P`` span over the
+    same node)."""
+    spans = [(path, a, b) for path, a, b in layout["spans"] if path[-1] == "apx.vector.loss"]
+    p_nodes = {(a, b): path for path, a, b in layout["spans"] if path[-1] == "apx.kernel.P"}
+    for path, a, b in spans:
+        assert b - a == 1 and p_nodes.get((a, b)) == path + ("apx.kernel.P",), (path, a, b)
+    assert len(p_nodes) == len(spans)
+    return spans
+
+
+def _covers_every_node(replays: dict, split: dict | None) -> bool:
+    """The four stages add up to every device event of the trace: each node
+    of each replay and each copy outside them lies in one stage."""
+    from benchmark.yardstick import trace as tr
+
+    total = sum(float(e.get("dur", 0)) for e in tr.device_events(replays))
+    return split is not None and sum(split.values()) == pytest.approx(total, rel=1e-9)
+
+
 @pytest.mark.cuda
 def test_captured_classification_chunk_has_a_loss_span_a_step(dev, registry, tmp_path):
     """A 17-step TinyImageNet-v0 chunk captured as ``tin_cls.rollout``
     captures it: an ``apx.vector.loss`` range of nodes at each of the 17
     steps, inside the boundary's or the step's vector span, its nodes in
-    the ``vector_merge`` stage; a trace of replays gives the span a time."""
+    the ``vector_merge`` stage; each range holds one node, P's launch,
+    whose traced kernel carries ``apx_loss_``; a trace of replays gives the
+    span a time, and the four stages cover every node."""
     from benchmark.families import image_cls as family
     from benchmark.yardstick import loss
 
     graph, layout, draws = _capture_chunk(family, "tin_cls.rollout", dev, 8)
-    spans = [(path, a, b) for path, a, b in layout["spans"] if path[-1] == "apx.vector.loss"]
+    spans = _loss_spans_hold_one_p_node(layout)
     assert [path for path, _, _ in spans] == \
         [("apx.vector.boundary_reset", "apx.vector.loss")] + \
         [("apx.vector.step", "apx.vector.loss")] * 16
-    assert all(b > a for _, a, b in spans)
     own = trace.owners(layout)
     assert {stages.stage_of(path) for path in own if path and "apx.vector.loss" in path} == \
         {"vector_merge"}
@@ -691,19 +713,41 @@ def test_captured_classification_chunk_has_a_loss_span_a_step(dev, registry, tmp
     split = stages.split_us(replays, layout, trace.owners, _launch.KERNELS)
     got = loss.span_us(replays, layout, trace.owners, _launch.KERNELS)
     assert split is not None and got is not None and 0 < got < split["vector_merge"]
+    assert _covers_every_node(replays, split)
+    runs, _ = stages.replays(replays)
+    assert all(_launch.KERNELS["P"] in str(run[a]["name"]) for run in runs for _, a, _ in spans)
 
 
 @pytest.mark.cuda
-def test_loss_span_adds_no_node_and_keeps_the_stages(dev, registry, monkeypatch):
+def test_loss_span_adds_no_node_and_keeps_the_stages(dev, registry, monkeypatch, tmp_path):
     """A ``tin_loc``-shaped chunk captured with the loss span and with it
     made inert: the same device nodes, each in the same stage; the span's
-    nodes (the MSE and its reward) are ``vector_merge``'s."""
+    nodes are ``vector_merge``'s, one in each of the 17 ranges: P's launch
+    (the MSE and its reward), whose traced kernel carries ``apx_loss_``;
+    the four stages cover every node of a trace of replays."""
     import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
 
     from apx_torch.core import env as core_env
     from benchmark.families import image_loc as family
 
-    _, with_span, _ = _capture_chunk(family, "tin_loc.rollout", dev, 9)
+    graph, with_span, draws = _capture_chunk(family, "tin_loc.rollout", dev, 9)
+    spans = _loss_spans_hold_one_p_node(with_span)
+    assert len(spans) == 17
+    graph.replay(draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay(draws)
+        graph.replay(draws)
+        torch.cuda.synchronize()
+    path = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(path))
+    replays = json.loads(path.read_text())
+    assert _covers_every_node(replays, stages.split_us(replays, with_span, trace.owners,
+                                                       _launch.KERNELS))
+    runs, _ = stages.replays(replays)
+    assert all(_launch.KERNELS["P"] in str(run[a]["name"]) for run in runs for _, a, _ in spans)
     real = core_env.span
     monkeypatch.setattr(core_env, "span", lambda name: contextlib.nullcontext()
                         if name == "vector.loss" else real(name))
