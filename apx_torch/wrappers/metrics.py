@@ -16,7 +16,9 @@ not done, with ``_key`` masks equal to done), ``vector`` (the raw buffers)
 and ``vector_lengths``. The step that completes an episode is recorded;
 the autoreset step after it clears the buffer and records nothing. The
 buffer update is apx's arithmetic ``buf * (1 - onehot) + onehot * v``,
-so a non-finite value spreads as it does there.
+so a non-finite value spreads as it does there. The bookkeeping after the
+inner step (the step's metrics, the buffers, the aggregates) runs inside
+the span ``vector.metrics``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.trace import span
 from ..ops.geometry import norm2
 
 __all__ = ["ClassificationMetrics", "RegressionMetrics", "MetricsState"]
@@ -108,6 +111,7 @@ class _MetricsWrapper:
                                             reset_draws=reset_draws, step_draws=step_draws)
         return self._book(state, out, full_action, params)
 
+    @span("vector.metrics")
     def _book(self, state: MetricsState, out, full_action, params):
         obs, inner2, reward, term, trunc, info = out
         length = self.buffer_len

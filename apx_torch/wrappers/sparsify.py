@@ -5,7 +5,8 @@
   float32}`` and the loss ``WeightedLossFn(inner)``, so the reward is
   ``base_reward - weight * loss``.
 * apx's quirk is kept: ``info["prediction"]["loss"]`` reports the DENSE
-  inner loss, while the target in info is the weighted dict.
+  inner loss, while the target in info is the weighted dict. That second
+  loss runs inside the span ``vector.info_loss``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from ..core.env import APStepResult
 from ..core.losses import LossFn, WeightedLossFn
 from ..core.spaces import Box, DictSpace, Space
+from ..core.trace import span
 from .base import APWrapper
 
 __all__ = ["Sparsify"]
@@ -46,7 +48,8 @@ class Sparsify(APWrapper):
                                                        device=inner.device)}
 
     def compose_info(self, info, base_reward, pred_target, loss, prediction, params):
-        dense = self.env.loss_fn(params)(prediction, pred_target["target"])
+        with span("vector.info_loss"):
+            dense = self.env.loss_fn(params)(prediction, pred_target["target"])
         return {
             **info,
             "base_reward": base_reward,

@@ -22,7 +22,7 @@ import torch
 
 import apx_torch
 from apx_torch.core import trace
-from apx_torch.core.env import AutoResetMode, vector_env
+from apx_torch.core.env import AutoResetMode, vector_env, with_autoreset
 from apx_torch.ops import _launch
 from apx_torch.tools import parse_trace
 from benchmark import manifest
@@ -346,6 +346,48 @@ def test_loss_span_opens_at_the_op_by_op_sites():
             getattr(vector_env(venv.env, 4, mode), entry)(state, act, p, g)
         loss = {path for path in times.total if "apx.vector.loss" in path}
         assert loss == {(vector, "apx.vector.loss")}, (mode, entry)
+
+
+def test_sparse_and_metrics_spans_open_at_their_sites():
+    """A ``-sparse`` id wrapped in its metrics: ``apx.vector.info_loss``
+    opens around ``Sparsify``'s dense loss inside the vector span of each
+    step (the LOCKSTEP step, the DISABLED step, the boundary step), and
+    ``apx.vector.metrics`` around the wrapper's bookkeeping, outside the
+    inner step, whose ``apx.env.*`` and ``apx.vector.*`` spans keep their
+    paths."""
+    venv, p = apx_torch.make_vec("CircleSquare-s15-sparse-v0", 4, device="cpu", metrics=True)
+    g = torch.Generator().manual_seed(0)
+    _, state, _ = venv.reset(p, g)
+    act = {"action": torch.zeros((4, 2)), "prediction": torch.zeros((4, 2))}
+    for mode, entry, vector in [
+            (AutoResetMode.LOCKSTEP, "step", "apx.vector.step"),
+            (AutoResetMode.DISABLED, "step", "apx.vector.step"),
+            (AutoResetMode.LOCKSTEP, "boundary_reset_step", "apx.vector.boundary_reset")]:
+        with trace.timed() as times:
+            getattr(with_autoreset(venv, mode), entry)(state, act, p, g)
+        paths = set(times.total)
+        assert {path for path in paths if "apx.vector.info_loss" in path} == \
+            {(vector, "apx.vector.info_loss")}, (mode, entry)
+        assert {path for path in paths if "apx.vector.metrics" in path} == \
+            {("apx.vector.metrics",)}, (mode, entry)
+        assert (vector, "apx.vector.loss") in paths
+        assert all(path[0] == vector for path in paths if "apx.env.step" in path)
+        assert {stages.stage_of(path) for path in paths
+                if {"apx.vector.info_loss", "apx.vector.metrics"} & set(path)} == \
+            {"vector_merge"}
+
+
+def test_base_ids_open_neither_new_span():
+    """The base id, unwrapped, opens neither span: the four cells' layouts
+    are as they were."""
+    venv, p = apx_torch.make_vec("CircleSquare-s15-v0", 4, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    _, state, _ = venv.reset(p, g)
+    with trace.timed() as times:
+        venv.step(state, _act(4), p, g)
+        venv.boundary_reset_step(state, _act(4), p, g)
+    assert not any({"apx.vector.info_loss", "apx.vector.metrics"} & set(path)
+                   for path in times.total)
 
 
 def test_next_step_records_no_loss_span():
@@ -758,3 +800,103 @@ def test_loss_span_adds_no_node_and_keeps_the_stages(dev, registry, monkeypatch,
     assert [stages.stage_of(p) for p in own] == [stages.stage_of(p) for p in plain]
     in_loss = [p for p in own if p and "apx.vector.loss" in p]
     assert in_loss and {stages.stage_of(p) for p in in_loss} == {"vector_merge"}
+
+
+def _inert_new_spans(monkeypatch):
+    """Make ``apx.vector.info_loss`` and ``apx.vector.metrics`` inert, as in
+    a program without them."""
+    import contextlib
+
+    from apx_torch.wrappers import sparsify
+
+    real_span, real_call = sparsify.span, trace.call
+    monkeypatch.setattr(sparsify, "span", lambda name: contextlib.nullcontext()
+                        if name == "vector.info_loss" else real_span(name))
+    monkeypatch.setattr(trace, "call", lambda name, fn, *a, **kw: fn(*a, **kw)
+                        if name == "vector.metrics" else real_call(name, fn, *a, **kw))
+
+
+def _replays(graph, draws, tmp_path) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay(draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay(draws)
+        graph.replay(draws)
+        torch.cuda.synchronize()
+    path = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())
+
+
+@pytest.mark.cuda
+def test_captured_sparse_metrics_chunk_has_both_spans_a_step(dev, registry, monkeypatch,
+                                                             tmp_path):
+    """A 17-step TinyImageNet-sparse-v0 chunk with its metrics wrapper,
+    captured as ``tin_cls_sparse.rollout`` captures it: an
+    ``apx.vector.info_loss`` range inside the boundary's or the step's
+    vector span, and an ``apx.vector.metrics`` range outside it, at each of
+    the 17 steps; the spans around each node are nested, so each node lies
+    in one stage, and every stage has nodes; a trace of replays gives both
+    losses and the metrics a time inside ``vector_merge``, and the four
+    stages cover every node. Captured again with the two spans inert: the
+    same nodes, each in the same stage but the metrics' (the harness's
+    without their span)."""
+    from benchmark.families import image_cls_sparse as family
+    from benchmark.yardstick import loss, sparse
+
+    graph, layout, draws = _capture_chunk(family, "tin_cls_sparse.rollout", dev, 10)
+    steps = draws["action"].shape[0]
+    named = [path for path, _, _ in layout["spans"]
+             if path[-1] in ("apx.vector.info_loss", "apx.vector.metrics")]
+    assert [p for p in named if p[-1] == "apx.vector.info_loss"] == \
+        [("apx.vector.boundary_reset", "apx.vector.info_loss")] + \
+        [("apx.vector.step", "apx.vector.info_loss")] * (steps - 1)
+    assert [p for p in named if p[-1] == "apx.vector.metrics"] == \
+        [("apx.vector.metrics",)] * steps
+    total = layout["nodes"]
+    own = trace.owners(layout)
+    assert total > 0 and len(own) == total
+    for k in range(total):
+        holding = [path for path, a, b in layout["spans"] if a <= k < b]
+        inner = max(holding, key=len, default=())
+        assert all(inner[:len(path)] == path for path in holding), holding
+    assert {stages.stage_of(path) for path in own} == set(stages.STAGES)
+    new = [path for path in own if path and
+           {"apx.vector.info_loss", "apx.vector.metrics"} & set(path)]
+    assert new and {stages.stage_of(path) for path in new} == {"vector_merge"}
+    replays = _replays(graph, draws, tmp_path)
+    split = stages.split_us(replays, layout, trace.owners, _launch.KERNELS)
+    both = sparse.union_us(replays, layout, trace.owners, _launch.KERNELS)
+    weighted = loss.span_us(replays, layout, trace.owners, _launch.KERNELS)
+    metrics = loss.span_us(replays, layout, trace.owners, _launch.KERNELS,
+                           sparse.METRICS_SPAN)
+    assert split is not None and 0 < weighted < both
+    assert 0 < metrics and both + metrics < split["vector_merge"]
+    assert _covers_every_node(replays, split)
+    _inert_new_spans(monkeypatch)
+    _, without, _ = _capture_chunk(family, "tin_cls_sparse.rollout", dev, 10)
+    assert not any({"apx.vector.info_loss", "apx.vector.metrics"} & set(path)
+                   for path, _, _ in without["spans"])
+    assert without["nodes"] == total
+    plain = trace.owners(without)
+    assert [("harness" if p and "apx.vector.metrics" in p else stages.stage_of(p))
+            for p in own] == [stages.stage_of(p) for p in plain]
+
+
+@pytest.mark.cuda
+def test_tin_cls_capture_is_unchanged_by_the_new_spans(dev, registry, monkeypatch):
+    """A ``tin_cls``-shaped chunk opens neither new span, and has the same
+    device nodes, each in the same stage, with the two spans live and made
+    inert."""
+    from benchmark.families import image_cls as family
+
+    _, live, _ = _capture_chunk(family, "tin_cls.rollout", dev, 11)
+    assert not any({"apx.vector.info_loss", "apx.vector.metrics"} & set(path)
+                   for path, _, _ in live["spans"])
+    _inert_new_spans(monkeypatch)
+    _, inert, _ = _capture_chunk(family, "tin_cls.rollout", dev, 11)
+    assert live["nodes"] == inert["nodes"] > 0
+    assert [stages.stage_of(p) for p in trace.owners(live)] == \
+        [stages.stage_of(p) for p in trace.owners(inert)]
